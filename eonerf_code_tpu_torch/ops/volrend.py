@@ -1,0 +1,52 @@
+"""Volume rendering over dense (rays, samples) blocks.
+
+Exclusive-cumsum transmittance and masked reductions (nerfacc's
+formulation, reference radiance_fields/eonerf.py:229-242 and
+sat_rendering.py:106-116). Invalid samples carry zero density.
+"""
+
+import torch
+
+
+def exclusive_cumsum(x):
+    """out_i = sum_{j<i} x_j, by SHIFTING first. Never cumsum(x) - x: that
+    cancels catastrophically in float32 against the camera pass's 1e10
+    last-interval sentinel."""
+    return torch.cat([torch.zeros_like(x[..., :1]), torch.cumsum(x[..., :-1], dim=-1)],
+                     dim=-1)
+
+
+def render_weights(sigma, delta, mask=None):
+    """(weights, transmittance, alphas), each (R, K):
+    T_i = exp(-sum_{j<i} sigma_j delta_j), alpha_i = 1 - exp(-sigma_i delta_i),
+    w_i = T_i alpha_i."""
+    if mask is not None:
+        sigma = torch.where(mask, sigma, torch.zeros_like(sigma))
+    sdelta = sigma * delta
+    trans = torch.exp(-exclusive_cumsum(sdelta))
+    alphas = 1.0 - torch.exp(-sdelta)
+    return trans * alphas, trans, alphas
+
+
+def exit_transmittance(sigma, delta, mask=None):
+    """EXCLUSIVE transmittance at the last valid sample of each ray, (R,) —
+    the geometric sun-visibility readout (sat_rendering.py:106-116). Rays
+    with no valid sample return 1."""
+    if mask is None:
+        mask = torch.ones(sigma.shape, dtype=torch.bool, device=sigma.device)
+    sigma = torch.where(mask, sigma, torch.zeros_like(sigma))
+    sdelta = sigma * delta
+    k = mask.shape[-1]
+    last_idx = k - 1 - torch.argmax(mask.flip(-1).to(torch.int32), dim=-1)
+    excl = exclusive_cumsum(sdelta)
+    return torch.exp(-torch.gather(excl, -1, last_idx[:, None])[:, 0])
+
+
+def accumulate(weights, values=None):
+    """Weighted reduction along samples. weights (R, K); values (R, K, C),
+    (R, K) or None (-> opacity). Returns (R, C) or (R,)."""
+    if values is None:
+        return weights.sum(dim=-1)
+    if values.dim() == weights.dim():
+        return (weights * values).sum(dim=-1)
+    return (weights[..., None] * values).sum(dim=-2)
