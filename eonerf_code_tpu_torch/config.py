@@ -1,0 +1,112 @@
+"""Training configuration: the fields of the JAX package's ``TrainConfig``
+(config.py) that the port's trainer reads, with the same names and
+defaults, and JSON round trip.
+
+Left out until the slices that read them: dataset paths and options,
+validation cadence and eval, occupancy-grid tuning, int8 trunk, data
+parallelism, and ``steps_per_call`` (the JAX megastep's scan length, which
+a per-step loop has no use for). The trainer raises
+``NotImplementedError`` on the values of the fields below that need a later
+slice (``sampler`` other than "uniform", ``occ_enabled``, ``n_importance``,
+``freq_reg_end_step``, ``bwd_acts="saved"``), so a default configuration
+must set those explicitly.
+"""
+
+import dataclasses
+import json
+import os
+import warnings
+from typing import Optional
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # paths
+    logs_dir: str = "logs"
+    ckpt_path: Optional[str] = None      # resume from this checkpoint directory
+    exp_name: str = "eo-nerf"
+
+    # model
+    model: str = "eo-nerf"               # eo-nerf | sat-nerf (no radiometric norm)
+
+    # training
+    lr: float = 5e-4
+    lr_gamma_per_epoch: float = 0.9      # StepLR(gamma=0.9) per epoch
+    lr_decay_steps: Optional[int] = None  # decay every N steps instead of per epoch
+    batch_size: int = 1024
+    max_train_steps: int = 300000
+    n_samples: int = 128
+    n_importance: int = 0                # hierarchical fine samples (later slice)
+    sc_n_samples: int = -1               # shadow-march samples per solar ray:
+                                         # -1 = auto, 0 = follow n_samples,
+                                         # > 0 explicit (resolve_sc_n_samples)
+    sampler: str = "auto"                # auto | uniform | tighten | hierarchical
+    net_depth: int = 8
+    net_width: int = 256
+    seed: int = 42
+    compute_dtype: str = "float32"       # or "bfloat16" (the fused kernels' type)
+
+    # EO-NeRF switches
+    geometric_shadows: bool = True       # shadow pass from first_shadow_epoch on
+    radiometric_normalization: bool = True
+    rpc_correction: bool = False         # learnable per-image ray-origin offsets
+    freq_reg_end_step: int = 0           # > 0: coarse-to-fine PE annealing (later slice)
+    first_shadow_epoch: int = 2
+    first_beta_epoch: int = 2            # MSE before, beta loss after
+    first_shadow_step: Optional[int] = None  # step-based overrides of the
+    first_beta_step: Optional[int] = None    # epoch gates
+
+    # occupancy grid (later slice)
+    occ_enabled: bool = True
+
+    # priors
+    depth_weight: float = 100.0
+    depth_weight_decay: float = 0.8      # per epoch
+
+    # checkpoint cadence (None -> 4 epochs, the JAX package's val_freq x 4)
+    save_freq: Optional[int] = None
+
+    # fused-kernel backward: "recompute" (this port) or "saved" (later slice)
+    bwd_acts: str = "saved"
+
+    def __post_init__(self):
+        if self.model == "eo-nerf":
+            self.radiometric_normalization = True
+
+    def save(self, path):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    @classmethod
+    def load(cls, path):
+        with open(path) as f:
+            d = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def log_dir(self):
+        return os.path.join(self.logs_dir, self.exp_name)
+
+    def resolve_sc_n_samples(self):
+        """Concrete shadow-march sample count. -1 = auto: at least half the
+        camera count and at least 64, never more than n_samples (the JAX
+        package's rule, validated at n_samples 96-192); 0 = n_samples."""
+        if self.sc_n_samples == -1:
+            resolved = min(self.n_samples, max(self.n_samples // 2, 64))
+            if not 64 <= self.n_samples <= 192:
+                warnings.warn(
+                    f"sc_n_samples auto rule resolving {self.n_samples} -> "
+                    f"{resolved} shadow samples is outside its validated "
+                    "range (n_samples 96-192). Quality is unverified here: "
+                    "A/B against --sc_n_samples 0 (full count) before "
+                    "trusting converged results.",
+                    stacklevel=2)
+            return resolved
+        if self.sc_n_samples == 0:
+            return self.n_samples
+        if self.sc_n_samples < 0:
+            raise ValueError(
+                f"sc_n_samples={self.sc_n_samples}: only -1 (auto), 0 "
+                "(follow n_samples) and positive counts are valid")
+        return self.sc_n_samples

@@ -2,18 +2,16 @@
 
 ``KernelField`` wraps an ``EONerfField`` for the renderer's fused branch:
 per-sample work (field + compositing) goes through the fused camera and
-shadow ops (ops/fused_render.py), the per-ray heads (ambient, radiometric,
-ray offset) stay on the module.
+shadow ops (ops/fused_render.py), forward and backward, the per-ray heads
+(ambient, radiometric, ray offset) stay on the module. Gradients reach the
+field's parameters through the packing and the ops' weight gradients, and
+the transient embedding through the ops' d_rayin.
 """
 
 import torch
 
 from eonerf_code_tpu_torch.ops.fused_field import pack_params
-from eonerf_code_tpu_torch.ops.fused_render import (
-    camera_forward,
-    pack_kernel_weights,
-    shadow_forward,
-)
+from eonerf_code_tpu_torch.ops.fused_render import fused_camera, fused_shadow, pack_kernel_weights
 
 
 def _device_of(field):
@@ -42,20 +40,22 @@ class KernelField:
         self.beta_min = field.beta_min
         self.rpc_correction = field.rpc_correction
         self.n_images = field.n_images
+        self.compute_dtype = field.compute_dtype
 
     def pack(self):
-        """Kernel-ready weights, from the field's current parameters."""
-        with torch.no_grad():
-            return pack_kernel_weights(pack_params(self.field), self.field.compute_dtype)
+        """Kernel-ready float32 weights from the field's current parameters,
+        differentiable; the ops cast them to the compute dtype. One pack
+        serves the camera and the shadow pass of a step."""
+        return pack_kernel_weights(pack_params(self.field), torch.float32)
 
     def transient_embedding(self, img_idx):
         return self.field.transient_encoder(img_idx)
 
     def fused_camera(self, weights, rayin, z, deltam):
-        return camera_forward(weights, rayin, z, deltam)
+        return fused_camera(weights, rayin, z, deltam, self.compute_dtype)
 
     def fused_shadow(self, weights, rayin, z, deltam, mask):
-        return shadow_forward(weights, rayin, z, deltam, mask)
+        return fused_shadow(weights, rayin, z, deltam, mask, self.compute_dtype)
 
     def ambient(self, sun_d):
         return self.field.ambient(sun_d)

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles ``csrc/fused_render.cu`` for sm_90a into a shared library
+``nvcc`` compiles ``csrc/fused_render.cu`` (the fused render kernels,
+forward and backward) for sm_90a into a shared library
 with a plain C interface, on first use, into ``_build/`` beside the package
 sources (git-ignored); the file name carries a hash of the source and the
 flags, so an edit rebuilds and an unchanged source is reused. ``ctypes``
@@ -65,6 +66,12 @@ def load_library():
     lib.eonerf_camera_fwd.restype = i
     lib.eonerf_shadow_fwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.eonerf_shadow_fwd.restype = i
+    lib.eonerf_bwd_workspace_bytes.argtypes = [i, i, i]
+    lib.eonerf_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.eonerf_camera_bwd.argtypes = [p] * 10 + [i, i, p]
+    lib.eonerf_camera_bwd.restype = i
+    lib.eonerf_shadow_bwd.argtypes = [p] * 11 + [i, i, p]
+    lib.eonerf_shadow_bwd.restype = i
     lib.eonerf_error_string.argtypes = [i]
     lib.eonerf_error_string.restype = ctypes.c_char_p
     return lib

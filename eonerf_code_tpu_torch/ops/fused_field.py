@@ -3,8 +3,11 @@
 The counterpart of the helpers in the JAX package's
 ops/pallas/fused_field.py. Matrices keep the JAX package's (in, out)
 layout, biases are (1, d) rows, so :class:`FieldWeights` compares one to one
-with the JAX ``FieldWeights``. The kernels of that file (per-point field and
-density) are not part of this slice.
+with the JAX ``FieldWeights``. Every step here is differentiable: gradients
+reach the field's parameters through the packing, and the rows that
+``pad_pe_rows`` adds drop out of them again (``unpad_pe_rows`` is the same
+cut, for gradients held in padded form). The kernels of that file
+(per-point field and density) are not part of this slice.
 """
 
 from typing import NamedTuple
@@ -41,11 +44,12 @@ class FieldWeights(NamedTuple):
 
 
 def pack_params(field):
-    """EONerfField -> FieldWeights (float32, detached, on the field's device)."""
+    """EONerfField -> FieldWeights (float32 views of the parameters, on the
+    field's device; differentiable)."""
 
     def wb(mlp, name):
         layer = getattr(mlp, name)
-        return layer.weight.detach().t(), layer.bias.detach().reshape(1, -1)
+        return layer.weight.t(), layer.bias.reshape(1, -1)
 
     trunk_w, trunk_b = zip(*(wb(field.trunk, f"hidden_{i}") for i in range(8)))
     sigma_w, sigma_b = wb(field.sigma_head, "output")
@@ -97,4 +101,14 @@ def pad_pe_rows(flat, with_transient=False):
     out[5] = F.pad(out[5], (0, 0, 0, 1))
     if with_transient:
         out[24] = F.pad(out[24], (0, 0, 0, 60))
+    return out
+
+
+def unpad_pe_rows(flat, with_transient=False):
+    """Inverse of :func:`pad_pe_rows` (for weight gradients in padded form)."""
+    out = list(flat)
+    out[0] = out[0][:PE_DIM]
+    out[5] = out[5][:256 + PE_DIM]
+    if with_transient:
+        out[24] = out[24][:260]
     return out

@@ -176,7 +176,8 @@ def _outputs(rgb, depth, albedo_acc, ambient_acc, geo_shadow, t_s_acc, beta_acc,
 def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generator):
     """render_rays' fused branch: sampling and the per-ray composite stay in
     PyTorch, the per-sample work runs in the fused camera and shadow ops
-    with per-ray input."""
+    with per-ray input. Differentiable; nothing here writes in place into a
+    tensor autograd needs."""
     d, sun_d = rays.viewdirs, rays.sundirs
     o = _corrected_origins(field, rays)
     near = rays.t_near
@@ -198,8 +199,10 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
     if shadows:
         sc_o = o + depth[:, None] * d
         sc_d = -sun_d
+        # the march is sampled from the detached origin; the gradient reaches
+        # sc_o (and through it depth) only through rayin_sc
         _, sc_z, sc_delta, sc_mask = _sample_block(
-            sc_o, sc_d, torch.zeros_like(near), cfg.sc_n_samples, cfg.ray_span,
+            sc_o.detach(), sc_d, torch.zeros_like(near), cfg.sc_n_samples, cfg.ray_span,
             cfg.perturb, cfg.cube_bound, generator)
         rayin_sc = torch.cat([sc_o, sc_d, torch.zeros((r, 10), dtype=o.dtype, device=o.device)],
                              dim=1)

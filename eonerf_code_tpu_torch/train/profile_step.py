@@ -1,0 +1,100 @@
+"""Where a training step's device time goes, by kernel, on one CUDA card.
+
+    python -m eonerf_code_tpu_torch.train.profile_step [--steps 10]
+
+Builds the training configuration ``chip_smoke.py`` drives (full-width
+bf16 field, batch 1024, 128 camera / 64 shadow samples, a synthetic pool
+of 2^20 rays over 20 views), takes warm-up steps past the shadow and beta
+gates, then traces ``--steps`` steps with ``torch.profiler``. Prints one
+JSON object: device milliseconds per step for each group of kernels (the
+fused forwards, the three passes and the reduction of each backward, Adam,
+the rest), the step's host-clock milliseconds, and the device's idle share
+(1 - device kernel time / step time). Exits 1 without a CUDA device, and 2
+when the trace holds no device time.
+"""
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+# kernel groups by a substring of the CUDA kernel's name, first match wins
+GROUPS = (
+    ("camera_fwd", "fused_fwd_kernel<true, false>"),
+    ("shadow_fwd", "fused_fwd_kernel<false, false>"),
+    ("camera_bwd_recompute", "fused_fwd_kernel<true, true>"),
+    ("shadow_bwd_recompute", "fused_fwd_kernel<false, true>"),
+    ("camera_bwd_dgrad", "dgrad_kernel<true>"),
+    ("shadow_bwd_dgrad", "dgrad_kernel<false>"),
+    ("camera_bwd_wgrad", "wgrad_kernel<true>"),
+    ("shadow_bwd_wgrad", "wgrad_kernel<false>"),
+    ("bwd_reduce", "reduce_kernel"),
+    ("adam", "adam"),
+)
+
+
+def _group(name):
+    for group, key in GROUPS:
+        if key in (name.lower() if group == "adam" else name):
+            return group
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+
+    from eonerf_code_tpu_torch.config import TrainConfig
+    from eonerf_code_tpu_torch.data.synthetic_pool import synthetic_ray_pool
+    from eonerf_code_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    logs = tempfile.mkdtemp(prefix="profile_step_", dir=".")
+    try:
+        cfg = TrainConfig(logs_dir=logs, exp_name="profile", sampler="uniform",
+                          occ_enabled=False, bwd_acts="recompute", compute_dtype="bfloat16",
+                          batch_size=1024, n_samples=128, sc_n_samples=64,
+                          first_shadow_step=args.warmup // 2, first_beta_step=args.warmup // 2,
+                          save_freq=10 ** 9, seed=0)
+        tr = Trainer(cfg, synthetic_ray_pool(1 << 20, 20, dev), n_images=20, device=dev)
+        tr.run(max_steps=args.warmup, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            tr.run(max_steps=args.warmup + args.steps, log_every=10 ** 9)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    per_group = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            g = _group(ev.key)
+            per_group[g] = per_group.get(g, 0.0) + dev_us / 1e3 / args.steps
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    device_ms = sum(per_group.values())
+    print(json.dumps({"steps": args.steps, "ms_per_step": step_ms,
+                      "device_ms_per_step": per_group, "device_ms_total": device_ms,
+                      "idle_share": 1.0 - device_ms / step_ms if step_ms else None,
+                      "card": card}), flush=True)
+    return 0 if device_ms > 0 else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -139,7 +139,7 @@ def test_kernel_weight_helpers_match_jax():
     t_flat = tff.pad_pe_rows(tff.flatten_weights(tw), with_transient=True)
     assert len(t_flat) == tff.N_WEIGHTS
     for j, t in zip(j_flat, t_flat):
-        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(t.detach().numpy(), np.asarray(j))
     assert [tuple(t.shape) for t in tff.density_subset(tw)] == \
         [tuple(j.shape) for j in jff.density_subset(jw)]
     assert len(tff.density_subset(tw)) == tff.N_DENSITY_WEIGHTS
@@ -147,7 +147,7 @@ def test_kernel_weight_helpers_match_jax():
     t_cast = tff.cast_matrices(t_flat, torch.bfloat16)
     for j, t in zip(j_cast, t_cast):
         assert (t.dtype == torch.bfloat16) == (j.dtype == jnp.bfloat16)
-        np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, np.float32))
+        np.testing.assert_array_equal(t.detach().float().numpy(), np.asarray(j, np.float32))
     assert tff.unflatten_weights(tff.flatten_weights(tw)) == tw
 
 

@@ -52,7 +52,8 @@ def _rayin(o, d, emb):
 
 
 def _kernel_weights(tf, dtype=torch.float32):
-    return fr.pack_kernel_weights(pack_params(tf), dtype)
+    with torch.no_grad():
+        return fr.pack_kernel_weights(pack_params(tf), dtype)
 
 
 def test_camera_reference_matches_pallas(setup):
@@ -107,7 +108,8 @@ def test_kernel_weight_packing_round_trip(setup, dtype):
     (cast to the compute dtype) and the float32 biases exactly, and the
     packed sizes match the layout the CUDA source indexes."""
     tf = setup[1]
-    w = pack_params(tf)
+    with torch.no_grad():
+        w = pack_params(tf)
     kw = fr.pack_kernel_weights(w, dtype)
     assert kw.mats.shape == (fr.MAT_ELEMENTS,) and kw.biases.shape == (fr.BIAS_ELEMENTS,)
     assert kw.dtype == dtype and kw.biases.dtype == torch.float32

@@ -29,14 +29,14 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 30
     assert bad.strip() == "[]", bad
 
 
 def test_port_sources_never_name_the_jax_package():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     files.append(REPO / "chip_smoke.py")
-    assert len(files) >= 17
+    assert len(files) >= 33
     hits = [f"{p.relative_to(REPO)}:{i}" for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if JAX_PACKAGE.search(line)]
