@@ -1,40 +1,64 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render-and-DSM path and its training step once
-on one CUDA card.
+"""Drive the PyTorch port's render-and-DSM path, its training step and its
+sampler=auto training (hierarchical and occupancy-tightened) once on one
+CUDA card.
 
     python3 chip_smoke.py
 
 Phases (one JSON line each; any failure raises and exits non-zero):
 
-1. build   - nvcc builds the fused-render kernels from the checkout
-             (eonerf_code_tpu_torch/csrc/fused_render.cu) into the
-             git-ignored eonerf_code_tpu_torch/_build/.
-2. kernels - the camera and shadow forward kernels against their plain
-             PyTorch versions at the render path's shapes (4096 rays;
-             camera K=127, shadow K=63; full 8x256 bf16 field), and the
-             camera and shadow backward kernels at the training shapes
-             (1024 rays, a random cotangent): errors, kernel / plain /
-             bound times.
-3. render  - a full-width EONerfField (20 images, seeded init, bf16) behind
-             make_render_field renders a 512x512 orthographic nadir sweep
-             with shadows in 4096-ray chunks. All 13 outputs must have their
-             shapes and be finite, each kernel must have launched once per
-             chunk, and a 1024-ray subset must agree with the per-sample
-             (non-kernel) path.
-4. dsm     - the rendered depth is rasterised to a DSM on the card, and
-             device_dsm_mae must recover a known shift and z-bias applied
-             to a copy of it. The field is untrained: this checks the
-             machinery, not quality.
-5. train   - Trainer.run takes 20 steps (batch 1024, 128 camera and 64
-             shadow samples, shadows and the beta loss from step 10) of a
-             full-width bf16 field on a device-resident pool of 2^20
-             seeded rays over 20 oblique views with their own sun
-             directions. Every loss must be finite, the parameters must
-             move, each kernel must launch once per step that runs it, and
-             on one batch the whole-step gradient through the kernels must
-             agree with the gradient through the per-sample module path.
-             Then 10 more steps are timed: rays/s and ms per step split
-             into forward kernels, backward kernels, optimizer and the rest.
+1. build       - nvcc builds the kernels from the checkout
+                 (eonerf_code_tpu_torch/csrc/fused_render.cu) into the
+                 git-ignored eonerf_code_tpu_torch/_build/.
+2. kernels     - every kernel against its plain PyTorch version at its
+                 main-path shapes, full 8x256 bf16 field: the camera and
+                 shadow forwards at the render shapes (4096 rays; camera
+                 K=127 and, hierarchical, K=143 after sample_pdf; shadow
+                 K=63), their backwards at the training shapes (1024 rays,
+                 camera K=127 and K=143, a random cotangent), the
+                 coarse-weights kernel at the hierarchical render's (4096
+                 rays, K=95) and the density kernel at the entropy probe's
+                 (2048 x 64 points): errors, kernel / plain / bound times,
+                 in-cube samples and TFLOP/s reached. A second shape of a
+                 kernel goes into its summary row under other_shapes.
+3. render      - a full-width EONerfField (20 images, seeded init, bf16)
+                 behind make_render_field renders a 512x512 orthographic
+                 nadir sweep with shadows in 4096-ray chunks. All 13
+                 outputs must have their shapes and be finite, each kernel
+                 must have launched once per chunk, and a 1024-ray subset
+                 must agree with the per-sample (non-kernel) path.
+4. dsm         - the rendered depth is rasterised to a DSM on the card, and
+                 device_dsm_mae must recover a known shift and z-bias
+                 applied to a copy of it. The field is untrained: this
+                 checks the machinery, not quality.
+5. render_hier - the same sweep with hierarchical sampling (96 coarse + 48
+                 fine camera samples, 64 shadow samples): the coarse,
+                 camera and shadow kernels each once per chunk, outputs
+                 finite, a 1024-ray subset against the per-sample path.
+6. train       - Trainer.run takes 20 steps (batch 1024, 128 camera and 64
+                 shadow samples, uniform sampler, shadows and the beta loss
+                 from step 10) of a full-width bf16 field on a
+                 device-resident pool of 2^20 seeded rays over 20 oblique
+                 views with their own sun directions. Every loss must be
+                 finite, the parameters must move, each kernel must launch
+                 once per step that runs it, and on one batch the
+                 whole-step gradient through the kernels must agree with
+                 the gradient through the per-sample module path. Then 10
+                 more steps are timed: rays/s and ms per step split into
+                 forward kernels, backward kernels, optimizer and the rest.
+7. train_auto  - Trainer with sampler="auto" and the occupancy grid at the
+                 JAX package's defaults (n_grid 128, 262,144 cells a
+                 grid update, batch 1024, n_samples 128), on the same pool:
+                 a wide altitude envelope resolves to hierarchical sampling
+                 (96 + 48; the coarse kernel once per step; 20 steps, then
+                 10 timed), a compact one to occupancy tightening (12
+                 steps, grid updates at steps 0 and 8, each with the
+                 entropy probe through the density kernel). The tightening
+                 gates need a stable history that a few steps cannot build:
+                 after the first grid update the phase seeds five copies of
+                 its occupied fraction, as the JAX package's tests seed a
+                 converged history, so steps 1-7 sample tightened (checked,
+                 and timed). Losses finite, parameters moved, ms per step.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -78,6 +102,20 @@ N_POOL = 1 << 20           # rays in the training pool
 N_VIEWS = 20
 TRAIN_STEPS = 20
 TIMED_STEPS = 10
+# density kernel vs plain version: sigma is unbounded (softplus), so the
+# errors are held relative to the largest reference value, at the forward
+# kernels' tolerance
+DENSITY_TOL = {"max_rel": 2e-2, "mean_rel": 2e-3}
+# coarse weights vs plain version: a ray's weights sum to at most 1, so over
+# 95 samples a typical weight is about 1e-2; held at a tenth of that at
+# worst, and at 1 % of the mean weight on average
+COARSE_TOL = {"max_abs": 1e-3, "mean_abs": 1e-4, "mean_rel": 1e-2}
+N_PROBE_RAYS, N_PROBE_SAMPLES = 2048, 64    # the trainer's entropy probe
+WIDE_ENVELOPE = (-2.0, 220.0)    # metres: wider than occ_tighten_max_envelope_m
+COMPACT_ENVELOPE = (-2.0, 32.0)
+WIDE_STEPS = 20
+COMPACT_STEPS = 12
+COMPACT_UPDATE_EVERY = 8
 # Whole-step gradient through the kernels vs through the per-sample module
 # path (autograd through EONerfField) on one batch: the per-sample path
 # rounds as flax does (bf16 bias adds and heads), the kernels keep f32 bias
@@ -99,10 +137,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def tpu_kernel_site(fn_name):
+def tpu_kernel_site(fn_name, module="fused_render.py"):
     """file:line of a Pallas kernel body in the JAX reference package that
     sits beside the port (read as text, never imported)."""
-    for path in sorted(ROOT.glob("*/ops/pallas/fused_render.py")):
+    for path in sorted(ROOT.glob(f"*/ops/pallas/{module}")):
         if path.parts[-4] == "eonerf_code_tpu_torch":
             continue
         for i, line in enumerate(path.read_text().splitlines(), 1):
@@ -111,10 +149,10 @@ def tpu_kernel_site(fn_name):
     raise FileNotFoundError(f"Pallas kernel {fn_name} not found")
 
 
-def grad_errors(torch, fr, flatten_weights, got, ref):
+def grad_errors(ff, got, ref):
     """rel-L2 of each of the 36 weight-gradient tensors and of d_rayin, and
     the max abs difference over all of them."""
-    views = [flatten_weights(fr.kernel_views(fr.KernelWeights(m, b))) for m, b, _ in (got, ref)]
+    views = [ff.flatten_weights(ff.kernel_views(ff.KernelWeights(m, b))) for m, b, _ in (got, ref)]
     rel = []
     for a, b in list(zip(*views)) + [(got[2], ref[2])]:
         den = float(b.norm())
@@ -149,6 +187,7 @@ def main():
     from eonerf_code_tpu_torch.models.eonerf import EONerfField
     from eonerf_code_tpu_torch.models.fused import KernelField, make_render_field
     from eonerf_code_tpu_torch.ops import _build
+    from eonerf_code_tpu_torch.ops import fused_field as ff
     from eonerf_code_tpu_torch.ops import fused_render as fr
     from eonerf_code_tpu_torch.ops.fused_field import (
         density_subset,
@@ -184,7 +223,7 @@ def main():
     if not isinstance(rf, KernelField):
         raise RuntimeError("make_render_field did not pick the kernels for a bf16 8x256 field")
     with torch.no_grad():
-        kw = fr.pack_kernel_weights(pack_params(field), torch.bfloat16)
+        kw = ff.pack_kernel_weights(pack_params(field), torch.bfloat16)
     cfg = sat.RenderConfig(n_samples=128, sc_n_samples=64)
     scene_scale = np.array([256.0, 256.0, 60.0])
     rays_np, h, w = nadir_rays_with_sun(512, 512, 35.0, 140.0, scene_scale)
@@ -208,29 +247,54 @@ def main():
     sc_m = sc_mask.float().contiguous()
     z_mid, sc_z = z_mid.contiguous(), sc_z.contiguous()
 
+    # the hierarchical shapes: the 96 stratified z of the same chunk and the
+    # 48 fine z that sample_pdf draws from the coarse kernel's weights,
+    # merged and sorted (K=143), the 1e10 sentinel on the last valid sample
+    cfg_h = sat.RenderConfig(n_samples=96, n_importance=48, sc_n_samples=64)
+    with torch.no_grad():
+        h_mid, h_delta, _, h_mask = sat._camera_samples(sub.origins, sub.viewdirs, sub.t_near,
+                                                        cfg_h, gen, field=rf)
+    h_dm = (set_last_valid(h_delta, h_mask, cfg_h.inf_delta) * h_mask).contiguous()
+    h_mid = h_mid.contiguous()
+
     # multiply-adds per sample from the field's own (unpadded) layer shapes:
     # trunk + sigma head for the shadow pass, every per-sample matrix for the
     # camera pass; only in-cube samples need them (the rest carry deltam = 0)
     fw = pack_params(field)
     density_macs = sum(x.numel() for x in density_subset(fw) if not is_bias(x))
     camera_macs = sum(x.numel() for x in flatten_weights(fw) if not is_bias(x))
-    cases = {
-        "camera_fwd": (lambda: fr.camera_forward(kw, rayin, z_mid, deltam),
-                       lambda: fr.camera_forward_reference(kw, rayin, z_mid, deltam),
-                       z_mid.shape[1], int(mask.sum()), camera_macs,
-                       rayin.numel() * 4 + 2 * z_mid.numel() * 4
-                       + fr.MAT_ELEMENTS * 2 + fr.BIAS_ELEMENTS * 4 + N_CHUNK * 8 * 4,
-                       "_camera_fwd_kernel"),
-        "shadow_fwd": (lambda: fr.shadow_forward(kw, rayin_sc, sc_z, sc_dm, sc_m),
-                       lambda: fr.shadow_forward_reference(kw, rayin_sc, sc_z, sc_dm, sc_m),
-                       sc_z.shape[1], int(sc_mask.sum()), density_macs,
-                       rayin_sc.numel() * 4 + 3 * sc_z.numel() * 4
-                       + fr.DENSITY_MAT_ELEMENTS * 2 + fr.DENSITY_BIAS_ELEMENTS * 4
-                       + N_CHUNK * 4,
-                       "_shadow_fwd_kernel"),
-    }
+    camera_bytes = ff.MAT_ELEMENTS * 2 + ff.BIAS_ELEMENTS * 4 + N_CHUNK * 8 * 4
     kernel_rows = {}
-    for name, (kern, plain, k, n_valid, macs, nbytes, tpu_fn) in cases.items():
+
+    def record(name, k, row):
+        """The first shape of a kernel is its summary row; another shape
+        that the main path gives it goes beside it, under other_shapes."""
+        if name in kernel_rows:
+            kernel_rows[name].setdefault("other_shapes", []).append(
+                {"samples": k, **{key: row[key] for key in
+                                  ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+        else:
+            kernel_rows[name] = row
+
+    # (name, kernel, plain version, K, in-cube samples, MACs per sample,
+    # bytes, TPU kernel)
+    cases = [
+        ("camera_fwd", lambda: fr.camera_forward(kw, rayin, z_mid, deltam),
+         lambda: fr.camera_forward_reference(kw, rayin, z_mid, deltam),
+         z_mid.shape[1], int(mask.sum()), camera_macs,
+         rayin.numel() * 4 + 2 * z_mid.numel() * 4 + camera_bytes, "_camera_fwd_kernel"),
+        ("shadow_fwd", lambda: fr.shadow_forward(kw, rayin_sc, sc_z, sc_dm, sc_m),
+         lambda: fr.shadow_forward_reference(kw, rayin_sc, sc_z, sc_dm, sc_m),
+         sc_z.shape[1], int(sc_mask.sum()), density_macs,
+         rayin_sc.numel() * 4 + 3 * sc_z.numel() * 4
+         + ff.DENSITY_MAT_ELEMENTS * 2 + ff.DENSITY_BIAS_ELEMENTS * 4 + N_CHUNK * 4,
+         "_shadow_fwd_kernel"),
+        ("camera_fwd", lambda: fr.camera_forward(kw, rayin, h_mid, h_dm),
+         lambda: fr.camera_forward_reference(kw, rayin, h_mid, h_dm),
+         h_mid.shape[1], int(h_mask.sum()), camera_macs,
+         rayin.numel() * 4 + 2 * h_mid.numel() * 4 + camera_bytes, "_camera_fwd_kernel"),
+    ]
+    for name, kern, plain, k, n_valid, macs, nbytes, tpu_fn in cases:
         got = kern()
         ref = plain()
         torch.cuda.synchronize()
@@ -252,7 +316,7 @@ def main():
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "library_ms": None}
-        kernel_rows[name] = row
+        record(name, k, row)
         emit({"phase": "kernels", "name": name, "rays": N_CHUNK, "samples": k,
               "kpad": fr.kpad_of(k), "valid_samples": n_valid, "macs_per_sample": macs,
               "max_abs_err": max_err, "mean_abs_err": mean_err,
@@ -261,37 +325,42 @@ def main():
               "tflops_achieved": flops / (ms * 1e-3) / 1e12, "card": card})
         if not (finite and max_err <= KERNEL_TOL["max_abs"]
                 and mean_err <= KERNEL_TOL["mean_abs"]):
-            raise AssertionError(f"{name}: kernel disagrees with its plain version "
+            raise AssertionError(f"{name} at K={k}: kernel disagrees with its plain version "
                                  f"(max {max_err}, mean {mean_err}, finite {finite})")
 
     # backward kernels at the training shapes: the first N_TRAIN rays of the
-    # same inputs, a random per-ray cotangent
+    # same inputs (uniform K=127 and hierarchical K=143), a random per-ray
+    # cotangent
     nb = N_TRAIN
     b_in = [t[:nb].contiguous() for t in (rayin, z_mid, deltam)]
+    b_in_h = [t[:nb].contiguous() for t in (rayin, h_mid, h_dm)]
     b_sc = [t[:nb].contiguous() for t in (rayin_sc, sc_z, sc_dm, sc_m)]
     gacc = torch.randn((nb, fr.ACC_COLS), generator=gen, device=dev)
     ggeo = torch.randn((nb,), generator=gen, device=dev)
-    bwd_cases = {
-        "camera_bwd": (lambda: fr.camera_backward(kw, *b_in, gacc),
-                       lambda: fr.camera_backward_reference(kw, *b_in, gacc),
-                       int(mask[:nb].sum()), camera_macs,
-                       sum(t.numel() * 4 for t in b_in) + gacc.numel() * 4
-                       + fr.MAT_ELEMENTS * (2 + 4) + fr.BIAS_ELEMENTS * (4 + 4)
-                       + nb * fr.RAYIN_COLS * 4,
-                       "_camera_bwd_kernel"),
-        "shadow_bwd": (lambda: fr.shadow_backward(kw, *b_sc, ggeo),
-                       lambda: fr.shadow_backward_reference(kw, *b_sc, ggeo),
-                       int(sc_mask[:nb].sum()), density_macs,
-                       sum(t.numel() * 4 for t in b_sc) + ggeo.numel() * 4
-                       + fr.DENSITY_MAT_ELEMENTS * (2 + 4) + fr.DENSITY_BIAS_ELEMENTS * (4 + 4)
-                       + nb * fr.RAYIN_COLS * 4,
-                       "_shadow_bwd_kernel"),
-    }
-    for name, (kern, plain, n_valid, macs, nbytes, tpu_fn) in bwd_cases.items():
+    camera_bwd_bytes = (gacc.numel() * 4 + ff.MAT_ELEMENTS * (2 + 4)
+                        + ff.BIAS_ELEMENTS * (4 + 4) + nb * fr.RAYIN_COLS * 4)
+    bwd_cases = [
+        ("camera_bwd", lambda: fr.camera_backward(kw, *b_in, gacc),
+         lambda: fr.camera_backward_reference(kw, *b_in, gacc),
+         b_in[1].shape[1], int(mask[:nb].sum()), camera_macs,
+         sum(t.numel() * 4 for t in b_in) + camera_bwd_bytes, "_camera_bwd_kernel"),
+        ("shadow_bwd", lambda: fr.shadow_backward(kw, *b_sc, ggeo),
+         lambda: fr.shadow_backward_reference(kw, *b_sc, ggeo),
+         b_sc[1].shape[1], int(sc_mask[:nb].sum()), density_macs,
+         sum(t.numel() * 4 for t in b_sc) + ggeo.numel() * 4
+         + ff.DENSITY_MAT_ELEMENTS * (2 + 4) + ff.DENSITY_BIAS_ELEMENTS * (4 + 4)
+         + nb * fr.RAYIN_COLS * 4,
+         "_shadow_bwd_kernel"),
+        ("camera_bwd", lambda: fr.camera_backward(kw, *b_in_h, gacc),
+         lambda: fr.camera_backward_reference(kw, *b_in_h, gacc),
+         b_in_h[1].shape[1], int(h_mask[:nb].sum()), camera_macs,
+         sum(t.numel() * 4 for t in b_in_h) + camera_bwd_bytes, "_camera_bwd_kernel"),
+    ]
+    for name, kern, plain, k, n_valid, macs, nbytes, tpu_fn in bwd_cases:
         got = kern()
         ref = plain()
         torch.cuda.synchronize()
-        rel, max_err = grad_errors(torch, fr, flatten_weights, got, ref)
+        rel, max_err = grad_errors(ff, got, ref)
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         ms = time_ms(torch, kern, 10)
         plain_ms = time_ms(torch, plain, 3)
@@ -300,20 +369,89 @@ def main():
         flops = 3 * 2.0 * macs * n_valid
         ops_ms = flops / PEAK_BF16_FLOPS * 1e3
         bytes_ms = nbytes / PEAK_BYTES * 1e3
-        kernel_rows[name] = {
-            "name": name, "route": "cuda", "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
-            "replaces": tpu_kernel_site(tpu_fn), "launches": None, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
-        emit({"phase": "kernels", "name": name, "rays": nb,
-              "samples": (b_in if name == "camera_bwd" else b_sc)[1].shape[1],
+        row = {"name": name, "route": "cuda", "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+               "replaces": tpu_kernel_site(tpu_fn), "launches": None, "max_abs_err": max_err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+        record(name, k, row)
+        emit({"phase": "kernels", "name": name, "rays": nb, "samples": k,
               "valid_samples": n_valid, "max_rel_l2": max(rel), "rel_l2_d_rayin": rel[-1],
               "max_abs_err": max_err, "tolerance_rel_l2": BWD_REL_L2, "finite": finite,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": kernel_rows[name]["bound_ms"],
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
               "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12,
               "card": card})
         if not (finite and max(rel) <= BWD_REL_L2):
-            raise AssertionError(f"{name}: kernel disagrees with its plain version (rel-L2 {rel})")
+            raise AssertionError(f"{name} at K={k}: kernel disagrees with its plain version "
+                                 f"(rel-L2 {rel})")
+    # the coarse-weights kernel at the hierarchical render's shapes: the 96
+    # stratified camera z of a chunk (95 samples), the 1e10 sentinel on the
+    # last valid one
+    c_mid, c_delta, _, c_mask = sat._camera_samples(sub.origins, sub.viewdirs, sub.t_near,
+                                                    sat.RenderConfig(n_samples=96), gen)
+    c_dm = (set_last_valid(c_delta, c_mask, cfg_h.inf_delta) * c_mask).contiguous()
+    c_mid = c_mid.contiguous()
+    rayin_c = torch.cat([sub.origins, sub.viewdirs, torch.zeros((N_CHUNK, 10), device=dev)],
+                        dim=1).contiguous()
+    # the density kernel at the entropy probe's shapes: 64 uniform samples on
+    # [near, far] of 2048 rays
+    probe = sat.SatRays(*(x[:N_PROBE_RAYS] for x in sub))
+    tm = (torch.arange(N_PROBE_SAMPLES, device=dev) + 0.5) / N_PROBE_SAMPLES
+    z_p = probe.t_near[:, None] + (probe.t_far - probe.t_near)[:, None] * tm
+    pos_p = (probe.origins[:, None, :] + probe.viewdirs[:, None, :] * z_p[..., None])
+    pos_p = pos_p.reshape(-1, 3).contiguous()
+    density_bytes = ff.DENSITY_MAT_ELEMENTS * 2 + ff.DENSITY_BIAS_ELEMENTS * 4
+    extra = {
+        "coarse_fwd": (lambda: fr.coarse_forward(kw, rayin_c, c_mid, c_dm),
+                       lambda: fr.coarse_forward_reference(kw, rayin_c, c_mid, c_dm),
+                       N_CHUNK, c_mid.shape[1], int(c_mask.sum()),
+                       rayin_c.numel() * 4 + 3 * c_mid.numel() * 4 + density_bytes,
+                       ("_coarse_fwd_kernel", "fused_render.py")),
+        "density_fwd": (lambda: ff.density_forward(kw, pos_p),
+                        lambda: ff.density_forward_reference(kw, pos_p),
+                        pos_p.shape[0], 1, pos_p.shape[0],
+                        pos_p.numel() * 4 + density_bytes + pos_p.shape[0] * 4,
+                        ("_density_fwd_kernel", "fused_field.py")),
+    }
+    for name, (kern, plain, n_rows, k, n_work, nbytes, (tpu_fn, module)) in extra.items():
+        got = kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        finite = bool(torch.isfinite(got).all())
+        if name == "density_fwd":
+            scale = float(ref.abs().max())
+            errs = {"max_rel": float(err.max()) / scale, "mean_rel": float(err.mean()) / scale}
+            tol = DENSITY_TOL
+        else:
+            scale = float(ref.abs().mean())
+            errs = {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                    "mean_rel": float(err.mean()) / scale}
+            tol = COARSE_TOL
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 3)
+        # least time: the density trunk of every sample that needs it (the
+        # in-cube ones for the coarse pass, every point for the density
+        # kernel) at the bf16 peak, against the bytes at the memory rate
+        flops = 2.0 * density_macs * n_work
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        row = {"name": name, "route": "cuda", "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+               "replaces": tpu_kernel_site(tpu_fn, module), "launches": None,
+               "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+        record(name, k, row)
+        emit({"phase": "kernels", "name": name, "rows": n_rows, "samples": k,
+              "work_samples": n_work, "max_abs_err": float(err.max()), "errors": errs,
+              "reference_scale": {"max|sigma|" if name == "density_fwd" else "mean|w|": scale},
+              "tolerance": tol, "finite": finite,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
+              "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12,
+              "card": card})
+        if not (finite and all(errs[key] <= tol[key] for key in tol)):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                                 f"({errs}, finite {finite})")
+
     # the forward kernels at the training shapes, for the step's time split
     train_fwd_ms = (time_ms(torch, lambda: fr.camera_forward(kw, *b_in), 10)
                     + time_ms(torch, lambda: fr.shadow_forward(kw, *b_sc), 10))
@@ -347,7 +485,7 @@ def main():
                 "rgb_mean_abs": float((a["rgb"] - b["rgb"]).abs().mean())}
     # where a chunk's time goes: the two kernels (timed alone in phase 2, one
     # launch each per chunk) against the whole chunk
-    kernel_ms = sum(row["ms"] for row in kernel_rows.values())
+    kernel_ms = kernel_rows["camera_fwd"]["ms"] + kernel_rows["shadow_fwd"]["ms"]
     emit({"phase": "render", "rays": n_rays, "chunks": n_chunks, "seconds": seconds,
           "rays_per_s": n_rays / seconds, "ms_per_chunk": seconds * 1e3 / n_chunks,
           "kernel_ms_per_chunk": kernel_ms,
@@ -386,7 +524,43 @@ def main():
     if (fdx, fdy) != (dx, dy) or abs(float(bias) + DSM_ZBIAS) > 1e-3 or not float(mae) < 1e-3:
         raise AssertionError(f"DSM registration did not recover the known shift: {dsm}")
 
-    # ---- 5. training steps through the forward and backward kernels ----
+    # ---- 5. the hierarchical sweep: coarse kernel, then camera and shadow ----
+    hier_counted = {"coarse_fwd": fr.coarse_forward, "camera_fwd": fr.camera_forward,
+                    "shadow_fwd": fr.shadow_forward}
+    for fn in hier_counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_h = sat.render_image(rf, rays_all, cfg_h, shadows=True, chunk=N_CHUNK,
+                             generator=torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    seconds_h = time.perf_counter() - t0
+    launches_h = {n: fn.launches for n, fn in hier_counted.items()}
+    kernel_rows["coarse_fwd"]["launches"] = launches_h["coarse_fwd"]
+    bad_h = [k for k in sat.OUTPUT_KEYS
+             if tuple(out_h[k].shape) != (n_rays, widths.get(k, 1))
+             or not bool(torch.isfinite(out_h[k]).all())]
+    with torch.no_grad():
+        a = sat.render_rays(rf, few, cfg_h, True, torch.Generator(device=dev).manual_seed(6))
+        b = sat.render_rays(field, few, cfg_h, True, torch.Generator(device=dev).manual_seed(6))
+    path_err_h = {"depth_mean_abs": float((a["depth"] - b["depth"]).abs().mean()),
+                  "rgb_mean_abs": float((a["rgb"] - b["rgb"]).abs().mean())}
+    emit({"phase": "render_hier", "rays": n_rays, "chunks": n_chunks,
+          "samples": {"coarse": cfg_h.n_samples, "fine": cfg_h.n_importance,
+                      "shadow": cfg_h.sc_n_samples},
+          "seconds": seconds_h, "rays_per_s": n_rays / seconds_h,
+          "ms_per_chunk": seconds_h * 1e3 / n_chunks, "launches": launches_h, "bad_keys": bad_h,
+          "pts_per_ray_mean": float(out_h["pts_per_ray"].mean()),
+          "depth_range": [float(out_h["depth"].min()), float(out_h["depth"].max())],
+          "vs_per_sample_path": path_err_h, "tolerance": PATH_TOL, "card": card})
+    if bad_h:
+        raise AssertionError(f"hierarchical render outputs wrong or non-finite: {bad_h}")
+    if any(n != n_chunks for n in launches_h.values()):
+        raise AssertionError(f"kernel launches {launches_h} != {n_chunks} chunks")
+    if any(path_err_h[k] > PATH_TOL[k] for k in PATH_TOL):
+        raise AssertionError(f"hierarchical kernel path vs per-sample path: {path_err_h}")
+
+    # ---- 6. training steps through the forward and backward kernels ----
     from eonerf_code_tpu_torch.config import TrainConfig
     from eonerf_code_tpu_torch.data.synthetic_pool import synthetic_ray_pool
     from eonerf_code_tpu_torch.train.loop import Trainer, make_loss_fn
@@ -458,8 +632,132 @@ def main():
     if not grad_rel <= GRAD_PATH_REL_L2:
         raise AssertionError(f"kernel-path gradient vs per-sample path: rel-L2 {grad_rel}")
 
+    # ---- 7. sampler="auto": hierarchical on a wide envelope, tightened on a
+    # compact one, the occupancy grid at the JAX package's defaults ----
+    pool = tr.device_data
+    del tr
+    auto_counted = {"coarse_fwd": fr.coarse_forward, "density_fwd": ff.density_forward,
+                    "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward,
+                    "camera_bwd": fr.camera_backward, "shadow_bwd": fr.shadow_backward}
+
+    def auto_trainer(name, envelope, **kw):
+        """A Trainer at the sampler=auto defaults on the chip_smoke pool."""
+        cfg_a = TrainConfig(logs_dir=str(log_root), exp_name=name, sampler="auto",
+                            occ_enabled=True, bwd_acts="recompute", compute_dtype="bfloat16",
+                            save_freq=10 ** 9, seed=1, **kw)
+        shutil.rmtree(log_root / name, ignore_errors=True)
+        t = Trainer(cfg_a, pool, n_images=N_VIEWS, device=dev, alt_envelope=envelope)
+        if not isinstance(t.render_field, KernelField):
+            raise RuntimeError("the trainer did not pick the kernels for a bf16 8x256 field")
+        return t
+
+    def recording(t):
+        """Wrap the trainer's step: record each step's loss (kept on the
+        card, read at the end) and whether the sampler got the grid."""
+        losses_a, tightened = [], []
+        step_fn = t.train_step
+
+        def step(*args, **kwargs):
+            tightened.append(args[-1] is not None)
+            out = step_fn(*args, **kwargs)
+            losses_a.append(out["loss"])
+            return out
+
+        t.train_step = step
+        return losses_a, tightened
+
+    def branch_result(t, before, losses_a, launches, expect, extra):
+        losses_a = [float(v) for v in losses_a]
+        moved_a = sum(not torch.equal(x, p) for x, p in zip(before, t.field.parameters()))
+        res = {"sampler": t.cfg.sampler, "n_samples": t.cfg.n_samples,
+               "n_importance": t.cfg.n_importance, "sc_n_samples": t.cfg.sc_n_samples,
+               "steps": len(losses_a), "losses_finite": all(math.isfinite(v) for v in losses_a),
+               "loss_first_last": [losses_a[0], losses_a[-1]], "param_tensors_moved": moved_a,
+               "launches": launches, "expected_launches": expect, **extra}
+        if not res["losses_finite"] or moved_a == 0:
+            raise AssertionError(f"{t.cfg.exp_name} did not train cleanly: {res}")
+        if launches != expect:
+            raise AssertionError(f"{t.cfg.exp_name}: kernel launches {launches} != {expect}")
+        return res
+
+    def timed_run(t, max_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.run(max_steps=max_steps, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # wide envelope -> hierarchical: the coarse kernel once per step; the
+    # grid is kept up to date (step 0 here) but not sampled from
+    tw = auto_trainer("chip_smoke_wide", WIDE_ENVELOPE, first_shadow_step=WIDE_STEPS // 2,
+                      first_beta_step=WIDE_STEPS // 2, max_train_steps=WIDE_STEPS)
+    if (tw.cfg.sampler, tw.cfg.n_samples, tw.cfg.n_importance) != ("hierarchical", 96, 48):
+        raise AssertionError(f"wide envelope resolved to {tw.cfg.sampler} "
+                             f"{tw.cfg.n_samples}+{tw.cfg.n_importance}")
+    losses_w, _ = recording(tw)
+    before_w = [p.detach().clone() for p in tw.field.parameters()]
+    for fn in auto_counted.values():
+        fn.launches = 0
+    tw.run(max_steps=WIDE_STEPS, log_every=10 ** 9)
+    launches_w = {n: fn.launches for n, fn in auto_counted.items()}
+    half = WIDE_STEPS - WIDE_STEPS // 2
+    expect_w = {"coarse_fwd": WIDE_STEPS, "density_fwd": 0, "camera_fwd": WIDE_STEPS,
+                "shadow_fwd": half, "camera_bwd": WIDE_STEPS, "shadow_bwd": half}
+    wide = branch_result(tw, before_w, losses_w, launches_w, expect_w,
+                         {"grid_occupied": float(tw.occ_grid.binaries.float().mean())})
+    step_ms_w = timed_run(tw, WIDE_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS   # no grid update
+    wide.update(ms_per_step=step_ms_w, rays_per_s=N_TRAIN / (step_ms_w * 1e-3))
+    del tw
+
+    # compact envelope -> tightening: grid updates (each with the entropy
+    # probe through the density kernel) at steps 0 and COMPACT_UPDATE_EVERY
+    tc = auto_trainer("chip_smoke_compact", COMPACT_ENVELOPE, first_shadow_step=0,
+                      first_beta_step=COMPACT_STEPS // 2, max_train_steps=COMPACT_STEPS,
+                      occ_update_every=COMPACT_UPDATE_EVERY, occ_tighten_start_step=1,
+                      occ_entropy_max=1.0)
+    if tc.cfg.sampler != "tighten" or not tc.rcfg.occ_tighten_shadows:
+        raise AssertionError(f"compact envelope resolved to {tc.cfg.sampler}")
+    losses_c, tightened = recording(tc)
+    before_c = [p.detach().clone() for p in tc.field.parameters()]
+    for fn in auto_counted.values():
+        fn.launches = 0
+    tc.run(max_steps=1, log_every=10 ** 9)
+    # seed the stability gate's history with the first update's fraction
+    tc._occ_frac_hist = tc._occ_frac_hist[-1:] * 5
+    if tc._occ_for_sampling(step=1) is not tc.occ_grid:
+        raise AssertionError(f"the tightening gates stay closed: entropy {tc._entropy_hist}")
+    # steps 1 .. COMPACT_UPDATE_EVERY - 1 sample tightened, no grid update
+    n_tight = COMPACT_UPDATE_EVERY - 1
+    step_ms_c = timed_run(tc, COMPACT_UPDATE_EVERY) * 1e3 / n_tight
+    tc.run(max_steps=COMPACT_STEPS, log_every=10 ** 9)
+    launches_c = {n: fn.launches for n, fn in auto_counted.items()}
+    kernel_rows["density_fwd"]["launches"] = launches_c["density_fwd"]
+    n_updates = -(-COMPACT_STEPS // COMPACT_UPDATE_EVERY)
+    expect_c = {"coarse_fwd": 0, "density_fwd": n_updates, "camera_fwd": COMPACT_STEPS,
+                "shadow_fwd": COMPACT_STEPS, "camera_bwd": COMPACT_STEPS,
+                "shadow_bwd": COMPACT_STEPS}
+    t0 = time.perf_counter()
+    tc._occ_update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tc._weight_entropy()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    compact = branch_result(tc, before_c, losses_c, launches_c, expect_c,
+                            {"grid_updates": n_updates, "gate_history_seeded": True,
+                             "tightened_steps": tightened,
+                             "weight_entropy": tc._entropy_hist,
+                             "occupied_fraction": tc._occ_frac_hist,
+                             "ms_per_tightened_step": step_ms_c,
+                             "rays_per_s": N_TRAIN / (step_ms_c * 1e-3),
+                             "ms_grid_update": update_ms, "ms_entropy_probe": probe_ms})
+    emit({"phase": "train_auto", "batch": N_TRAIN, "pool_rays": N_POOL, "n_grid": 128,
+          "occ_max_cells": 262144, "wide": wide, "compact": compact, "card": card})
+    if tightened[1:COMPACT_UPDATE_EVERY] != [True] * n_tight:
+        raise AssertionError(f"tightened steps {tightened}: the grid did not reach the sampler")
+
     emit({"kernels": [kernel_rows[n] for n in ("camera_fwd", "shadow_fwd", "camera_bwd",
-                                               "shadow_bwd")]})
+                                               "shadow_bwd", "coarse_fwd", "density_fwd")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

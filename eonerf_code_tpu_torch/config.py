@@ -3,13 +3,12 @@
 defaults, and JSON round trip.
 
 Left out until the slices that read them: dataset paths and options,
-validation cadence and eval, occupancy-grid tuning, int8 trunk, data
-parallelism, and ``steps_per_call`` (the JAX megastep's scan length, which
-a per-step loop has no use for). The trainer raises
-``NotImplementedError`` on the values of the fields below that need a later
-slice (``sampler`` other than "uniform", ``occ_enabled``, ``n_importance``,
-``freq_reg_end_step``, ``bwd_acts="saved"``), so a default configuration
-must set those explicitly.
+validation cadence and eval, int8 trunk, data parallelism, and
+``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
+has no use for). The trainer raises ``NotImplementedError`` on the values
+of the fields below that need a later slice (``freq_reg_end_step`` > 0,
+``bwd_acts="saved"``), so a default configuration must set
+``bwd_acts="recompute"``.
 """
 
 import dataclasses
@@ -36,11 +35,16 @@ class TrainConfig:
     batch_size: int = 1024
     max_train_steps: int = 300000
     n_samples: int = 128
-    n_importance: int = 0                # hierarchical fine samples (later slice)
+    n_importance: int = 0                # hierarchical fine samples
     sc_n_samples: int = -1               # shadow-march samples per solar ray:
                                          # -1 = auto, 0 = follow n_samples,
                                          # > 0 explicit (resolve_sc_n_samples)
-    sampler: str = "auto"                # auto | uniform | tighten | hierarchical
+    sampler: str = "auto"                # auto | uniform | tighten | hierarchical:
+                                         # auto picks from the scene's altitude
+                                         # envelope (compact -> tighten, wide ->
+                                         # hierarchical); explicit occ_tighten /
+                                         # n_importance win (Trainer._resolve_sampler)
+    occ_tighten_max_envelope_m: float = 60.0  # auto tightens only below this
     net_depth: int = 8
     net_width: int = 256
     seed: int = 42
@@ -56,8 +60,22 @@ class TrainConfig:
     first_shadow_step: Optional[int] = None  # step-based overrides of the
     first_beta_step: Optional[int] = None    # epoch gates
 
-    # occupancy grid (later slice)
+    # occupancy grid: maintained every occ_update_every steps; sampled from
+    # only with occ_tighten, past the warm-up step, once its occupied
+    # fraction is stable (and the entropy gate, if set, passes)
+    n_grid: int = 128
+    occ_update_every: int = 50
     occ_enabled: bool = True
+    occ_max_cells: Optional[int] = 262144  # cells probed per update (None = all)
+    occ_tighten: bool = False            # camera rays sample their occupied span
+    occ_tighten_shadows: Optional[bool] = None  # the same for shadow rays
+                                         # (None = follow occ_tighten)
+    occ_tighten_start_step: int = 2000   # warm-up before trusting the grid
+    occ_explore_frac: float = 0.25       # share of rays per step that keep the
+                                         # full range despite the grid
+    occ_entropy_max: Optional[float] = None  # tighten only while the probe rays'
+                                         # mean normalized weight entropy is <=
+                                         # this (None: no entropy gate)
 
     # priors
     depth_weight: float = 100.0
@@ -110,3 +128,9 @@ class TrainConfig:
                 f"sc_n_samples={self.sc_n_samples}: only -1 (auto), 0 "
                 "(follow n_samples) and positive counts are valid")
         return self.sc_n_samples
+
+    def resolved_occ_tighten_shadows(self):
+        """Shadow-march tightening follows occ_tighten unless overridden."""
+        if self.occ_tighten_shadows is None:
+            return self.occ_tighten
+        return self.occ_tighten_shadows

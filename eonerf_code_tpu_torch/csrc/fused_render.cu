@@ -12,6 +12,17 @@
 //   Density trunk and sigma head, then the sun visibility
 //   exp(-sum of sigma*delta over the samples before the last valid one);
 //   a ray with no valid sample gets 1.
+// coarse: replaces `_coarse_fwd_kernel` of the same file (make_fused_coarse),
+//   the hierarchical sampler's PDF source. The shadow kernel's density work
+//   with another epilogue: the per-sample weights T_i (1 - e^-sigma_i
+//   deltam_i), T the EXCLUSIVE transmittance, written as (R, KPAD). The
+//   last valid sample carries the 1e10 sentinel in deltam, so its alpha
+//   saturates to 1. Forward only.
+// density: replaces `_density_fwd_kernel` of the JAX package's
+//   ops/pallas/fused_field.py (make_fused_density): per-point sigma for
+//   points (N, 3). The PE is built from xyz directly (xb = x*2^deg, the ray
+//   form with d = 0, z = 0, bit for bit), and the points fill the 128-row
+//   tiles directly: no ray structure, no padding to 8 samples a point.
 //
 // What bounds them on this card: operations. Every sample runs the trunk
 // (0.49 M multiply-adds) and, for the camera, the heads (0.19 M more), while
@@ -20,10 +31,15 @@
 // bf16 matrix products at a few thousand operations per byte moved, far on
 // the compute side of the H100's ~295 op/B ridge.
 //
+// The coarse and density kernels are bound the same way: the density trunk's
+// 0.49 M multiply-adds per sample against 12-40 B per sample moved.
+//
 // What the design does about it: the per-sample activations never leave the
-// SM. A block owns whole rays (128 sample rows per tile, looping over tiles
-// when a ray has more than 128 samples); the activations ping-pong between
-// two bf16 tiles in shared memory (128 x 328 each, 164 KB together), every
+// SM. A block owns whole rays (128 sample rows per tile, looping over tiles;
+// a tile may hold the end of one ray and the start of the next, and a block
+// takes as many rays as fill its tiles exactly, see rays_per_block); the
+// activations ping-pong between two bf16 tiles in shared memory (128 x 328
+// each, 164 KB together), every
 // layer is a tensor-core product (mma.sync m16n8k16, bf16 in, f32 accumulate)
 // with 32-deep chunks of the weights staged through shared memory, and the
 // f32 bias + ReLU + bf16 rounding happen in the product's epilogue. The TPU
@@ -73,6 +89,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <numeric>
 
 namespace {
 
@@ -260,16 +277,62 @@ __device__ void tile_to_stream(const bf16* tile, int c0, int ncols, bf16* stream
   }
 }
 
+// What a launch of fused_fwd_kernel computes per ray after the trunk.
+enum Mode { CAM = 0, SHADOW = 1, COARSE = 2 };
+
+// The eight trunk layers on one 128-row tile whose PE sits in columns
+// 256..319 of both tiles: layer i reads src, writes dst; h4 lands in the
+// second tile, next to its PE copy, so layer 5 reads [h4, pe] as one
+// 320-wide operand. Returns the tile holding h7 (the other one is free).
+// STREAM: each layer's output is also copied to the activation stream.
+template <bool STREAM>
+__device__ __forceinline__ bf16* trunk_tile(bf16* bufX, bf16* bufY,
+                                            const bf16* __restrict__ wm,
+                                            const float* __restrict__ wb, bf16* wst,
+                                            bf16* acts, long long as, long long g0,
+                                            int nrows) {
+  bf16 *src = bufX, *dst = bufY;
+  for (int i = 0; i < 8; ++i) {
+    const int k_dim = i == 0 ? PE : (i == 5 ? CAT : W);
+    gemm<true>(src, i == 0 ? W : 0, k_dim, wm + trunk_offset(i), wb + B_T + i * W, W, dst, wst);
+    if (STREAM) {
+      __syncthreads();
+      tile_to_stream(dst, 0, W, acts, as, g0, nrows, act_h(i));
+    }
+    bf16* tmp = src; src = dst; dst = tmp;
+  }
+  __syncthreads();
+  return src;
+}
+
+// PE lane c (< 63) of the point x: the coordinate it reads and its
+// power-of-two scale.
+__device__ __forceinline__ void pe_lane(int c, int& j, float& sc) {
+  int deg;
+  if (c < 3) { j = c; deg = 0; }
+  else if (c < 33) { j = (c - 3) % 3; deg = (c - 3) / 3; }
+  else { j = (c - 33) % 3; deg = (c - 33) / 3; }
+  sc = ldexpf(1.f, deg);
+}
+
+// PE value of lane c from its argument xb: xb itself on the 3 identity
+// lanes, one phased sin (cos y = sin(y + pi/2)) on the others.
+__device__ __forceinline__ float pe_value(int c, float xb) {
+  return c < 3 ? xb : sinf(c < 33 ? xb : __fadd_rn(xb, HALF_PI));
+}
+
 // One block per group of `rpb` whole rays; KPAD samples per ray (a multiple
 // of 8, <= MAX_KPAD); rows s = ray * KPAD + k of the block's sample axis are
 // processed 128 at a time.
 //
-// BWD = false: the forward (acc or geo into `out`).
-// BWD = true: the first pass of the backward. The same recompute, which
-// also streams every activation to `acts`, then the compositing backward
-// per ray in f32 for the per-ray cotangent `gin` (camera: gacc (R, 8);
-// shadow: ggeo (R,)), writing the per-sample head cotangents to `hg`.
-template <bool CAMERA, bool BWD>
+// BWD = false: the forward (CAM: acc (R, 8); SHADOW: geo (R,); COARSE: the
+// weights (R, KPAD) into `out`).
+// BWD = true (CAM and SHADOW): the first pass of the backward. The same
+// recompute, which also streams every activation to `acts`, then the
+// compositing backward per ray in f32 for the per-ray cotangent `gin`
+// (camera: gacc (R, 8); shadow: ggeo (R,)), writing the per-sample head
+// cotangents to `hg`.
+template <int MODE, bool BWD>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  const float* __restrict__ deltam, const float* __restrict__ mask,
@@ -277,6 +340,7 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  float* __restrict__ out, int R, int KPAD, int rpb,
                  const float* __restrict__ gin, bf16* __restrict__ acts,
                  float* __restrict__ hg) {
+  constexpr bool CAMERA = MODE == CAM;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
@@ -298,14 +362,11 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       if (s < S && c < 63) {
         const int ray = ray0 + s / KPAD;
         const float* ri = rayin + (long long)ray * RAYIN;
-        int j, deg;
-        if (c < 3) { j = c; deg = 0; }
-        else if (c < 33) { j = (c - 3) % 3; deg = (c - 3) / 3; }
-        else { j = (c - 33) % 3; deg = (c - 33) / 3; }
-        const float sc = ldexpf(1.f, deg);
+        int j;
+        float sc;
+        pe_lane(c, j, sc);
         const float zs = z[(long long)ray * KPAD + s % KPAD];
-        const float xb = __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs));
-        v = c < 3 ? xb : sinf(c < 33 ? xb : __fadd_rn(xb, HALF_PI));
+        v = pe_value(c, __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs)));
       }
       const bf16 pv = __float2bfloat16_rn(v);
       bufX[r * LDA + W + c] = pv;
@@ -315,20 +376,8 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       __syncthreads();
       tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
     }
-    // trunk: layer i reads src, writes dst; h4 lands in bufY, next to its PE
-    // copy, so layer 5 reads [h4, pe] as one 320-wide operand
-    bf16 *src = bufX, *dst = bufY;
-    for (int i = 0; i < 8; ++i) {
-      const int k_dim = i == 0 ? PE : (i == 5 ? CAT : W);
-      gemm<true>(src, i == 0 ? W : 0, k_dim, wm + trunk_offset(i), wb + B_T + i * W, W, dst, wst);
-      if (BWD) {
-        __syncthreads();
-        tile_to_stream(dst, 0, W, acts, AS, g0, nrows, act_h(i));
-      }
-      bf16* tmp = src; src = dst; dst = tmp;
-    }
-    __syncthreads();
-    bf16 *P = src, *Q = dst;   // P holds h7
+    bf16* P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
+    bf16* Q = P == bufX ? bufY : bufX;
     for (int r = threadIdx.x; r < MT; r += THREADS) {
       const int s = s0 + r;
       if (s < S) res[s * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
@@ -433,6 +482,15 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
         o[6] = 0.f;
         o[7] = 0.f;
       }
+    } else if (MODE == COARSE) {
+      // render_weights: w = T (1 - e^-sd), T the exclusive transmittance;
+      // kept in the sample's result row until the block writes them out
+      float excl = 0.f;
+      for (int k = 0; k < KPAD; ++k) {
+        const float sd = rs[k * RES] * dr[k];
+        rs[k * RES + 1] = expf(-excl) * (1.f - expf(-sd));
+        excl += sd;
+      }
     } else {
       // a sample counts when at least two valid samples remain from it on,
       // i.e. it lies strictly before the ray's last valid sample
@@ -457,16 +515,62 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       }
     }
   }
+  if (MODE == COARSE) {
+    // the block's weights out in sample order (row ray * KPAD + k of the
+    // (R, KPAD) output), neighbouring threads on neighbouring samples
+    __syncthreads();
+    for (int e = threadIdx.x; e < S; e += THREADS)
+      out[(long long)ray0 * KPAD + e] = res[e * RES + 1];
+  }
 }
 
-int rays_per_block(int KPAD) { return KPAD >= MT ? 1 : MT / KPAD; }
+// Per-point density: one block per 128 points, which fill the tile's rows
+// directly. PE from xyz into both tiles, the trunk, the sigma head.
+__global__ void __launch_bounds__(THREADS, 1)
+density_kernel(const float* __restrict__ pos, const bf16* __restrict__ wm,
+               const float* __restrict__ wb, float* __restrict__ sigma, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* bufX = reinterpret_cast<bf16*>(smem);
+  bf16* bufY = bufX + MT * LDA;
+  bf16* wst = bufY + MT * LDA;
+  const long long p0 = (long long)blockIdx.x * MT;
+  const int nrows = N - p0 < MT ? (int)(N - p0) : MT;
+  for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
+    const int r = e / PE, c = e % PE;
+    float v = 0.f;
+    if (r < nrows && c < 63) {
+      int j;
+      float sc;
+      pe_lane(c, j, sc);
+      v = pe_value(c, __fmul_rn(pos[(p0 + r) * 3 + j], sc));
+    }
+    const bf16 pv = __float2bfloat16_rn(v);
+    bufX[r * LDA + W + c] = pv;
+    bufY[r * LDA + W + c] = pv;
+  }
+  const bf16* h = trunk_tile<false>(bufX, bufY, wm, wb, wst, nullptr, 0, 0, 0);
+  for (int r = threadIdx.x; r < nrows; r += THREADS)
+    sigma[p0 + r] = softplus(dot_row(h + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
+}
+
+// Rays a block owns: as many as fill its 128-row tiles exactly (KPAD 96:
+// 4 rays in 3 tiles; KPAD 144: 8 rays in 9 tiles), unless that keeps more
+// than MAX_BLOCK_SAMPLES per-sample results in shared memory; then as many
+// whole rays as one tile holds, at least one.
+constexpr int MAX_BLOCK_SAMPLES = 1280;
+
+int rays_per_block(int KPAD) {
+  const int fill = MT / std::gcd(MT, KPAD);
+  if (fill * KPAD <= MAX_BLOCK_SAMPLES) return fill;
+  return KPAD >= MT ? 1 : MT / KPAD;
+}
 
 size_t fwd_smem(int KPAD) {
   return (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) +
          (size_t)rays_per_block(KPAD) * KPAD * RES * sizeof(float);
 }
 
-template <bool CAMERA, bool BWD>
+template <int MODE, bool BWD>
 int launch(const float* rayin, const float* z, const float* deltam, const float* mask,
            const void* wm, const float* wb, float* out, int R, int KPAD, cudaStream_t stream,
            const float* gin = nullptr, bf16* acts = nullptr, float* hg = nullptr) {
@@ -474,10 +578,10 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   const int rpb = rays_per_block(KPAD);
   const int grid = (R + rpb - 1) / rpb;
   const size_t smem = fwd_smem(KPAD);
-  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<CAMERA, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_fwd_kernel<CAMERA, BWD><<<grid, THREADS, smem, stream>>>(
+  fused_fwd_kernel<MODE, BWD><<<grid, THREADS, smem, stream>>>(
       rayin, z, deltam, mask, static_cast<const bf16*>(wm), wb, out, R, KPAD, rpb, gin, acts,
       hg);
   return (int)cudaGetLastError();
@@ -926,8 +1030,8 @@ int launch_bwd(const float* rayin, const float* z, const float* deltam, const fl
   float* hg = reinterpret_cast<float*>(base + L.hg);
   float* bpart = reinterpret_cast<float*>(base + L.bpart);
   float* wpart = reinterpret_cast<float*>(base + L.wpart);
-  int err = launch<CAMERA, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD, stream, gin,
-                                 acts, hg);
+  int err = launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
+                                                stream, gin, acts, hg);
   if (err != 0) return err;
   const int rpb = rays_per_block(KPAD);
   const size_t smem = dgrad_smem(KPAD);
@@ -964,14 +1068,35 @@ void eonerf_weight_layout(long long* sizes) {
 
 int eonerf_camera_fwd(const float* rayin, const float* z, const float* deltam, const void* wm,
                       const float* wb, float* acc, int R, int KPAD, void* stream) {
-  return launch<true, false>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD,
+  return launch<CAM, false>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD,
                              static_cast<cudaStream_t>(stream));
 }
 
 int eonerf_shadow_fwd(const float* rayin, const float* z, const float* deltam, const float* mask,
                       const void* wm, const float* wb, float* geo, int R, int KPAD, void* stream) {
-  return launch<false, false>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD,
+  return launch<SHADOW, false>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The coarse (density-only) pass's per-sample compositing weights, written
+// as (R, KPAD) into w.
+int eonerf_coarse_fwd(const float* rayin, const float* z, const float* deltam, const void* wm,
+                      const float* wb, float* w, int R, int KPAD, void* stream) {
+  return launch<COARSE, false>(rayin, z, deltam, nullptr, wm, wb, w, R, KPAD,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Per-point density: pos (N, 3) -> sigma (N,).
+int eonerf_density_fwd(const float* pos, const void* wm, const float* wb, float* sigma, int N,
+                       void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(density_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  density_kernel<<<(N + MT - 1) / MT, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, static_cast<const bf16*>(wm), wb, sigma, N);
+  return (int)cudaGetLastError();
 }
 
 // Bytes of scratch one backward call needs (camera != 0: the camera's).

@@ -1,5 +1,6 @@
-"""The weight bridge between the JAX package's flax parameter tree and the
-port's ``EONerfField.state_dict()``.
+"""The bridge from the JAX package's state to the port's: the flax
+parameter tree to and from ``EONerfField.state_dict()``, and an occupancy
+grid's arrays to an ``OccupancyGrid``.
 
 The flax tree is given as nested dicts of numpy arrays,
 ``{"params": {scope: {layer: {"kernel", "bias"}} | {"embedding"}}}``.
@@ -10,6 +11,8 @@ are transposed; a flax ``Embed`` table is an ``nn.Embedding`` weight as is.
 
 import numpy as np
 import torch
+
+from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
 
 
 def field_state_from_jax(params_np):
@@ -46,3 +49,16 @@ def jax_params_from_field_state(state):
         else:
             entry["bias"] = a.copy()
     return {"params": tree}
+
+
+def occ_grid_from_jax(occs, binaries, device="cpu"):
+    """The JAX package's ``OccupancyGrid`` arrays (numpy: ``occs``
+    (res^3,) float32, ``binaries`` (res, res, res) bool) -> the port's
+    grid on ``device``."""
+    binaries = np.asarray(binaries, dtype=bool)
+    res = binaries.shape[0]
+    if binaries.shape != (res,) * 3 or np.shape(occs) != (res ** 3,):
+        raise ValueError(f"occupancy arrays of shapes {np.shape(occs)}, {binaries.shape} are "
+                         "not a cubic grid")
+    return OccupancyGrid(occs=torch.from_numpy(np.array(occs, np.float32)).to(device),
+                         binaries=torch.from_numpy(binaries.copy()).to(device), resolution=res)

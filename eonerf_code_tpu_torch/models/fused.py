@@ -2,16 +2,18 @@
 
 ``KernelField`` wraps an ``EONerfField`` for the renderer's fused branch:
 per-sample work (field + compositing) goes through the fused camera and
-shadow ops (ops/fused_render.py), forward and backward, the per-ray heads
+shadow ops (ops/fused_render.py), forward and backward, and the
+hierarchical sampler's coarse pass through the coarse op; the per-ray heads
 (ambient, radiometric, ray offset) stay on the module. Gradients reach the
 field's parameters through the packing and the ops' weight gradients, and
-the transient embedding through the ops' d_rayin.
+the transient embedding through the ops' d_rayin. ``density`` (the
+trainer's weight-entropy probe) goes through the per-point density kernel.
 """
 
 import torch
 
-from eonerf_code_tpu_torch.ops.fused_field import pack_params
-from eonerf_code_tpu_torch.ops.fused_render import fused_camera, fused_shadow, pack_kernel_weights
+from eonerf_code_tpu_torch.ops.fused_field import fused_density, pack_kernel_weights, pack_params
+from eonerf_code_tpu_torch.ops.fused_render import fused_camera, fused_coarse, fused_shadow
 
 
 def _device_of(field):
@@ -56,6 +58,17 @@ class KernelField:
 
     def fused_shadow(self, weights, rayin, z, deltam, mask):
         return fused_shadow(weights, rayin, z, deltam, mask, self.compute_dtype)
+
+    def fused_coarse(self, weights, rayin, z, deltam):
+        """Per-sample weights (R, K) of the density-only coarse pass; no
+        gradient (the fine samples are drawn under a stop-gradient)."""
+        return fused_coarse(weights, rayin, z, deltam, self.compute_dtype)
+
+    def density(self, pos):
+        """sigma at (..., 3) positions through the density kernel; forward
+        only (its backward is not ported and raises)."""
+        flat = pos.reshape(-1, 3)
+        return fused_density(self.pack(), flat, self.compute_dtype).reshape(pos.shape[:-1])
 
     def ambient(self, sun_d):
         return self.field.ambient(sun_d)

@@ -7,12 +7,18 @@ input and output, forward and backward.
 - ``shadow_forward(weights, rayin, z, deltam, mask) -> geo (R,)``: the sun
   visibility of the geometric shadow pass, counterpart of
   ``make_fused_shadow`` (``_shadow_fwd_kernel``).
+- ``coarse_forward(weights, rayin, z, deltam) -> w (R, K)``: the
+  per-sample compositing weights of a density-only pass, the PDF the
+  hierarchical sampler draws from; counterpart of ``make_fused_coarse``
+  (``_coarse_fwd_kernel``). Forward only.
 - ``camera_backward`` / ``shadow_backward``: their VJPs (the JAX package's
   ``_camera_bwd_kernel`` / ``_shadow_bwd_kernel``), recomputing the
   forward; float32 weight gradients in the packed layout and per-ray
   d_rayin = [d_o, d_d, d_emb, 0].
 - ``fused_camera`` / ``fused_shadow``: the pairs as
-  ``torch.autograd.Function``s (the JAX package's ``custom_vjp`` ops).
+  ``torch.autograd.Function``s (the JAX package's ``custom_vjp`` ops);
+  ``fused_coarse``: the coarse op on detached inputs, as the JAX package's
+  ``stop_gradient`` wrapper.
 
 ``rayin`` rows are [origin(3), direction(3), embedding(4), 0*6]; ``deltam``
 is delta * valid_mask with the camera pass's 1e10 last-valid sentinel
@@ -28,18 +34,27 @@ launches in its ``launches`` attribute.
 """
 
 import math
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops.fused_field import (
+    BIAS_ELEMENTS,
+    MAT_ELEMENTS,
     PE_PAD,
-    cast_matrices,
+    _BIAS_IDX,
+    _MAT_IDX,
+    KernelWeights,
+    check_f32,
+    check_weights,
     flatten_weights,
-    pad_pe_rows,
-    unflatten_weights,
+    kernel_views,
+    mm,
+    pe_from_args,
+    pe_lanes,
+    softplus,
+    trunk,
 )
 from eonerf_code_tpu_torch.ops.volrend import exclusive_cumsum
 
@@ -47,102 +62,22 @@ RAYIN_COLS = 16   # [o(3), d(3), emb(4), pad(6)]
 ACC_COLS = 8      # [depth, albedo r g b, t_s, t_beta, opacity, pad]
 MAX_KPAD = 1024   # the kernels keep every sample of a ray's results in shared memory
 
-# Positions in the 36-entry flat FieldWeights of the matrices and biases, in
-# the order the kernels pack them. Trunk + sigma head come first: that
-# prefix is all the shadow kernel reads.
-_MAT_IDX = (0, 1, 2, 3, 4, 5, 6, 7, 16, 18, 20, 22, 24, 25, 26, 27, 32, 34)
-_BIAS_IDX = (8, 9, 10, 11, 12, 13, 14, 15, 17, 19, 21, 23, 28, 29, 30, 31, 33, 35)
-# (in, out) of each padded matrix, in _MAT_IDX order (the 8x256 architecture)
-_MAT_SHAPES = ((64, 256),) + ((256, 256),) * 4 + ((320, 256),) + ((256, 256),) * 2 + (
-    (256, 1), (256, 256), (256, 128), (128, 3), (320, 128), (128, 128), (128, 128),
-    (128, 128), (128, 1), (128, 1))
-_BIAS_SIZES = (256,) * 8 + (1, 256, 128, 3, 128, 128, 128, 128, 1, 1)
-_N_DENSITY_MATS = 9
-_N_DENSITY_BIASES = 9
-MAT_ELEMENTS = sum(a * b for a, b in _MAT_SHAPES)
-BIAS_ELEMENTS = sum(_BIAS_SIZES)
-DENSITY_MAT_ELEMENTS = sum(a * b for a, b in _MAT_SHAPES[:_N_DENSITY_MATS])
-DENSITY_BIAS_ELEMENTS = sum(_BIAS_SIZES[:_N_DENSITY_BIASES])
-
-
-class KernelWeights(NamedTuple):
-    """The field's per-sample weights packed for the fused kernels: every
-    padded matrix transposed to (out, in) and concatenated into ``mats``
-    (the compute dtype for the kernel wrappers; float32 for the
-    differentiable ops, which cast it); every bias, float32, into
-    ``biases``."""
-
-    mats: torch.Tensor
-    biases: torch.Tensor
-
-    @property
-    def dtype(self):
-        return self.mats.dtype
-
-
-def pack_kernel_weights(w, compute_dtype):
-    """FieldWeights (float32, (in, out) matrices) -> KernelWeights."""
-    flat = cast_matrices(pad_pe_rows(flatten_weights(w), with_transient=True), compute_dtype)
-    mats = [flat[i] for i in _MAT_IDX]
-    biases = [flat[i] for i in _BIAS_IDX]
-    got = tuple(tuple(m.shape) for m in mats)
-    if got != _MAT_SHAPES:
-        raise ValueError(f"fused kernels take the 8x256 EO-NeRF field; matrix shapes {got}")
-    return KernelWeights(torch.cat([m.t().reshape(-1) for m in mats]).contiguous(),
-                         torch.cat([b.reshape(-1).float() for b in biases]).contiguous())
-
-
-def kernel_views(kw: KernelWeights):
-    """KernelWeights -> FieldWeights of views: padded (in, out) matrices in
-    the compute dtype, (1, d) float32 biases. The plain versions read it."""
-    flat = [None] * 36
-    off = 0
-    for idx, (n_in, n_out) in zip(_MAT_IDX, _MAT_SHAPES):
-        flat[idx] = kw.mats[off:off + n_in * n_out].view(n_out, n_in).t()
-        off += n_in * n_out
-    off = 0
-    for idx, n in zip(_BIAS_IDX, _BIAS_SIZES):
-        flat[idx] = kw.biases[off:off + n].view(1, n)
-        off += n
-    return unflatten_weights(flat)
-
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _pe_lanes(device):
-    """Per PE lane: the xyz coordinate it reads and its power-of-two scale
-    (0 on the pad lane). Lanes are [x(3) | sin args(30) | cos args(30) | pad],
-    degree-major — the JAX package's 64-lane frequency pattern."""
-    c = torch.arange(PE_PAD, device=device)
-    j = torch.where(c < 3, c, torch.where(c < 33, (c - 3) % 3, (c - 33) % 3))
-    deg = torch.where(c < 3, 0, torch.where(c < 33, (c - 3) // 3, (c - 33) // 3))
-    scale = torch.where(c < 63, torch.ldexp(torch.ones_like(deg, dtype=torch.float32), deg), 0.0)
-    return j, scale
-
-
 def _pe_args(rayin, z):
     """(R, K, 64) PE arguments xb = o B + (d B) z in float32 (exact for the
     power-of-two B: one nonzero term per lane)."""
-    j, scale = _pe_lanes(rayin.device)
+    j, scale = pe_lanes(rayin.device)
     basis_o = rayin[:, 0:3][:, j] * scale
     basis_d = rayin[:, 3:6][:, j] * scale
     return basis_o[:, None, :] + basis_d[:, None, :] * z[:, :, None]
 
 
-def _pe_from_args(xb, dtype):
-    """(R*K, 64) PE of the samples, rounded to ``dtype``. In float32 the cos
-    lanes are exact cos; in other dtypes one phased sin(xb + pi/2) serves
-    both blocks."""
-    col = torch.arange(PE_PAD, device=xb.device)
-    if dtype == torch.float32:
-        pe = torch.where(col < 3, xb, torch.where(col < 33, torch.sin(xb),
-                         torch.where(col < 63, torch.cos(xb), 0.0)))
-    else:
-        phase = torch.where((col >= 33) & (col < 63), math.pi / 2, 0.0)
-        pe = torch.where(col < 3, xb, torch.where(col < 63, torch.sin(xb + phase), 0.0))
-    return pe.reshape(-1, PE_PAD).to(dtype)
+def _pe(rayin, z, dtype):
+    return pe_from_args(_pe_args(rayin, z), dtype)
 
 
 def _pe_deriv(xb, dtype):
@@ -157,18 +92,6 @@ def _pe_deriv(xb, dtype):
         d = torch.where(col < 3, 1.0,
                         torch.where(col < 63, torch.sin(xb + phase + math.pi / 2), 0.0))
     return d.reshape(-1, PE_PAD)
-
-
-def _pe(rayin, z, dtype):
-    return _pe_from_args(_pe_args(rayin, z), dtype)
-
-
-def _mm(a, w, b=None):
-    """a @ w (+ b) in float32: a and w hold compute-dtype values, whose
-    products are exact in float32, so this is the kernels' f32-accumulated
-    product up to summation order."""
-    out = a.float() @ w.float()
-    return out if b is None else out + b
 
 
 def _mm_t(g, w, dtype):
@@ -189,41 +112,26 @@ def _colsum(g):
     return g.float().sum(dim=0, keepdim=True)
 
 
-def _softplus(x):
-    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
-def _trunk(pe, w, dtype):
-    """Post-ReLU activations h0..h7 and the ReLU masks (compute dtype)."""
-    acts, masks = [], []
-    for i in range(8):
-        inp = pe if i == 0 else (torch.cat([acts[4], pe], dim=-1) if i == 5 else acts[-1])
-        pre = _mm(inp, w.trunk_w[i], w.trunk_b[i])
-        acts.append(torch.relu(pre).to(dtype))
-        masks.append((pre > 0).to(dtype))
-    return acts, masks
-
-
 def _heads(h, emb64, w, dtype):
     """Per-sample heads from the trunk output: (sigma, albedo, ts, tb) and
     the residuals their backward reads."""
-    sig_pre = _mm(h, w.sigma_w, w.sigma_b)
-    bott = _mm(h, w.bott_w, w.bott_b).to(dtype)
-    ah_pre = _mm(bott, w.alb_w0, w.alb_b0)
+    sig_pre = mm(h, w.sigma_w, w.sigma_b)
+    bott = mm(h, w.bott_w, w.bott_b).to(dtype)
+    ah_pre = mm(bott, w.alb_w0, w.alb_b0)
     ah = torch.relu(ah_pre).to(dtype)
-    albedo = torch.sigmoid(_mm(ah, w.alb_w1, w.alb_b1))
+    albedo = torch.sigmoid(mm(ah, w.alb_w1, w.alb_b1))
     t_in = torch.cat([bott, emb64.to(dtype)], dim=-1)
     t, t_acts, t_masks = t_in, [], []
     for i in range(4):
-        pre = _mm(t, w.tr_w[i], w.tr_b[i])
+        pre = mm(t, w.tr_w[i], w.tr_b[i])
         t = torch.relu(pre).to(dtype)
         t_acts.append(t)
         t_masks.append((pre > 0).to(dtype))
-    ts = torch.sigmoid(_mm(t, w.ts_w, w.ts_b))
-    tb_pre = _mm(t, w.tb_w, w.tb_b)
+    ts = torch.sigmoid(mm(t, w.ts_w, w.ts_b))
+    tb_pre = mm(t, w.tb_w, w.tb_b)
     res = dict(sig_pre=sig_pre, bott=bott, ah_pre=ah_pre, ah=ah, t_in=t_in,
                t_acts=t_acts, t_masks=t_masks, tb_pre=tb_pre)
-    return _softplus(sig_pre), albedo, ts, _softplus(tb_pre), res
+    return softplus(sig_pre), albedo, ts, softplus(tb_pre), res
 
 
 def _emb64(rayin, r, k):
@@ -239,7 +147,7 @@ def camera_forward_reference(weights: KernelWeights, rayin, z, deltam):
     r, k = z.shape
     z = z.float()
     pe = _pe(rayin.float(), z, dtype)
-    sigma, albedo, ts, tb, _ = _heads(_trunk(pe, w, dtype)[0][-1], _emb64(rayin, r, k), w,
+    sigma, albedo, ts, tb, _ = _heads(trunk(pe, w, dtype)[0][-1], _emb64(rayin, r, k), w,
                                       dtype)
     sdelta = sigma.view(r, k) * deltam.float()
     weights_rk = torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta))
@@ -255,9 +163,22 @@ def shadow_forward_reference(weights: KernelWeights, rayin, z, deltam, mask):
     w = kernel_views(weights)
     r, k = z.shape
     pe = _pe(rayin.float(), z.float(), dtype)
-    sigma = _softplus(_mm(_trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b)).view(r, k)
+    sigma = softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b)).view(r, k)
     sdelta = sigma * deltam.float()
     return torch.exp(-(sdelta * _before_last(mask)).sum(dim=-1))
+
+
+def coarse_forward_reference(weights: KernelWeights, rayin, z, deltam):
+    """Plain PyTorch version of :func:`coarse_forward`: the density trunk and
+    the per-sample weights T_i (1 - e^(-sigma_i deltam_i)) with the
+    EXCLUSIVE transmittance T_i, as ``render_weights``."""
+    dtype = weights.dtype
+    w = kernel_views(weights)
+    r, k = z.shape
+    pe = _pe(rayin.float(), z.float(), dtype)
+    sigma = softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b)).view(r, k)
+    sdelta = sigma * deltam.float()
+    return torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta))
 
 
 def _before_last(mask):
@@ -269,7 +190,7 @@ def _before_last(mask):
 
 def _pattern(device):
     """(3, 64) float32 B: the scale of each PE lane on the coordinate it reads."""
-    j, scale = _pe_lanes(device)
+    j, scale = pe_lanes(device)
     return torch.zeros((3, PE_PAD), device=device).index_put_(
         (j, torch.arange(PE_PAD, device=device)), scale)
 
@@ -325,8 +246,8 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
     r, k = z.shape
     z, deltam, gacc = z.float(), deltam.float(), gacc.float()
     xb = _pe_args(rayin.float(), z)
-    pe = _pe_from_args(xb, dtype)
-    acts, masks = _trunk(pe, w, dtype)
+    pe = pe_from_args(xb, dtype)
+    acts, masks = trunk(pe, w, dtype)
     h = acts[-1]
     sigma, albedo, ts, tb, res = _heads(h, _emb64(rayin, r, k), w, dtype)
 
@@ -390,12 +311,12 @@ def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, gg
     r, k = z.shape
     z, deltam = z.float(), deltam.float()
     xb = _pe_args(rayin.float(), z)
-    pe = _pe_from_args(xb, dtype)
-    acts, masks = _trunk(pe, w, dtype)
+    pe = pe_from_args(xb, dtype)
+    acts, masks = trunk(pe, w, dtype)
     h = acts[-1]
-    sig_pre = _mm(h, w.sigma_w, w.sigma_b)
+    sig_pre = mm(h, w.sigma_w, w.sigma_b)
     before_last = _before_last(mask)
-    geo = torch.exp(-(_softplus(sig_pre).view(r, k) * deltam * before_last).sum(dim=-1))
+    geo = torch.exp(-(softplus(sig_pre).view(r, k) * deltam * before_last).sum(dim=-1))
     d_ev = -geo * ggeo.float().reshape(-1)
     d_sigma = (d_ev[:, None] * before_last * deltam).reshape(-1, 1)
     g_sig_pre = d_sigma * torch.sigmoid(sig_pre)
@@ -421,34 +342,6 @@ def kpad_of(k):
     return ((max(k, 1) + 7) // 8) * 8
 
 
-def _check_f32(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_weights(weights: KernelWeights, device):
-    if weights.mats.device != device or weights.biases.device != device:
-        raise ValueError(f"weights must be on {device}")
-    if weights.mats.dtype != torch.bfloat16 or weights.biases.dtype != torch.float32:
-        raise TypeError("the CUDA kernels take bfloat16 matrices and float32 biases, got "
-                        f"{weights.mats.dtype} / {weights.biases.dtype}")
-    if (weights.mats.shape, weights.biases.shape) != ((MAT_ELEMENTS,), (BIAS_ELEMENTS,)):
-        raise ValueError("packed weights have the wrong size for the 8x256 field")
-    if not (weights.mats.is_contiguous() and weights.biases.is_contiguous()):
-        raise ValueError("packed weights must be contiguous")
-    if weights.mats.data_ptr() % 16:
-        raise ValueError("packed matrices must be 16-byte aligned")
-    if _build.kernel_weight_layout() != (MAT_ELEMENTS, BIAS_ELEMENTS,
-                                         DENSITY_MAT_ELEMENTS, DENSITY_BIAS_ELEMENTS):
-        raise RuntimeError("the compiled kernels index another weight layout than this module")
-
-
 def _padded(x, kpad):
     return F.pad(x, (0, kpad - x.shape[1])).contiguous()
 
@@ -462,10 +355,10 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam):
     r, k = z.shape
     kpad = kpad_of(k)
     dev = rayin.device
-    _check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    _check_f32("z", z, (r, k), dev)
-    _check_f32("deltam", deltam, (r, k), dev)
-    _check_weights(weights, dev)
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    check_f32("deltam", deltam, (r, k), dev)
+    check_weights(weights, dev)
     if kpad > MAX_KPAD:
         raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
     acc = torch.empty((r, ACC_COLS), dtype=torch.float32, device=dev)
@@ -495,11 +388,11 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask):
     r, k = z.shape
     kpad = kpad_of(k)
     dev = rayin.device
-    _check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    _check_f32("z", z, (r, k), dev)
-    _check_f32("deltam", deltam, (r, k), dev)
-    _check_f32("mask", mask, (r, k), dev)
-    _check_weights(weights, dev)
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    check_f32("deltam", deltam, (r, k), dev)
+    check_f32("mask", mask, (r, k), dev)
+    check_weights(weights, dev)
     if kpad > MAX_KPAD:
         raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
     geo = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -521,6 +414,39 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask):
 shadow_forward.launches = 0
 
 
+def coarse_forward(weights: KernelWeights, rayin, z, deltam):
+    """Per-sample compositing weights (R, K) of the density field for rays
+    (R, 16), z and deltam (R, K). CPU tensors: the plain version. CUDA
+    tensors: the hand-written bf16 kernel (raises if it cannot run)."""
+    if rayin.device.type == "cpu":
+        return coarse_forward_reference(weights, rayin, z, deltam)
+    r, k = z.shape
+    kpad = kpad_of(k)
+    dev = rayin.device
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    check_f32("deltam", deltam, (r, k), dev)
+    check_weights(weights, dev)
+    if kpad > MAX_KPAD:
+        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
+    out = torch.empty((r, kpad), dtype=torch.float32, device=dev)
+    if r == 0:
+        return out[:, :k]
+    zp, dp = _padded(z, kpad), _padded(deltam, kpad)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.eonerf_coarse_fwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
+                                     weights.mats.data_ptr(), weights.biases.data_ptr(),
+                                     out.data_ptr(), r, kpad, stream)
+    _build.check(code, "coarse_forward kernel launch")
+    coarse_forward.launches += 1
+    return out[:, :k]
+
+
+coarse_forward.launches = 0
+
+
 def _workspace(camera, r, kpad, dev):
     """The backward kernels' scratch (activations, cotangents and the
     partial sums of the fixed-order gradient reduction), sized by the
@@ -539,11 +465,11 @@ def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc):
     r, k = z.shape
     kpad = kpad_of(k)
     dev = rayin.device
-    _check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    _check_f32("z", z, (r, k), dev)
-    _check_f32("deltam", deltam, (r, k), dev)
-    _check_f32("gacc", gacc, (r, ACC_COLS), dev)
-    _check_weights(weights, dev)
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    check_f32("deltam", deltam, (r, k), dev)
+    check_f32("gacc", gacc, (r, ACC_COLS), dev)
+    check_weights(weights, dev)
     if kpad > MAX_KPAD:
         raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
     d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
@@ -580,12 +506,12 @@ def shadow_backward(weights: KernelWeights, rayin, z, deltam, mask, ggeo):
     r, k = z.shape
     kpad = kpad_of(k)
     dev = rayin.device
-    _check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    _check_f32("z", z, (r, k), dev)
-    _check_f32("deltam", deltam, (r, k), dev)
-    _check_f32("mask", mask, (r, k), dev)
-    _check_f32("ggeo", ggeo, (r,), dev)
-    _check_weights(weights, dev)
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    check_f32("deltam", deltam, (r, k), dev)
+    check_f32("mask", mask, (r, k), dev)
+    check_f32("ggeo", ggeo, (r,), dev)
+    check_weights(weights, dev)
     if kpad > MAX_KPAD:
         raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
     d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
@@ -658,3 +584,13 @@ def fused_camera(weights: KernelWeights, rayin, z, deltam, compute_dtype):
 def fused_shadow(weights: KernelWeights, rayin, z, deltam, mask, compute_dtype):
     """Differentiable shadow op, as :func:`fused_camera`."""
     return _Shadow.apply(weights.mats, weights.biases, rayin, z, deltam, mask, compute_dtype)
+
+
+def fused_coarse(weights: KernelWeights, rayin, z, deltam, compute_dtype):
+    """The coarse op, forward only: inputs and result cut from autograd (the
+    JAX package's ``stop_gradient`` around ``make_fused_coarse``), since the
+    hierarchical sampler draws its fine samples under a stop-gradient.
+    ``weights`` holds the float32 packed matrices, cast here."""
+    with torch.no_grad():
+        kw = KernelWeights(weights.mats.detach().to(compute_dtype), weights.biases.detach())
+        return coarse_forward(kw, rayin.detach(), z.detach(), deltam.detach())

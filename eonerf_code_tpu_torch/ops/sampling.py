@@ -4,7 +4,8 @@ Fixed-count uniform-in-depth sampling on [near, far] with stratified
 jitter (reference sat_rendering.py:46-84); out-of-cube samples are kept and
 masked, which is algebraically identical to the reference's point removal
 for transmittance and weights. The reference perturbs in eval too.
-Hierarchical ``sample_pdf`` arrives with the hierarchical-sampling slice.
+``sample_pdf`` draws the hierarchical sampler's fine samples from the
+coarse weights.
 """
 
 import torch
@@ -36,6 +37,32 @@ def stratified_z_vals(near, far, n_samples, perturb=True, generator=None):
                        generator=generator)
         z_vals = perturb_z_vals(z_vals, u)
     return z_vals
+
+
+def sample_pdf(bins, weights, n_importance, perturb=True, generator=None, eps=1e-5):
+    """Inverse-CDF draws of ``n_importance`` z values per ray from the
+    piecewise-constant PDF of ``weights`` (R, K) over the interval edges
+    ``bins`` (R, K+1); unsorted (R, n_importance). ``perturb=False`` draws
+    at linspace(0, 1 - 1e-6), else uniform noise from ``generator``
+    (the JAX package's ops/sampling.py:56-92)."""
+    weights = weights + eps   # no NaN on an empty ray
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
+    r = bins.shape[0]
+    if perturb:
+        u = torch.rand((r, n_importance), dtype=bins.dtype, device=bins.device,
+                       generator=generator)
+    else:
+        u = torch.linspace(0.0, 1.0 - 1e-6, n_importance, dtype=bins.dtype,
+                           device=bins.device).expand(r, n_importance).contiguous()
+    idx = torch.searchsorted(cdf, u, right=True)
+    below = (idx - 1).clamp(0, cdf.shape[-1] - 1)
+    above = idx.clamp(0, cdf.shape[-1] - 1)
+    cdf_lo, cdf_hi = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bin_lo = torch.gather(bins, -1, below.clamp(max=bins.shape[-1] - 1))
+    bin_hi = torch.gather(bins, -1, above.clamp(max=bins.shape[-1] - 1))
+    denom = torch.where(cdf_hi - cdf_lo < eps, torch.ones_like(cdf_hi), cdf_hi - cdf_lo)
+    return bin_lo + (u - cdf_lo) / denom * (bin_hi - bin_lo)
 
 
 def intervals_from_z(z_vals):

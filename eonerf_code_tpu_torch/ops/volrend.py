@@ -5,6 +5,8 @@ formulation, reference radiance_fields/eonerf.py:229-242 and
 sat_rendering.py:106-116). Invalid samples carry zero density.
 """
 
+import math
+
 import torch
 
 
@@ -40,6 +42,16 @@ def exit_transmittance(sigma, delta, mask=None):
     last_idx = k - 1 - torch.argmax(mask.flip(-1).to(torch.int32), dim=-1)
     excl = exclusive_cumsum(sdelta)
     return torch.exp(-torch.gather(excl, -1, last_idx[:, None])[:, 0])
+
+
+def weight_entropy(weights, eps=1e-10):
+    """Per-ray entropy of the normalized compositing weights (R, K) -> (R,),
+    scaled to [0, 1] by log(K): about 0 when a ray's mass sits on one
+    sample, 1 when it is spread evenly. The trainer's entropy gate reads
+    it."""
+    k = weights.shape[-1]
+    p = weights / (weights.sum(dim=-1, keepdim=True) + eps)
+    return -(p * torch.log(p + eps)).sum(dim=-1) / math.log(k)
 
 
 def accumulate(weights, values=None):

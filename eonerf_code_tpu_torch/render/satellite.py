@@ -1,10 +1,12 @@
 """The satellite renderer: one pass over a block of rays.
 
-stratified sampling -> field -> camera compositing -> shadow-ray sampling
-from the expected surface point toward the sun -> sigma-only field -> sun
-visibility -> irradiance + radiometric composite. A field with fused ops
-(``KernelField``) runs the per-sample work inside the fused camera and
-shadow kernels; any other field runs it per sample through the module.
+stratified sampling (optionally tightened to the occupancy grid's span, and
+refined by hierarchical fine samples from a coarse density pass) -> field
+-> camera compositing -> shadow-ray sampling from the expected surface
+point toward the sun -> sigma-only field -> sun visibility -> irradiance +
+radiometric composite. A field with fused ops (``KernelField``) runs the
+per-sample work inside the fused camera, shadow and coarse kernels; any
+other field runs it per sample through the module.
 
 Physics and composite (the reference's, as in the JAX package):
 - rgb = albedo*s + (1-s) * (0.2*ambient) * albedo, with s = geometric sun
@@ -17,9 +19,15 @@ Physics and composite (the reference's, as in the JAX package):
   ``shadowless_rgb`` = A*albedo + b, unclipped;
 - beta gets +beta_min after accumulation.
 
+An occupancy grid (``occ_grid``) is used one of two ways: with
+``occ_tighten`` each camera ray samples its occupied span
+(``OccupancyGrid.ray_span``; with ``occ_tighten_shadows`` the shadow march
+too), a random ``occ_explore_frac`` of the rays keeping the full range;
+without it, samples in empty cells are masked out.
+
 Random numbers come from an explicit ``torch.Generator`` (the JAX package
 takes a PRNG key); the two give different numbers from one seed, so parity
-is checked with ``perturb=False``.
+is checked with ``perturb=False`` and ``occ_explore_frac=0``.
 """
 
 import dataclasses
@@ -32,6 +40,7 @@ from eonerf_code_tpu_torch.ops.sampling import (
     intervals_from_z,
     linear_z_vals,
     perturb_z_vals,
+    sample_pdf,
     set_last_valid,
     stratified_z_vals,
 )
@@ -44,57 +53,113 @@ OUTPUT_KEYS = ("rgb", "depth", "albedo_rgb", "ambient_rgb", "geo_shadows", "tran
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Rendering options. Occupancy tightening, ray entropy and the nadir
-    opacity diagnostics of the JAX package's RenderConfig arrive with later
-    slices of the port."""
+    """Rendering options. Ray entropy and the nadir opacity diagnostics of
+    the JAX package's RenderConfig arrive with a later slice of the port."""
 
     n_samples: int = 128       # z values per camera ray (intervals = n-1)
     sc_n_samples: int = 128    # z values per shadow ray
-    n_importance: int = 0      # hierarchical fine samples (not in this slice)
+    n_importance: int = 0      # hierarchical fine samples from the coarse weights
     perturb: bool = True       # reference quirk: perturbed in train AND eval
     cube_bound: float = 1.0
     ambient_scale: float = 0.2
     ray_span: float = 2.0      # rays sampled on [near, near + 2]
     inf_delta: float = 1e10
+    occ_tighten: bool = False  # camera rays sample their occupied span (needs occ_grid)
+    occ_tighten_shadows: bool = False  # the same for the shadow march
+    occ_probes: int = 64       # probes per ray of the span walk
+    occ_margin: float = 2.0    # span widening, in probe spacings
+    occ_explore_frac: float = 0.25  # share of rays that keep the full range (0 for eval)
 
 
-def _check_supported(cfg, occ_grid):
-    if cfg.n_importance > 0:
-        raise NotImplementedError(
-            "n_importance > 0 (hierarchical sampling) comes with the port's "
-            "hierarchical-sampling slice, together with the coarse kernel")
-    if occ_grid is not None:
-        raise NotImplementedError(
-            "occupancy grids come with the port's occupancy slice")
+def _with_exploration(generator, t_lo, t_hi, near, far, frac):
+    """A random ``frac`` of the rays keeps its full [near, far] range (all (R,))
+    despite the occupancy span: exploring rays regrow density wherever the
+    grid is wrong, and the next grid update widens the spans."""
+    if frac <= 0.0:
+        return t_lo, t_hi
+    explore = torch.rand(t_lo.shape, dtype=t_lo.dtype, device=t_lo.device,
+                         generator=generator) < frac
+    return torch.where(explore, near, t_lo), torch.where(explore, far, t_hi)
 
 
-def _sample_block(origins, viewdirs, near, n_samples, span, perturb, bound, generator):
-    """Stratified z on [near, near + span]; returns (pos, z_mid, delta, mask)."""
-    z_vals = stratified_z_vals(near, near + span, n_samples, perturb=perturb,
-                               generator=generator)
+def _sample_block(origins, viewdirs, near, n_samples, span, perturb, bound, generator,
+                  far=None):
+    """Stratified z on [near, far] (far = near + span unless given per ray);
+    returns (pos, z_mid, delta, mask)."""
+    far = near + span if far is None else far
+    z_vals = stratified_z_vals(near, far, n_samples, perturb=perturb, generator=generator)
     _, _, z_mid, delta = intervals_from_z(z_vals)
     pos = origins[:, None, :] + viewdirs[:, None, :] * z_mid[..., None]
     return pos, z_mid, delta, cube_mask(pos, bound)
 
 
-def _camera_samples(o, d, near, cfg: RenderConfig, generator):
-    """Camera-ray samples (z_mid, delta, pos, mask). A ray whose samples all
-    fall outside the cube is re-sampled on the default range [0, span]
-    (sat_rendering.py:259-262, per ray here), with the same jitter."""
-    z_lin = linear_z_vals(near, near + cfg.ray_span, cfg.n_samples)
+def _camera_samples(o, d, near, cfg: RenderConfig, generator, field=None, occ_grid=None,
+                    weights=None):
+    """Camera-ray samples (z_mid, delta, pos, mask).
+
+    - With ``occ_tighten`` and a grid, each ray's range is first tightened
+      to its occupied span (with exploration); else [near, near + span].
+    - A ray whose samples all fall outside the cube is re-sampled on the
+      default range [0, span] (sat_rendering.py:259-262, per ray here),
+      with the same jitter draw.
+    - With ``n_importance`` > 0, fine samples are drawn from the weights of
+      a density-only coarse pass over those samples (the fused coarse op on
+      a kernel-backed field, whose packed ``weights`` may be handed in) and
+      merged, sorted, detached from autograd."""
+    far = near + cfg.ray_span
     z_dflt = linear_z_vals(torch.zeros_like(near), torch.full_like(near, cfg.ray_span),
                            cfg.n_samples)
+    u = (torch.rand(z_dflt.shape, dtype=z_dflt.dtype, device=z_dflt.device, generator=generator)
+         if cfg.perturb else None)
+    if occ_grid is not None and cfg.occ_tighten:
+        t_lo, t_hi = occ_grid.ray_span(o, d, near, far, n_probes=cfg.occ_probes,
+                                       margin=cfg.occ_margin)
+        t_lo, t_hi = _with_exploration(generator, t_lo, t_hi, near, far, cfg.occ_explore_frac)
+    else:
+        t_lo, t_hi = near, far
+    z_lin = linear_z_vals(t_lo, t_hi, cfg.n_samples)
     if cfg.perturb:
-        u = torch.rand(z_lin.shape, dtype=z_lin.dtype, device=z_lin.device,
-                       generator=generator)
         z_lin, z_dflt = perturb_z_vals(z_lin, u), perturb_z_vals(z_dflt, u)
     _, _, z_mid0, _ = intervals_from_z(z_lin)
     pos0 = o[:, None, :] + d[:, None, :] * z_mid0[..., None]
     has_valid = cube_mask(pos0, cfg.cube_bound).any(dim=-1)
     z_vals = torch.where(has_valid[:, None], z_lin, z_dflt)
+    if cfg.n_importance > 0:
+        with torch.no_grad():
+            _, _, zc_mid, c_delta = intervals_from_z(z_vals)
+            c_pos = o[:, None, :] + d[:, None, :] * zc_mid[..., None]
+            c_mask = cube_mask(c_pos, cfg.cube_bound)
+            c_deltam = set_last_valid(c_delta, c_mask, cfg.inf_delta)
+            if getattr(field, "supports_fused_render", False):
+                rayin = torch.cat([o, d, torch.zeros((o.shape[0], 10), dtype=o.dtype,
+                                                     device=o.device)], dim=1)
+                c_w = field.fused_coarse(field.pack() if weights is None else weights,
+                                         rayin.contiguous(), zc_mid.contiguous(),
+                                         (c_deltam * c_mask).contiguous())
+            else:
+                c_w, _, _ = render_weights(field.density(c_pos), c_deltam, c_mask)
+            z_fine = sample_pdf(z_vals, c_w, cfg.n_importance, perturb=cfg.perturb,
+                                generator=generator)
+        z_vals = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
     _, _, z_mid, delta = intervals_from_z(z_vals)
     pos = o[:, None, :] + d[:, None, :] * z_mid[..., None]
     return z_mid, delta, pos, cube_mask(pos, cfg.cube_bound)
+
+
+def _shadow_samples(sc_o, sc_d, near, cfg: RenderConfig, generator, occ_grid):
+    """Shadow-march samples (pos, z_mid, delta, mask) from the surface
+    points ``sc_o``, tightened to the occupied span with
+    ``occ_tighten_shadows`` and a grid (sat_rendering.py's march otherwise).
+    The span walk reads the detached points."""
+    if occ_grid is not None and cfg.occ_tighten_shadows:
+        sc_lo, sc_hi = occ_grid.ray_span(sc_o.detach(), sc_d, near, cfg.ray_span,
+                                         n_probes=cfg.occ_probes, margin=cfg.occ_margin)
+        sc_lo, sc_hi = _with_exploration(generator, sc_lo, sc_hi, near, near + cfg.ray_span,
+                                         cfg.occ_explore_frac)
+    else:
+        sc_lo, sc_hi = near, None
+    return _sample_block(sc_o, sc_d, sc_lo, cfg.sc_n_samples, cfg.ray_span, cfg.perturb,
+                         cfg.cube_bound, generator, far=sc_hi)
 
 
 def _corrected_origins(field, rays):
@@ -117,14 +182,17 @@ def render_rays(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generato
     """Render one block of rays; a dict of the 13 per-ray outputs of
     ``OUTPUT_KEYS`` (the reference's result keys, sat_rendering.py:322-334).
     Fields with fused ops take the fused branch, same math and keys."""
-    _check_supported(cfg, occ_grid)
     if getattr(field, "supports_fused_render", False):
-        return _render_rays_fused(field, rays, cfg, shadows, generator)
+        return _render_rays_fused(field, rays, cfg, shadows, generator, occ_grid)
     d, sun_d = rays.viewdirs, rays.sundirs
     o = _corrected_origins(field, rays)
     near = rays.t_near
 
-    z_mid, delta, pos, mask = _camera_samples(o, d, near, cfg, generator)
+    z_mid, delta, pos, mask = _camera_samples(o, d, near, cfg, generator, field, occ_grid)
+    if occ_grid is not None and not cfg.occ_tighten:
+        # empty-space masking (tightening concentrates the samples instead;
+        # masking there would zero the fallback rays' density)
+        mask = mask & occ_grid.query(pos)
     delta_cam = set_last_valid(delta, mask, cfg.inf_delta)
     sigma, albedo, ambient, t_s, t_beta = field(pos, sun_d, rays.img_idx)
     weights, _, _ = render_weights(sigma, delta_cam, mask)
@@ -138,9 +206,8 @@ def render_rays(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generato
 
     if shadows:
         sc_o = o + depth[:, None] * d
-        sc_pos, _, sc_delta, sc_mask = _sample_block(
-            sc_o, -sun_d, torch.zeros_like(near), cfg.sc_n_samples, cfg.ray_span,
-            cfg.perturb, cfg.cube_bound, generator)
+        sc_pos, _, sc_delta, sc_mask = _shadow_samples(sc_o, -sun_d, torch.zeros_like(near), cfg,
+                                                       generator, occ_grid)
         sc_sigma = field.density(sc_pos)
         geo_shadow = exit_transmittance(sc_sigma, sc_delta, sc_mask)[:, None]
         sc_pts = sc_mask.sum(dim=-1).to(albedo_acc.dtype)[:, None]
@@ -173,7 +240,8 @@ def _outputs(rgb, depth, albedo_acc, ambient_acc, geo_shadow, t_s_acc, beta_acc,
     }
 
 
-def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generator):
+def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generator,
+                       occ_grid):
     """render_rays' fused branch: sampling and the per-ray composite stay in
     PyTorch, the per-sample work runs in the fused camera and shadow ops
     with per-ray input. Differentiable; nothing here writes in place into a
@@ -183,9 +251,12 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
     near = rays.t_near
     r = o.shape[0]
 
-    z_mid, delta, _, mask = _camera_samples(o, d, near, cfg, generator)
-    deltam = set_last_valid(delta, mask, cfg.inf_delta) * mask
     w = field.pack()
+    z_mid, delta, pos, mask = _camera_samples(o, d, near, cfg, generator, field, occ_grid,
+                                              weights=w)
+    if occ_grid is not None and not cfg.occ_tighten:
+        mask = mask & occ_grid.query(pos)
+    deltam = set_last_valid(delta, mask, cfg.inf_delta) * mask
     emb = field.transient_embedding(rays.img_idx).to(o.dtype)
     rayin = torch.cat([o, d, emb, torch.zeros((r, 6), dtype=o.dtype, device=o.device)], dim=1)
     acc = field.fused_camera(w, rayin.contiguous(), z_mid.contiguous(), deltam.contiguous())
@@ -201,9 +272,8 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
         sc_d = -sun_d
         # the march is sampled from the detached origin; the gradient reaches
         # sc_o (and through it depth) only through rayin_sc
-        _, sc_z, sc_delta, sc_mask = _sample_block(
-            sc_o.detach(), sc_d, torch.zeros_like(near), cfg.sc_n_samples, cfg.ray_span,
-            cfg.perturb, cfg.cube_bound, generator)
+        _, sc_z, sc_delta, sc_mask = _shadow_samples(sc_o.detach(), sc_d, torch.zeros_like(near),
+                                                     cfg, generator, occ_grid)
         rayin_sc = torch.cat([sc_o, sc_d, torch.zeros((r, 10), dtype=o.dtype, device=o.device)],
                              dim=1)
         geo = field.fused_shadow(w, rayin_sc.contiguous(), sc_z.contiguous(),
@@ -220,18 +290,21 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
 
 
 def render_depth(field, rays: SatRays, cfg: RenderConfig, generator=None, occ_grid=None):
-    """Depth only, (R, 1) (reference sat_rendering.py:227-249): sigma-only
+    """Depth only, (R, 1) (reference sat_rendering.py:227-249), with the
+    same sampling as ``render_rays`` (hierarchical, tightened): sigma-only
     per-sample passes, or the fused camera op's depth column on a
     kernel-backed field."""
-    _check_supported(cfg, occ_grid)
     o = _corrected_origins(field, rays)
-    z_mid, delta, pos, mask = _camera_samples(o, rays.viewdirs, rays.t_near, cfg, generator)
+    fused = getattr(field, "supports_fused_render", False)
+    w = field.pack() if fused else None
+    z_mid, delta, pos, mask = _camera_samples(o, rays.viewdirs, rays.t_near, cfg, generator,
+                                              field, occ_grid, weights=w)
     delta_cam = set_last_valid(delta, mask, cfg.inf_delta)
-    if getattr(field, "supports_fused_render", False):
+    if fused:
         r = o.shape[0]
         rayin = torch.cat([o, rays.viewdirs,
                            torch.zeros((r, 10), dtype=o.dtype, device=o.device)], dim=1)
-        acc = field.fused_camera(field.pack(), rayin.contiguous(), z_mid.contiguous(),
+        acc = field.fused_camera(w, rayin.contiguous(), z_mid.contiguous(),
                                  (delta_cam * mask).contiguous())
         return acc[:, 0:1]
     weights, _, _ = render_weights(field.density(pos), delta_cam, mask)
@@ -244,13 +317,12 @@ def render_image(field, rays: SatRays, cfg: RenderConfig, shadows: bool, chunk: 
     """Render any number of rays as a loop over ``chunk``-ray blocks (the
     last may be shorter); returns a dict of (N, ...) outputs, ``{"depth"}``
     alone with ``depth_only``. Peak memory is bounded by the chunk."""
-    _check_supported(cfg, occ_grid)
     n = rays.origins.shape[0]
     outs = []
     for start in range(0, n, chunk):
         block = SatRays(*(x[start:start + chunk] for x in rays))
         if depth_only:
-            outs.append({"depth": render_depth(field, block, cfg, generator)})
+            outs.append({"depth": render_depth(field, block, cfg, generator, occ_grid)})
         else:
-            outs.append(render_rays(field, block, cfg, shadows, generator))
+            outs.append(render_rays(field, block, cfg, shadows, generator, occ_grid))
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}

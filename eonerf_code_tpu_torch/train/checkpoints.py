@@ -1,5 +1,6 @@
-"""Checkpoints: ``torch.save`` of ``{params, opt_state, step, epoch, rng}``
-into ``<log_dir>/ckpts/epoch=<tag>/state.pt`` (the JAX package's directory
+"""Checkpoints: ``torch.save`` of the trainer's state dict (params,
+opt_state, step, epoch, rng, and the occupancy grid and gate history) into
+``<log_dir>/ckpts/epoch=<tag>/state.pt`` (the JAX package's directory
 names). Integer tags are idempotent: an existing one is never overwritten,
 so a resumed run cannot destroy the checkpoint it started from. Named tags
 ("best") are overwritten. Writes go to a temporary file first and are

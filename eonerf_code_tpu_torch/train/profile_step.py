@@ -1,16 +1,19 @@
 """Where a training step's device time goes, by kernel, on one CUDA card.
 
     python -m eonerf_code_tpu_torch.train.profile_step [--steps 10]
+        [--sampler uniform|hierarchical]
 
 Builds the training configuration ``chip_smoke.py`` drives (full-width
 bf16 field, batch 1024, 128 camera / 64 shadow samples, a synthetic pool
-of 2^20 rays over 20 views), takes warm-up steps past the shadow and beta
-gates, then traces ``--steps`` steps with ``torch.profiler``. Prints one
-JSON object: device milliseconds per step for each group of kernels (the
-fused forwards, the three passes and the reduction of each backward, Adam,
-the rest), the step's host-clock milliseconds, and the device's idle share
-(1 - device kernel time / step time). Exits 1 without a CUDA device, and 2
-when the trace holds no device time.
+of 2^20 rays over 20 views; ``--sampler hierarchical``: 96 coarse + 48
+fine camera samples, as sampler="auto" resolves on a wide envelope), takes
+warm-up steps past the shadow and beta gates, then traces ``--steps``
+steps with ``torch.profiler``. Prints one JSON object: device milliseconds
+per step for each group of kernels (the fused forwards, the coarse pass,
+the three passes and the reduction of each backward, Adam, the rest), the
+step's host-clock milliseconds, and the device's idle share (1 - device
+kernel time / step time). Exits 1 without a CUDA device, and 2 when the
+trace holds no device time.
 """
 
 import argparse
@@ -24,11 +27,13 @@ import time
 import torch
 
 # kernel groups by a substring of the CUDA kernel's name, first match wins
+# (fused_fwd_kernel<MODE, BWD>: MODE 0 camera, 1 shadow, 2 coarse)
 GROUPS = (
-    ("camera_fwd", "fused_fwd_kernel<true, false>"),
-    ("shadow_fwd", "fused_fwd_kernel<false, false>"),
-    ("camera_bwd_recompute", "fused_fwd_kernel<true, true>"),
-    ("shadow_bwd_recompute", "fused_fwd_kernel<false, true>"),
+    ("camera_fwd", "fused_fwd_kernel<0, false>"),
+    ("shadow_fwd", "fused_fwd_kernel<1, false>"),
+    ("coarse_fwd", "fused_fwd_kernel<2, false>"),
+    ("camera_bwd_recompute", "fused_fwd_kernel<0, true>"),
+    ("shadow_bwd_recompute", "fused_fwd_kernel<1, true>"),
     ("camera_bwd_dgrad", "dgrad_kernel<true>"),
     ("shadow_bwd_dgrad", "dgrad_kernel<false>"),
     ("camera_bwd_wgrad", "wgrad_kernel<true>"),
@@ -49,6 +54,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=12)
+    ap.add_argument("--sampler", choices=("uniform", "hierarchical"), default="uniform")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -61,7 +67,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     logs = tempfile.mkdtemp(prefix="profile_step_", dir=".")
     try:
-        cfg = TrainConfig(logs_dir=logs, exp_name="profile", sampler="uniform",
+        cfg = TrainConfig(logs_dir=logs, exp_name="profile", sampler=args.sampler,
                           occ_enabled=False, bwd_acts="recompute", compute_dtype="bfloat16",
                           batch_size=1024, n_samples=128, sc_n_samples=64,
                           first_shadow_step=args.warmup // 2, first_beta_step=args.warmup // 2,
@@ -89,7 +95,7 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     device_ms = sum(per_group.values())
-    print(json.dumps({"steps": args.steps, "ms_per_step": step_ms,
+    print(json.dumps({"sampler": args.sampler, "steps": args.steps, "ms_per_step": step_ms,
                       "device_ms_per_step": per_group, "device_ms_total": device_ms,
                       "idle_share": 1.0 - device_ms / step_ms if step_ms else None,
                       "card": card}), flush=True)

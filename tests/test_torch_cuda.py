@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
+from eonerf_code_tpu_torch.models.fused import KernelField
+from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 from eonerf_code_tpu_torch.ops.fused_field import flatten_weights, pack_params
 from eonerf_code_tpu_torch.ops.sampling import set_last_valid
@@ -45,7 +47,7 @@ def weights(dev):
     field = EONerfField(6, compute_dtype=torch.bfloat16, device=dev,
                         generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        return fr.pack_kernel_weights(pack_params(field), torch.bfloat16)
+        return ff.pack_kernel_weights(pack_params(field), torch.bfloat16)
 
 
 def _inputs(dev, r, k, seed):
@@ -64,15 +66,24 @@ def _inputs(dev, r, k, seed):
     return t(rayin), t(z), t(delta * mask), t(mask)
 
 
-def _check(got, ref):
+# Coarse weights: a ray's weights sum to at most 1, so a typical weight over
+# tens of samples is about 1e-2; held at a tenth of that at worst and at 1 %
+# of the mean weight on average.
+COARSE_TOL = {"max_abs": 1e-3, "mean_abs": 1e-4, "mean_rel": 1e-2}
+
+
+def _check(got, ref, tol=TOL):
     torch.cuda.synchronize()
     err = (got - ref).abs()
     assert bool(torch.isfinite(got).all())
-    assert float(err.max()) < TOL["max_abs"] and float(err.mean()) < TOL["mean_abs"], (
+    assert float(err.max()) < tol["max_abs"] and float(err.mean()) < tol["mean_abs"], (
         float(err.max()), float(err.mean()))
+    if "mean_rel" in tol:
+        assert float(err.mean()) < tol["mean_rel"] * float(ref.abs().mean()), (
+            float(err.mean()), float(ref.abs().mean()))
 
 
-@pytest.mark.parametrize("r,k", [(37, 17), (64, 63), (33, 127), (9, 200)])
+@pytest.mark.parametrize("r,k", [(37, 17), (64, 63), (33, 127), (9, 200), (50, 95), (40, 143)])
 def test_kernels_match_plain_versions(dev, weights, r, k):
     rayin, z, deltam, mask = _inputs(dev, r, k, seed=k)
     n_cam, n_sh = fr.camera_forward.launches, fr.shadow_forward.launches
@@ -86,7 +97,7 @@ def test_kernels_match_plain_versions(dev, weights, r, k):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
     rayin, z, deltam, mask = _inputs(dev, 8, 16, seed=0)
-    f32 = fr.KernelWeights(weights.mats.float(), weights.biases)
+    f32 = ff.KernelWeights(weights.mats.float(), weights.biases)
     with pytest.raises(TypeError):
         fr.camera_forward(f32, rayin, z, deltam)
     with pytest.raises(ValueError):
@@ -104,7 +115,7 @@ def _rel_l2(got, ref):
 def _check_grads(got, ref):
     """Every weight-gradient tensor and d_rayin within GRAD_REL_L2."""
     torch.cuda.synchronize()
-    views = [flatten_weights(fr.kernel_views(fr.KernelWeights(m, b)))
+    views = [flatten_weights(ff.kernel_views(ff.KernelWeights(m, b)))
              for m, b, _ in (got, ref)]
     errs = [_rel_l2(g, r) for g, r in zip(*views)] + [_rel_l2(got[2], ref[2])]
     assert all(bool(torch.isfinite(t).all()) for t in got)
@@ -115,7 +126,7 @@ def _camera_deltam(deltam, mask):
     return (set_last_valid(deltam, mask.bool(), 1e10) * mask).contiguous()
 
 
-@pytest.mark.parametrize("r,k", [(37, 17), (64, 63), (1024, 127), (9, 200)])
+@pytest.mark.parametrize("r,k", [(37, 17), (64, 63), (1024, 127), (9, 200), (1024, 143)])
 def test_backward_kernels_match_plain_versions(dev, weights, r, k):
     rayin, z, deltam, mask = _inputs(dev, r, k, seed=k)
     gen = torch.Generator(device=dev).manual_seed(k)
@@ -127,7 +138,7 @@ def test_backward_kernels_match_plain_versions(dev, weights, r, k):
                  fr.camera_backward_reference(weights, rayin, z, dcam, gacc))
     got = fr.shadow_backward(weights, rayin, z, deltam, mask, ggeo)
     _check_grads(got, fr.shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo))
-    assert float(got[0][fr.DENSITY_MAT_ELEMENTS:].abs().max()) == 0.0   # heads: exact zeros
+    assert float(got[0][ff.DENSITY_MAT_ELEMENTS:].abs().max()) == 0.0   # heads: exact zeros
     assert (fr.camera_backward.launches, fr.shadow_backward.launches) == (n_cam + 1, n_sh + 1)
 
 
@@ -150,7 +161,7 @@ def test_autograd_functions_launch_the_kernels(dev, weights):
     mats = weights.mats.float().requires_grad_()
     biases = weights.biases.clone().requires_grad_()
     ray = rayin.clone().requires_grad_()
-    kw = fr.KernelWeights(mats, biases)
+    kw = ff.KernelWeights(mats, biases)
     before = (fr.camera_backward.launches, fr.shadow_backward.launches)
     acc = fr.fused_camera(kw, ray, z, _camera_deltam(deltam, mask), torch.bfloat16)
     geo = fr.fused_shadow(kw, ray, z, deltam, mask, torch.bfloat16)
@@ -164,10 +175,78 @@ def test_autograd_functions_launch_the_kernels(dev, weights):
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
     rayin, z, deltam, mask = _inputs(dev, 8, 16, seed=0)
     gacc = torch.zeros((8, fr.ACC_COLS), device=dev)
-    f32 = fr.KernelWeights(weights.mats.float(), weights.biases)
+    f32 = ff.KernelWeights(weights.mats.float(), weights.biases)
     with pytest.raises(TypeError):
         fr.camera_backward(f32, rayin, z, deltam, gacc)
     with pytest.raises(ValueError):
         fr.camera_backward(weights, rayin, z, deltam, gacc[:, :4].contiguous())
     with pytest.raises(TypeError):
         fr.shadow_backward(weights, rayin, z, deltam, mask, torch.zeros(8, device=dev).double())
+
+
+@pytest.mark.parametrize("r,k", [(37, 17), (64, 63), (4096, 95), (40, 143), (9, 200)])
+def test_coarse_kernel_matches_plain_version(dev, weights, r, k):
+    """Per-sample weights, held at the scale of the weights (COARSE_TOL).
+    The last valid sample carries the 1e10 sentinel."""
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=k + 1)
+    dcam = _camera_deltam(deltam, mask)
+    n = fr.coarse_forward.launches
+    got = fr.coarse_forward(weights, rayin, z, dcam)
+    assert got.shape == (r, k)
+    _check(got, fr.coarse_forward_reference(weights, rayin, z, dcam), COARSE_TOL)
+    assert float(got[5 if r > 5 else r - 1].abs().max()) == 0.0    # no valid sample
+    assert fr.coarse_forward.launches == n + 1
+
+
+def _check_sigma(got, ref):
+    """sigma is unbounded: held relative to the largest reference value."""
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = (got - ref).abs() / scale
+    assert bool(torch.isfinite(got).all())
+    assert float(err.max()) < TOL["max_abs"] and float(err.mean()) < TOL["mean_abs"], (
+        float(err.max()), float(err.mean()))
+
+
+@pytest.mark.parametrize("n", [5, 128, 1000, 131072])
+def test_density_kernel_matches_plain_version(dev, weights, n):
+    """Fewer points than one tile, exactly one, a ragged last tile, the
+    entropy probe's 2048 x 64 points."""
+    pos = torch.from_numpy(np.random.default_rng(n).uniform(-1, 1, (n, 3)).astype(np.float32))
+    pos = pos.to(dev)
+    before = ff.density_forward.launches
+    got = ff.density_forward(weights, pos)
+    assert got.shape == (n,)
+    _check_sigma(got, ff.density_forward_reference(weights, pos))
+    assert ff.density_forward.launches == before + 1
+
+
+def test_density_and_coarse_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
+    pos = torch.zeros((16, 3), device=dev)
+    f32 = ff.KernelWeights(weights.mats.float(), weights.biases)
+    with pytest.raises(TypeError):
+        ff.density_forward(f32, pos)
+    with pytest.raises(ValueError):
+        ff.density_forward(weights, pos[:, :2].contiguous())
+    with pytest.raises(TypeError):
+        ff.density_forward(weights, pos.double())
+    assert ff.density_forward(weights, pos[:0]).shape == (0,)
+    rayin, z, deltam, _ = _inputs(dev, 8, 16, seed=0)
+    with pytest.raises(TypeError):
+        fr.coarse_forward(f32, rayin, z, deltam)
+    with pytest.raises(ValueError):
+        fr.coarse_forward(weights, rayin, z, deltam[:, :8].contiguous())
+
+
+def test_kernel_field_density_launches_and_has_no_gradient(dev):
+    """KernelField.density reaches the density kernel; a gradient that
+    reaches the op raises instead of being dropped."""
+    field = EONerfField(3, compute_dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(1))
+    kf = KernelField(field)
+    pos = torch.rand((4, 50, 3), device=dev) * 2 - 1
+    before = ff.density_forward.launches
+    sigma = kf.density(pos)
+    assert sigma.shape == (4, 50) and ff.density_forward.launches == before + 1
+    with pytest.raises(NotImplementedError, match="row 9"):
+        sigma.sum().backward()

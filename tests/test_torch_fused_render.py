@@ -14,6 +14,7 @@ from eonerf_code_tpu.ops.pallas.fused_render import make_fused_camera, make_fuse
 from eonerf_code_tpu.ops.sampling import set_last_valid as jax_set_last_valid
 from eonerf_code_tpu_torch.interop.jax_params import field_state_from_jax
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
+from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 from eonerf_code_tpu_torch.ops.fused_field import pack_params, pad_pe_rows, flatten_weights
 
@@ -53,7 +54,7 @@ def _rayin(o, d, emb):
 
 def _kernel_weights(tf, dtype=torch.float32):
     with torch.no_grad():
-        return fr.pack_kernel_weights(pack_params(tf), dtype)
+        return ff.pack_kernel_weights(pack_params(tf), dtype)
 
 
 def test_camera_reference_matches_pallas(setup):
@@ -110,16 +111,16 @@ def test_kernel_weight_packing_round_trip(setup, dtype):
     tf = setup[1]
     with torch.no_grad():
         w = pack_params(tf)
-    kw = fr.pack_kernel_weights(w, dtype)
-    assert kw.mats.shape == (fr.MAT_ELEMENTS,) and kw.biases.shape == (fr.BIAS_ELEMENTS,)
+    kw = ff.pack_kernel_weights(w, dtype)
+    assert kw.mats.shape == (ff.MAT_ELEMENTS,) and kw.biases.shape == (ff.BIAS_ELEMENTS,)
     assert kw.dtype == dtype and kw.biases.dtype == torch.float32
     padded = pad_pe_rows(flatten_weights(w), with_transient=True)
-    for a, b in zip(flatten_weights(fr.kernel_views(kw)), padded):
+    for a, b in zip(flatten_weights(ff.kernel_views(kw)), padded):
         assert a.shape == b.shape
         assert torch.equal(a.float(), b.to(a.dtype).float())
     # the density prefix (trunk + sigma head) is what the shadow kernel reads
-    assert fr.DENSITY_MAT_ELEMENTS == 64 * 256 + 4 * 256 * 256 + 320 * 256 + 2 * 256 * 256 + 256
-    assert fr.DENSITY_BIAS_ELEMENTS == 8 * 256 + 1
+    assert ff.DENSITY_MAT_ELEMENTS == 64 * 256 + 4 * 256 * 256 + 320 * 256 + 2 * 256 * 256 + 256
+    assert ff.DENSITY_BIAS_ELEMENTS == 8 * 256 + 1
 
 
 def test_kpad_and_padding_are_inert(setup):

@@ -17,6 +17,7 @@ from eonerf_code_tpu.ops.pallas.fused_render import make_fused_camera, make_fuse
 from eonerf_code_tpu.ops.sampling import set_last_valid as jax_set_last_valid
 from eonerf_code_tpu_torch.interop.jax_params import field_state_from_jax
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
+from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 from eonerf_code_tpu_torch.ops.fused_field import flatten_weights, pack_params, unpad_pe_rows
 
@@ -58,7 +59,7 @@ def setup():
     gacc = rng.normal(size=(r, fr.ACC_COLS)).astype(np.float32)
     ggeo = rng.normal(size=(r,)).astype(np.float32)
     with torch.no_grad():
-        kw = fr.pack_kernel_weights(pack_params(tf), torch.float32)
+        kw = ff.pack_kernel_weights(pack_params(tf), torch.float32)
     return dict(params=params, kw=kw, rayin=rayin, z=z, mask=mask, idx=idx,
                 deltam_cam=deltam_cam, deltam_sh=(delta * mask).astype(np.float32),
                 gacc=gacc, ggeo=ggeo)
@@ -70,7 +71,7 @@ def _t(a):
 
 def _field_grads(d_mats, d_biases):
     """Packed gradients -> the 36 unpadded FieldWeights-order tensors."""
-    views = flatten_weights(fr.kernel_views(fr.KernelWeights(d_mats, d_biases)))
+    views = flatten_weights(ff.kernel_views(ff.KernelWeights(d_mats, d_biases)))
     return unpad_pe_rows(views, with_transient=True)
 
 
@@ -138,7 +139,7 @@ def test_backward_reference_matches_autograd(setup, op):
     mats = s["kw"].mats.clone().requires_grad_()
     biases = s["kw"].biases.clone().requires_grad_()
     rayin = _t(s["rayin"]).requires_grad_()
-    kw = fr.KernelWeights(mats, biases)
+    kw = ff.KernelWeights(mats, biases)
     z = _t(s["z"])
     if op == "camera":
         out = fr.camera_forward_reference(kw, rayin, z, _t(s["deltam_cam"]))
@@ -162,14 +163,14 @@ def test_functions_give_the_plain_backward(setup, dtype):
     mats = s["kw"].mats.clone().requires_grad_()
     biases = s["kw"].biases.clone().requires_grad_()
     rayin = _t(s["rayin"]).requires_grad_()
-    kw = fr.KernelWeights(mats, biases)
+    kw = ff.KernelWeights(mats, biases)
     z, dcam, dsh = _t(s["z"]), _t(s["deltam_cam"]), _t(s["deltam_sh"])
     maskf = _t(s["mask"].astype(np.float32))
     before = (fr.camera_backward.launches, fr.shadow_backward.launches)
     acc = fr.fused_camera(kw, rayin, z, dcam, dtype)
     geo = fr.fused_shadow(kw, rayin, z, dsh, maskf, dtype)
     ((acc * _t(s["gacc"])).sum() + (geo * _t(s["ggeo"])).sum()).backward()
-    kw_cd = fr.KernelWeights(s["kw"].mats.to(dtype), s["kw"].biases)
+    kw_cd = ff.KernelWeights(s["kw"].mats.to(dtype), s["kw"].biases)
     cam = fr.camera_backward_reference(kw_cd, _t(s["rayin"]), z, dcam, _t(s["gacc"]))
     sh = fr.shadow_backward_reference(kw_cd, _t(s["rayin"]), z, dsh, maskf, _t(s["ggeo"]))
     assert mats.grad.dtype == biases.grad.dtype == torch.float32

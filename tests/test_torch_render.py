@@ -133,13 +133,12 @@ def test_perturbed_sampling_follows_the_generator(scene):
     assert bool((delta > 0).all()) and bool((z_mid >= 0).all()) and bool((z_mid <= 2).all())
 
 
-def test_unported_options_raise(scene):
-    _, _, tf, rays_t, ts = scene
-    _, t_rays = _rays(rays_t, ts)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        tsat.render_rays(tf, t_rays, tsat.RenderConfig(n_importance=8), shadows=True)
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        tsat.render_depth(tf, t_rays, tsat.RenderConfig(), occ_grid=object())
+def test_unported_options_raise():
+    """Ray entropy and the nadir diagnostics, the JAX RenderConfig's two
+    extras that force its per-sample path, are not in the port yet."""
+    for option in ("compute_entropy", "nadir_diagnostics"):
+        with pytest.raises(TypeError):
+            tsat.RenderConfig(**{option: True})
 
 
 def test_make_render_field_picks_the_per_sample_path_off_the_card(scene):

@@ -376,9 +376,15 @@ def test_checkpoint_tags(tmp_path):
     assert ckpt_lib.latest_checkpoint(str(tmp_path)).endswith("epoch=3")
 
 
-@pytest.mark.parametrize("option", [dict(occ_enabled=True), dict(n_importance=8),
-                                    dict(sampler="auto"), dict(freq_reg_end_step=100),
-                                    dict(bwd_acts="saved")])
-def test_unported_options_raise(tmp_path, option):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("option,error", [
+    (dict(freq_reg_end_step=100), NotImplementedError),
+    (dict(bwd_acts="saved"), NotImplementedError),
+    (dict(sampler="auto"), ValueError),               # no altitude envelope given
+    (dict(sampler="stratified"), ValueError),
+    (dict(freq_reg_end_step=100, sampler="auto"), NotImplementedError)])
+def test_unported_options_raise(tmp_path, option, error):
+    """Options whose code waits for a later slice raise NotImplementedError;
+    the auto sampler without the scene's altitude envelope and an unknown
+    sampler raise ValueError."""
+    with pytest.raises(error):
         tloop.Trainer(_small_cfg(tmp_path, **option), _pool(), 2, device="cpu")
