@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render-and-DSM path, its training step and its
-sampler=auto training (hierarchical and occupancy-tightened) once on one
-CUDA card.
+"""Drive the PyTorch port's render-and-DSM path, its training step, its
+sampler=auto training (hierarchical and occupancy-tightened) and its
+per-sample branch (ray entropy and the nadir diagnostics, render and
+training) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -17,10 +18,15 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  K=63), their backwards at the training shapes (1024 rays,
                  camera K=127 and K=143, a random cotangent), the
                  coarse-weights kernel at the hierarchical render's (4096
-                 rays, K=95) and the density kernel at the entropy probe's
-                 (2048 x 64 points): errors, kernel / plain / bound times,
-                 in-cube samples and TFLOP/s reached. A second shape of a
-                 kernel goes into its summary row under other_shapes.
+                 rays, K=95), the density kernel at the entropy probe's
+                 (2048 x 64 points) and at the diagnostics render's shadow
+                 pass and probes (4096 x 63), the per-point field kernel at
+                 a render chunk's camera samples (4096 x 127 points), its
+                 backward at a training batch's (1024 x 127) and the density
+                 backward at the batch's shadow samples (1024 x 63), random
+                 cotangents: errors, kernel / plain / bound times, in-cube
+                 samples and TFLOP/s reached. A second shape of a kernel goes
+                 into its summary row under other_shapes.
 3. render      - a full-width EONerfField (20 images, seeded init, bf16)
                  behind make_render_field renders a 512x512 orthographic
                  nadir sweep with shadows in 4096-ray chunks. All 13
@@ -59,6 +65,24 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  its occupied fraction, as the JAX package's tests seed a
                  converged history, so steps 1-7 sample tightened (checked,
                  and timed). Losses finite, parameters moved, ms per step.
+8. render_diag - the phase-3 sweep with ray entropy and the nadir
+                 diagnostics on, which take the per-sample branch: the
+                 field kernel once per chunk, the density kernel three times
+                 (shadow pass, downward and upward probe), the camera and
+                 shadow kernels never. Outputs finite, entropy in
+                 [0, log10(127)], the probes in [0, 1]; on a 1024-ray subset
+                 depth and rgb against the fused branch, the diagnostics
+                 against the per-sample module path; rays/s and chunk ms
+                 against the kernels timed alone.
+9. train_diag  - make_train_step on the kernel-backed field of a new
+                 full-width bf16 field with ray entropy on (the per-sample
+                 branch), batch 1024, 128 camera and 64 shadow samples, 20
+                 steps on the pool, shadows and the beta loss from step 10:
+                 the field kernel forward and backward once per step, the
+                 density kernel forward and backward once per shadow step.
+                 Losses finite, parameters moved, the whole-step gradient of
+                 one batch against the per-sample module path; then 10
+                 timed steps.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -97,6 +121,16 @@ PATH_TOL = {"depth_mean_abs": 2e-2, "rgb_mean_abs": 2e-2}
 # the few samples that carry most of a ray's cotangent; over 1024 rays the
 # worst tensor stayed under 0.9 % in tests/test_torch_cuda.py.
 BWD_REL_L2 = 1e-2
+# The per-point backwards (field, density) under a random cotangent on every
+# point: each point carries a full share of every gradient, so a mask or
+# rounding that flips at any point moves the sums more than under the ray
+# backwards' compositing cotangent, which a few samples a ray dominate.
+# Measured on NVIDIA H100 80GB HBM3, 700 W: worst tensor 1.95e-2 (field)
+# and 7.2e-3 (density). Both bf16 versions lie 11 % from the plain version
+# in float32 and the kernel no farther than the plain one (ratio 1.001 and
+# 0.995), held at 1.1.
+POINT_BWD_REL_L2 = 3e-2
+POINT_BWD_F32_RATIO = 1.1
 N_TRAIN = 1024             # rays per training batch (TrainConfig's default)
 N_POOL = 1 << 20           # rays in the training pool
 N_VIEWS = 20
@@ -122,6 +156,20 @@ COMPACT_UPDATE_EVERY = 8
 # adds and heads. Measured 3.9e-3 on NVIDIA H100 80GB HBM3, 700 W; held at
 # 5x that.
 GRAD_PATH_REL_L2 = 2e-2
+# The per-sample branch (train_diag) adds the shadow term's d_pos chain at
+# every shadow sample. There the kernel path and the module's bf16 path lie
+# 1.41e-2 and 1.51e-2 from the module in float32 and 2.01e-2 from each
+# other, about the quadrature sum of two independent errors (H100, 700 W).
+# Held: the kernel path against the float32 module at GRAD_PATH_REL_L2,
+# against the bf16 module at twice that.
+GRAD_PATH_DIAG_REL_L2 = 2 * GRAD_PATH_REL_L2
+# Ray entropy and the nadir probes, kernel per-sample branch vs the module's
+# per-sample path on the 1024-ray subset: the module rounds as flax does
+# (bf16 bias adds and heads), the kernels keep f32 bias adds and heads.
+# Measured 1.0e-4 (entropy, in [0, 2.1]) and 9.3e-6 (the probes' mean
+# alpha, at most 0.03 on this untrained field) mean abs on NVIDIA H100
+# 80GB HBM3, 700 W; held at 20x that.
+DIAG_TOL = {"entropy_mean_abs": 2e-3, "opacity_after_surface_mean_abs": 2e-4}
 DSM_SHIFT = (3, -2)        # (dx, dy) in cells
 DSM_ZBIAS = 1.5            # metres
 
@@ -150,11 +198,12 @@ def tpu_kernel_site(fn_name, module="fused_render.py"):
 
 
 def grad_errors(ff, got, ref):
-    """rel-L2 of each of the 36 weight-gradient tensors and of d_rayin, and
-    the max abs difference over all of them."""
-    views = [ff.flatten_weights(ff.kernel_views(ff.KernelWeights(m, b))) for m, b, _ in (got, ref)]
+    """rel-L2 of each of the 36 weight-gradient tensors and of the input
+    gradients after them (d_rayin, or d_pos and d_emb), and the max abs
+    difference over all of them."""
+    views = [ff.flatten_weights(ff.kernel_views(ff.KernelWeights(g[0], g[1]))) for g in (got, ref)]
     rel = []
-    for a, b in list(zip(*views)) + [(got[2], ref[2])]:
+    for a, b in list(zip(*views)) + list(zip(got[2:], ref[2:])):
         den = float(b.norm())
         rel.append(float((a - b).norm()) / den if den > 0 else float(a.norm()))
     max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -451,6 +500,115 @@ def main():
         if not (finite and all(errs[key] <= tol[key] for key in tol)):
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"({errs}, finite {finite})")
+
+    # the per-point field and density kernels at the per-sample branch's
+    # shapes (ray entropy, the nadir diagnostics): the field forward over a
+    # render chunk's camera samples (4096 x 127 points, each ray's embedding
+    # on its samples), its backward over a training batch's (1024 x 127), the
+    # density backward over the batch's shadow samples (1024 x 63), random
+    # cotangents; every point counts, in the cube or not, as the JAX function
+    # evaluates them all
+    pos_f = (sub.origins[:, None, :] + sub.viewdirs[:, None, :] * z_mid[..., None]).reshape(-1, 3)
+    emb_f = emb[:, None, :].expand(-1, z_mid.shape[1], -1).reshape(-1, 4)
+    pos_f, emb_f = pos_f.contiguous(), emb_f.contiguous()
+    n_fb = N_TRAIN * z_mid.shape[1]
+    pos_b, emb_b = pos_f[:n_fb], emb_f[:n_fb]
+    g_f = torch.randn((n_fb, ff.FIELD_COLS), generator=gen, device=dev)
+    g_f[:, 6:] = 0.0
+    sc_pos = (sc_o[:, None, :] - sub.sundirs[:, None, :] * sc_z[..., None]).reshape(-1, 3)
+    sc_pos = sc_pos.contiguous()
+    n_db = N_TRAIN * sc_z.shape[1]
+    pos_d = sc_pos[:n_db]
+    g_d = torch.randn((n_db,), generator=gen, device=dev)
+    field_bytes = ff.MAT_ELEMENTS * 2 + ff.BIAS_ELEMENTS * 4
+    kw32 = ff.KernelWeights(kw.mats.float(), kw.biases)
+    point_cases = [
+        ("field_fwd", lambda: ff.field_forward(kw, pos_f, emb_f),
+         lambda: ff.field_forward_reference(kw, pos_f, emb_f), pos_f.shape[0], camera_macs, 1,
+         pos_f.shape[0] * (3 + 4 + ff.FIELD_COLS) * 4 + field_bytes, "_field_fwd_kernel"),
+        ("field_bwd", lambda: ff.field_backward(kw, pos_b, emb_b, g_f),
+         lambda: ff.field_backward_reference(kw, pos_b, emb_b, g_f), n_fb, camera_macs, 3,
+         n_fb * (3 + 4 + ff.FIELD_COLS + 3 + 4) * 4 + field_bytes
+         + (ff.MAT_ELEMENTS + ff.BIAS_ELEMENTS) * 4, "_field_bwd_kernel"),
+        ("density_bwd", lambda: ff.density_backward(kw, pos_d, g_d),
+         lambda: ff.density_backward_reference(kw, pos_d, g_d), n_db, density_macs, 3,
+         n_db * (3 + 1 + 3) * 4 + density_bytes
+         + (ff.DENSITY_MAT_ELEMENTS + ff.DENSITY_BIAS_ELEMENTS) * 4, "_density_bwd_kernel"),
+        # the density forward at the diagnostics render's shadow pass and
+        # probes (4096 x 63 points each), for the chunk's time split
+        ("density_fwd", lambda: ff.density_forward(kw, sc_pos),
+         lambda: ff.density_forward_reference(kw, sc_pos), sc_pos.shape[0], density_macs, 1,
+         sc_pos.numel() * 4 + density_bytes + sc_pos.shape[0] * 4, "_density_fwd_kernel"),
+    ]
+    for name, kern, plain, n_pts, macs, passes, nbytes, tpu_fn in point_cases:
+        got = kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        if passes == 1:
+            got, ref = got.reshape(n_pts, -1), ref.reshape(n_pts, -1)
+            finite = bool(torch.isfinite(got).all())
+            # softplus outputs (sigma, t_beta) relative to their largest value,
+            # sigmoid outputs (albedo, t_s) as the forward kernels
+            soft = [0, 5] if name == "field_fwd" else [0]
+            errs = {}
+            for c in soft:
+                e, sc = (got[:, c] - ref[:, c]).abs(), float(ref[:, c].abs().max())
+                errs[f"col{c}_max_rel"] = float(e.max()) / sc
+                errs[f"col{c}_mean_rel"] = float(e.mean()) / sc
+            ok = all(errs[f"col{c}_max_rel"] <= DENSITY_TOL["max_rel"]
+                     and errs[f"col{c}_mean_rel"] <= DENSITY_TOL["mean_rel"] for c in soft)
+            if name == "field_fwd":
+                e = (got[:, 1:5] - ref[:, 1:5]).abs()
+                errs.update(sigmoid_max_abs=float(e.max()), sigmoid_mean_abs=float(e.mean()),
+                            pad_max_abs=float(got[:, 6:].abs().max()))
+                ok = ok and (errs["sigmoid_max_abs"] <= KERNEL_TOL["max_abs"]
+                             and errs["sigmoid_mean_abs"] <= KERNEL_TOL["mean_abs"]
+                             and errs["pad_max_abs"] == 0.0)
+            max_err = float((got - ref).abs().max())
+            tol = {"softplus_rel": DENSITY_TOL, "sigmoid_abs": KERNEL_TOL}
+        else:
+            rel, max_err = grad_errors(ff, got, ref)
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            names = ["d_pos", "d_emb"][:len(got) - 2]
+            errs = {"max_rel_l2_weights": max(rel[:-len(names)]),
+                    **{f"rel_l2_{n}": r for n, r in zip(names, rel[-len(names):])}}
+            ok = max(rel) <= POINT_BWD_REL_L2
+            # both bf16 versions against the plain version in float32
+            ref32 = (ff.field_backward_reference(kw32, pos_b, emb_b, g_f) if name == "field_bwd"
+                     else ff.density_backward_reference(kw32, pos_d, g_d))
+            errs["vs_f32"] = {"kernel_max_rel_l2": max(grad_errors(ff, got, ref32)[0]),
+                              "plain_max_rel_l2": max(grad_errors(ff, ref, ref32)[0])}
+            ok = ok and (errs["vs_f32"]["kernel_max_rel_l2"]
+                         <= POINT_BWD_F32_RATIO * errs["vs_f32"]["plain_max_rel_l2"])
+            if name == "density_bwd":
+                errs["head_grads_max_abs"] = float(got[0][ff.DENSITY_MAT_ELEMENTS:].abs().max())
+                ok = ok and errs["head_grads_max_abs"] == 0.0
+            tol = {"rel_l2": POINT_BWD_REL_L2, "vs_f32_ratio": POINT_BWD_F32_RATIO}
+        ms = time_ms(torch, kern, 10)
+        plain_ms = time_ms(torch, plain, 3)
+        # least time: the trunk (and, for the field, head) products of every
+        # point, times the passes (recompute, dgrad, wgrad for a backward), at
+        # the bf16 peak, against each input read and output written once
+        flops = passes * 2.0 * macs * n_pts
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        row = {"name": name, "route": "cuda", "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+               "replaces": tpu_kernel_site(tpu_fn, "fused_field.py"), "launches": None,
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+        record(name, n_pts, row)
+        emit({"phase": "kernels", "name": name, "points": n_pts, "macs_per_point": macs,
+              "errors": errs, "tolerance": tol, "finite": finite, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": row["bound_ms"], "gflop": flops / 1e9,
+              "tflops_achieved": flops / (ms * 1e-3) / 1e12, "card": card})
+        if not (finite and ok):
+            raise AssertionError(f"{name} at {n_pts} points: kernel disagrees with its plain "
+                                 f"version ({errs}, finite {finite})")
+    point_ms = {"field_fwd_chunk": kernel_rows["field_fwd"]["ms"],
+                "density_fwd_chunk": kernel_rows["density_fwd"]["other_shapes"][-1]["ms"],
+                "field_fwd_batch": time_ms(torch, lambda: ff.field_forward(kw, pos_b, emb_b), 10),
+                "density_fwd_batch": time_ms(torch, lambda: ff.density_forward(kw, pos_d), 10)}
 
     # the forward kernels at the training shapes, for the step's time split
     train_fwd_ms = (time_ms(torch, lambda: fr.camera_forward(kw, *b_in), 10)
@@ -756,8 +914,174 @@ def main():
     if tightened[1:COMPACT_UPDATE_EVERY] != [True] * n_tight:
         raise AssertionError(f"tightened steps {tightened}: the grid did not reach the sampler")
 
+    # ---- 8. the per-sample branch: the nadir sweep with ray entropy and the
+    # nadir diagnostics, through the per-point field and density kernels ----
+    cfg_d = sat.RenderConfig(n_samples=128, sc_n_samples=64, compute_entropy=True,
+                             nadir_diagnostics=True)
+    point_counted = {"field_fwd": ff.field_forward, "density_fwd": ff.density_forward,
+                     "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward}
+    for fn in point_counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_d = sat.render_image(rf, rays_all, cfg_d, shadows=True, chunk=N_CHUNK,
+                             generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    seconds_d = time.perf_counter() - t0
+    launches_d = {n: fn.launches for n, fn in point_counted.items()}
+    kernel_rows["field_fwd"]["launches"] = launches_d["field_fwd"]
+    kernel_rows["density_fwd"]["launches_by_path"] = {
+        "train_auto": kernel_rows["density_fwd"]["launches"],
+        "render_diag": launches_d["density_fwd"]}
+    expect_d = {"field_fwd": n_chunks, "density_fwd": 3 * n_chunks, "camera_fwd": 0,
+                "shadow_fwd": 0}
+    bad_d = [k for k in sat.OUTPUT_KEYS
+             if tuple(out_d[k].shape) != (n_rays, widths.get(k, 1))
+             or not bool(torch.isfinite(out_d[k]).all())]
+    entropy, after = out_d["entropy"], out_d["opacity_after_surface"]
+    ranges = {"entropy": [float(entropy.min()), float(entropy.max())],
+              "opacity_after_surface": [float(after.min()), float(after.max())]}
+    in_range = (ranges["entropy"][0] >= 0.0
+                and ranges["entropy"][1] <= math.log10(cfg_d.n_samples - 1) + 1e-5
+                and ranges["opacity_after_surface"][0] >= 0.0
+                and ranges["opacity_after_surface"][1] <= 1.0)
+    # the same 1024 rays: depth and rgb against the fused branch (the same
+    # draws), the diagnostics against the per-sample module path
+    with torch.no_grad():
+        a = sat.render_rays(rf, few, cfg_d, True, torch.Generator(device=dev).manual_seed(8))
+        b = sat.render_rays(rf, few, cfg, True, torch.Generator(device=dev).manual_seed(8))
+        c = sat.render_rays(field, few, cfg_d, True, torch.Generator(device=dev).manual_seed(8))
+    path_err_d = {"depth_mean_abs": float((a["depth"] - b["depth"]).abs().mean()),
+                  "rgb_mean_abs": float((a["rgb"] - b["rgb"]).abs().mean())}
+    diag_err = {"entropy_mean_abs": float((a["entropy"] - c["entropy"]).abs().mean()),
+                "opacity_after_surface_mean_abs":
+                    float((a["opacity_after_surface"] - c["opacity_after_surface"]).abs().mean())}
+    # a chunk's kernels timed alone: the field forward once, the density
+    # forward three times (the shadow pass and the two probes)
+    kernel_ms_d = point_ms["field_fwd_chunk"] + 3 * point_ms["density_fwd_chunk"]
+    emit({"phase": "render_diag", "rays": n_rays, "chunks": n_chunks,
+          "samples": {"camera": cfg_d.n_samples, "shadow": cfg_d.sc_n_samples,
+                      "probe": cfg_d.sc_n_samples},
+          "seconds": seconds_d, "rays_per_s": n_rays / seconds_d,
+          "ms_per_chunk": seconds_d * 1e3 / n_chunks, "kernel_ms_per_chunk": kernel_ms_d,
+          "kernel_share": kernel_ms_d * n_chunks / (seconds_d * 1e3),
+          "launches": launches_d, "expected_launches": expect_d, "bad_keys": bad_d,
+          "ranges": ranges, "vs_fused_branch": path_err_d, "tolerance": PATH_TOL,
+          "diagnostics_vs_per_sample_path": diag_err, "diagnostics_tolerance": DIAG_TOL,
+          "card": card})
+    if bad_d or not in_range:
+        raise AssertionError(f"diagnostics render outputs wrong, non-finite or out of range: "
+                             f"{bad_d} {ranges}")
+    if launches_d != expect_d:
+        raise AssertionError(f"kernel launches {launches_d} != {expect_d}")
+    if any(path_err_d[k] > PATH_TOL[k] for k in PATH_TOL):
+        raise AssertionError(f"per-sample kernel branch vs fused branch: {path_err_d}")
+    if any(diag_err[k] > DIAG_TOL[k] for k in DIAG_TOL):
+        raise AssertionError(f"diagnostics vs the per-sample module path: {diag_err}")
+
+    # ---- 9. training steps through the per-sample branch: ray entropy on,
+    # make_train_step over the field kernel forward and backward and the
+    # density kernel forward and backward ----
+    from eonerf_code_tpu_torch.train.loop import make_lr_schedule, make_optimizer, make_train_step
+
+    field_t = EONerfField(N_VIEWS, compute_dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(3))
+    kf = make_render_field(field_t)
+    if not isinstance(kf, KernelField):
+        raise RuntimeError("make_render_field did not pick the kernels for a bf16 8x256 field")
+    cfg_dt = TrainConfig(batch_size=N_TRAIN, n_samples=128, sc_n_samples=64)
+    rcfg_t = sat.RenderConfig(n_samples=128, sc_n_samples=64, compute_entropy=True)
+    opt_t = make_optimizer(field_t.parameters(), cfg_dt)
+    flags = {"has_depth": "depth_prior" in pool, "has_conf": "conf_prior" in pool,
+             "has_shadow": "shadow_prior" in pool}
+    step_fn = make_train_step(kf, opt_t, make_lr_schedule(cfg_dt, N_POOL // N_TRAIN), rcfg_t,
+                              **flags)
+    gen_t = torch.Generator(device=dev).manual_seed(9)
+    w_depth = cfg_dt.depth_weight
+
+    def diag_steps(first, last):
+        """Steps first..last-1 on random batches of the pool; shadows and the
+        beta loss from step TRAIN_STEPS // 2. The losses stay on the card."""
+        out = []
+        for i in range(first, last):
+            idx = torch.randint(0, N_POOL, (N_TRAIN,), generator=gen_t, device=dev)
+            on = i >= TRAIN_STEPS // 2
+            out.append(step_fn({k: v[idx] for k, v in pool.items()}, i, w_depth, on, on,
+                               gen_t)["loss"])
+        return out
+
+    diag_counted = {"field_fwd": ff.field_forward, "field_bwd": ff.field_backward,
+                    "density_fwd": ff.density_forward, "density_bwd": ff.density_backward,
+                    "camera_fwd": fr.camera_forward, "camera_bwd": fr.camera_backward,
+                    "shadow_fwd": fr.shadow_forward, "shadow_bwd": fr.shadow_backward}
+    before_t = [p.detach().clone() for p in field_t.parameters()]
+    for fn in diag_counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses_d = [float(v) for v in diag_steps(0, TRAIN_STEPS)]
+    first_d = time.perf_counter() - t0
+    launches_td = {n: fn.launches for n, fn in diag_counted.items()}
+    for name in ("field_bwd", "density_bwd"):
+        kernel_rows[name]["launches"] = launches_td[name]
+    kernel_rows["density_fwd"]["launches_by_path"]["train_diag"] = launches_td["density_fwd"]
+    moved_d = sum(not torch.equal(a, p) for a, p in zip(before_t, field_t.parameters()))
+    shadow_steps = TRAIN_STEPS - TRAIN_STEPS // 2
+    expect_td = {"field_fwd": TRAIN_STEPS, "field_bwd": TRAIN_STEPS, "density_fwd": shadow_steps,
+                 "density_bwd": shadow_steps, "camera_fwd": 0, "camera_bwd": 0, "shadow_fwd": 0,
+                 "shadow_bwd": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag_steps(TRAIN_STEPS, TRAIN_STEPS + TIMED_STEPS)
+    torch.cuda.synchronize()
+    step_ms_d = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    # one batch: the whole-step gradient through the kernels vs through the
+    # per-sample module path, same sampling draws
+    batch = {k: v[:N_TRAIN] for k, v in pool.items()}
+    # per-sample path, and both against the module in float32 (the same
+    # weights): how far each bf16 path lies from the f32 gradient
+    field_32 = EONerfField(N_VIEWS, compute_dtype=torch.float32, device=dev)
+    field_32.load_state_dict(field_t.state_dict())
+    grads = []
+    for rfield, owner in ((kf, field_t), (field_t, field_t), (field_32, field_32)):
+        owner.zero_grad(set_to_none=True)
+        loss, _ = make_loss_fn(rfield, rcfg_t, **flags)(
+            batch, 0.0, True, True, torch.Generator(device=dev).manual_seed(10))
+        loss.backward()
+        grads.append(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                .float().flatten() for p in owner.parameters()]))
+
+    def rel_d(a, b):
+        return float((grads[a] - grads[b]).norm() / grads[b].norm())
+
+    grad_rel_d = rel_d(0, 1)
+    grad_f32 = {"kernel_vs_f32": rel_d(0, 2), "module_bf16_vs_f32": rel_d(1, 2)}
+    fwd_ms_d = point_ms["field_fwd_batch"] + point_ms["density_fwd_batch"]
+    bwd_ms_d = kernel_rows["field_bwd"]["ms"] + kernel_rows["density_bwd"]["ms"]
+    train_d = {"phase": "train_diag", "steps": TRAIN_STEPS, "batch": N_TRAIN,
+               "render_config": {"n_samples": 128, "sc_n_samples": 64, "compute_entropy": True},
+               "first_run_s": first_d,
+               "losses_finite": all(math.isfinite(v) for v in losses_d),
+               "loss_first_last": [losses_d[0], losses_d[-1]], "param_tensors_moved": moved_d,
+               "param_tensors": len(before_t), "launches": launches_td,
+               "expected_launches": expect_td, "grad_vs_per_sample_rel_l2": grad_rel_d,
+               "tolerance": GRAD_PATH_DIAG_REL_L2, "grad_vs_f32_module_rel_l2": grad_f32,
+               "tolerance_vs_f32": GRAD_PATH_REL_L2, "rays_per_s": N_TRAIN / (step_ms_d * 1e-3),
+               "ms_per_step": step_ms_d, "ms_fwd_kernels": fwd_ms_d, "ms_bwd_kernels": bwd_ms_d,
+               "ms_rest": step_ms_d - fwd_ms_d - bwd_ms_d, "card": card}
+    emit(train_d)
+    if not train_d["losses_finite"] or moved_d == 0:
+        raise AssertionError(f"diagnostics training did not run cleanly: {train_d}")
+    if launches_td != expect_td:
+        raise AssertionError(f"kernel launches {launches_td} != {expect_td}")
+    if not (grad_rel_d <= GRAD_PATH_DIAG_REL_L2
+            and grad_f32["kernel_vs_f32"] <= GRAD_PATH_REL_L2):
+        raise AssertionError(f"per-sample kernel-path gradient vs module path: rel-L2 "
+                             f"{grad_rel_d}, vs float32 {grad_f32}")
+
     emit({"kernels": [kernel_rows[n] for n in ("camera_fwd", "shadow_fwd", "camera_bwd",
-                                               "shadow_bwd", "coarse_fwd", "density_fwd")]})
+                                               "shadow_bwd", "coarse_fwd", "density_fwd",
+                                               "field_fwd", "field_bwd", "density_bwd")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,6 +23,10 @@
 //   points (N, 3). The PE is built from xyz directly (xb = x*2^deg, the ray
 //   form with d = 0, z = 0, bit for bit), and the points fill the 128-row
 //   tiles directly: no ray structure, no padding to 8 samples a point.
+// field: replaces `_field_fwd_kernel` of the same file (make_fused_field):
+//   the density kernel's points with the camera heads after the trunk, the
+//   4-wide embedding read per point, written as (N, 8) =
+//   [sigma, albedo r g b, t_s, t_beta, 0, 0]. Both are point_kernel.
 //
 // What bounds them on this card: operations. Every sample runs the trunk
 // (0.49 M multiply-adds) and, for the camera, the heads (0.19 M more), while
@@ -83,6 +87,16 @@
 //      gradients are the same bits from run to run (no atomics).
 // The streams cost (3072 + 2976) bf16 per camera sample: 1.6 GB at 1024
 // rays x 128 samples, read back once by each later pass.
+//
+// field_bwd and density_bwd replace `_field_bwd_kernel` and
+// `_density_bwd_kernel` (make_fused_field's and make_fused_density's
+// backward) with the same four passes in a per-point mode: tile rows are
+// points (a block owns 128 of them, none padded), the first pass is
+// point_kernel<_, true>, whose head cotangents come from the output
+// cotangent (N, 8) or (N,) instead of a compositing VJP, and dgrad writes
+// each point's d_pos (and, for the field, d_emb) instead of per-ray sums.
+// Their streams have the camera's and the shadow's layouts, so wgrad and
+// the reduction are shared unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -321,6 +335,56 @@ __device__ __forceinline__ float pe_value(int c, float xb) {
   return c < 3 ? xb : sinf(c < 33 ? xb : __fadd_rn(xb, HALF_PI));
 }
 
+// The camera heads of one 128-row tile whose trunk output h7 sits in P (Q is
+// free; both are overwritten): the bottleneck, the albedo head into
+// res[r * RES + 1..3], the 4x128 transient MLP over [bottleneck | embedding
+// (4) | 0...] and its t_s and t_beta heads into res[r * RES + 4, 5], for the
+// tile's rows r < nrows (rows past them run on zeros and are not written).
+// emb(r, c) is component c of row r's embedding. STREAM: every activation
+// also goes to the activation stream (ACT_CAM layout, rows g0..). The caller
+// syncs before reading res.
+template <bool STREAM, typename Emb>
+__device__ __forceinline__ void camera_heads(bf16* P, bf16* Q, const bf16* __restrict__ wm,
+                                             const float* __restrict__ wb, bf16* wst, float* res,
+                                             int nrows, Emb emb, bf16* acts, long long g0) {
+  gemm<false>(P, 0, W, wm + M_BOTT, wb + B_BOTT, W, Q, wst);   // bottleneck -> Q
+  // the embedding into Q's cols 256..259 (260..319 zero)
+  for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
+    const int r = e / PE, c = e % PE;
+    Q[r * LDA + W + c] = __float2bfloat16_rn(r < nrows && c < 4 ? emb(r, c) : 0.f);
+  }
+  if (STREAM) {
+    __syncthreads();
+    tile_to_stream(Q, 0, CAT, acts, ACT_CAM, g0, nrows, A_BOTT);   // [bott | emb64]
+  }
+  gemm<true>(Q, 0, W, wm + M_ALB0, wb + B_ALB0, HALF, P, wst);  // albedo hidden -> P
+  __syncthreads();
+  if (STREAM) tile_to_stream(P, 0, HALF, acts, ACT_CAM, g0, nrows, A_AH);
+  for (int r = threadIdx.x; r < nrows; r += THREADS)
+    for (int c = 0; c < 3; ++c)
+      res[r * RES + 1 + c] =
+          sigmoid(dot_row(P + r * LDA, wm + M_ALB1 + c * HALF, HALF) + wb[B_ALB1 + c]);
+  gemm<true>(Q, 0, CAT, wm + M_TR0, wb + B_TR, HALF, P, wst);  // [bott | emb] -> P
+  if (STREAM) { __syncthreads(); tile_to_stream(P, 0, HALF, acts, ACT_CAM, g0, nrows, A_T0); }
+  gemm<true>(P, 0, HALF, wm + M_TR1, wb + B_TR + HALF, HALF, Q, wst);
+  if (STREAM) {
+    __syncthreads();
+    tile_to_stream(Q, 0, HALF, acts, ACT_CAM, g0, nrows, A_T0 + HALF);
+  }
+  gemm<true>(Q, 0, HALF, wm + M_TR1 + HALF * HALF, wb + B_TR + 2 * HALF, HALF, P, wst);
+  if (STREAM) {
+    __syncthreads();
+    tile_to_stream(P, 0, HALF, acts, ACT_CAM, g0, nrows, A_T0 + 2 * HALF);
+  }
+  gemm<true>(P, 0, HALF, wm + M_TR1 + 2 * HALF * HALF, wb + B_TR + 3 * HALF, HALF, Q, wst);
+  __syncthreads();
+  if (STREAM) tile_to_stream(Q, 0, HALF, acts, ACT_CAM, g0, nrows, A_T0 + 3 * HALF);
+  for (int r = threadIdx.x; r < nrows; r += THREADS) {
+    res[r * RES + 4] = sigmoid(dot_row(Q + r * LDA, wm + M_TS, HALF) + wb[B_TS]);
+    res[r * RES + 5] = softplus(dot_row(Q + r * LDA, wm + M_TB, HALF) + wb[B_TB]);
+  }
+}
+
 // One block per group of `rpb` whole rays; KPAD samples per ray (a multiple
 // of 8, <= MAX_KPAD); rows s = ray * KPAD + k of the block's sample axis are
 // processed 128 at a time.
@@ -377,52 +441,15 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
     }
     bf16* P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
-    bf16* Q = P == bufX ? bufY : bufX;
-    for (int r = threadIdx.x; r < MT; r += THREADS) {
-      const int s = s0 + r;
-      if (s < S) res[s * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
-    }
-    if (CAMERA) {
-      gemm<false>(P, 0, W, wm + M_BOTT, wb + B_BOTT, W, Q, wst);   // bottleneck -> Q
-      // the ray's transient embedding into Q's cols 256..259 (260..319 zero)
-      for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
-        const int r = e / PE, c = e % PE, s = s0 + r;
-        float v = 0.f;
-        if (s < S && c < 4) v = rayin[(long long)(ray0 + s / KPAD) * RAYIN + 6 + c];
-        Q[r * LDA + W + c] = __float2bfloat16_rn(v);
-      }
-      if (BWD) {
-        __syncthreads();
-        tile_to_stream(Q, 0, CAT, acts, AS, g0, nrows, A_BOTT);   // [bott | emb64]
-      }
-      gemm<true>(Q, 0, W, wm + M_ALB0, wb + B_ALB0, HALF, P, wst);  // albedo hidden -> P
-      __syncthreads();
-      if (BWD) tile_to_stream(P, 0, HALF, acts, AS, g0, nrows, A_AH);
-      for (int r = threadIdx.x; r < MT; r += THREADS) {
-        const int s = s0 + r;
-        if (s < S) {
-          for (int c = 0; c < 3; ++c) {
-            res[s * RES + 1 + c] =
-                sigmoid(dot_row(P + r * LDA, wm + M_ALB1 + c * HALF, HALF) + wb[B_ALB1 + c]);
-          }
-        }
-      }
-      gemm<true>(Q, 0, CAT, wm + M_TR0, wb + B_TR, HALF, P, wst);  // [bott | emb] -> P
-      if (BWD) { __syncthreads(); tile_to_stream(P, 0, HALF, acts, AS, g0, nrows, A_T0); }
-      gemm<true>(P, 0, HALF, wm + M_TR1, wb + B_TR + HALF, HALF, Q, wst);
-      if (BWD) { __syncthreads(); tile_to_stream(Q, 0, HALF, acts, AS, g0, nrows, A_T0 + HALF); }
-      gemm<true>(Q, 0, HALF, wm + M_TR1 + HALF * HALF, wb + B_TR + 2 * HALF, HALF, P, wst);
-      if (BWD) { __syncthreads(); tile_to_stream(P, 0, HALF, acts, AS, g0, nrows, A_T0 + 2 * HALF); }
-      gemm<true>(P, 0, HALF, wm + M_TR1 + 2 * HALF * HALF, wb + B_TR + 3 * HALF, HALF, Q, wst);
-      __syncthreads();
-      if (BWD) tile_to_stream(Q, 0, HALF, acts, AS, g0, nrows, A_T0 + 3 * HALF);
-      for (int r = threadIdx.x; r < MT; r += THREADS) {
-        const int s = s0 + r;
-        if (s < S) {
-          res[s * RES + 4] = sigmoid(dot_row(Q + r * LDA, wm + M_TS, HALF) + wb[B_TS]);
-          res[s * RES + 5] = softplus(dot_row(Q + r * LDA, wm + M_TB, HALF) + wb[B_TB]);
-        }
-      }
+    for (int r = threadIdx.x; r < nrows; r += THREADS)
+      res[(s0 + r) * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
+    if constexpr (CAMERA) {
+      // the ray's transient embedding, one per row
+      camera_heads<BWD>(P, P == bufX ? bufY : bufX, wm, wb, wst, res + s0 * RES, nrows,
+                        [&](int r, int c) {
+                          return rayin[(long long)(ray0 + (s0 + r) / KPAD) * RAYIN + 6 + c];
+                        },
+                        acts, g0);
     }
     __syncthreads();
   }
@@ -524,15 +551,29 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   }
 }
 
-// Per-point density: one block per 128 points, which fill the tile's rows
-// directly. PE from xyz into both tiles, the trunk, the sigma head.
+// Per-point density and field: one block per 128 points, which fill the
+// tile's rows directly. PE from xyz into both tiles, the trunk and the sigma
+// head, then with FIELD the camera heads (the embedding read per point).
+// BWD = false: the forward; FIELD writes out (N, 8) = [sigma, albedo r g b,
+// t_s, t_beta, 0, 0], the density sigma (N,).
+// BWD = true: the first pass of the backward. The same recompute, which also
+// streams every activation to `acts` (FIELD: the camera's layout, else the
+// shadow's), then each point's head cotangents at the pre-activations, from
+// the output cotangent `gin` ((N, 8) in the forward's layout, or (N,)), into
+// `hg`. The softplus heads' derivative sigmoid(x) is 1 - exp(-softplus(x)).
+template <bool FIELD, bool BWD>
 __global__ void __launch_bounds__(THREADS, 1)
-density_kernel(const float* __restrict__ pos, const bf16* __restrict__ wm,
-               const float* __restrict__ wb, float* __restrict__ sigma, int N) {
+point_kernel(const float* __restrict__ pos, const float* __restrict__ emb,
+             const bf16* __restrict__ wm, const float* __restrict__ wb, float* __restrict__ out,
+             int N, const float* __restrict__ gin, bf16* __restrict__ acts,
+             float* __restrict__ hg) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
+  float* res = reinterpret_cast<float*>(wst + NC * LDW);   // MT x RES
+  constexpr long long AS = FIELD ? ACT_CAM : ACT_SH;
+  constexpr int NO = FIELD ? ACC : 1;                     // outputs per point
   const long long p0 = (long long)blockIdx.x * MT;
   const int nrows = N - p0 < MT ? (int)(N - p0) : MT;
   for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
@@ -548,9 +589,32 @@ density_kernel(const float* __restrict__ pos, const bf16* __restrict__ wm,
     bufX[r * LDA + W + c] = pv;
     bufY[r * LDA + W + c] = pv;
   }
-  const bf16* h = trunk_tile<false>(bufX, bufY, wm, wb, wst, nullptr, 0, 0, 0);
+  if (BWD) {
+    __syncthreads();
+    tile_to_stream(bufX, W, PE, acts, AS, p0, nrows, A_PE);
+  }
+  bf16* P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, p0, nrows);   // P holds h7
   for (int r = threadIdx.x; r < nrows; r += THREADS)
-    sigma[p0 + r] = softplus(dot_row(h + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
+    res[r * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
+  if constexpr (FIELD) {
+    camera_heads<BWD>(P, P == bufX ? bufY : bufX, wm, wb, wst, res, nrows,
+                      [&](int r, int c) { return emb[(p0 + r) * 4 + c]; }, acts, p0);
+  }
+  __syncthreads();
+  // outputs or head cotangents, neighbouring threads on neighbouring addresses
+  for (int e = threadIdx.x; e < nrows * NO; e += THREADS) {
+    const int r = e / NO, c = e % NO;
+    const float* rs = res + r * RES;
+    if (!BWD) {
+      out[p0 * NO + e] = c < 6 ? rs[c] : 0.f;
+    } else {
+      const float g = gin[p0 * NO + e];
+      float v = 0.f;
+      if (c == 0 || c == 5) v = g * -expm1f(-rs[c]);       // sigma, t_beta (softplus)
+      else if (c < 5) v = g * rs[c] * (1.f - rs[c]);        // albedo, t_s (sigmoid)
+      hg[(p0 + r) * HG + c] = v;
+    }
+  }
 }
 
 // Rays a block owns: as many as fill its 128-row tiles exactly (KPAD 96:
@@ -584,6 +648,21 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   fused_fwd_kernel<MODE, BWD><<<grid, THREADS, smem, stream>>>(
       rayin, z, deltam, mask, static_cast<const bf16*>(wm), wb, out, R, KPAD, rpb, gin, acts,
       hg);
+  return (int)cudaGetLastError();
+}
+
+template <bool FIELD, bool BWD>
+int launch_point(const float* pos, const float* emb, const void* wm, const float* wb, float* out,
+                 int N, cudaStream_t stream, const float* gin = nullptr, bf16* acts = nullptr,
+                 float* hg = nullptr) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) + (size_t)MT * RES * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(point_kernel<FIELD, BWD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  point_kernel<FIELD, BWD><<<(N + MT - 1) / MT, THREADS, smem, stream>>>(
+      pos, emb, static_cast<const bf16*>(wm), wb, out, N, gin, acts, hg);
   return (int)cudaGetLastError();
 }
 
@@ -693,14 +772,17 @@ __device__ void cotangent_out(bf16* tile, int n, const bf16* __restrict__ acts, 
 // back from the activation stream. Writes every layer's pre-activation
 // cotangent to `gpre`, the block's f32 bias-gradient sums to `bias_part`
 // (one row per block, reduced in a fixed order later) and the per-ray
-// d_rayin = [d_o, d_d, d_emb].
-template <bool CAMERA>
+// d_rayin = [d_o, d_d, d_emb] into `dout`.
+// POINT: rows are points (R = N, KPAD = 1, rpb = MT: 128 points a block,
+// one tile), `rayin` holds the points (N, 3) and z is not read; each point's
+// d_pos goes to `dout` (N, 3) and, with CAMERA, its d_emb to `demb` (N, 4).
+template <bool CAMERA, bool POINT>
 __global__ void __launch_bounds__(THREADS, 1)
 dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
              const bf16* __restrict__ wm, const bf16* __restrict__ acts,
              const float* __restrict__ hg, bf16* __restrict__ gpre,
-             float* __restrict__ bias_part, float* __restrict__ drayin, int R, int KPAD,
-             int rpb) {
+             float* __restrict__ bias_part, float* __restrict__ dout, float* __restrict__ demb,
+             int R, int KPAD, int rpb) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NB = CAMERA ? B_END : B_BOTT;
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
@@ -808,21 +890,21 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     }
     __syncthreads();
     // d_xb = g_pe * pe'(xb), routed through B's transpose to d_o and d_d
+    // (d_pos for points)
     if (tid < MT) {
       float a6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (tid < nrows) {
         const int s = s0 + tid;
         const long long ray = ray0 + s / KPAD;
-        const float* ri = rayin + ray * RAYIN;
-        const float zs = z[ray * KPAD + s % KPAD];
+        const float* ri = rayin + ray * (POINT ? 3 : RAYIN);
+        const float zs = POINT ? 0.f : z[ray * KPAD + s % KPAD];
         for (int c = 0; c < 63; ++c) {
-          int j, deg;
-          if (c < 3) { j = c; deg = 0; }
-          else if (c < 33) { j = (c - 3) % 3; deg = (c - 3) / 3; }
-          else { j = (c - 33) % 3; deg = (c - 33) / 3; }
-          const float sc = ldexpf(1.f, deg);
+          int j;
+          float sc;
+          pe_lane(c, j, sc);
           const float xb =
-              __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs));
+              POINT ? __fmul_rn(ri[j], sc)
+                    : __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs));
           const float der = c < 3 ? 1.f
                           : sinf(c < 33 ? __fadd_rn(xb, HALF_PI)
                                         : __fadd_rn(__fadd_rn(xb, HALF_PI), HALF_PI));
@@ -845,7 +927,14 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   __syncthreads();
   for (int e = tid; e < nray * 10; e += THREADS) {
     const int lr = e / 10, c = e % 10;
-    if (CAMERA || c < 6) drayin[(long long)(ray0 + lr) * RAYIN + c] = rayacc[e];
+    const long long row = ray0 + lr;
+    if (!POINT) {
+      if (CAMERA || c < 6) dout[row * RAYIN + c] = rayacc[e];
+    } else if (c < 3) {
+      dout[row * 3 + c] = rayacc[e];
+    } else if (CAMERA && c >= 6) {
+      demb[row * 4 + c - 6] = rayacc[e];
+    }
   }
   for (int e = tid; e < NB; e += THREADS) bias_part[(long long)blockIdx.x * NB + e] = bsum[e];
 }
@@ -994,11 +1083,11 @@ struct BwdLayout {
 
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
-BwdLayout bwd_layout(bool camera, int R, int KPAD) {
+// S stream rows (samples or points) in nblocks dgrad blocks.
+BwdLayout bwd_layout(bool camera, long long S, int nblocks) {
   BwdLayout L;
-  const int rpb = rays_per_block(KPAD);
-  L.S = (long long)R * KPAD;
-  L.nblocks = (R + rpb - 1) / rpb;
+  L.S = S;
+  L.nblocks = nblocks;
   L.splits = (int)std::max(1LL, std::min((long long)MAX_SPLITS, L.S / 1024));
   L.chunk = ((L.S + L.splits - 1) / L.splits + KC - 1) / KC * KC;
   const long long as = camera ? ACT_CAM : ACT_SH, gs = camera ? GP_CAM : GP_SH;
@@ -1012,9 +1101,56 @@ BwdLayout bwd_layout(bool camera, int R, int KPAD) {
   return L;
 }
 
+// Rays: blocks of whole rays. Points: KPAD = 1, whose rays_per_block is MT,
+// so 128 points a block, the point kernels' blocks.
+BwdLayout ray_bwd_layout(bool camera, int R, int KPAD) {
+  const int rpb = rays_per_block(KPAD);
+  return bwd_layout(camera, (long long)R * KPAD, (R + rpb - 1) / rpb);
+}
+
+struct Scratch {
+  bf16* acts;
+  bf16* gpre;
+  float* hg;
+  float* bpart;
+  float* wpart;
+};
+
+Scratch carve(const BwdLayout& L, void* ws) {
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  return {reinterpret_cast<bf16*>(base + L.acts), reinterpret_cast<bf16*>(base + L.gpre),
+          reinterpret_cast<float*>(base + L.hg), reinterpret_cast<float*>(base + L.bpart),
+          reinterpret_cast<float*>(base + L.wpart)};
+}
+
 size_t dgrad_smem(int KPAD) {
   return (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) +
          (size_t)(B_END + 2 + MT * 8 + MT * 10 + rays_per_block(KPAD) * 10) * sizeof(float);
+}
+
+// Passes 2-4 of a backward, once its first pass has filled the activation
+// stream and the head cotangents: dgrad, wgrad and the fixed-order reduction.
+template <bool CAMERA, bool POINT>
+int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const float* z,
+               const bf16* wm, float* dmats, float* dbias, float* dout, float* demb, int R,
+               int KPAD, cudaStream_t stream) {
+  const size_t smem = dgrad_smem(KPAD);
+  cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dgrad_kernel<CAMERA, POINT><<<L.nblocks, THREADS, smem, stream>>>(
+      rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD, rays_per_block(KPAD));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA), L.splits), THREADS, 0, stream>>>(
+      sc.acts, sc.gpre, sc.wpart, L.S, L.chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n_mat = CAMERA ? M_END : M_BOTT;
+  const int n_bias = CAMERA ? B_END : B_BOTT;
+  reduce_kernel<<<1024, THREADS, 0, stream>>>(sc.wpart, L.splits, n_mat, sc.bpart, L.nblocks,
+                                              n_bias, dmats, dbias);
+  return (int)cudaGetLastError();
 }
 
 template <bool CAMERA>
@@ -1023,34 +1159,26 @@ int launch_bwd(const float* rayin, const float* z, const float* deltam, const fl
                float* dbias, float* drayin, int R, int KPAD, cudaStream_t stream) {
   if (R <= 0 || KPAD <= 0 || KPAD % 8 != 0 || KPAD > MAX_KPAD) return (int)cudaErrorInvalidValue;
   const bf16* wm = static_cast<const bf16*>(wm_);
-  const BwdLayout L = bwd_layout(CAMERA, R, KPAD);
-  unsigned char* base = static_cast<unsigned char*>(ws);
-  bf16* acts = reinterpret_cast<bf16*>(base + L.acts);
-  bf16* gpre = reinterpret_cast<bf16*>(base + L.gpre);
-  float* hg = reinterpret_cast<float*>(base + L.hg);
-  float* bpart = reinterpret_cast<float*>(base + L.bpart);
-  float* wpart = reinterpret_cast<float*>(base + L.wpart);
+  const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD);
+  const Scratch sc = carve(L, ws);
   int err = launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
-                                                stream, gin, acts, hg);
+                                                stream, gin, sc.acts, sc.hg);
   if (err != 0) return err;
-  const int rpb = rays_per_block(KPAD);
-  const size_t smem = dgrad_smem(KPAD);
-  cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dgrad_kernel<CAMERA><<<L.nblocks, THREADS, smem, stream>>>(rayin, z, wm, acts, hg, gpre, bpart,
-                                                             drayin, R, KPAD, rpb);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA), L.splits), THREADS, 0, stream>>>(
-      acts, gpre, wpart, L.S, L.chunk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long n_mat = CAMERA ? M_END : M_BOTT;
-  const int n_bias = CAMERA ? B_END : B_BOTT;
-  reduce_kernel<<<1024, THREADS, 0, stream>>>(wpart, L.splits, n_mat, bpart, L.nblocks, n_bias,
-                                              dmats, dbias);
-  return (int)cudaGetLastError();
+  return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
+                                   stream);
+}
+
+template <bool FIELD>
+int launch_point_bwd(const float* pos, const float* emb, const float* gin, const void* wm_,
+                     const float* wb, void* ws, float* dmats, float* dbias, float* dpos,
+                     float* demb, int N, cudaStream_t stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const bf16* wm = static_cast<const bf16*>(wm_);
+  const BwdLayout L = ray_bwd_layout(FIELD, N, 1);
+  const Scratch sc = carve(L, ws);
+  int err = launch_point<FIELD, true>(pos, emb, wm, wb, nullptr, N, stream, gin, sc.acts, sc.hg);
+  if (err != 0) return err;
+  return bwd_passes<FIELD, true>(L, sc, pos, nullptr, wm, dmats, dbias, dpos, demb, N, 1, stream);
 }
 
 }  // namespace
@@ -1089,19 +1217,25 @@ int eonerf_coarse_fwd(const float* rayin, const float* z, const float* deltam, c
 // Per-point density: pos (N, 3) -> sigma (N,).
 int eonerf_density_fwd(const float* pos, const void* wm, const float* wb, float* sigma, int N,
                        void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(density_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  density_kernel<<<(N + MT - 1) / MT, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos, static_cast<const bf16*>(wm), wb, sigma, N);
-  return (int)cudaGetLastError();
+  return launch_point<false, false>(pos, nullptr, wm, wb, sigma, N,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Per-point field: pos (N, 3), emb (N, 4) -> out (N, 8).
+int eonerf_field_fwd(const float* pos, const float* emb, const void* wm, const float* wb,
+                     float* out, int N, void* stream) {
+  return launch_point<true, false>(pos, emb, wm, wb, out, N, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of scratch one backward call needs (camera != 0: the camera's).
 long long eonerf_bwd_workspace_bytes(int camera, int R, int KPAD) {
-  return (long long)bwd_layout(camera != 0, R, KPAD).total;
+  return (long long)ray_bwd_layout(camera != 0, R, KPAD).total;
+}
+
+// Bytes of scratch one point backward needs (field != 0: the field's, else
+// the density's).
+long long eonerf_point_bwd_workspace_bytes(int field, int N) {
+  return (long long)ray_bwd_layout(field != 0, N, 1).total;
 }
 
 // Backward of the camera op: gacc (R, 8) -> d_mats, d_biases (packed,
@@ -1120,6 +1254,23 @@ int eonerf_shadow_bwd(const float* rayin, const float* z, const float* deltam, c
                       float* dbias, float* drayin, int R, int KPAD, void* stream) {
   return launch_bwd<false>(rayin, z, deltam, mask, ggeo, wm, wb, ws, dmats, dbias, drayin, R,
                            KPAD, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of the field op: g (N, 8) -> d_mats, d_biases, d_pos (N, 3) and
+// d_emb (N, 4).
+int eonerf_field_bwd(const float* pos, const float* emb, const float* g, const void* wm,
+                     const float* wb, void* ws, float* dmats, float* dbias, float* dpos,
+                     float* demb, int N, void* stream) {
+  return launch_point_bwd<true>(pos, emb, g, wm, wb, ws, dmats, dbias, dpos, demb, N,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Backward of the density op: g (N,) -> the density prefix of d_mats and
+// d_biases, and d_pos (N, 3).
+int eonerf_density_bwd(const float* pos, const float* g, const void* wm, const float* wb,
+                       void* ws, float* dmats, float* dbias, float* dpos, int N, void* stream) {
+  return launch_point_bwd<false>(pos, nullptr, g, wm, wb, ws, dmats, dbias, dpos, nullptr, N,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 const char* eonerf_error_string(int code) {

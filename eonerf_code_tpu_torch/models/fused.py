@@ -1,18 +1,26 @@
 """The kernel-backed render field and the one place that picks the backend.
 
-``KernelField`` wraps an ``EONerfField`` for the renderer's fused branch:
-per-sample work (field + compositing) goes through the fused camera and
-shadow ops (ops/fused_render.py), forward and backward, and the
-hierarchical sampler's coarse pass through the coarse op; the per-ray heads
-(ambient, radiometric, ray offset) stay on the module. Gradients reach the
-field's parameters through the packing and the ops' weight gradients, and
-the transient embedding through the ops' d_rayin. ``density`` (the
-trainer's weight-entropy probe) goes through the per-point density kernel.
+``KernelField`` wraps an ``EONerfField`` for the renderer. On its fused
+branch the per-sample work (field + compositing) goes through the fused
+camera and shadow ops (ops/fused_render.py), forward and backward, and the
+hierarchical sampler's coarse pass through the coarse op. On the
+per-sample branch (ray entropy, the nadir diagnostics) the field call goes
+through the per-point field op and ``density`` (shadow samples, nadir
+probes, the trainer's weight-entropy probe) through the per-point density
+op (ops/fused_field.py), both differentiable. The per-ray heads (ambient,
+radiometric, ray offset) stay on the module. Gradients reach the field's
+parameters through the packing and the ops' weight gradients, and the
+transient embedding through the ops' d_rayin or per-point d_emb.
 """
 
 import torch
 
-from eonerf_code_tpu_torch.ops.fused_field import fused_density, pack_kernel_weights, pack_params
+from eonerf_code_tpu_torch.ops.fused_field import (
+    fused_density,
+    fused_field,
+    pack_kernel_weights,
+    pack_params,
+)
 from eonerf_code_tpu_torch.ops.fused_render import fused_camera, fused_coarse, fused_shadow
 
 
@@ -50,6 +58,20 @@ class KernelField:
         serves the camera and the shadow pass of a step."""
         return pack_kernel_weights(pack_params(self.field), torch.float32)
 
+    def __call__(self, pos, sun_d, img_idx):
+        """``EONerfField.forward`` through the per-point field op: pos
+        (R, K, 3), sun_d (R, 3), img_idx (R,) -> sigma (R, K), albedo
+        (R, K, 3), ambient (R, 3), transient_s (R, K, 1), transient_beta
+        (R, K, 1). The embedding is gathered per ray and expanded to the
+        points, so autograd sums the per-point d_emb back into the table."""
+        r, k, _ = pos.shape
+        emb = self.transient_embedding(img_idx).to(pos.dtype)
+        emb = emb[:, None, :].expand(r, k, emb.shape[-1]).reshape(r * k, -1)
+        sigma, albedo, t_s, t_beta = fused_field(self.pack(), pos.reshape(-1, 3), emb,
+                                                 self.compute_dtype)
+        return (sigma.reshape(r, k), albedo.reshape(r, k, 3), self.ambient(sun_d),
+                t_s.reshape(r, k, 1), t_beta.reshape(r, k, 1))
+
     def transient_embedding(self, img_idx):
         return self.field.transient_encoder(img_idx)
 
@@ -65,8 +87,7 @@ class KernelField:
         return fused_coarse(weights, rayin, z, deltam, self.compute_dtype)
 
     def density(self, pos):
-        """sigma at (..., 3) positions through the density kernel; forward
-        only (its backward is not ported and raises)."""
+        """sigma at (..., 3) positions through the per-point density op."""
         flat = pos.reshape(-1, 3)
         return fused_density(self.pack(), flat, self.compute_dtype).reshape(pos.shape[:-1])
 

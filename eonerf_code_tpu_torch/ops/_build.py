@@ -1,8 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 ``nvcc`` compiles ``csrc/fused_render.cu`` (the fused render kernels,
-forward and backward, the coarse-weights and the per-point density
-kernels) for sm_90a into a shared library
+forward and backward, the coarse-weights kernel and the per-point field
+and density kernels, forward and backward) for sm_90a into a shared library
 with a plain C interface, on first use, into ``_build/`` beside the package
 sources (git-ignored); the file name carries a hash of the source and the
 flags, so an edit rebuilds and an unchanged source is reused. ``ctypes``
@@ -71,12 +71,20 @@ def load_library():
     lib.eonerf_coarse_fwd.restype = i
     lib.eonerf_density_fwd.argtypes = [p, p, p, p, i, p]
     lib.eonerf_density_fwd.restype = i
+    lib.eonerf_field_fwd.argtypes = [p, p, p, p, p, i, p]
+    lib.eonerf_field_fwd.restype = i
     lib.eonerf_bwd_workspace_bytes.argtypes = [i, i, i]
     lib.eonerf_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.eonerf_camera_bwd.argtypes = [p] * 10 + [i, i, p]
     lib.eonerf_camera_bwd.restype = i
     lib.eonerf_shadow_bwd.argtypes = [p] * 11 + [i, i, p]
     lib.eonerf_shadow_bwd.restype = i
+    lib.eonerf_point_bwd_workspace_bytes.argtypes = [i, i]
+    lib.eonerf_point_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.eonerf_field_bwd.argtypes = [p] * 10 + [i, p]
+    lib.eonerf_field_bwd.restype = i
+    lib.eonerf_density_bwd.argtypes = [p] * 8 + [i, p]
+    lib.eonerf_density_bwd.restype = i
     lib.eonerf_error_string.argtypes = [i]
     lib.eonerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,6 @@
 """Kernel-ready views of the EO-NeRF field's per-sample parameters, the
-pieces of the field every fused kernel shares, and the per-point density
-op.
+pieces of the field every fused kernel shares, and the per-point field and
+density ops.
 
 The counterpart of the JAX package's ops/pallas/fused_field.py. Matrices
 keep the JAX package's (in, out) layout, biases are (1, d) rows, so
@@ -12,13 +12,22 @@ padded form).
 
 - :class:`KernelWeights` / :func:`pack_kernel_weights`: the packed layout
   every CUDA kernel of csrc/fused_render.cu reads.
-- ``density_forward(weights, pos) -> sigma (N,)``: per-point density, the
-  counterpart of ``make_fused_density``'s forward (its
-  ``_density_fwd_kernel``); ``fused_density`` is the op, whose backward
-  (the JAX package's ``_density_bwd_kernel``) is not ported yet and raises.
+- ``field_forward(weights, pos, emb) -> (N, 8)`` = [sigma, albedo r g b,
+  t_s, t_beta, 0, 0]: the per-point full field, the counterpart of
+  ``make_fused_field``'s forward (its ``_field_fwd_kernel``);
+  ``field_backward`` its VJP (``_field_bwd_kernel``): float32 weight
+  gradients in the packed layout, per-point d_pos and d_emb.
+- ``density_forward(weights, pos) -> sigma (N,)`` and ``density_backward``:
+  per-point density and its VJP, the counterparts of
+  ``make_fused_density`` (``_density_fwd_kernel``, ``_density_bwd_kernel``;
+  the heads get exact zeros).
+- ``fused_field`` / ``fused_density``: the pairs as
+  ``torch.autograd.Function``s in recompute mode (the JAX package's
+  ``custom_vjp`` ops).
 
-The per-point full field (``make_fused_field``) is not part of the port
-yet.
+Each wrapper takes its plain PyTorch version (``*_reference``) only for
+tensors on the CPU; for CUDA tensors it launches the hand-written kernel or
+raises, and counts its launches in its ``launches`` attribute.
 """
 
 import math
@@ -34,6 +43,8 @@ PE_DIM = 3 + 6 * POS_DEG   # 63
 PE_PAD = 64                # the kernels' PE width: 63 lanes + one zero lane
 N_WEIGHTS = 36
 N_DENSITY_WEIGHTS = 18     # trunk (8 + 8) + sigma head (2)
+FIELD_COLS = 8             # per-point field output: [sigma, albedo r g b, t_s, t_beta, 0, 0]
+EMB_DIM = 4                # the transient embedding's width
 
 
 class FieldWeights(NamedTuple):
@@ -207,6 +218,13 @@ def pe_lanes(device):
     return j, scale
 
 
+def pe_pattern(device):
+    """(3, 64) float32 B: the scale of each PE lane on the coordinate it reads."""
+    j, scale = pe_lanes(device)
+    return torch.zeros((3, PE_PAD), device=device).index_put_(
+        (j, torch.arange(PE_PAD, device=device)), scale)
+
+
 def pe_from_args(xb, dtype):
     """(M, 64) PE of the points, rounded to ``dtype``. In float32 the cos
     lanes are exact cos; in other dtypes one phased sin(xb + pi/2) serves
@@ -221,12 +239,57 @@ def pe_from_args(xb, dtype):
     return pe.reshape(-1, PE_PAD).to(dtype)
 
 
+def pe_deriv(xb, dtype):
+    """(M, 64) d(pe)/d(xb) per lane, float32: [1 | cos | -sin | 0]; in
+    other dtypes a second phased sin(xb + phase + pi/2), as the kernels."""
+    col = torch.arange(PE_PAD, device=xb.device)
+    if dtype == torch.float32:
+        d = torch.where(col < 3, 1.0, torch.where(col < 33, torch.cos(xb),
+                        torch.where(col < 63, -torch.sin(xb), 0.0)))
+    else:
+        phase = torch.where((col >= 33) & (col < 63), math.pi / 2, 0.0)
+        d = torch.where(col < 3, 1.0,
+                        torch.where(col < 63, torch.sin(xb + phase + math.pi / 2), 0.0))
+    return d.reshape(-1, PE_PAD)
+
+
+def point_pe_args(pos):
+    """(N, 64) PE arguments of points (N, 3): xb = x 2^deg, exact in float32
+    (the ray form with d = 0, z = 0)."""
+    j, scale = pe_lanes(pos.device)
+    return pos.float()[:, j] * scale
+
+
+def point_grads(xb, g_pe, dtype):
+    """d_pos (N, 3) from the PE cotangent: d_xb = g_pe * pe'(xb) routed
+    through the transposed B."""
+    return (g_pe.float() * pe_deriv(xb, dtype)) @ pe_pattern(xb.device).t()
+
+
 def mm(a, w, b=None):
     """a @ w (+ b) in float32: a and w hold compute-dtype values, whose
     products are exact in float32, so this is the kernels' f32-accumulated
     product up to summation order."""
     out = a.float() @ w.float()
     return out if b is None else out + b
+
+
+def mm_t(g, w, dtype):
+    """g @ w.T with g rounded to ``dtype`` first, accumulated in float32 and
+    rounded to ``dtype`` at the output: the cotangent chain stays in the
+    compute dtype."""
+    return (g.to(dtype).float() @ w.float().t()).to(dtype)
+
+
+def outer(a, g):
+    """a.T @ g, a weight-gradient contribution: compute-dtype operands,
+    float32 accumulation."""
+    return a.float().t() @ g.float()
+
+
+def colsum(g):
+    """Bias gradient: the cotangent summed over samples in float32."""
+    return g.float().sum(dim=0, keepdim=True)
 
 
 def softplus(x):
@@ -244,19 +307,166 @@ def trunk(pe, w, dtype):
     return acts, masks
 
 
-def density_forward_reference(weights: KernelWeights, pos):
-    """Plain PyTorch version of :func:`density_forward`: PE from the points
-    themselves (xb = x 2^deg, exact in float32: the ray form with d = 0,
-    z = 0), the trunk and the sigma head."""
-    dtype = weights.dtype
-    w = kernel_views(weights)
-    j, scale = pe_lanes(pos.device)
-    pe = pe_from_args(pos.float()[:, j] * scale, dtype)
-    return softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b))[:, 0]
+def trunk_backward(pe, acts, masks, g_h, w, dtype, g):
+    """Backward through the trunk from g_h (compute dtype). Fills the float32
+    weight and bias gradients of the 8 layers into entries 0-15 of ``g``
+    (FieldWeights order); returns d_pe (compute dtype): layer 5's PE part
+    plus layer 0's, added in the compute dtype."""
+    g_pe = None
+    for i in range(7, -1, -1):
+        g_pre = g_h * masks[i]
+        inp = pe if i == 0 else (torch.cat([acts[4], pe], dim=-1) if i == 5 else acts[i - 1])
+        g[i], g[8 + i] = outer(inp, g_pre), colsum(g_pre)
+        g_in = mm_t(g_pre, w.trunk_w[i], dtype)
+        if i == 5:
+            g_h, g_pe = g_in[:, :256], g_in[:, 256:]
+        elif i == 0:
+            g_pe = g_pe + g_in
+        else:
+            g_h = g_in
+    return g_pe
+
+
+def heads(h, emb64, w, dtype):
+    """Per-sample heads from the trunk output h and the (M, 64) padded
+    embedding: (sigma, albedo, ts, tb) and the residuals their backward
+    reads."""
+    sig_pre = mm(h, w.sigma_w, w.sigma_b)
+    bott = mm(h, w.bott_w, w.bott_b).to(dtype)
+    ah_pre = mm(bott, w.alb_w0, w.alb_b0)
+    ah = torch.relu(ah_pre).to(dtype)
+    albedo = torch.sigmoid(mm(ah, w.alb_w1, w.alb_b1))
+    t_in = torch.cat([bott, emb64.to(dtype)], dim=-1)
+    t, t_acts, t_masks = t_in, [], []
+    for i in range(4):
+        pre = mm(t, w.tr_w[i], w.tr_b[i])
+        t = torch.relu(pre).to(dtype)
+        t_acts.append(t)
+        t_masks.append((pre > 0).to(dtype))
+    ts = torch.sigmoid(mm(t, w.ts_w, w.ts_b))
+    tb_pre = mm(t, w.tb_w, w.tb_b)
+    res = dict(sig_pre=sig_pre, bott=bott, ah_pre=ah_pre, ah=ah, t_in=t_in,
+               t_acts=t_acts, t_masks=t_masks, tb_pre=tb_pre, albedo=albedo, ts=ts)
+    return softplus(sig_pre), albedo, ts, softplus(tb_pre), res
+
+
+def heads_backward(h, res, d_sigma, d_val, w, dtype, g):
+    """VJP of :func:`heads` for the cotangents of sigma (M, 1) and of the
+    values ``d_val`` (M, >= 6: albedo in columns 1-3, t_s in 4, t_beta in
+    5), at the JAX kernels' rounding points. Fills the head entries 16-35 of
+    the float32 gradients ``g``; returns the trunk output's cotangent g_h
+    (compute dtype) and the embedding's (M, 4) float32."""
+    albedo, ts = res["albedo"], res["ts"]
+    g_sig_pre = d_sigma * torch.sigmoid(res["sig_pre"])
+    g_ts_pre = d_val[:, 4:5] * ts * (1.0 - ts)
+    g_tb_pre = d_val[:, 5:6] * torch.sigmoid(res["tb_pre"])
+    t_acts, t_masks = res["t_acts"], res["t_masks"]
+    g[32], g[33] = outer(t_acts[3], g_ts_pre.to(dtype)), colsum(g_ts_pre)
+    g[34], g[35] = outer(t_acts[3], g_tb_pre.to(dtype)), colsum(g_tb_pre)
+    g_t = mm_t(g_ts_pre, w.ts_w, dtype) + mm_t(g_tb_pre, w.tb_w, dtype)
+    for i in range(3, -1, -1):
+        g_pre = g_t * t_masks[i]
+        g[24 + i] = outer(res["t_in"] if i == 0 else t_acts[i - 1], g_pre)
+        g[28 + i] = colsum(g_pre)
+        g_t = mm_t(g_pre, w.tr_w[i], dtype)
+    g_alb_pre = d_val[:, 1:4] * albedo * (1.0 - albedo)
+    g[22], g[23] = outer(res["ah"], g_alb_pre.to(dtype)), colsum(g_alb_pre)
+    g_ah = (res["ah_pre"] > 0).to(dtype) * mm_t(g_alb_pre, w.alb_w1, dtype)
+    g[20], g[21] = outer(res["bott"], g_ah), colsum(g_ah)
+    g_bott = g_t[:, :256] + mm_t(g_ah, w.alb_w0, dtype)
+    g[18], g[19] = outer(h, g_bott), colsum(g_bott)
+    g[16], g[17] = outer(h, g_sig_pre.to(dtype)), colsum(g_sig_pre)
+    g_h = mm_t(g_bott, w.bott_w, dtype) + mm_t(g_sig_pre, w.sigma_w, dtype)
+    return g_h, g_t[:, 256:260].float()
+
+
+def sigma_backward(pe, acts, masks, sig_pre, d_sigma, w, dtype):
+    """VJP of the density trunk and sigma head for the sigma cotangent
+    d_sigma (M, 1): the 36 float32 gradients (exact zeros past the density
+    prefix) and the PE cotangent (compute dtype)."""
+    g_sig_pre = d_sigma * torch.sigmoid(sig_pre)
+    g = [torch.zeros(x.shape, device=pe.device) for x in flatten_weights(w)]
+    g[16], g[17] = outer(acts[-1], g_sig_pre.to(dtype)), colsum(g_sig_pre)
+    g_pe = trunk_backward(pe, acts, masks, mm_t(g_sig_pre, w.sigma_w, dtype), w, dtype, g)
+    return g, g_pe
+
+
+def pack_grads(flat):
+    """36 float32 gradients in FieldWeights order, padded (in, out) matrices
+    and (1, d) biases -> (mats, biases) in the packed kernel layout."""
+    return (torch.cat([flat[i].t().reshape(-1) for i in _MAT_IDX]),
+            torch.cat([flat[i].reshape(-1) for i in _BIAS_IDX]))
+
+
+def emb_block(emb):
+    """(N, 4) embeddings -> the (N, 64) zero-padded block the transient
+    head's padded first matrix reads."""
+    return F.pad(emb.float(), (0, PE_PAD - EMB_DIM))
 
 
 # ---------------------------------------------------------------------------
-# wrapper checks shared by every kernel
+# plain versions of the per-point kernels
+# ---------------------------------------------------------------------------
+
+def density_forward_reference(weights: KernelWeights, pos):
+    """Plain PyTorch version of :func:`density_forward`: PE from the points
+    themselves, the trunk and the sigma head."""
+    dtype = weights.dtype
+    w = kernel_views(weights)
+    pe = pe_from_args(point_pe_args(pos), dtype)
+    return softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b))[:, 0]
+
+
+def density_backward_reference(weights: KernelWeights, pos, g):
+    """Plain PyTorch version of :func:`density_backward`: the VJP of the
+    density for the per-point cotangent ``g`` (N,), recomputing the
+    forward, step by step as the JAX package's ``_density_bwd_kernel``.
+    Returns (d_mats, d_biases) in the packed layout, float32, zero past the
+    density prefix (the heads get exact zeros), and d_pos (N, 3)."""
+    dtype = weights.dtype
+    w = kernel_views(weights)
+    xb = point_pe_args(pos)
+    pe = pe_from_args(xb, dtype)
+    acts, masks = trunk(pe, w, dtype)
+    sig_pre = mm(acts[-1], w.sigma_w, w.sigma_b)
+    grads, g_pe = sigma_backward(pe, acts, masks, sig_pre, g.float().reshape(-1, 1), w, dtype)
+    return (*pack_grads(grads), point_grads(xb, g_pe, dtype))
+
+
+def field_forward_reference(weights: KernelWeights, pos, emb):
+    """Plain PyTorch version of :func:`field_forward`: PE from the points,
+    the trunk and every per-sample head, float32 heads, the embedding in
+    the 64-wide padded block."""
+    dtype = weights.dtype
+    w = kernel_views(weights)
+    pe = pe_from_args(point_pe_args(pos), dtype)
+    sigma, albedo, ts, tb, _ = heads(trunk(pe, w, dtype)[0][-1], emb_block(emb), w, dtype)
+    zero = torch.zeros_like(sigma)
+    return torch.cat([sigma, albedo, ts, tb, zero, zero], dim=1)
+
+
+def field_backward_reference(weights: KernelWeights, pos, emb, g):
+    """Plain PyTorch version of :func:`field_backward`: the VJP of the field
+    for the per-point cotangent ``g`` (N, 8) in the forward's layout,
+    recomputing the forward, step by step as the JAX package's
+    ``_field_bwd_kernel``. Returns (d_mats, d_biases) in the packed layout,
+    float32, d_pos (N, 3) and d_emb (N, 4)."""
+    dtype = weights.dtype
+    w = kernel_views(weights)
+    xb = point_pe_args(pos)
+    pe = pe_from_args(xb, dtype)
+    acts, masks = trunk(pe, w, dtype)
+    h = acts[-1]
+    _, _, _, _, res = heads(h, emb_block(emb), w, dtype)
+    g = g.float()
+    grads = [None] * N_WEIGHTS
+    g_h, d_emb = heads_backward(h, res, g[:, 0:1], g, w, dtype, grads)
+    g_pe = trunk_backward(pe, acts, masks, g_h, w, dtype, grads)
+    return (*pack_grads(grads), point_grads(xb, g_pe, dtype), d_emb)
+
+
+# ---------------------------------------------------------------------------
+# wrapper checks and the launch shared by every kernel
 # ---------------------------------------------------------------------------
 
 def check_f32(name, t, shape, device):
@@ -287,8 +497,26 @@ def check_weights(weights: KernelWeights, device):
         raise RuntimeError("the compiled kernels index another weight layout than this module")
 
 
+def launch(entry, what, device, *args):
+    """Call the library's C entry point ``entry`` on PyTorch's current stream
+    of ``device``; tensors go by data pointer, ints as they are. Raises on a
+    CUDA error."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, entry)(*(a.data_ptr() if torch.is_tensor(a) else a for a in args),
+                                   stream)
+    _build.check(code, what)
+
+
+def point_workspace(field, n, device):
+    """The per-point backward kernels' scratch, sized by the library."""
+    nbytes = _build.load_library().eonerf_point_bwd_workspace_bytes(int(field), n)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+
+
 # ---------------------------------------------------------------------------
-# the density kernel's wrapper and op
+# the per-point kernels' wrappers
 # ---------------------------------------------------------------------------
 
 def density_forward(weights: KernelWeights, pos):
@@ -304,12 +532,8 @@ def density_forward(weights: KernelWeights, pos):
     sigma = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return sigma
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_density_fwd(pos.data_ptr(), weights.mats.data_ptr(),
-                                      weights.biases.data_ptr(), sigma.data_ptr(), n, stream)
-    _build.check(code, "density_forward kernel launch")
+    launch("eonerf_density_fwd", "density_forward kernel launch", dev, pos, weights.mats,
+           weights.biases, sigma, n)
     density_forward.launches += 1
     return sigma
 
@@ -317,21 +541,133 @@ def density_forward(weights: KernelWeights, pos):
 density_forward.launches = 0
 
 
-class _Density(torch.autograd.Function):
+def density_backward(weights: KernelWeights, pos, g):
+    """VJP of :func:`density_forward` for the per-point cotangent ``g``
+    (N,): (d_mats, d_biases) float32 in the packed layout (zero past the
+    density prefix) and d_pos (N, 3). CPU tensors: the plain version. CUDA
+    tensors: the hand-written bf16 kernels (raises if they cannot run)."""
+    if pos.device.type == "cpu":
+        return density_backward_reference(weights, pos, g)
+    n = pos.shape[0]
+    dev = pos.device
+    check_f32("pos", pos, (n, 3), dev)
+    check_f32("g", g, (n,), dev)
+    check_weights(weights, dev)
+    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return d_mats, d_biases, d_pos
+    launch("eonerf_density_bwd", "density_backward kernel launch", dev, pos, g, weights.mats,
+           weights.biases, point_workspace(False, n, dev), d_mats, d_biases, d_pos, n)
+    density_backward.launches += 1
+    return d_mats, d_biases, d_pos
+
+
+density_backward.launches = 0
+
+
+def field_forward(weights: KernelWeights, pos, emb):
+    """Per-point field (N, 8) = [sigma, albedo r g b, t_s, t_beta, 0, 0] for
+    points (N, 3) and their embeddings (N, 4). CPU tensors: the plain
+    version. CUDA tensors: the hand-written bf16 kernel (raises if it cannot
+    be built or launched)."""
+    if pos.device.type == "cpu":
+        return field_forward_reference(weights, pos, emb)
+    n = pos.shape[0]
+    dev = pos.device
+    check_f32("pos", pos, (n, 3), dev)
+    check_f32("emb", emb, (n, EMB_DIM), dev)
+    check_weights(weights, dev)
+    out = torch.empty((n, FIELD_COLS), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    launch("eonerf_field_fwd", "field_forward kernel launch", dev, pos, emb, weights.mats,
+           weights.biases, out, n)
+    field_forward.launches += 1
+    return out
+
+
+field_forward.launches = 0
+
+
+def field_backward(weights: KernelWeights, pos, emb, g):
+    """VJP of :func:`field_forward` for the per-point cotangent ``g``
+    (N, 8): (d_mats, d_biases) float32 in the packed layout, d_pos (N, 3)
+    and d_emb (N, 4). CPU tensors: the plain version. CUDA tensors: the
+    hand-written bf16 kernels (raises if they cannot be built or
+    launched)."""
+    if pos.device.type == "cpu":
+        return field_backward_reference(weights, pos, emb, g)
+    n = pos.shape[0]
+    dev = pos.device
+    check_f32("pos", pos, (n, 3), dev)
+    check_f32("emb", emb, (n, EMB_DIM), dev)
+    check_f32("g", g, (n, FIELD_COLS), dev)
+    check_weights(weights, dev)
+    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    d_emb = torch.zeros((n, EMB_DIM), dtype=torch.float32, device=dev)
+    if n == 0:
+        return d_mats, d_biases, d_pos, d_emb
+    launch("eonerf_field_bwd", "field_backward kernel launch", dev, pos, emb, g, weights.mats,
+           weights.biases, point_workspace(True, n, dev), d_mats, d_biases, d_pos, d_emb, n)
+    field_backward.launches += 1
+    return d_mats, d_biases, d_pos, d_emb
+
+
+field_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable ops (the JAX package's custom_vjp pairs, recompute mode)
+# ---------------------------------------------------------------------------
+
+class _Field(torch.autograd.Function):
+    """Forward saves only its inputs; the backward recomputes."""
+
     @staticmethod
-    def forward(ctx, mats, biases, pos, dtype):
-        return density_forward(KernelWeights(mats.to(dtype), biases), pos)
+    def forward(ctx, mats, biases, pos, emb, dtype):
+        kw = KernelWeights(mats.to(dtype), biases)
+        ctx.save_for_backward(kw.mats, biases, pos, emb)
+        return field_forward(kw, pos, emb)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the density op's backward (the JAX package's _density_bwd_kernel, row 9 of "
-            "PERF.md's kernel table) is not ported yet; no path of the port differentiates "
-            "through it")
+        mats, biases, pos, emb = ctx.saved_tensors
+        d_mats, d_biases, d_pos, d_emb = field_backward(KernelWeights(mats, biases), pos, emb,
+                                                        g.contiguous())
+        return d_mats, d_biases, d_pos, d_emb, None
+
+
+class _Density(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mats, biases, pos, dtype):
+        kw = KernelWeights(mats.to(dtype), biases)
+        ctx.save_for_backward(kw.mats, biases, pos)
+        return density_forward(kw, pos)
+
+    @staticmethod
+    def backward(ctx, g):
+        mats, biases, pos = ctx.saved_tensors
+        d_mats, d_biases, d_pos = density_backward(KernelWeights(mats, biases), pos,
+                                                   g.contiguous())
+        return d_mats, d_biases, d_pos, None
+
+
+def fused_field(weights: KernelWeights, pos, emb, compute_dtype):
+    """Differentiable per-point field op over float32 packed weights (cast
+    to ``compute_dtype`` inside, so their gradients arrive in float32):
+    (sigma (N,), albedo (N, 3), t_s (N, 1), t_beta (N, 1)) for points (N, 3)
+    and embeddings (N, 4); gradients flow to the weights, the points and
+    the embeddings."""
+    out = _Field.apply(weights.mats, weights.biases, pos.float().contiguous(),
+                       emb.float().contiguous(), compute_dtype)
+    return out[:, 0], out[:, 1:4], out[:, 4:5], out[:, 5:6]
 
 
 def fused_density(weights: KernelWeights, pos, compute_dtype):
-    """Density op over float32 packed weights (cast to ``compute_dtype``
-    inside). Forward only: a gradient that reaches it raises instead of
-    being dropped."""
+    """Differentiable per-point density op (N,), as :func:`fused_field`;
+    gradients flow to the trunk and sigma-head weights and to the points."""
     return _Density.apply(weights.mats, weights.biases, pos.float().contiguous(), compute_dtype)

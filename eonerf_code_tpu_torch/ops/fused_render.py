@@ -33,8 +33,6 @@ kernel (csrc/fused_render.cu) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 
@@ -43,18 +41,24 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     BIAS_ELEMENTS,
     MAT_ELEMENTS,
     PE_PAD,
-    _BIAS_IDX,
-    _MAT_IDX,
     KernelWeights,
     check_f32,
     check_weights,
-    flatten_weights,
+    emb_block,
+    heads,
+    heads_backward,
     kernel_views,
+    launch,
     mm,
+    pack_grads,
+    pe_deriv,
     pe_from_args,
     pe_lanes,
+    pe_pattern,
+    sigma_backward,
     softplus,
     trunk,
+    trunk_backward,
 )
 from eonerf_code_tpu_torch.ops.volrend import exclusive_cumsum
 
@@ -80,63 +84,8 @@ def _pe(rayin, z, dtype):
     return pe_from_args(_pe_args(rayin, z), dtype)
 
 
-def _pe_deriv(xb, dtype):
-    """(R*K, 64) d(pe)/d(xb) per lane, float32: [1 | cos | -sin | 0]; in
-    other dtypes a second phased sin(xb + phase + pi/2), as the kernels."""
-    col = torch.arange(PE_PAD, device=xb.device)
-    if dtype == torch.float32:
-        d = torch.where(col < 3, 1.0, torch.where(col < 33, torch.cos(xb),
-                        torch.where(col < 63, -torch.sin(xb), 0.0)))
-    else:
-        phase = torch.where((col >= 33) & (col < 63), math.pi / 2, 0.0)
-        d = torch.where(col < 3, 1.0,
-                        torch.where(col < 63, torch.sin(xb + phase + math.pi / 2), 0.0))
-    return d.reshape(-1, PE_PAD)
-
-
-def _mm_t(g, w, dtype):
-    """g @ w.T with g rounded to ``dtype`` first, accumulated in float32 and
-    rounded to ``dtype`` at the output: the cotangent chain stays in the
-    compute dtype."""
-    return (g.to(dtype).float() @ w.float().t()).to(dtype)
-
-
-def _outer(a, g):
-    """a.T @ g, a weight-gradient contribution: compute-dtype operands,
-    float32 accumulation."""
-    return a.float().t() @ g.float()
-
-
-def _colsum(g):
-    """Bias gradient: the cotangent summed over samples in float32."""
-    return g.float().sum(dim=0, keepdim=True)
-
-
-def _heads(h, emb64, w, dtype):
-    """Per-sample heads from the trunk output: (sigma, albedo, ts, tb) and
-    the residuals their backward reads."""
-    sig_pre = mm(h, w.sigma_w, w.sigma_b)
-    bott = mm(h, w.bott_w, w.bott_b).to(dtype)
-    ah_pre = mm(bott, w.alb_w0, w.alb_b0)
-    ah = torch.relu(ah_pre).to(dtype)
-    albedo = torch.sigmoid(mm(ah, w.alb_w1, w.alb_b1))
-    t_in = torch.cat([bott, emb64.to(dtype)], dim=-1)
-    t, t_acts, t_masks = t_in, [], []
-    for i in range(4):
-        pre = mm(t, w.tr_w[i], w.tr_b[i])
-        t = torch.relu(pre).to(dtype)
-        t_acts.append(t)
-        t_masks.append((pre > 0).to(dtype))
-    ts = torch.sigmoid(mm(t, w.ts_w, w.ts_b))
-    tb_pre = mm(t, w.tb_w, w.tb_b)
-    res = dict(sig_pre=sig_pre, bott=bott, ah_pre=ah_pre, ah=ah, t_in=t_in,
-               t_acts=t_acts, t_masks=t_masks, tb_pre=tb_pre)
-    return softplus(sig_pre), albedo, ts, softplus(tb_pre), res
-
-
 def _emb64(rayin, r, k):
-    emb64 = F.pad(rayin[:, 6:10].float(), (0, PE_PAD - 4))
-    return emb64[:, None, :].expand(r, k, PE_PAD).reshape(-1, PE_PAD)
+    return emb_block(rayin[:, 6:10])[:, None, :].expand(r, k, PE_PAD).reshape(-1, PE_PAD)
 
 
 def camera_forward_reference(weights: KernelWeights, rayin, z, deltam):
@@ -147,8 +96,8 @@ def camera_forward_reference(weights: KernelWeights, rayin, z, deltam):
     r, k = z.shape
     z = z.float()
     pe = _pe(rayin.float(), z, dtype)
-    sigma, albedo, ts, tb, _ = _heads(trunk(pe, w, dtype)[0][-1], _emb64(rayin, r, k), w,
-                                      dtype)
+    sigma, albedo, ts, tb, _ = heads(trunk(pe, w, dtype)[0][-1], _emb64(rayin, r, k), w,
+                                     dtype)
     sdelta = sigma.view(r, k) * deltam.float()
     weights_rk = torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta))
     values = torch.cat([z[..., None], albedo.view(r, k, 3), ts.view(r, k, 1),
@@ -188,51 +137,17 @@ def _before_last(mask):
     return (remaining >= 2.0).float()
 
 
-def _pattern(device):
-    """(3, 64) float32 B: the scale of each PE lane on the coordinate it reads."""
-    j, scale = pe_lanes(device)
-    return torch.zeros((3, PE_PAD), device=device).index_put_(
-        (j, torch.arange(PE_PAD, device=device)), scale)
-
-
 def _reverse_exclusive_cumsum(x):
     """out_i = sum_{j>i} x_j, shifting first (never inclusive minus self)."""
     return exclusive_cumsum(x.flip(-1)).flip(-1)
 
 
-def _trunk_backward(pe, acts, masks, g_h, w, dtype, dws, dbs):
-    """Backward through the trunk from g_h (compute dtype). Fills the weight
-    and bias gradients (float32) of the 8 layers; returns d_pe (compute
-    dtype): layer 5's PE part plus layer 0's, added in the compute dtype."""
-    g_pe = None
-    for i in range(7, -1, -1):
-        g_pre = g_h * masks[i]
-        inp = pe if i == 0 else (torch.cat([acts[4], pe], dim=-1) if i == 5 else acts[i - 1])
-        dws[i] = _outer(inp, g_pre)
-        dbs[i] = _colsum(g_pre)
-        g_in = _mm_t(g_pre, w.trunk_w[i], dtype)
-        if i == 5:
-            g_h, g_pe = g_in[:, :256], g_in[:, 256:]
-        elif i == 0:
-            g_pe = g_pe + g_in
-        else:
-            g_h = g_in
-    return g_pe
-
-
 def _ray_grads(xb, z, g_pe, dtype, r, k):
     """Per-ray d_o, d_d (R, 3) from the PE cotangent: d_xb = g_pe * pe'(xb),
     summed over the ray's samples, routed through the transposed B."""
-    d_xb = (g_pe.float() * _pe_deriv(xb, dtype)).view(r, k, PE_PAD)
-    pat = _pattern(xb.device)
+    d_xb = (g_pe.float() * pe_deriv(xb, dtype)).view(r, k, PE_PAD)
+    pat = pe_pattern(xb.device)
     return d_xb.sum(dim=1) @ pat.t(), (d_xb * z[..., None]).sum(dim=1) @ pat.t()
-
-
-def _pack_grads(flat):
-    """36 float32 gradients in FieldWeights order, padded (in, out) matrices
-    and (1, d) biases -> (mats, biases) in the packed kernel layout."""
-    return (torch.cat([flat[i].t().reshape(-1) for i in _MAT_IDX]),
-            torch.cat([flat[i].reshape(-1) for i in _BIAS_IDX]))
 
 
 def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
@@ -249,7 +164,7 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
     pe = pe_from_args(xb, dtype)
     acts, masks = trunk(pe, w, dtype)
     h = acts[-1]
-    sigma, albedo, ts, tb, res = _heads(h, _emb64(rayin, r, k), w, dtype)
+    sigma, albedo, ts, tb, res = heads(h, _emb64(rayin, r, k), w, dtype)
 
     # compositing backward (f32)
     sdelta = sigma.view(r, k) * deltam
@@ -266,38 +181,14 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
     d_sdelta = d_alpha * em + _reverse_exclusive_cumsum(d_excl)
     d_sigma = (d_sdelta * deltam).reshape(-1, 1)
 
-    # heads backward
     g = [None] * 36
-    g_sig_pre = d_sigma * torch.sigmoid(res["sig_pre"])
-    g_ts_pre = d_val[:, 4:5] * ts * (1.0 - ts)
-    g_tb_pre = d_val[:, 5:6] * torch.sigmoid(res["tb_pre"])
-    t_acts, t_masks = res["t_acts"], res["t_masks"]
-    g[32], g[33] = _outer(t_acts[3], g_ts_pre.to(dtype)), _colsum(g_ts_pre)
-    g[34], g[35] = _outer(t_acts[3], g_tb_pre.to(dtype)), _colsum(g_tb_pre)
-    g_t = _mm_t(g_ts_pre, w.ts_w, dtype) + _mm_t(g_tb_pre, w.tb_w, dtype)
-    for i in range(3, -1, -1):
-        g_pre = g_t * t_masks[i]
-        g[24 + i] = _outer(res["t_in"] if i == 0 else t_acts[i - 1], g_pre)
-        g[28 + i] = _colsum(g_pre)
-        g_t = _mm_t(g_pre, w.tr_w[i], dtype)
-    g_emb = g_t[:, 256:260].float()
-    g_alb_pre = d_val[:, 1:4] * albedo * (1.0 - albedo)
-    g[22], g[23] = _outer(res["ah"], g_alb_pre.to(dtype)), _colsum(g_alb_pre)
-    g_ah = (res["ah_pre"] > 0).to(dtype) * _mm_t(g_alb_pre, w.alb_w1, dtype)
-    g[20], g[21] = _outer(res["bott"], g_ah), _colsum(g_ah)
-    g_bott = g_t[:, :256] + _mm_t(g_ah, w.alb_w0, dtype)
-    g[18], g[19] = _outer(h, g_bott), _colsum(g_bott)
-    g[16], g[17] = _outer(h, g_sig_pre.to(dtype)), _colsum(g_sig_pre)
-    g_h = _mm_t(g_bott, w.bott_w, dtype) + _mm_t(g_sig_pre, w.sigma_w, dtype)
-
-    dws, dbs = [None] * 8, [None] * 8
-    g_pe = _trunk_backward(pe, acts, masks, g_h, w, dtype, dws, dbs)
-    g[0:8], g[8:16] = dws, dbs
+    g_h, g_emb = heads_backward(h, res, d_sigma, d_val, w, dtype, g)
+    g_pe = trunk_backward(pe, acts, masks, g_h, w, dtype, g)
     d_o, d_d = _ray_grads(xb, z, g_pe, dtype, r, k)
     d_emb = g_emb.view(r, k, 4).sum(dim=1)
     d_rayin = torch.cat([d_o, d_d, d_emb, torch.zeros((r, RAYIN_COLS - 10), device=z.device)],
                         dim=1)
-    return (*_pack_grads(g), d_rayin)
+    return (*pack_grads(g), d_rayin)
 
 
 def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, ggeo):
@@ -313,24 +204,15 @@ def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, gg
     xb = _pe_args(rayin.float(), z)
     pe = pe_from_args(xb, dtype)
     acts, masks = trunk(pe, w, dtype)
-    h = acts[-1]
-    sig_pre = mm(h, w.sigma_w, w.sigma_b)
+    sig_pre = mm(acts[-1], w.sigma_w, w.sigma_b)
     before_last = _before_last(mask)
     geo = torch.exp(-(softplus(sig_pre).view(r, k) * deltam * before_last).sum(dim=-1))
     d_ev = -geo * ggeo.float().reshape(-1)
     d_sigma = (d_ev[:, None] * before_last * deltam).reshape(-1, 1)
-    g_sig_pre = d_sigma * torch.sigmoid(sig_pre)
-
-    dws, dbs = [None] * 8, [None] * 8
-    g_h = _mm_t(g_sig_pre, w.sigma_w, dtype)
-    g_pe = _trunk_backward(pe, acts, masks, g_h, w, dtype, dws, dbs)
-    full = flatten_weights(w)
-    g = [torch.zeros(x.shape, device=z.device) for x in full]
-    g[0:8], g[8:16] = dws, dbs
-    g[16], g[17] = _outer(h, g_sig_pre.to(dtype)), _colsum(g_sig_pre)
+    g, g_pe = sigma_backward(pe, acts, masks, sig_pre, d_sigma, w, dtype)
     d_o, d_d = _ray_grads(xb, z, g_pe, dtype, r, k)
     d_rayin = torch.cat([d_o, d_d, torch.zeros((r, RAYIN_COLS - 6), device=z.device)], dim=1)
-    return (*_pack_grads(g), d_rayin)
+    return (*pack_grads(g), d_rayin)
 
 
 # ---------------------------------------------------------------------------
@@ -365,13 +247,8 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam):
     if r == 0:
         return acc
     zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_camera_fwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
-                                     weights.mats.data_ptr(), weights.biases.data_ptr(),
-                                     acc.data_ptr(), r, kpad, stream)
-    _build.check(code, "camera_forward kernel launch")
+    launch("eonerf_camera_fwd", "camera_forward kernel launch", dev, rayin, zp, dp, weights.mats,
+           weights.biases, acc, r, kpad)
     camera_forward.launches += 1
     return acc
 
@@ -399,14 +276,8 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask):
     if r == 0:
         return geo
     zp, dp, mp = _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_shadow_fwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
-                                     mp.data_ptr(), weights.mats.data_ptr(),
-                                     weights.biases.data_ptr(), geo.data_ptr(), r, kpad,
-                                     stream)
-    _build.check(code, "shadow_forward kernel launch")
+    launch("eonerf_shadow_fwd", "shadow_forward kernel launch", dev, rayin, zp, dp, mp,
+           weights.mats, weights.biases, geo, r, kpad)
     shadow_forward.launches += 1
     return geo
 
@@ -433,13 +304,8 @@ def coarse_forward(weights: KernelWeights, rayin, z, deltam):
     if r == 0:
         return out[:, :k]
     zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_coarse_fwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
-                                     weights.mats.data_ptr(), weights.biases.data_ptr(),
-                                     out.data_ptr(), r, kpad, stream)
-    _build.check(code, "coarse_forward kernel launch")
+    launch("eonerf_coarse_fwd", "coarse_forward kernel launch", dev, rayin, zp, dp, weights.mats,
+           weights.biases, out, r, kpad)
     coarse_forward.launches += 1
     return out[:, :k]
 
@@ -478,16 +344,9 @@ def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc):
     if r == 0:
         return d_mats, d_biases, d_rayin
     zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    ws = _workspace(True, r, kpad, dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_camera_bwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
-                                     gacc.data_ptr(), weights.mats.data_ptr(),
-                                     weights.biases.data_ptr(), ws.data_ptr(),
-                                     d_mats.data_ptr(), d_biases.data_ptr(),
-                                     d_rayin.data_ptr(), r, kpad, stream)
-    _build.check(code, "camera_backward kernel launch")
+    launch("eonerf_camera_bwd", "camera_backward kernel launch", dev, rayin, zp, dp, gacc,
+           weights.mats, weights.biases, _workspace(True, r, kpad, dev), d_mats, d_biases,
+           d_rayin, r, kpad)
     camera_backward.launches += 1
     return d_mats, d_biases, d_rayin
 
@@ -520,16 +379,9 @@ def shadow_backward(weights: KernelWeights, rayin, z, deltam, mask, ggeo):
     if r == 0:
         return d_mats, d_biases, d_rayin
     zp, dp, mp = _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad)
-    ws = _workspace(False, r, kpad, dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.eonerf_shadow_bwd(rayin.data_ptr(), zp.data_ptr(), dp.data_ptr(),
-                                     mp.data_ptr(), ggeo.data_ptr(), weights.mats.data_ptr(),
-                                     weights.biases.data_ptr(), ws.data_ptr(),
-                                     d_mats.data_ptr(), d_biases.data_ptr(),
-                                     d_rayin.data_ptr(), r, kpad, stream)
-    _build.check(code, "shadow_backward kernel launch")
+    launch("eonerf_shadow_bwd", "shadow_backward kernel launch", dev, rayin, zp, dp, mp, ggeo,
+           weights.mats, weights.biases, _workspace(False, r, kpad, dev), d_mats, d_biases,
+           d_rayin, r, kpad)
     shadow_backward.launches += 1
     return d_mats, d_biases, d_rayin
 

@@ -44,6 +44,16 @@ def exit_transmittance(sigma, delta, mask=None):
     return torch.exp(-torch.gather(excl, -1, last_idx[:, None])[:, 0])
 
 
+def ray_entropy(alphas, mask=None, eps=1e-10):
+    """InfoNeRF per-ray opacity entropy (R, K) -> (R,) (reference
+    eonerf.py:56-67, computed but disabled there): p_i = alpha_i / sum
+    alpha over the valid samples, H = -sum p_i log10(p_i + eps)."""
+    if mask is not None:
+        alphas = torch.where(mask, alphas, torch.zeros_like(alphas))
+    p = alphas / (alphas.sum(dim=-1, keepdim=True) + eps)
+    return -(p * torch.log10(p + eps)).sum(dim=-1)
+
+
 def weight_entropy(weights, eps=1e-10):
     """Per-ray entropy of the normalized compositing weights (R, K) -> (R,),
     scaled to [0, 1] by log(K): about 0 when a ray's mass sits on one

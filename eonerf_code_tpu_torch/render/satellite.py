@@ -5,8 +5,11 @@ refined by hierarchical fine samples from a coarse density pass) -> field
 -> camera compositing -> shadow-ray sampling from the expected surface
 point toward the sun -> sigma-only field -> sun visibility -> irradiance +
 radiometric composite. A field with fused ops (``KernelField``) runs the
-per-sample work inside the fused camera, shadow and coarse kernels; any
-other field runs it per sample through the module.
+per-sample work inside the fused camera, shadow and coarse kernels, unless
+``compute_entropy`` or ``nadir_diagnostics`` asks for the per-sample
+branch, which evaluates the field per point (on a ``KernelField`` through
+the per-point field and density kernels, on any other field through the
+module) and composites in PyTorch.
 
 Physics and composite (the reference's, as in the JAX package):
 - rgb = albedo*s + (1-s) * (0.2*ambient) * albedo, with s = geometric sun
@@ -44,7 +47,12 @@ from eonerf_code_tpu_torch.ops.sampling import (
     set_last_valid,
     stratified_z_vals,
 )
-from eonerf_code_tpu_torch.ops.volrend import accumulate, exit_transmittance, render_weights
+from eonerf_code_tpu_torch.ops.volrend import (
+    accumulate,
+    exit_transmittance,
+    ray_entropy,
+    render_weights,
+)
 
 OUTPUT_KEYS = ("rgb", "depth", "albedo_rgb", "ambient_rgb", "geo_shadows", "transient_s",
                "beta", "entropy", "pts_per_ray", "sc_pts_per_ray", "opacity",
@@ -53,8 +61,7 @@ OUTPUT_KEYS = ("rgb", "depth", "albedo_rgb", "ambient_rgb", "geo_shadows", "tran
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Rendering options. Ray entropy and the nadir opacity diagnostics of
-    the JAX package's RenderConfig arrive with a later slice of the port."""
+    """Rendering options, as the JAX package's RenderConfig."""
 
     n_samples: int = 128       # z values per camera ray (intervals = n-1)
     sc_n_samples: int = 128    # z values per shadow ray
@@ -69,6 +76,10 @@ class RenderConfig:
     occ_probes: int = 64       # probes per ray of the span walk
     occ_margin: float = 2.0    # span widening, in probe spacings
     occ_explore_frac: float = 0.25  # share of rays that keep the full range (0 for eval)
+    compute_entropy: bool = False   # InfoNeRF ray entropy (the reference computes, then
+                                    # drops it; off: ones)
+    nadir_diagnostics: bool = False  # opacity below/above the surface along vertical probes
+                                     # (sat_rendering.py:146-174; off: ones)
 
 
 def _with_exploration(generator, t_lo, t_hi, near, far, frac):
@@ -162,6 +173,28 @@ def _shadow_samples(sc_o, sc_d, near, cfg: RenderConfig, generator, occ_grid):
                          cfg.cube_bound, generator, far=sc_hi)
 
 
+def _nadir_opacity_diagnostics(field, origins, cfg: RenderConfig, generator):
+    """Mean alpha over the in-cube samples of vertical probes from the
+    expected surface points ``origins``, downward (column 0) and upward
+    (column 1): a density-leakage diagnostic (reference
+    ``compute_nadir_rays_v2``, sat_rendering.py:146-174). ``sc_n_samples``
+    z values on [0, ray_span], one jitter draw for both probes, as the JAX
+    package reuses one key. (R, 2)."""
+    r = origins.shape[0]
+    zeros = torch.zeros((r,), dtype=origins.dtype, device=origins.device)
+    z_vals = stratified_z_vals(zeros, zeros + cfg.ray_span, cfg.sc_n_samples,
+                               perturb=cfg.perturb, generator=generator)
+    _, _, z_mid, delta = intervals_from_z(z_vals)
+    outs = []
+    for direction in (-1.0, 1.0):
+        pos = origins[:, None, :] + origins.new_tensor([0.0, 0.0, direction]) * z_mid[..., None]
+        mask = cube_mask(pos, cfg.cube_bound)
+        _, _, alphas = render_weights(field.density(pos), delta, mask)
+        n = mask.sum(dim=-1).clamp(min=1)
+        outs.append(torch.where(mask, alphas, torch.zeros_like(alphas)).sum(dim=-1) / n)
+    return torch.stack(outs, dim=-1)
+
+
 def _corrected_origins(field, rays):
     o = rays.origins
     if field.rpc_correction:
@@ -181,8 +214,13 @@ def render_rays(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generato
                 occ_grid=None):
     """Render one block of rays; a dict of the 13 per-ray outputs of
     ``OUTPUT_KEYS`` (the reference's result keys, sat_rendering.py:322-334).
-    Fields with fused ops take the fused branch, same math and keys."""
-    if getattr(field, "supports_fused_render", False):
+    Fields with fused ops take the fused branch, same math and keys, unless
+    ``compute_entropy`` or ``nadir_diagnostics`` is set: the two outputs
+    that need per-sample alphas. On the per-sample branch the shadow march
+    starts from the live surface point, so the shadow term's gradient
+    reaches the camera depth through the sample positions."""
+    if (getattr(field, "supports_fused_render", False)
+            and not cfg.compute_entropy and not cfg.nadir_diagnostics):
         return _render_rays_fused(field, rays, cfg, shadows, generator, occ_grid)
     d, sun_d = rays.viewdirs, rays.sundirs
     o = _corrected_origins(field, rays)
@@ -195,7 +233,7 @@ def render_rays(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generato
         mask = mask & occ_grid.query(pos)
     delta_cam = set_last_valid(delta, mask, cfg.inf_delta)
     sigma, albedo, ambient, t_s, t_beta = field(pos, sun_d, rays.img_idx)
-    weights, _, _ = render_weights(sigma, delta_cam, mask)
+    weights, _, alphas = render_weights(sigma, delta_cam, mask)
     depth = accumulate(weights, z_mid)
     albedo_acc = accumulate(weights, albedo)
     t_s_acc = accumulate(weights, t_s[..., 0])[:, None]
@@ -216,12 +254,17 @@ def render_rays(field, rays: SatRays, cfg: RenderConfig, shadows: bool, generato
         sc_pts = torch.ones_like(t_s_acc)
     rgb, shadowless_rgb = _composite(field, rays, cfg, albedo_acc, ambient_acc, t_s_acc,
                                      geo_shadow, shadows)
+    entropy = ray_entropy(alphas, mask)[:, None] if cfg.compute_entropy else None
+    after = (_nadir_opacity_diagnostics(field, o + depth[:, None] * d, cfg, generator)
+             if cfg.nadir_diagnostics else None)
     return _outputs(rgb, depth, albedo_acc, ambient_acc, geo_shadow, t_s_acc, beta_acc,
-                    mask, sc_pts, opacity, shadowless_rgb)
+                    mask, sc_pts, opacity, shadowless_rgb, entropy, after)
 
 
 def _outputs(rgb, depth, albedo_acc, ambient_acc, geo_shadow, t_s_acc, beta_acc, mask,
-             sc_pts, opacity, shadowless_rgb):
+             sc_pts, opacity, shadowless_rgb, entropy=None, opacity_after_surface=None):
+    """The 13 outputs; entropy and the nadir diagnostics are ones when not
+    computed, as in the JAX package."""
     ones = torch.ones_like(depth[:, None])
     return {
         "rgb": rgb,
@@ -231,11 +274,12 @@ def _outputs(rgb, depth, albedo_acc, ambient_acc, geo_shadow, t_s_acc, beta_acc,
         "geo_shadows": geo_shadow,
         "transient_s": t_s_acc,
         "beta": beta_acc,
-        "entropy": ones,                                   # ray entropy: later slice
+        "entropy": ones if entropy is None else entropy,
         "pts_per_ray": mask.sum(dim=-1).to(albedo_acc.dtype)[:, None],
         "sc_pts_per_ray": sc_pts,
         "opacity": opacity[:, None],
-        "opacity_after_surface": ones.expand(-1, 2).clone(),  # nadir diagnostics: later slice
+        "opacity_after_surface": (ones.expand(-1, 2).clone() if opacity_after_surface is None
+                                  else opacity_after_surface),
         "shadowless_rgb": shadowless_rgb,
     }
 

@@ -133,12 +133,31 @@ def test_perturbed_sampling_follows_the_generator(scene):
     assert bool((delta > 0).all()) and bool((z_mid >= 0).all()) and bool((z_mid <= 2).all())
 
 
-def test_unported_options_raise():
-    """Ray entropy and the nadir diagnostics, the JAX RenderConfig's two
-    extras that force its per-sample path, are not in the port yet."""
-    for option in ("compute_entropy", "nadir_diagnostics"):
-        with pytest.raises(TypeError):
-            tsat.RenderConfig(**{option: True})
+def test_unported_options_raise(scene):
+    """An option the JAX RenderConfig lacks raises. Ray entropy and the
+    nadir diagnostics are the JAX RenderConfig's and render: off, both
+    outputs are the placeholder ones; on, the kernel-backed field takes the
+    per-sample branch and both lie in their ranges (entropy in
+    [0, log10(K)], the probes' mean alpha in [0, 1])."""
+    with pytest.raises(TypeError):
+        tsat.RenderConfig(n_fine=8)
+    _, _, tf, rays_t, ts = scene
+    _, t_rays = _rays(rays_t, ts)
+    kf = KernelField(tf)
+    off = tsat.RenderConfig(n_samples=16, sc_n_samples=16, perturb=False)
+    on = tsat.RenderConfig(n_samples=16, sc_n_samples=16, perturb=False, compute_entropy=True,
+                           nadir_diagnostics=True)
+    assert not off.compute_entropy and not off.nadir_diagnostics
+    with torch.no_grad():
+        plain = tsat.render_rays(kf, t_rays, off, shadows=True)
+        diag = tsat.render_rays(kf, t_rays, on, shadows=True)
+    assert bool((plain["entropy"] == 1.0).all())
+    assert bool((plain["opacity_after_surface"] == 1.0).all())
+    entropy, after = diag["entropy"], diag["opacity_after_surface"]
+    assert entropy.shape == (24, 1) and after.shape == (24, 2)
+    assert bool((entropy >= 0).all()) and bool((entropy <= np.log10(15) + 1e-5).all())
+    assert bool((after >= 0).all()) and bool((after <= 1).all())
+    assert not bool((entropy == 1.0).all()) and not bool((after == 1.0).all())
 
 
 def test_make_render_field_picks_the_per_sample_path_off_the_card(scene):
