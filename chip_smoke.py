@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render-and-DSM path, its training step, its
-sampler=auto training (hierarchical and occupancy-tightened) and its
+sampler=auto training (hierarchical and occupancy-tightened), its
 per-sample branch (ray entropy and the nadir diagnostics, render and
-training) once on one CUDA card.
+training) and its int8 trunk tier (trunk_quant int8 and int8_full, render
+and training) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -25,7 +26,11 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  backward at a training batch's (1024 x 127) and the density
                  backward at the batch's shadow samples (1024 x 63), random
                  cotangents: errors, kernel / plain / bound times, in-cube
-                 samples and TFLOP/s reached. A second shape of a kernel goes
+                 samples and TFLOP/s reached. Then the int8 trunk tier's
+                 launches at the same shapes (forwards in scale groups of the
+                 2048-row target, backwards of the 1024-row one, int8 and
+                 int8_full), each against its plain version, with the group
+                 amax each quantized with. A second shape of a kernel goes
                  into its summary row under other_shapes.
 3. render      - a full-width EONerfField (20 images, seeded init, bf16)
                  behind make_render_field renders a 512x512 orthographic
@@ -83,6 +88,18 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  Losses finite, parameters moved, the whole-step gradient of
                  one batch against the per-sample module path; then 10
                  timed steps.
+10. render_q8  - the phase-3 and phase-5 sweeps through
+                 make_render_field(field, TrainConfig(trunk_quant="int8")):
+                 the int8 camera, shadow (and coarse) launches once per chunk,
+                 the bf16 ones never; rays/s; depth and rgb against the bf16
+                 renders (rel-L2 within 0.1) and the camera op against bf16
+                 on one chunk (within 0.05), the JAX package's own bounds.
+11. train_q8   - Trainer.run with trunk_quant int8 and int8_full at the
+                 default bwd_acts (the recompute fallback), 20 steps then 10
+                 timed, as phase 6: launches, losses, moved parameters, and
+                 against the bf16 kernels the whole-step weight-gradient
+                 cosine (above 0.95) and the camera op's origin-gradient
+                 cosine (above 0.9).
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -170,6 +187,34 @@ GRAD_PATH_DIAG_REL_L2 = 2 * GRAD_PATH_REL_L2
 # alpha, at most 0.03 on this untrained field) mean abs on NVIDIA H100
 # 80GB HBM3, 700 W; held at 20x that.
 DIAG_TOL = {"entropy_mean_abs": 2e-3, "opacity_after_surface_mean_abs": 2e-4}
+# int8 trunk tier: the H100 SXM's dense int8 peak (the same data sheet)
+PEAK_INT8_OPS = 1979e12
+# int8 kernels vs their plain versions: both quantize the same bf16 PE and
+# form the same exact int32 products, dequantized in the same order, so each
+# group's amax agrees unless a PE lane's sin rounds to another bf16 on one
+# side (1e-3 relative per group and quantization point); the cotangents'
+# amax (int8_full) is compared at layer 7, the chain's first quantization,
+# which follows the bf16 head chain, summed in another order (each lower
+# layer's inherits the chain's drift, below).
+Q8_AMAX_REL = 1e-3
+Q8_GAMAX_REL = 2e-2
+# int8_full backward: where the bf16 head chain's other summation order moves
+# a group's cotangent amax by an ulp, the group re-rounds, and the trunk's
+# gradients and d_rayin move with it (tests/test_torch_cuda.py: trunk layer
+# 0 at 2.1e-2 rel-L2 at 1024 x 127 on NVIDIA H100 80GB HBM3, 700 W; the
+# shadow op, without a head chain, agrees to 1.4e-6). Those tensors are held
+# at 5e-2 and the kernel no farther than 1.25 times the plain version from
+# the plain version in float32; every other tensor at BWD_REL_L2.
+Q8_FULL_REL_L2 = 5e-2
+Q8_FULL_F32_RATIO = 1.25
+# int8 against bf16, the JAX package's own bounds
+# (tests/test_trunk_quant.py): the camera op's channels within rel-L2 0.05,
+# render_rays' depth and rgb within 0.1, the step's weight-gradient cosine
+# above 0.95 and the camera op's origin-gradient cosine above 0.9
+Q8_CAMERA_REL_L2 = 0.05
+Q8_RENDER_REL_L2 = 0.1
+Q8_GRAD_COS = 0.95
+Q8_ORIGIN_COS = 0.9
 DSM_SHIFT = (3, -2)        # (dx, dy) in cells
 DSM_ZBIAS = 1.5            # metres
 
@@ -613,6 +658,138 @@ def main():
     # the forward kernels at the training shapes, for the step's time split
     train_fwd_ms = (time_ms(torch, lambda: fr.camera_forward(kw, *b_in), 10)
                     + time_ms(torch, lambda: fr.shadow_forward(kw, *b_sc), 10))
+
+    # the int8 trunk tier's kernels at the same shapes: forwards at the render
+    # chunk (scale groups of the 2048-row target), backwards at the training
+    # batch (the 1024-row target), a random cotangent; the group amax each
+    # kernel quantized with against its plain version's
+    with torch.no_grad():
+        q8w = ff.quantize_kernel_trunk(
+            ff.pack_kernel_weights(pack_params(field), torch.float32).mats)
+    trunk_macs = sum(x.numel() for x in fw.trunk_w)
+    q8_fwd_cases = [
+        ("camera_fwd_q8", fr.camera_forward_q8, fr.camera_forward_reference,
+         (rayin, z_mid, deltam), int(mask.sum()), camera_macs, KERNEL_TOL,
+         rayin.numel() * 4 + 2 * z_mid.numel() * 4 + camera_bytes),
+        ("shadow_fwd_q8", fr.shadow_forward_q8, fr.shadow_forward_reference,
+         (rayin_sc, sc_z, sc_dm, sc_m), int(sc_mask.sum()), density_macs, KERNEL_TOL,
+         rayin_sc.numel() * 4 + 3 * sc_z.numel() * 4 + density_bytes + N_CHUNK * 4),
+        ("coarse_fwd_q8", fr.coarse_forward_q8, fr.coarse_forward_reference,
+         (rayin_c, c_mid, c_dm), int(c_mask.sum()), density_macs, COARSE_TOL,
+         rayin_c.numel() * 4 + 3 * c_mid.numel() * 4 + density_bytes),
+        ("camera_fwd_q8", fr.camera_forward_q8, fr.camera_forward_reference,
+         (rayin, h_mid, h_dm), int(h_mask.sum()), camera_macs, KERNEL_TOL,
+         rayin.numel() * 4 + 2 * h_mid.numel() * 4 + camera_bytes),
+    ]
+    # (name, kernel, plain version, inputs, in-cube samples, MACs per sample,
+    # int8_full, bytes)
+    q8_bwd_cases = [
+        ("camera_bwd_q8", fr.camera_backward_q8, fr.camera_backward_reference,
+         (*b_in, gacc), int(mask[:nb].sum()), camera_macs, False,
+         sum(t.numel() * 4 for t in b_in) + camera_bwd_bytes),
+        ("camera_bwd_q8_full", fr.camera_backward_q8_full, fr.camera_backward_reference,
+         (*b_in, gacc), int(mask[:nb].sum()), camera_macs, True,
+         sum(t.numel() * 4 for t in b_in) + camera_bwd_bytes),
+        ("shadow_bwd_q8", fr.shadow_backward_q8, fr.shadow_backward_reference,
+         (*b_sc, ggeo), int(sc_mask[:nb].sum()), density_macs, False,
+         sum(t.numel() * 4 for t in b_sc) + ggeo.numel() * 4
+         + ff.DENSITY_MAT_ELEMENTS * (2 + 4) + ff.DENSITY_BIAS_ELEMENTS * (4 + 4)
+         + nb * fr.RAYIN_COLS * 4),
+        ("shadow_bwd_q8_full", fr.shadow_backward_q8_full, fr.shadow_backward_reference,
+         (*b_sc, ggeo), int(sc_mask[:nb].sum()), density_macs, True,
+         sum(t.numel() * 4 for t in b_sc) + ggeo.numel() * 4
+         + ff.DENSITY_MAT_ELEMENTS * (2 + 4) + ff.DENSITY_BIAS_ELEMENTS * (4 + 4)
+         + nb * fr.RAYIN_COLS * 4),
+        ("camera_bwd_q8", fr.camera_backward_q8, fr.camera_backward_reference,
+         (*b_in_h, gacc), int(h_mask[:nb].sum()), camera_macs, False,
+         sum(t.numel() * 4 for t in b_in_h) + camera_bwd_bytes),
+        ("camera_bwd_q8_full", fr.camera_backward_q8_full, fr.camera_backward_reference,
+         (*b_in_h, gacc), int(h_mask[:nb].sum()), camera_macs, True,
+         sum(t.numel() * 4 for t in b_in_h) + camera_bwd_bytes),
+    ]
+
+    def q8_row(name, k, n_valid, macs, passes_int8, passes_bf16, nbytes, ms, plain_ms,
+               max_err, tpu_fn):
+        """Least time of an int8 launch: the trunk's multiply-adds of the
+        in-cube samples at the int8 peak for the passes that run int8, the
+        rest (heads; the bf16 passes) at the bf16 peak, against the bytes."""
+        ops_ms = (2.0 * trunk_macs * n_valid * passes_int8 / PEAK_INT8_OPS
+                  + 2.0 * n_valid * ((macs - trunk_macs) * passes_int8
+                                     + macs * passes_bf16) / PEAK_BF16_FLOPS) * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+               "replaces": tpu_kernel_site(tpu_fn, "fused_field.py"), "launches": None,
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+        record(name, k, row)
+        return row
+
+    for name, kern, plain, args, n_valid, macs, tol, nbytes in q8_fwd_cases:
+        sk, sp = {}, {}
+        got = kern(kw, q8w, *args, stats=sk)
+        ref = plain(kw, *args, q8w, 2048, sp)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        errs = {"max_abs": float(err.max()), "mean_abs": float(err.mean())}
+        if tol is COARSE_TOL:
+            errs["mean_rel"] = errs["mean_abs"] / float(ref.abs().mean())
+        amax_rel = float(((sk["amax"] - sp["amax"]).abs() / sp["amax"].abs().clamp(min=1e-30))
+                         .max())
+        finite = bool(torch.isfinite(got).all())
+        ms = time_ms(torch, lambda: kern(kw, q8w, *args), 10)
+        plain_ms = time_ms(torch, lambda: plain(kw, *args, q8w, 2048), 3)
+        row = q8_row(name, args[1].shape[1], n_valid, macs, 1, 0, nbytes, ms, plain_ms,
+                     errs["max_abs"], "_trunk_fwd_q8")
+        emit({"phase": "kernels", "name": name, "rays": args[0].shape[0],
+              "samples": args[1].shape[1], "groups": int(sk["amax"].shape[0]),
+              "valid_samples": n_valid, "errors": errs, "tolerance": tol,
+              "amax_max_rel": amax_rel, "amax_tolerance": Q8_AMAX_REL, "finite": finite,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"], "card": card})
+        if not (finite and all(errs[key] <= tol[key] for key in tol)
+                and sk["amax"].shape == sp["amax"].shape and amax_rel <= Q8_AMAX_REL):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version ({errs}, "
+                                 f"amax {amax_rel}, finite {finite})")
+    for name, kern, plain, args, n_valid, macs, full, nbytes in q8_bwd_cases:
+        sk, sp = {}, {}
+        got = kern(kw, q8w, *args, stats=sk)
+        ref = plain(kw, *args, q8w, full, 1024, sp)
+        torch.cuda.synchronize()
+        rel, max_err = grad_errors(ff, got, ref)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        amax_rel = {key: float(((sk[key] - sp[key]).abs() / sp[key].abs().clamp(min=1e-30))
+                               [:, -1 if key == "gamax" else slice(None)].max()) for key in sp}
+        chain = rel[:16] + rel[-1:]     # the trunk's weights and biases, d_rayin
+        ok = max(rel) <= BWD_REL_L2
+        vs_f32 = None
+        if full:
+            ref32 = plain(kw32, *args, q8w, full, 1024)
+            k32, p32 = grad_errors(ff, got, ref32)[0], grad_errors(ff, ref, ref32)[0]
+            vs_f32 = {"kernel_chain_max_rel_l2": max(k32[:16] + k32[-1:]),
+                      "plain_chain_max_rel_l2": max(p32[:16] + p32[-1:])}
+            ok = (max(rel[16:-1]) <= BWD_REL_L2 and max(chain) <= Q8_FULL_REL_L2
+                  and vs_f32["kernel_chain_max_rel_l2"]
+                  <= Q8_FULL_F32_RATIO * vs_f32["plain_chain_max_rel_l2"])
+        ms = time_ms(torch, lambda: kern(kw, q8w, *args), 10)
+        plain_ms = time_ms(torch, lambda: plain(kw, *args, q8w, full, 1024), 3)
+        # recompute int8 (and, int8_full, dgrad and wgrad too); the rest bf16
+        row = q8_row(name, args[1].shape[1], n_valid, macs, 3 if full else 1, 0 if full else 2,
+                     nbytes, ms, plain_ms, max_err, "_trunk_bwd_q8" if full else "_trunk_fwd_q8")
+        emit({"phase": "kernels", "name": name, "rays": nb, "samples": args[1].shape[1],
+              "groups": int(sk["amax"].shape[0]), "valid_samples": n_valid,
+              "max_rel_l2": max(rel), "rel_l2_d_rayin": rel[-1], "max_abs_err": max_err,
+              "chain_max_rel_l2": max(chain), "vs_f32": vs_f32,
+              "tolerance_rel_l2": BWD_REL_L2,
+              "tolerance_full": {"chain_rel_l2": Q8_FULL_REL_L2, "vs_f32_ratio": Q8_FULL_F32_RATIO},
+              "amax_max_rel": amax_rel,
+              "amax_tolerance": {"amax": Q8_AMAX_REL, "gamax": Q8_GAMAX_REL},
+              "finite": finite, "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
+              "card": card})
+        if not (finite and ok and amax_rel["amax"] <= Q8_AMAX_REL
+                and amax_rel.get("gamax", 0.0) <= Q8_GAMAX_REL):
+            raise AssertionError(f"{name} at K={args[1].shape[1]}: kernel disagrees with its "
+                                 f"plain version (rel-L2 {rel}, amax {amax_rel})")
 
     # ---- 3. the main path: a 512x512 nadir sweep with shadows ----
     n_rays = rays_np.shape[0]
@@ -1079,9 +1256,148 @@ def main():
         raise AssertionError(f"per-sample kernel-path gradient vs module path: rel-L2 "
                              f"{grad_rel_d}, vs float32 {grad_f32}")
 
-    emit({"kernels": [kernel_rows[n] for n in ("camera_fwd", "shadow_fwd", "camera_bwd",
-                                               "shadow_bwd", "coarse_fwd", "density_fwd",
-                                               "field_fwd", "field_bwd", "density_bwd")]})
+    # ---- 10. the int8 trunk tier on the render path: the nadir sweep through
+    # make_render_field(field, TrainConfig(trunk_quant="int8")), uniform and
+    # hierarchical, against the bf16 renders of the same weights ----
+    rf_q = make_render_field(field, TrainConfig(trunk_quant="int8", bwd_acts="recompute"))
+    if not (isinstance(rf_q, KernelField) and rf_q.trunk_quant is True):
+        raise RuntimeError("make_render_field did not pick the int8 kernels for trunk_quant=int8")
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # the camera op at int8 against bf16 on the phase-2 chunk
+    acc_q = fr.camera_forward_q8(kw, q8w, rayin, z_mid, deltam)
+    acc_b = fr.camera_forward(kw, rayin, z_mid, deltam)
+    camera_rel = {"depth": rel_l2(acc_q[:, 0], acc_b[:, 0]),
+                  "albedo": rel_l2(acc_q[:, 1:4], acc_b[:, 1:4]),
+                  "opacity": rel_l2(acc_q[:, 6], acc_b[:, 6])}
+    q8_counted = {"camera_fwd_q8": fr.camera_forward_q8, "shadow_fwd_q8": fr.shadow_forward_q8,
+                  "coarse_fwd_q8": fr.coarse_forward_q8, "camera_fwd": fr.camera_forward,
+                  "shadow_fwd": fr.shadow_forward, "coarse_fwd": fr.coarse_forward}
+    render_q8 = {}
+    for sampler, cfg_r, seed, ref_out in (("uniform", cfg, 2, out), ("hierarchical", cfg_h, 4,
+                                                                     out_h)):
+        for fn in q8_counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_q = sat.render_image(rf_q, rays_all, cfg_r, shadows=True, chunk=N_CHUNK,
+                                 generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_q = {n: fn.launches for n, fn in q8_counted.items()}
+        hier = sampler == "hierarchical"
+        expect_q = {"camera_fwd_q8": n_chunks, "shadow_fwd_q8": n_chunks,
+                    "coarse_fwd_q8": n_chunks if hier else 0, "camera_fwd": 0, "shadow_fwd": 0,
+                    "coarse_fwd": 0}
+        bad_q = [k for k in sat.OUTPUT_KEYS
+                 if tuple(out_q[k].shape) != (n_rays, widths.get(k, 1))
+                 or not bool(torch.isfinite(out_q[k]).all())]
+        render_q8[sampler] = {
+            "seconds": secs, "rays_per_s": n_rays / secs, "ms_per_chunk": secs * 1e3 / n_chunks,
+            "launches": launches_q, "expected_launches": expect_q, "bad_keys": bad_q,
+            "vs_bf16_rel_l2": {"depth": rel_l2(out_q["depth"], ref_out["depth"]),
+                               "rgb": rel_l2(out_q["rgb"], ref_out["rgb"])}}
+        if sampler == "uniform":
+            for name in ("camera_fwd_q8", "shadow_fwd_q8"):
+                kernel_rows[name]["launches"] = launches_q[name]
+        else:
+            kernel_rows["coarse_fwd_q8"]["launches"] = launches_q["coarse_fwd_q8"]
+    emit({"phase": "render_q8", "trunk_quant": "int8", "rays": n_rays, "chunks": n_chunks,
+          "camera_op_vs_bf16_rel_l2": camera_rel, "camera_op_tolerance": Q8_CAMERA_REL_L2,
+          **render_q8, "tolerance": Q8_RENDER_REL_L2, "card": card})
+    if any(v > Q8_CAMERA_REL_L2 for v in camera_rel.values()):
+        raise AssertionError(f"int8 camera op vs bf16: {camera_rel}")
+    for sampler, res in render_q8.items():
+        if res["bad_keys"] or res["launches"] != res["expected_launches"]:
+            raise AssertionError(f"int8 {sampler} render: {res}")
+        if any(v > Q8_RENDER_REL_L2 for v in res["vs_bf16_rel_l2"].values()):
+            raise AssertionError(f"int8 {sampler} render vs bf16: {res['vs_bf16_rel_l2']}")
+
+    # ---- 11. the int8 tiers on the training path: Trainer.run with
+    # trunk_quant int8 and int8_full at the default bwd_acts (the recompute
+    # fallback), 20 steps then 10 timed; one batch's gradient against the bf16
+    # step's, and the camera op's origin gradient against bf16 ----
+    q8_train_counted = {
+        "camera_fwd_q8": fr.camera_forward_q8, "shadow_fwd_q8": fr.shadow_forward_q8,
+        "camera_bwd_q8": fr.camera_backward_q8, "shadow_bwd_q8": fr.shadow_backward_q8,
+        "camera_bwd_q8_full": fr.camera_backward_q8_full,
+        "shadow_bwd_q8_full": fr.shadow_backward_q8_full, "camera_fwd": fr.camera_forward,
+        "shadow_fwd": fr.shadow_forward, "camera_bwd": fr.camera_backward,
+        "shadow_bwd": fr.shadow_backward}
+    train_q8 = {}
+    coef = torch.randn((N_TRAIN, 7), generator=gen, device=dev)
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    for tier in ("int8", "int8_full"):
+        name = f"chip_smoke_{tier}"
+        shutil.rmtree(log_root / name, ignore_errors=True)
+        cfg_q = TrainConfig(logs_dir=str(log_root), exp_name=name, sampler="uniform",
+                            occ_enabled=False, trunk_quant=tier, compute_dtype="bfloat16",
+                            batch_size=N_TRAIN, n_samples=128, sc_n_samples=64,
+                            first_shadow_step=TRAIN_STEPS // 2, first_beta_step=TRAIN_STEPS // 2,
+                            max_train_steps=TRAIN_STEPS, save_freq=10 ** 9, seed=0)
+        tq = Trainer(cfg_q, pool, n_images=N_VIEWS, device=dev)
+        full = tier == "int8_full"
+        if not (isinstance(tq.render_field, KernelField)
+                and tq.render_field.trunk_quant == ("full" if full else True)):
+            raise RuntimeError(f"the trainer did not pick the {tier} kernels")
+        losses_q, _ = recording(tq)
+        before_q = [p.detach().clone() for p in tq.field.parameters()]
+        for fn in q8_train_counted.values():
+            fn.launches = 0
+        tq.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
+        launches_tq = {n: fn.launches for n, fn in q8_train_counted.items()}
+        sfx = "_full" if full else ""
+        expect_tq = {n: 0 for n in q8_train_counted}
+        expect_tq.update({"camera_fwd_q8": TRAIN_STEPS, "shadow_fwd_q8": shadow_steps,
+                          f"camera_bwd_q8{sfx}": TRAIN_STEPS,
+                          f"shadow_bwd_q8{sfx}": shadow_steps})
+        for n in (f"camera_bwd_q8{sfx}", f"shadow_bwd_q8{sfx}"):
+            kernel_rows[n]["launches"] = launches_tq[n]
+        res = branch_result(tq, before_q, losses_q, launches_tq, expect_tq, {})
+        step_ms_q = timed_run(tq, TRAIN_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS
+        # one batch, shadows and beta on: the whole-step weight gradient of the
+        # int8 tier against the bf16 kernels' on the same weights and draws
+        batch = {k: v[:N_TRAIN] for k, v in pool.items()}
+        grads = []
+        for rfield in (tq.render_field, KernelField(tq.field)):
+            tq.field.zero_grad(set_to_none=True)
+            loss, _ = make_loss_fn(rfield, tq.rcfg)(batch, 0.0, True, True,
+                                                    torch.Generator(device=dev).manual_seed(11))
+            loss.backward()
+            grads.append(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                    .float().flatten() for p in tq.field.parameters()]))
+        # the camera op's origin gradient at the training shapes, int8 vs bf16
+        w32 = ff.pack_kernel_weights(pack_params(tq.field), torch.float32)
+        origin = []
+        for quant in (("full" if full else True), False):
+            ray = b_in[0].clone().requires_grad_()
+            acc = fr.fused_camera(ff.KernelWeights(w32.mats.detach(), w32.biases.detach()), ray,
+                                  b_in[1], b_in[2], torch.bfloat16, quant)
+            (acc[:, :7] * coef).sum().backward()
+            origin.append(ray.grad[:, 0:3].flatten())
+        res.update(ms_per_step=step_ms_q, rays_per_s=N_TRAIN / (step_ms_q * 1e-3),
+                   grad_cosine_vs_bf16=cosine(grads[0], grads[1]),
+                   origin_grad_cosine_vs_bf16=cosine(origin[0], origin[1]))
+        train_q8[tier] = res
+        del tq
+    emit({"phase": "train_q8", "batch": N_TRAIN, "pool_rays": N_POOL, **train_q8,
+          "tolerance": {"grad_cosine": Q8_GRAD_COS, "origin_grad_cosine": Q8_ORIGIN_COS},
+          "card": card})
+    for tier, res in train_q8.items():
+        if not (res["grad_cosine_vs_bf16"] > Q8_GRAD_COS
+                and res["origin_grad_cosine_vs_bf16"] > Q8_ORIGIN_COS):
+            raise AssertionError(f"{tier} step gradient vs bf16: {res}")
+
+    emit({"kernels": [kernel_rows[n] for n in (
+        "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",
+        "field_fwd", "field_bwd", "density_bwd", "camera_fwd_q8", "shadow_fwd_q8",
+        "coarse_fwd_q8", "camera_bwd_q8", "shadow_bwd_q8", "camera_bwd_q8_full",
+        "shadow_bwd_q8_full")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

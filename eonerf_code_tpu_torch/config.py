@@ -3,12 +3,13 @@
 defaults, and JSON round trip.
 
 Left out until the slices that read them: dataset paths and options,
-validation cadence and eval, int8 trunk, data parallelism, and
-``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
-has no use for). The trainer raises ``NotImplementedError`` on the values
-of the fields below that need a later slice (``freq_reg_end_step`` > 0,
-``bwd_acts="saved"``), so a default configuration must set
-``bwd_acts="recompute"``.
+validation cadence and eval, data parallelism, and ``steps_per_call`` (the
+JAX megastep's scan length, which a per-step loop has no use for). The
+trainer raises ``NotImplementedError`` on the values of the fields below
+that need a later slice (``freq_reg_end_step`` > 0, ``bwd_acts="saved"``
+with ``trunk_quant="none"``), so a default configuration must set
+``bwd_acts="recompute"`` or an int8 ``trunk_quant`` (with which the JAX
+package, too, falls back to the recompute backward).
 """
 
 import dataclasses
@@ -84,12 +85,22 @@ class TrainConfig:
     # checkpoint cadence (None -> 4 epochs, the JAX package's val_freq x 4)
     save_freq: Optional[int] = None
 
+    # int8 trunk tier of the fused camera, shadow and coarse kernels: "int8"
+    # runs the trunk's products (forward and the backward's recompute) in int8
+    # with per-column weight scales and dynamic per-group activation scales,
+    # straight-through gradients (dgrad and wgrad in the compute dtype);
+    # "int8_full" also runs the trunk's dgrad and wgrad in int8
+    trunk_quant: str = "none"
+
     # fused-kernel backward: "recompute" (this port) or "saved" (later slice)
     bwd_acts: str = "saved"
 
     def __post_init__(self):
         if self.model == "eo-nerf":
             self.radiometric_normalization = True
+        if self.trunk_quant not in ("none", "int8", "int8_full"):
+            raise ValueError(f"trunk_quant={self.trunk_quant!r}: one of 'none', 'int8', "
+                             "'int8_full'")
 
     def save(self, path):
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

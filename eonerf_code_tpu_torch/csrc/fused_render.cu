@@ -27,6 +27,8 @@
 //   the density kernel's points with the camera heads after the trunk, the
 //   4-wide embedding read per point, written as (N, 8) =
 //   [sigma, albedo r g b, t_s, t_beta, 0, 0]. Both are point_kernel.
+// int8 trunk tier: replaces the int8 bodies of the camera, shadow and
+//   coarse kernels (`_trunk_fwd_q8`, `_trunk_bwd_q8`); see its section below.
 //
 // What bounds them on this card: operations. Every sample runs the trunk
 // (0.49 M multiply-adds) and, for the camera, the heads (0.19 M more), while
@@ -329,6 +331,13 @@ __device__ __forceinline__ void pe_lane(int c, int& j, float& sc) {
   sc = ldexpf(1.f, deg);
 }
 
+// PE argument of a ray sample: xb = o*B + (d*B)*z, the products by the
+// power-of-two scale exact, then a product and a sum each rounded (never
+// contracted into an fma), as the plain versions compute it.
+__device__ __forceinline__ float ray_xb(const float* ri, int j, float sc, float z) {
+  return __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), z));
+}
+
 // PE value of lane c from its argument xb: xb itself on the 3 identity
 // lanes, one phased sin (cos y = sin(y + pi/2)) on the others.
 __device__ __forceinline__ float pe_value(int c, float xb) {
@@ -396,7 +405,11 @@ __device__ __forceinline__ void camera_heads(bf16* P, bf16* Q, const bf16* __res
 // compositing backward per ray in f32 for the per-ray cotangent `gin`
 // (camera: gacc (R, 8); shadow: ggeo (R,)), writing the per-sample head
 // cotangents to `hg`.
-template <int MODE, bool BWD>
+// FROM_STREAM: the heads from an activation stream. The trunk output h7
+// is read from `acts` (written there by the int8 trunk, or by any pass that
+// fills the stream's layout) instead of running the PE and the bf16 trunk;
+// the heads, their stream writes (BWD) and the compositing are unchanged.
+template <int MODE, bool BWD, bool FROM_STREAM = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  const float* __restrict__ deltam, const float* __restrict__ mask,
@@ -418,29 +431,41 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   for (int s0 = 0; s0 < S; s0 += MT) {
     const int nrows = min(MT, S - s0);
     const long long g0 = (long long)ray0 * KPAD + s0;   // stream row of tile row 0
-    // positional encoding into the PE columns of both tiles; rows past the
-    // block's samples get zeros
-    for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
-      const int r = e / PE, c = e % PE, s = s0 + r;
-      float v = 0.f;
-      if (s < S && c < 63) {
-        const int ray = ray0 + s / KPAD;
-        const float* ri = rayin + (long long)ray * RAYIN;
-        int j;
-        float sc;
-        pe_lane(c, j, sc);
-        const float zs = z[(long long)ray * KPAD + s % KPAD];
-        v = pe_value(c, __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs)));
+    bf16* P;
+    if (FROM_STREAM) {
+      for (int v = threadIdx.x; v < MT * (W / 8); v += THREADS) {
+        const int r = v / (W / 8), c = (v % (W / 8)) * 8;
+        uint4 h8 = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nrows) h8 = *reinterpret_cast<const uint4*>(acts + (g0 + r) * AS + act_h(7) + c);
+        *reinterpret_cast<uint4*>(bufX + r * LDA + c) = h8;
       }
-      const bf16 pv = __float2bfloat16_rn(v);
-      bufX[r * LDA + W + c] = pv;
-      bufY[r * LDA + W + c] = pv;
-    }
-    if (BWD) {
       __syncthreads();
-      tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
+      P = bufX;
+    } else {
+      // positional encoding into the PE columns of both tiles; rows past the
+      // block's samples get zeros
+      for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
+        const int r = e / PE, c = e % PE, s = s0 + r;
+        float v = 0.f;
+        if (s < S && c < 63) {
+          const int ray = ray0 + s / KPAD;
+          const float* ri = rayin + (long long)ray * RAYIN;
+          int j;
+          float sc;
+          pe_lane(c, j, sc);
+          const float zs = z[(long long)ray * KPAD + s % KPAD];
+          v = pe_value(c, ray_xb(ri, j, sc, zs));
+        }
+        const bf16 pv = __float2bfloat16_rn(v);
+        bufX[r * LDA + W + c] = pv;
+        bufY[r * LDA + W + c] = pv;
+      }
+      if (BWD) {
+        __syncthreads();
+        tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
+      }
+      P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
     }
-    bf16* P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
     for (int r = threadIdx.x; r < nrows; r += THREADS)
       res[(s0 + r) * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
     if constexpr (CAMERA) {
@@ -634,7 +659,7 @@ size_t fwd_smem(int KPAD) {
          (size_t)rays_per_block(KPAD) * KPAD * RES * sizeof(float);
 }
 
-template <int MODE, bool BWD>
+template <int MODE, bool BWD, bool FROM_STREAM = false>
 int launch(const float* rayin, const float* z, const float* deltam, const float* mask,
            const void* wm, const float* wb, float* out, int R, int KPAD, cudaStream_t stream,
            const float* gin = nullptr, bf16* acts = nullptr, float* hg = nullptr) {
@@ -642,10 +667,10 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   const int rpb = rays_per_block(KPAD);
   const int grid = (R + rpb - 1) / rpb;
   const size_t smem = fwd_smem(KPAD);
-  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD, FROM_STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_fwd_kernel<MODE, BWD><<<grid, THREADS, smem, stream>>>(
+  fused_fwd_kernel<MODE, BWD, FROM_STREAM><<<grid, THREADS, smem, stream>>>(
       rayin, z, deltam, mask, static_cast<const bf16*>(wm), wb, out, R, KPAD, rpb, gin, acts,
       hg);
   return (int)cudaGetLastError();
@@ -776,13 +801,17 @@ __device__ void cotangent_out(bf16* tile, int n, const bf16* __restrict__ acts, 
 // POINT: rows are points (R = N, KPAD = 1, rpb = MT: 128 points a block,
 // one tile), `rayin` holds the points (N, 3) and z is not read; each point's
 // d_pos goes to `dout` (N, 3) and, with CAMERA, its d_emb to `demb` (N, 4).
-template <bool CAMERA, bool POINT>
+// TRUNK = false (the int8_full backward, whose trunk chain runs layer by
+// layer in q8_dgrad_kernel): the heads' chain only; the trunk output's
+// cotangent g_h7 goes to `gh` (one bf16 row of 256 per sample), and d_rayin
+// gets d_emb with zeros in place of d_o and d_d.
+template <bool CAMERA, bool POINT, bool TRUNK = true>
 __global__ void __launch_bounds__(THREADS, 1)
 dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
              const bf16* __restrict__ wm, const bf16* __restrict__ acts,
              const float* __restrict__ hg, bf16* __restrict__ gpre,
              float* __restrict__ bias_part, float* __restrict__ dout, float* __restrict__ demb,
-             int R, int KPAD, int rpb) {
+             int R, int KPAD, int rpb, bf16* __restrict__ gh) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NB = CAMERA ? B_END : B_BOTT;
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
@@ -876,9 +905,13 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       }
       C = bufY; O = bufX;
     }
+    if (!TRUNK) {
+      __syncthreads();
+      tile_to_stream(C, 0, W, gh, W, g0, nrows, 0);
+    }
     // trunk: layer 5's PE part lands in cols 256..319 of the tile that layer
     // 0's cotangent sits in, and layer 0 adds its own PE part to it in bf16
-    for (int i = 7; i >= 0; --i) {
+    for (int i = 7; TRUNK && i >= 0; --i) {
       cotangent_out<true>(C, W, acts, AS, act_h(i), gpre, GS, i * W, bsum + B_T + i * W, g0,
                           nrows);
       if (i == 0) {
@@ -893,7 +926,7 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     // (d_pos for points)
     if (tid < MT) {
       float a6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (tid < nrows) {
+      if (TRUNK && tid < nrows) {
         const int s = s0 + tid;
         const long long ray = ray0 + s / KPAD;
         const float* ri = rayin + ray * (POINT ? 3 : RAYIN);
@@ -904,7 +937,7 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
           pe_lane(c, j, sc);
           const float xb =
               POINT ? __fmul_rn(ri[j], sc)
-                    : __fadd_rn(__fmul_rn(ri[j], sc), __fmul_rn(__fmul_rn(ri[3 + j], sc), zs));
+                    : ray_xb(ri, j, sc, zs);
           const float der = c < 3 ? 1.f
                           : sinf(c < 33 ? __fadd_rn(xb, HALF_PI)
                                         : __fadd_rn(__fadd_rn(xb, HALF_PI), HALF_PI));
@@ -967,15 +1000,20 @@ __device__ MatJob mat_job(int i, bool camera) {
 
 int n_mats(bool camera) { return camera ? 18 : 9; }
 
-int n_wgrad_tiles(bool camera) {
-  // host-side mirror of mat_job's shapes: (in, out) per matrix
+// 128 x 128 weight-gradient tiles of the first n matrices (host-side mirror of
+// mat_job's (in, out) shapes)
+int wgrad_tiles_of(int n) {
   const int in[18] = {PE, W, W, W, W, CAT, W, W, W, W, W, HALF, CAT, HALF, HALF, HALF, HALF, HALF};
   const int out[18] = {W, W, W, W, W, W, W, W, 1, W, HALF, 3, HALF, HALF, HALF, HALF, 1, 1};
-  int n = 0;
-  for (int i = 0; i < n_mats(camera); ++i)
-    n += ((in[i] + WG_TILE - 1) / WG_TILE) * ((out[i] + WG_TILE - 1) / WG_TILE);
-  return n;
+  int t = 0;
+  for (int i = 0; i < n; ++i)
+    t += ((in[i] + WG_TILE - 1) / WG_TILE) * ((out[i] + WG_TILE - 1) / WG_TILE);
+  return t;
 }
+
+int n_wgrad_tiles(bool camera) { return wgrad_tiles_of(n_mats(camera)); }
+
+int n_trunk_wgrad_tiles() { return wgrad_tiles_of(8); }
 
 // Third pass: every weight gradient as a tensor-core product over the
 // samples. blockIdx.x walks the (matrix, 128 x 128 output tile) list,
@@ -984,13 +1022,13 @@ int n_wgrad_tiles(bool camera) {
 template <bool CAMERA>
 __global__ void __launch_bounds__(THREADS)
 wgrad_kernel(const bf16* __restrict__ acts, const bf16* __restrict__ gpre,
-             float* __restrict__ wpart, long long S, long long chunk) {
+             float* __restrict__ wpart, long long S, long long chunk, int tile0) {
   __shared__ __align__(16) bf16 sa[WG_TILE * LDW];
   __shared__ __align__(16) bf16 sb[WG_TILE * LDW];
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
   constexpr long long GS = CAMERA ? GP_CAM : GP_SH;
   constexpr long long NMAT = CAMERA ? M_END : M_BOTT;
-  int t = blockIdx.x, mt = 0, nt = 0;
+  int t = blockIdx.x + tile0, mt = 0, nt = 0;
   MatJob jb = mat_job(0, CAMERA);
   for (int i = 0; i < 18; ++i) {
     jb = mat_job(i, CAMERA);
@@ -1054,19 +1092,23 @@ wgrad_kernel(const bf16* __restrict__ acts, const bf16* __restrict__ gpre,
 }
 
 // Last pass: the fixed-order reduction of the partial sums, so the result
-// does not depend on scheduling (deterministic from run to run).
+// does not depend on scheduling (deterministic from run to run). Matrix
+// elements from mat0 on and biases from bias0 on (the int8_full backward
+// reduces the trunk's own partials in q8_reduce_kernel).
 __global__ void reduce_kernel(const float* __restrict__ wpart, int splits, long long n_mat,
                               const float* __restrict__ bpart, int nblocks, int n_bias,
-                              float* __restrict__ dmats, float* __restrict__ dbias) {
+                              float* __restrict__ dmats, float* __restrict__ dbias,
+                              long long mat0, int bias0) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n_mat + n_bias;
-       e += stride) {
+  const long long nm = n_mat - mat0, n = nm + n_bias - bias0;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n; e += stride) {
     float s = 0.f;
-    if (e < n_mat) {
-      for (int p = 0; p < splits; ++p) s += wpart[p * n_mat + e];
-      dmats[e] = s;
+    if (e < nm) {
+      const long long em = mat0 + e;
+      for (int p = 0; p < splits; ++p) s += wpart[p * n_mat + em];
+      dmats[em] = s;
     } else {
-      const long long eb = e - n_mat;
+      const long long eb = bias0 + e - nm;
       for (int b = 0; b < nblocks; ++b) s += bpart[(long long)b * n_bias + eb];
       dbias[eb] = s;
     }
@@ -1130,26 +1172,32 @@ size_t dgrad_smem(int KPAD) {
 
 // Passes 2-4 of a backward, once its first pass has filled the activation
 // stream and the head cotangents: dgrad, wgrad and the fixed-order reduction.
-template <bool CAMERA, bool POINT>
+// HEADS_ONLY (the int8_full backward): dgrad stops at the trunk output,
+// writing g_h7 to `gh`; wgrad and the reduction skip the trunk's matrices and
+// biases, which the int8 passes compute.
+template <bool CAMERA, bool POINT, bool HEADS_ONLY = false>
 int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const float* z,
                const bf16* wm, float* dmats, float* dbias, float* dout, float* demb, int R,
-               int KPAD, cudaStream_t stream) {
+               int KPAD, cudaStream_t stream, bf16* gh = nullptr) {
   const size_t smem = dgrad_smem(KPAD);
-  cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT>,
+  cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT, !HEADS_ONLY>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dgrad_kernel<CAMERA, POINT><<<L.nblocks, THREADS, smem, stream>>>(
-      rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD, rays_per_block(KPAD));
+  dgrad_kernel<CAMERA, POINT, !HEADS_ONLY><<<L.nblocks, THREADS, smem, stream>>>(
+      rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD, rays_per_block(KPAD),
+      gh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA), L.splits), THREADS, 0, stream>>>(
-      sc.acts, sc.gpre, sc.wpart, L.S, L.chunk);
+  const int tile0 = HEADS_ONLY ? n_trunk_wgrad_tiles() : 0;
+  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA) - tile0, L.splits), THREADS, 0, stream>>>(
+      sc.acts, sc.gpre, sc.wpart, L.S, L.chunk, tile0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n_mat = CAMERA ? M_END : M_BOTT;
   const int n_bias = CAMERA ? B_END : B_BOTT;
   reduce_kernel<<<1024, THREADS, 0, stream>>>(sc.wpart, L.splits, n_mat, sc.bpart, L.nblocks,
-                                              n_bias, dmats, dbias);
+                                              n_bias, dmats, dbias, HEADS_ONLY ? M_SIG : 0,
+                                              HEADS_ONLY ? B_SIG : 0);
   return (int)cudaGetLastError();
 }
 
@@ -1179,6 +1227,661 @@ int launch_point_bwd(const float* pos, const float* emb, const float* gin, const
   int err = launch_point<FIELD, true>(pos, emb, wm, wb, nullptr, N, stream, gin, sc.acts, sc.hg);
   if (err != 0) return err;
   return bwd_passes<FIELD, true>(L, sc, pos, nullptr, wm, dmats, dbias, dpos, demb, N, 1, stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// the int8 trunk tier (trunk_quant "int8" and "int8_full")
+// ---------------------------------------------------------------------------
+//
+// Replaces the int8 bodies of the five Pallas ray kernels: `_trunk_fwd_q8`
+// and `_trunk_bwd_q8` of the JAX package's ops/pallas/fused_field.py, run
+// inside `_camera_fwd_kernel`, `_camera_bwd_kernel`, `_shadow_fwd_kernel`,
+// `_shadow_bwd_kernel` and `_coarse_fwd_kernel` (ops/pallas/fused_render.py)
+// on the int8 operands of `quantize_trunk_int8`.
+//
+// What the tier computes: per-column int8 weights (quantized by the caller)
+// and per-group int8 activations, one scale per group and quantization
+// point, where a group is the rows one TPU grid step holds (rt rays x KPAD
+// samples, padded samples and zero rays included; the caller pads the call
+// to whole groups). The scale needs the amax of the whole group's previous
+// layer, and a group spans up to 16 of this file's 128-row tiles, so the
+// trunk runs layer-major: one launch per layer over every row, each tile
+// quantizing its inputs on load with its group's scale and folding the
+// max |h| of its outputs into its group's amax with atomicMax on the float's
+// bits (order-free, so deterministic). The running activation stays f32 in
+// device memory between layers (two ping-pong buffers); its bf16 copy goes
+// to the activation stream the heads and the backward read. Products are
+// mma.sync m16n8k32 s8 x s8 -> s32 (exact), dequantized as
+// acc * (s_w * s_act) + b with explicit round-to-nearest operations (no
+// contraction into an fma), as the JAX function rounds.
+//
+// What bounds it on this card: the trunk's int8 products (1,979 TOP/s) and
+// the f32 activation traffic, 2 KB per sample and layer (read, written) at
+// 3.35 TB/s, which this layer-major design pays and a cluster design keeping
+// a group's activations on chip would not (a group is up to 16 tiles, over
+// the portable cluster size of 8).
+//
+// int8_full backward, layer by layer from 7 to 0: q8_gamax_kernel takes the
+// group amax of g = g_h * mask * s_w (and the bias gradient's per-tile sums
+// of the unquantized g_h * mask), q8_dgrad_kernel quantizes g once per group
+// into the int8 cotangent stream and forms (g8 w8^T) s_g rounded to bf16;
+// then q8_wgrad_kernel forms each group's exact int32 inp8^T g8, scaled by
+// that group's s_in s_g / s_w into per-group f32 partials, which
+// q8_reduce_kernel sums in group order (the TPU's sequential grid order).
+
+constexpr int Q8P = 8;            // quantization points per group: PE, h0..h6
+constexpr int LDQ = CAT + 16;     // int8 tile row stride (bytes): conflict-free fragment loads
+constexpr int LDK = 32 + 16;      // int8 transposed k-chunk row stride (bytes)
+constexpr int G8S = 8 * W;        // int8 cotangent stream: g8 of layers 0..7 per row
+constexpr int QB = 8 * W;         // trunk biases: the per-tile bias sums' row
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_s8x4(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// inv = 127 / max(amax, 1e-12); the scale is 1 / inv (not amax / 127)
+__device__ __forceinline__ float q8_inv(float amax) { return __fdiv_rn(127.f, fmaxf(amax, 1e-12f)); }
+
+// round(v * inv), half to even, as a byte of a packed int8 word
+__device__ __forceinline__ uint32_t q8_byte(float v, float inv) {
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fmul_rn(v, inv));
+}
+
+__device__ __forceinline__ float deq(int acc, float sw, float s) {
+  return __fmul_rn(__int2float_rn(acc), __fmul_rn(sw, s));
+}
+
+// Fold a tile's per-row maxima (float bits of values >= 0) into the amax of
+// the groups its rows belong to: one atomicMax per group the tile touches.
+__device__ void fold_group_max(const unsigned* rowmax, long long row0, int nrows,
+                               long long group_rows, float* amax, int q) {
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= nrows) return;
+  const long long g = (row0 + r) / group_rows;
+  if (r > 0 && (row0 + r - 1) / group_rows == g) return;
+  unsigned m = 0u;
+  for (int s = r; s < nrows && (row0 + s) / group_rows == g; ++s) m = max(m, rowmax[s]);
+  atomicMax(reinterpret_cast<unsigned*>(amax) + g * Q8P + q, m);
+}
+
+// The PE of every row (ray r = row / KPAD, sample row % KPAD), rounded to
+// bf16, into the stream at A_PE; its group amax into quantization point 0.
+__global__ void __launch_bounds__(THREADS)
+q8_pe_kernel(const float* __restrict__ rayin, const float* __restrict__ z, bf16* __restrict__ acts,
+             long long as, float* __restrict__ amax, long long rows, int KPAD,
+             long long group_rows) {
+  __shared__ unsigned rowmax[MT];
+  const long long row0 = (long long)blockIdx.x * MT;
+  const int nrows = (int)min((long long)MT, rows - row0);
+  if (threadIdx.x < MT) rowmax[threadIdx.x] = 0u;
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * PE; e += THREADS) {
+    const int r = e / PE, c = e % PE;
+    const long long row = row0 + r;
+    float v = 0.f;
+    if (c < 63) {
+      const float* ri = rayin + (row / KPAD) * RAYIN;
+      int j;
+      float sc;
+      pe_lane(c, j, sc);
+      v = pe_value(c, ray_xb(ri, j, sc, z[row]));
+    }
+    const bf16 pv = __float2bfloat16_rn(v);
+    acts[row * as + A_PE + c] = pv;
+    atomicMax(&rowmax[r], __float_as_uint(fabsf(bf(pv))));
+  }
+  fold_group_max(rowmax, row0, nrows, group_rows, amax, 0);
+}
+
+constexpr int QNC = 64;   // output columns a pass of q8_layer_kernel: 2 blocks an SM
+
+size_t q8_layer_smem() {
+  return (size_t)(MT + QNC) * LDQ + (size_t)MT * (4 * sizeof(float) + 4);
+}
+
+// One layer of the int8 trunk, 128 rows a block. Inputs quantized on load:
+// layer 0 the PE (bf16, from the stream), layers 1-7 the running f32
+// activation `hin`, layer 5 [h4 | PE] with their own scales (two products,
+// (A + B) + b). Writes relu(pre) as f32 to `hout` (layers 0-6) and its bf16
+// copy to the stream (every layer with write_all, else layer 7 only), and
+// folds the output's group amax into quantization point layer + 1.
+// QNC output columns a pass keep the accumulators to 64 registers, so two
+// blocks share an SM and one's loads overlap the other's products.
+__global__ void __launch_bounds__(THREADS, 2)
+q8_layer_kernel(int layer, const float* __restrict__ hin, float* __restrict__ hout,
+                bf16* __restrict__ acts, long long as, int write_all,
+                const int8_t* __restrict__ w8, const float* __restrict__ sw,
+                const float* __restrict__ wb, float* __restrict__ amax, long long rows,
+                long long group_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* qa = reinterpret_cast<int8_t*>(smem);          // MT x LDQ: quantized inputs
+  int8_t* qw = qa + MT * LDQ;                              // QNC x LDQ: weight rows (out, in)
+  float* s_h = reinterpret_cast<float*>(qw + QNC * LDQ);  // per row: the input's scale and inv,
+  float* i_h = s_h + MT;                                   // then the PE's
+  float* s_p = i_h + MT;
+  float* i_p = s_p + MT;
+  unsigned* rowmax = reinterpret_cast<unsigned*>(i_p + MT);
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * MT;
+  const int nrows = (int)min((long long)MT, rows - row0);
+  const int k_h = layer > 0 ? W : 0;
+  const int k_dim = k_h + (layer == 0 || layer == 5 ? PE : 0);
+  if (tid < MT) {
+    rowmax[tid] = 0u;
+    const long long g = (row0 + min(tid, nrows - 1)) / group_rows;
+    const float ih = q8_inv(amax[g * Q8P + layer]), ip = q8_inv(amax[g * Q8P]);
+    i_h[tid] = ih;
+    s_h[tid] = __fdiv_rn(1.f, ih);
+    i_p[tid] = ip;
+    s_p[tid] = __fdiv_rn(1.f, ip);
+  }
+  __syncthreads();
+  const int nq = k_dim / 4;
+  for (int v = tid; v < MT * nq; v += THREADS) {
+    const int r = v / nq, c = (v % nq) * 4;
+    uint32_t packed = 0u;
+    if (r < nrows) {
+      const long long row = row0 + r;
+      if (c < k_h) {
+        const float4 f = *reinterpret_cast<const float4*>(hin + row * W + c);
+        const float inv = i_h[r];
+        packed = q8_byte(f.x, inv) | q8_byte(f.y, inv) << 8 | q8_byte(f.z, inv) << 16 |
+                 q8_byte(f.w, inv) << 24;
+      } else {
+        const bf16* pp = acts + row * as + A_PE + (c - k_h);
+        const float inv = i_p[r];
+        packed = q8_byte(bf(pp[0]), inv) | q8_byte(bf(pp[1]), inv) << 8 |
+                 q8_byte(bf(pp[2]), inv) << 16 | q8_byte(bf(pp[3]), inv) << 24;
+      }
+    }
+    *reinterpret_cast<uint32_t*>(qa + r * LDQ + c) = packed;
+  }
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const int8_t* wl = w8 + trunk_offset(layer);   // (out = 256, in = k_dim) row-major
+  const float* swl = sw + layer * W;
+  const float* bl = wb + B_T + layer * W;
+  const bool stream_out = write_all || layer == 7;
+  float ma = 0.f, mb = 0.f;
+  for (int n0 = 0; n0 < W; n0 += QNC) {
+    __syncthreads();
+    const int kv16 = k_dim / 16;
+    for (int v = tid; v < QNC * kv16; v += THREADS) {
+      const int n = v / kv16, kv = (v % kv16) * 16;
+      *reinterpret_cast<uint4*>(qw + n * LDQ + kv) =
+          __ldg(reinterpret_cast<const uint4*>(wl + (long long)(n0 + n) * k_dim + kv));
+    }
+    __syncthreads();
+    int acc[QNC / 8][4], accp[QNC / 8][4];
+#pragma unroll
+    for (int j = 0; j < QNC / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = accp[j][q] = 0;
+    for (int k0 = 0; k0 < k_dim; k0 += 32) {
+      const int8_t* ap = qa + ra * LDQ + k0 + 4 * t;
+      const uint32_t a0 = ld_s8x4(ap), a1 = ld_s8x4(ap + 8 * LDQ);
+      const uint32_t a2 = ld_s8x4(ap + 16), a3 = ld_s8x4(ap + 8 * LDQ + 16);
+      const bool pe_part = layer == 5 && k0 >= W;
+#pragma unroll
+      for (int j = 0; j < QNC / 8; ++j) {
+        const int8_t* bp = qw + (j * 8 + g) * LDQ + k0 + 4 * t;
+        if (pe_part) mma_s8(accp[j], a0, a1, a2, a3, ld_s8x4(bp), ld_s8x4(bp + 16));
+        else mma_s8(acc[j], a0, a1, a2, a3, ld_s8x4(bp), ld_s8x4(bp + 16));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QNC / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? rb : ra;
+        if (r >= nrows) continue;
+        float h2[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float swc = __ldg(swl + col + q), bc = __ldg(bl + col + q);
+          const int a = acc[j][2 * half + q];
+          float pre;
+          if (layer == 5)
+            pre = __fadd_rn(__fadd_rn(deq(a, swc, s_h[r]), deq(accp[j][2 * half + q], swc, s_p[r])),
+                            bc);
+          else
+            pre = __fadd_rn(deq(a, swc, layer == 0 ? s_p[r] : s_h[r]), bc);
+          h2[q] = fmaxf(pre, 0.f);
+        }
+        const long long row = row0 + r;
+        if (layer < 7)
+          *reinterpret_cast<float2*>(hout + row * W + col) = make_float2(h2[0], h2[1]);
+        if (stream_out)
+          *reinterpret_cast<__nv_bfloat162*>(acts + row * as + act_h(layer) + col) =
+              __floats2bfloat162_rn(h2[0], h2[1]);
+        const float m = fmaxf(fabsf(h2[0]), fabsf(h2[1]));
+        if (half) mb = fmaxf(mb, m); else ma = fmaxf(ma, m);
+      }
+    }
+  }
+  if (layer < 7) {
+    if (ra < nrows) atomicMax(&rowmax[ra], __float_as_uint(ma));
+    if (rb < nrows) atomicMax(&rowmax[rb], __float_as_uint(mb));
+    fold_group_max(rowmax, row0, nrows, group_rows, amax, layer + 1);
+  }
+}
+
+// int8_full, layer `layer`: the group amax of g = g_h * mask * s_w (mask:
+// the layer's activation > 0, from the stream) into gamax, and the tile's
+// column sums of the unquantized g_h * mask (the bias gradient) into its row
+// of qbpart. One thread per column.
+__global__ void __launch_bounds__(THREADS)
+q8_gamax_kernel(int layer, const bf16* __restrict__ gh, const bf16* __restrict__ acts,
+                long long as, const float* __restrict__ sw, float* __restrict__ gamax,
+                float* __restrict__ qbpart, long long rows, long long group_rows) {
+  __shared__ unsigned rowmax[MT];
+  const int c = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * MT;
+  const int nrows = (int)min((long long)MT, rows - row0);
+  if (c < MT) rowmax[c] = 0u;
+  __syncthreads();
+  const float swc = sw[layer * W + c];
+  float sum = 0.f;
+  for (int r = 0; r < nrows; ++r) {
+    const long long row = row0 + r;
+    const float gv = bf(acts[row * as + act_h(layer) + c]) > 0.f ? bf(gh[row * W + c]) : 0.f;
+    sum += gv;
+    float m = fabsf(__fmul_rn(gv, swc));
+#pragma unroll
+    for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((c & 31) == 0) atomicMax(&rowmax[r], __float_as_uint(m));
+  }
+  qbpart[(long long)blockIdx.x * QB + layer * W + c] = sum;
+  fold_group_max(rowmax, row0, nrows, group_rows, gamax, layer);
+}
+
+constexpr int LDG = W + 16;   // int8 cotangent tile row stride (bytes)
+
+size_t q8_dgrad_smem() { return (size_t)(MT + NC) * LDG + (size_t)MT * 2 * sizeof(float); }
+
+// int8_full, layer `layer`: g8 = round(g_h * mask * s_w * inv_g) per group,
+// kept in the int8 cotangent stream (columns layer * 256..) for the wgrad,
+// and dgrad g_in = (g8 w8^T) s_g rounded to bf16: into gh_next (the
+// cotangent of the layer's input activation), or for the PE into gpe
+// (layer 5: its PE part; layer 0: added to it in bf16).
+__global__ void __launch_bounds__(THREADS)
+q8_dgrad_kernel(int layer, const bf16* __restrict__ gh, bf16* __restrict__ gh_next,
+                bf16* __restrict__ gpe, const bf16* __restrict__ acts, long long as,
+                const int8_t* __restrict__ w8t, const float* __restrict__ sw,
+                const float* __restrict__ gamax, int8_t* __restrict__ g8s, long long rows,
+                long long group_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* qa = reinterpret_cast<int8_t*>(smem);   // MT x LDG: g8
+  int8_t* qw = qa + MT * LDG;                       // NC x LDG: w8^T rows (in, out)
+  float* s_g = reinterpret_cast<float*>(qw + NC * LDG);
+  float* i_g = s_g + MT;
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * MT;
+  const int nrows = (int)min((long long)MT, rows - row0);
+  if (tid < MT) {
+    const float inv = q8_inv(gamax[((row0 + min(tid, nrows - 1)) / group_rows) * Q8P + layer]);
+    i_g[tid] = inv;
+    s_g[tid] = __fdiv_rn(1.f, inv);
+  }
+  __syncthreads();
+  const float* swl = sw + layer * W;
+  for (int v = tid; v < MT * (W / 4); v += THREADS) {
+    const int r = v / (W / 4), c = (v % (W / 4)) * 4;
+    uint32_t packed = 0u;
+    if (r < nrows) {
+      const long long row = row0 + r;
+      const float inv = i_g[r];
+      for (int j = 0; j < 4; ++j) {
+        const float gv =
+            bf(acts[row * as + act_h(layer) + c + j]) > 0.f ? bf(gh[row * W + c + j]) : 0.f;
+        packed |= q8_byte(__fmul_rn(gv, swl[c + j]), inv) << (8 * j);
+      }
+      *reinterpret_cast<uint32_t*>(g8s + row * G8S + layer * W + c) = packed;
+    }
+    *reinterpret_cast<uint32_t*>(qa + r * LDG + c) = packed;
+  }
+  const int n_dim = layer == 0 ? PE : (layer == 5 ? CAT : W);
+  const int8_t* wt = w8t + trunk_offset(layer);   // (in = n_dim, out = 256) row-major
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ra = warp * 16 + g, rb = ra + 8;
+  for (int n0 = 0; n0 < n_dim; n0 += NC) {
+    __syncthreads();
+    for (int v = tid; v < NC * (W / 16); v += THREADS) {
+      const int n = v / (W / 16), kv = (v % (W / 16)) * 16;
+      uint4 w16 = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + n < n_dim)
+        w16 = __ldg(reinterpret_cast<const uint4*>(wt + (long long)(n0 + n) * W + kv));
+      *reinterpret_cast<uint4*>(qw + n * LDG + kv) = w16;
+    }
+    __syncthreads();
+    int acc[NC / 8][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+    for (int k0 = 0; k0 < W; k0 += 32) {
+      const int8_t* ap = qa + ra * LDG + k0 + 4 * t;
+      const uint32_t a0 = ld_s8x4(ap), a1 = ld_s8x4(ap + 8 * LDG);
+      const uint32_t a2 = ld_s8x4(ap + 16), a3 = ld_s8x4(ap + 8 * LDG + 16);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int8_t* bp = qw + (j * 8 + g) * LDG + k0 + 4 * t;
+        mma_s8(acc[j], a0, a1, a2, a3, ld_s8x4(bp), ld_s8x4(bp + 16));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+      if (col >= n_dim) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? rb : ra;
+        if (r >= nrows) continue;
+        const long long row = row0 + r;
+        const __nv_bfloat162 v2 =
+            __floats2bfloat162_rn(__fmul_rn(__int2float_rn(acc[j][2 * half]), s_g[r]),
+                                  __fmul_rn(__int2float_rn(acc[j][2 * half + 1]), s_g[r]));
+        if (layer == 0) {
+          __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(gpe + row * PE + col);
+          const float2 o = __bfloat1622float2(*p), a = __bfloat1622float2(v2);
+          *p = __floats2bfloat162_rn(o.x + a.x, o.y + a.y);
+        } else if (layer == 5 && col >= W) {
+          *reinterpret_cast<__nv_bfloat162*>(gpe + row * PE + col - W) = v2;
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(gh_next + row * W + col) = v2;
+        }
+      }
+    }
+  }
+}
+
+// int8_full weight gradients: blockIdx.x walks the trunk's 128 x 128 tiles
+// (layer-major), blockIdx.y the groups. A block forms its group's exact
+// int32 inp8^T g8 (inp8: the stream's bf16 activation, or the PE, quantized
+// with the group's scale; its amax is the bf16 rounding of the recompute's
+// f32 amax), scales it by s_in * (s_g / s_w) per column and writes it to the
+// group's own slice of qwpart, in the packed (out, in) layout.
+__global__ void __launch_bounds__(THREADS)
+q8_wgrad_kernel(const bf16* __restrict__ acts, long long as, const int8_t* __restrict__ g8s,
+                const float* __restrict__ sw, const float* __restrict__ amax,
+                const float* __restrict__ gamax, float* __restrict__ qwpart, long long rows,
+                long long group_rows) {
+  __shared__ __align__(16) int8_t sa[WG_TILE * LDK];
+  __shared__ __align__(16) int8_t sb[WG_TILE * LDK];
+  int t = blockIdx.x, layer = 0, mt = 0, nt = 0;
+  for (; layer < 8; ++layer) {
+    const int in = layer == 0 ? PE : (layer == 5 ? CAT : W);
+    const int tiles = ((in + WG_TILE - 1) / WG_TILE) * (W / WG_TILE);
+    if (t < tiles) { mt = t / (W / WG_TILE); nt = t % (W / WG_TILE); break; }
+    t -= tiles;
+  }
+  const int in = layer == 0 ? PE : (layer == 5 ? CAT : W);
+  const int m0 = mt * WG_TILE, n0 = nt * WG_TILE;
+  const bool pe_src = layer == 0 || m0 >= W;
+  const int acol = pe_src ? A_PE + (m0 >= W ? m0 - W : m0) : act_h(layer - 1) + m0;
+  const int mvalid = min(WG_TILE, in - m0);
+  const long long grp = blockIdx.y;
+  const long long rbeg = grp * group_rows, rend = min(rows, rbeg + group_rows);
+  const float inv_in = q8_inv(bf_round(amax[grp * Q8P + (pe_src ? 0 : layer)]));
+  const float s_in = __fdiv_rn(1.f, inv_in);
+  const float s_g = __fdiv_rn(1.f, q8_inv(gamax[grp * Q8P + layer]));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  int acc[WG_TILE / 8][4];
+#pragma unroll
+  for (int j = 0; j < WG_TILE / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  for (long long k0 = rbeg; k0 < rend; k0 += 32) {
+    __syncthreads();
+    // stage the chunk's 32 rows transposed: (feature, row) int8
+    for (int v = threadIdx.x; v < 32 * (WG_TILE / 8); v += THREADS) {
+      const int kk = v / (WG_TILE / 8), cv = (v % (WG_TILE / 8)) * 8;
+      const long long row = k0 + kk;
+      uint4 a8 = make_uint4(0u, 0u, 0u, 0u);
+      uint2 b8 = make_uint2(0u, 0u);
+      if (row < rend) {
+        if (cv < mvalid) a8 = *reinterpret_cast<const uint4*>(acts + row * as + acol + cv);
+        b8 = *reinterpret_cast<const uint2*>(g8s + row * G8S + layer * W + n0 + cv);
+      }
+      const bf16* ae = reinterpret_cast<const bf16*>(&a8);
+      const int8_t* be = reinterpret_cast<const int8_t*>(&b8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sa[(cv + j) * LDK + kk] = (int8_t)__float2int_rn(__fmul_rn(bf(ae[j]), inv_in));
+        sb[(cv + j) * LDK + kk] = be[j];
+      }
+    }
+    __syncthreads();
+    const int8_t* ap = sa + (warp * 16 + g) * LDK + 4 * tq;
+    const uint32_t a0 = ld_s8x4(ap), a1 = ld_s8x4(ap + 8 * LDK);
+    const uint32_t a2 = ld_s8x4(ap + 16), a3 = ld_s8x4(ap + 8 * LDK + 16);
+#pragma unroll
+    for (int j = 0; j < WG_TILE / 8; ++j) {
+      const int8_t* bp = sb + (j * 8 + g) * LDK + 4 * tq;
+      mma_s8(acc[j], a0, a1, a2, a3, ld_s8x4(bp), ld_s8x4(bp + 16));
+    }
+  }
+  float* dst = qwpart + grp * M_SIG + trunk_offset(layer);
+#pragma unroll
+  for (int j = 0; j < WG_TILE / 8; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ml = warp * 16 + g + (q >= 2 ? 8 : 0), n = n0 + j * 8 + 2 * tq + (q & 1);
+      if (ml >= mvalid) continue;
+      const float scale = __fmul_rn(s_in, __fdiv_rn(s_g, sw[layer * W + n]));
+      dst[(long long)n * in + m0 + ml] = __fmul_rn(__int2float_rn(acc[j][q]), scale);
+    }
+  }
+}
+
+// int8_full: the trunk's weight gradients as the sum of the per-group
+// partials in group order, and its bias gradients as the sum of the per-tile
+// column sums in tile order (fixed orders: the same bits from run to run).
+__global__ void q8_reduce_kernel(const float* __restrict__ qwpart, int n_groups,
+                                 const float* __restrict__ qbpart, int ntiles,
+                                 float* __restrict__ dmats, float* __restrict__ dbias) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < M_SIG + QB;
+       e += stride) {
+    float s = 0.f;
+    if (e < M_SIG) {
+      for (int g = 0; g < n_groups; ++g) s += qwpart[(long long)g * M_SIG + e];
+      dmats[e] = s;
+    } else {
+      const long long eb = e - M_SIG;
+      for (int t = 0; t < ntiles; ++t) s += qbpart[(long long)t * QB + eb];
+      dbias[B_T + eb] = s;
+    }
+  }
+}
+
+// int8_full: per ray, d_o and d_d from the PE cotangent (the dgrad kernel's
+// last step, here after the layer-by-layer chain), into d_rayin columns 0..5.
+constexpr int RG_THREADS = 64;
+
+__global__ void __launch_bounds__(RG_THREADS)
+q8_ray_grads_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
+                    const bf16* __restrict__ gpe, float* __restrict__ drayin, int KPAD) {
+  __shared__ float part[RG_THREADS][6];
+  const long long ray = blockIdx.x;
+  const float* ri = rayin + ray * RAYIN;
+  float a6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = threadIdx.x; k < KPAD; k += RG_THREADS) {
+    const long long row = ray * KPAD + k;
+    const float zs = z[row];
+    for (int c = 0; c < 63; ++c) {
+      int j;
+      float sc;
+      pe_lane(c, j, sc);
+      const float xb = ray_xb(ri, j, sc, zs);
+      const float der = c < 3 ? 1.f
+                      : sinf(c < 33 ? __fadd_rn(xb, HALF_PI)
+                                    : __fadd_rn(__fadd_rn(xb, HALF_PI), HALF_PI));
+      const float dxs = bf(gpe[row * PE + c]) * der * sc;
+      a6[j] += dxs;
+      a6[3 + j] += dxs * zs;
+    }
+  }
+  for (int j = 0; j < 6; ++j) part[threadIdx.x][j] = a6[j];
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    float s = 0.f;
+    for (int u = 0; u < RG_THREADS; ++u) s += part[u][threadIdx.x];
+    drayin[ray * RAYIN + threadIdx.x] = s;
+  }
+}
+
+// The int8 trunk over `rows` rows (R rays x KPAD): the PE, then the eight
+// layers, f32 activations ping-ponging through hf (2 x rows x 256).
+int q8_trunk(const float* rayin, const float* z, bf16* acts, long long as, bool write_all,
+             const int8_t* w8, const float* sw, const float* wb, float* hf, float* amax,
+             long long rows, int KPAD, long long group_rows, cudaStream_t stream) {
+  const int tiles = (int)((rows + MT - 1) / MT);
+  q8_pe_kernel<<<tiles, THREADS, 0, stream>>>(rayin, z, acts, as, amax, rows, KPAD, group_rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = q8_layer_smem();
+  e = cudaFuncSetAttribute(q8_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int layer = 0; layer < 8; ++layer) {
+    q8_layer_kernel<<<tiles, THREADS, smem, stream>>>(
+        layer, hf + (long long)((layer + 1) % 2) * rows * W, hf + (long long)(layer % 2) * rows * W,
+        acts, as, write_all ? 1 : 0, w8, sw, wb, amax, rows, group_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+bool q8_shape_ok(int R, int KPAD, long long group_rows) {
+  return R > 0 && KPAD > 0 && KPAD % 8 == 0 && KPAD <= MAX_KPAD && group_rows > 0 &&
+         group_rows % KPAD == 0 && ((long long)R * KPAD) % group_rows == 0;
+}
+
+size_t q8_fwd_bytes(bool camera_layout, long long rows) {
+  return align256((size_t)rows * (camera_layout ? ACT_CAM : ACT_SH) * sizeof(bf16)) +
+         align256((size_t)2 * rows * W * sizeof(float));
+}
+
+// Scratch of an int8 backward past the bf16 backward's own (BwdLayout):
+// the f32 activations, and for int8_full the bf16 cotangents (ping-pong),
+// the PE cotangent, the int8 cotangent stream and the int8 passes' partials.
+struct Q8Layout {
+  size_t hf, gh, gpe, g8, qbpart, qwpart, total;
+};
+
+Q8Layout q8_bwd_layout(bool camera, bool full, int R, int KPAD, long long group_rows) {
+  const long long rows = (long long)R * KPAD;
+  const long long tiles = (rows + MT - 1) / MT, groups = rows / group_rows;
+  Q8Layout Q;
+  Q.hf = ray_bwd_layout(camera, R, KPAD).total;
+  Q.gh = align256(Q.hf + (size_t)2 * rows * W * sizeof(float));
+  Q.gpe = align256(Q.gh + (full ? (size_t)2 * rows * W * sizeof(bf16) : 0));
+  Q.g8 = align256(Q.gpe + (full ? (size_t)rows * PE * sizeof(bf16) : 0));
+  Q.qbpart = align256(Q.g8 + (full ? (size_t)rows * G8S : 0));
+  Q.qwpart = align256(Q.qbpart + (full ? (size_t)tiles * QB * sizeof(float) : 0));
+  Q.total = align256(Q.qwpart + (full ? (size_t)groups * M_SIG * sizeof(float) : 0));
+  return Q;
+}
+
+int q8_fwd(int mode, const float* rayin, const float* z, const float* deltam, const float* mask,
+           const void* wm, const float* wb, const void* w8, const float* sw, void* ws,
+           float* amax, float* out, int R, int KPAD, long long group_rows,
+           cudaStream_t stream) {
+  if (!q8_shape_ok(R, KPAD, group_rows) || mode < CAM || mode > COARSE)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)R * KPAD;
+  const long long as = mode == CAM ? ACT_CAM : ACT_SH;
+  bf16* acts = static_cast<bf16*>(ws);
+  float* hf = reinterpret_cast<float*>(static_cast<unsigned char*>(ws) +
+                                       align256((size_t)rows * as * sizeof(bf16)));
+  int err = q8_trunk(rayin, z, acts, as, false, static_cast<const int8_t*>(w8), sw, wb, hf, amax,
+                     rows, KPAD, group_rows, stream);
+  if (err != 0) return err;
+  if (mode == CAM)
+    return launch<CAM, false, true>(rayin, z, deltam, mask, wm, wb, out, R, KPAD, stream, nullptr,
+                                    acts);
+  if (mode == SHADOW)
+    return launch<SHADOW, false, true>(rayin, z, deltam, mask, wm, wb, out, R, KPAD, stream,
+                                       nullptr, acts);
+  return launch<COARSE, false, true>(rayin, z, deltam, mask, wm, wb, out, R, KPAD, stream, nullptr,
+                                     acts);
+}
+
+template <bool CAMERA>
+int q8_bwd(bool full, const float* rayin, const float* z, const float* deltam, const float* mask,
+           const float* gin, const void* wm_, const float* wb, const void* w8_, const void* w8t_,
+           const float* sw, void* ws, float* amax, float* gamax, float* dmats, float* dbias,
+           float* drayin, int R, int KPAD, long long group_rows, cudaStream_t stream) {
+  if (!q8_shape_ok(R, KPAD, group_rows)) return (int)cudaErrorInvalidValue;
+  const bf16* wm = static_cast<const bf16*>(wm_);
+  const int8_t* w8 = static_cast<const int8_t*>(w8_);
+  const int8_t* w8t = static_cast<const int8_t*>(w8t_);
+  constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
+  const long long rows = (long long)R * KPAD;
+  const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD);
+  const Scratch sc = carve(L, ws);
+  const Q8Layout Q = q8_bwd_layout(CAMERA, full, R, KPAD, group_rows);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  float* hf = reinterpret_cast<float*>(base + Q.hf);
+  // the recompute: the int8 trunk in the backward's groups, every activation
+  // to the stream, then the heads from the stream and the compositing backward
+  int err = q8_trunk(rayin, z, sc.acts, AS, true, w8, sw, wb, hf, amax, rows, KPAD, group_rows,
+                     stream);
+  if (err != 0) return err;
+  err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
+                                                  stream, gin, sc.acts, sc.hg);
+  if (err != 0) return err;
+  // int8: straight through, the bf16 dgrad and wgrad against the unquantized
+  // weights on the int8 recompute's stream
+  if (!full)
+    return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
+                                     stream);
+  bf16* gh = reinterpret_cast<bf16*>(base + Q.gh);
+  bf16* gpe = reinterpret_cast<bf16*>(base + Q.gpe);
+  int8_t* g8s = reinterpret_cast<int8_t*>(base + Q.g8);
+  float* qbpart = reinterpret_cast<float*>(base + Q.qbpart);
+  float* qwpart = reinterpret_cast<float*>(base + Q.qwpart);
+  err = bwd_passes<CAMERA, false, true>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
+                                        stream, gh);
+  if (err != 0) return err;
+  const int tiles = (int)((rows + MT - 1) / MT);
+  const size_t smem = q8_dgrad_smem();
+  cudaError_t e = cudaFuncSetAttribute(q8_dgrad_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int layer = 7; layer >= 0; --layer) {
+    const bf16* cur = gh + (long long)((7 - layer) % 2) * rows * W;
+    bf16* nxt = gh + (long long)((8 - layer) % 2) * rows * W;
+    q8_gamax_kernel<<<tiles, THREADS, 0, stream>>>(layer, cur, sc.acts, AS, sw, gamax, qbpart,
+                                                   rows, group_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    q8_dgrad_kernel<<<tiles, THREADS, smem, stream>>>(layer, cur, nxt, gpe, sc.acts, AS, w8t, sw,
+                                                      gamax, g8s, rows, group_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int groups = (int)(rows / group_rows);
+  q8_wgrad_kernel<<<dim3(n_trunk_wgrad_tiles(), groups), THREADS, 0, stream>>>(
+      sc.acts, AS, g8s, sw, amax, gamax, qwpart, rows, group_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  q8_reduce_kernel<<<1024, THREADS, 0, stream>>>(qwpart, groups, qbpart, tiles, dmats, dbias);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  q8_ray_grads_kernel<<<R, RG_THREADS, 0, stream>>>(rayin, z, gpe, drayin, KPAD);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1271,6 +1974,51 @@ int eonerf_density_bwd(const float* pos, const float* g, const void* wm, const f
                        void* ws, float* dmats, float* dbias, float* dpos, int N, void* stream) {
   return launch_point_bwd<false>(pos, nullptr, g, wm, wb, ws, dmats, dbias, dpos, nullptr, N,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The int8 trunk tier. Rays are padded by the caller to whole scale groups
+// of group_rows rows (rt rays x KPAD samples). w8 (int8) holds the trunk's
+// quantized matrices packed as the trunk prefix of the bf16 matrices, w8t the
+// same transposed per matrix, sw the 8 x 256 per-column scales; amax (and, for
+// int8_full, gamax) is (groups, 8), zeroed by the caller, and returns the
+// group amax the kernels quantized with.
+
+// Bytes of scratch of an int8 forward (mode 0 camera, 1 shadow, 2 coarse).
+long long eonerf_q8_fwd_workspace_bytes(int mode, int R, int KPAD) {
+  return (long long)q8_fwd_bytes(mode == CAM, (long long)R * KPAD);
+}
+
+// Forward through the int8 trunk: out as the bf16 op of the same mode
+// (camera acc (R, 8), shadow geo (R,), coarse weights (R, KPAD)).
+int eonerf_q8_fwd(int mode, const float* rayin, const float* z, const float* deltam,
+                  const float* mask, const void* wm, const float* wb, const void* w8,
+                  const float* sw, void* ws, float* amax, float* out, int R, int KPAD,
+                  long long group_rows, void* stream) {
+  return q8_fwd(mode, rayin, z, deltam, mask, wm, wb, w8, sw, ws, amax, out, R, KPAD, group_rows,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch of an int8 backward (camera != 0: the camera's; full != 0:
+// int8_full).
+long long eonerf_q8_bwd_workspace_bytes(int camera, int full, int R, int KPAD,
+                                        long long group_rows) {
+  return (long long)q8_bwd_layout(camera != 0, full != 0, R, KPAD, group_rows).total;
+}
+
+// Backward of the int8 camera (camera != 0; gin = gacc (R, 8)) or shadow op
+// (gin = ggeo (R,)): int8 (full = 0) or int8_full. Outputs as the bf16
+// backward's.
+int eonerf_q8_bwd(int camera, int full, const float* rayin, const float* z, const float* deltam,
+                  const float* mask, const float* gin, const void* wm, const float* wb,
+                  const void* w8, const void* w8t, const float* sw, void* ws, float* amax,
+                  float* gamax, float* dmats, float* dbias, float* drayin, int R, int KPAD,
+                  long long group_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (camera)
+    return q8_bwd<true>(full != 0, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax,
+                        gamax, dmats, dbias, drayin, R, KPAD, group_rows, st);
+  return q8_bwd<false>(full != 0, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax,
+                       gamax, dmats, dbias, drayin, R, KPAD, group_rows, st);
 }
 
 const char* eonerf_error_string(int code) {

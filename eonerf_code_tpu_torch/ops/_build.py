@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 ``nvcc`` compiles ``csrc/fused_render.cu`` (the fused render kernels,
-forward and backward, the coarse-weights kernel and the per-point field
-and density kernels, forward and backward) for sm_90a into a shared library
+forward and backward, the coarse-weights kernel, the per-point field
+and density kernels, forward and backward, and the int8 trunk tier's
+kernels) for sm_90a into a shared library
 with a plain C interface, on first use, into ``_build/`` beside the package
 sources (git-ignored); the file name carries a hash of the source and the
 flags, so an edit rebuilds and an unchanged source is reused. ``ctypes``
@@ -85,6 +86,15 @@ def load_library():
     lib.eonerf_field_bwd.restype = i
     lib.eonerf_density_bwd.argtypes = [p] * 8 + [i, p]
     lib.eonerf_density_bwd.restype = i
+    ll = ctypes.c_longlong
+    lib.eonerf_q8_fwd_workspace_bytes.argtypes = [i, i, i]
+    lib.eonerf_q8_fwd_workspace_bytes.restype = ll
+    lib.eonerf_q8_fwd.argtypes = [i] + [p] * 11 + [i, i, ll, p]
+    lib.eonerf_q8_fwd.restype = i
+    lib.eonerf_q8_bwd_workspace_bytes.argtypes = [i, i, i, i, ll]
+    lib.eonerf_q8_bwd_workspace_bytes.restype = ll
+    lib.eonerf_q8_bwd.argtypes = [i, i] + [p] * 16 + [i, i, ll, p]
+    lib.eonerf_q8_bwd.restype = i
     lib.eonerf_error_string.argtypes = [i]
     lib.eonerf_error_string.restype = ctypes.c_char_p
     return lib

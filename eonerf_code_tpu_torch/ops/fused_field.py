@@ -21,6 +21,9 @@ padded form).
   per-point density and its VJP, the counterparts of
   ``make_fused_density`` (``_density_fwd_kernel``, ``_density_bwd_kernel``;
   the heads get exact zeros).
+- the int8 trunk tier's plain pieces (``quantize_trunk_int8``,
+  :class:`Q8Weights`, ``q8_act``, ``mm_q8``, ``trunk_q8``,
+  ``trunk_backward_q8``), which the ray ops of ops/fused_render.py use.
 - ``fused_field`` / ``fused_density``: the pairs as
   ``torch.autograd.Function``s in recompute mode (the JAX package's
   ``custom_vjp`` ops).
@@ -327,6 +330,177 @@ def trunk_backward(pe, acts, masks, g_h, w, dtype, g):
     return g_pe
 
 
+# ---------------------------------------------------------------------------
+# the int8 trunk tier (trunk_quant "int8" / "int8_full"): per-column weight
+# scales, dynamic activation scales per scale group, int8 x int8 products
+# with int32 accumulation. The counterpart of the JAX package's
+# quantize_trunk_int8, _q8_act, _mm_q8, _trunk_fwd_q8 and _trunk_bwd_q8.
+#
+# A scale group is the rows one TPU grid step holds: rt rays x KPAD samples
+# of the padded call, padded samples and zero rays included. The plain
+# versions here take the group's row count and reduce over each group; every
+# product of integers they form is exact (float32 below 2^24, float64 for
+# the weight gradients' sums over a group), so only the dequantization
+# rounds, at the JAX package's points and in its order.
+# ---------------------------------------------------------------------------
+
+N_Q8 = 16   # 8 int8 trunk matrices + 8 (1, 256) float32 per-column scale rows
+TRUNK_MAT_ELEMENTS = sum(a * b for a, b in _MAT_SHAPES[:8])
+TRUNK_BIAS_ELEMENTS = 8 * 256
+Q8_POINTS = 8   # activation quantizations per group: the PE, then h0..h6
+
+
+def quantize_trunk_int8(flat_padded_f32):
+    """Symmetric per-column int8 quantization of the 8 padded float32 trunk
+    matrices ((in, out), the JAX layout): s = max(max_rows |w|, 1e-12) / 127,
+    w8 = round(w / s), half to even. Returns [w8 x8] + [scale (1, out) x8]."""
+    w8s, scales = [], []
+    for wmat in flat_padded_f32[:8]:
+        wf = wmat.float()
+        s = torch.clamp(wf.abs().amax(dim=0, keepdim=True), min=1e-12) / 127.0
+        w8s.append(torch.round(wf / s).to(torch.int8))
+        scales.append(s)
+    return w8s + scales
+
+
+class Q8Weights(NamedTuple):
+    """The int8 trunk for the kernels: ``w8`` the 8 quantized matrices
+    packed as the trunk prefix of ``KernelWeights.mats`` ((out, in) each),
+    ``w8t`` the same matrices transposed ((in, out) each, the dgrad
+    operand), ``scales`` the 8 x 256 float32 per-column weight scales."""
+
+    w8: torch.Tensor
+    w8t: torch.Tensor
+    scales: torch.Tensor
+
+
+def quantize_kernel_trunk(mats_f32):
+    """Q8Weights from float32 packed matrices (the prefix holding the trunk):
+    :func:`quantize_trunk_int8` on each matrix, packed. Glue, run on every
+    call from the current weights, as the JAX package does."""
+    mats_f32 = mats_f32.detach().float()
+    w8, w8t, scales, off = [], [], [], 0
+    for n_in, n_out in _MAT_SHAPES[:8]:
+        q, s = quantize_trunk_int8([mats_f32[off:off + n_in * n_out].view(n_out, n_in).t()])
+        w8.append(q.t().reshape(-1))     # (out, in)
+        w8t.append(q.reshape(-1))        # (in, out)
+        scales.append(s.reshape(-1))
+        off += n_in * n_out
+    return Q8Weights(torch.cat(w8).contiguous(), torch.cat(w8t).contiguous(),
+                     torch.cat(scales).contiguous())
+
+
+def q8_views(q8: Q8Weights):
+    """Q8Weights -> ([w8 (in, out) x8] as float32 integer values,
+    [scale (1, 256) x8]): the plain versions' operands."""
+    w8s, off = [], 0
+    for n_in, n_out in _MAT_SHAPES[:8]:
+        w8s.append(q8.w8t[off:off + n_in * n_out].view(n_in, n_out).float())
+        off += n_in * n_out
+    return w8s, [q8.scales[256 * i:256 * (i + 1)].view(1, 256) for i in range(8)]
+
+
+def q8_act(x, group_rows):
+    """Dynamic symmetric int8 quantization of float32 ``x`` (M, C), one scale
+    per group of ``group_rows`` rows: inv = 127 / max(amax, 1e-12),
+    x8 = round(x inv), scale 1 / inv. Returns (x8 as float32 integer
+    values, scale per group (G, 1), amax per group (G,))."""
+    m = x.shape[0]
+    amax = x.abs().reshape(m // group_rows, -1).amax(dim=1)
+    # tensor / tensor: a Python number over a tensor would round twice
+    # (PyTorch takes the reciprocal, then multiplies)
+    inv = torch.full_like(amax, 127.0) / torch.clamp(amax, min=1e-12)
+    x8 = torch.round(x * inv.repeat_interleave(group_rows)[:, None])
+    return x8, (torch.ones_like(inv) / inv)[:, None], amax
+
+
+def _rows(s_group, group_rows):
+    return s_group.repeat_interleave(group_rows, dim=0)
+
+
+def mm_q8(h8, w8, sw_row, s_rows, b=None):
+    """int8 x int8 product with int32 accumulation (exact in float32 here:
+    at most 320 terms of |v| <= 127^2), dequantized as acc * (s_w s_act)
+    (+ b)."""
+    out = (h8 @ w8) * (sw_row * s_rows)
+    return out if b is None else out + b
+
+
+def trunk_q8(pe, w, q8: Q8Weights, dtype, group_rows):
+    """The int8 trunk: post-ReLU activations h0..h7 rounded to ``dtype``, the
+    ReLU masks from the float32 pre-activations, and the amax of every
+    quantization per group (G, 8): the PE, then h0..h6. The running
+    activation stays float32 between layers; the skip layer quantizes h4 and
+    the PE separately (two products, (A + B) + b)."""
+    w8s, sws = q8_views(q8)
+    pe8, pe_s, amax0 = q8_act(pe.float(), group_rows)
+    pe_s = _rows(pe_s, group_rows)
+    acts, masks, amax = [], [], [amax0]
+    for i in range(8):
+        if i == 0:
+            pre = mm_q8(pe8, w8s[0], sws[0], pe_s, w.trunk_b[0])
+        else:
+            h8, sa, a = q8_act(hf, group_rows)
+            amax.append(a)
+            sa = _rows(sa, group_rows)
+            if i == 5:
+                pre = (mm_q8(h8, w8s[5][:256], sws[5], sa)
+                       + mm_q8(pe8, w8s[5][256:], sws[5], pe_s)) + w.trunk_b[5]
+            else:
+                pre = mm_q8(h8, w8s[i], sws[i], sa, w.trunk_b[i])
+        hf = torch.relu(pre)
+        acts.append(hf.to(dtype))
+        masks.append((pre > 0).to(dtype))
+    return acts, masks, torch.stack(amax, dim=1)
+
+
+def _wgrad_q8(a8, g8, s_in, col_s, group_rows):
+    """sum over groups, in group order, of (a8_g^T g8_g) * (s_in_g col_s_g):
+    each group's exact integer product (float64), rounded to float32 as the
+    int32 sum converts, scaled, then added to the running float32 total."""
+    n_g = a8.shape[0] // group_rows
+    acc = torch.bmm(a8.view(n_g, group_rows, -1).double().transpose(1, 2),
+                    g8.view(n_g, group_rows, -1).double()).float()
+    contrib = acc * (s_in * col_s)[:, None, :]
+    total = contrib[0]
+    for j in range(1, n_g):
+        total = total + contrib[j]
+    return total
+
+
+def trunk_backward_q8(pe, acts, masks, g_h, q8: Q8Weights, dtype, g, group_rows):
+    """The int8_full trunk backward from g_h (compute dtype): per layer one
+    quantization of the weight-scale-folded cotangent gf * s_w per group
+    serves dgrad, (g8 w8^T) s_g rounded to ``dtype``, and wgrad,
+    (inp8^T g8) s_in s_g / s_w per group, inp8 the quantized compute-dtype
+    activation (or the PE). Bias gradients sum the unquantized float32
+    cotangent. Fills entries 0-15 of ``g``; returns (d_pe in ``dtype``, the
+    cotangent amax per group and layer (G, 8))."""
+    w8s, sws = q8_views(q8)
+    pe8, pe_s, _ = q8_act(pe.float(), group_rows)
+    g_pe, gamax = None, [None] * 8
+    for i in range(7, -1, -1):
+        gf = (g_h * masks[i]).float()
+        g[8 + i] = colsum(gf)
+        g8, s_g, gamax[i] = q8_act(gf * sws[i], group_rows)
+        col_s = s_g / sws[i]
+        if i == 0:
+            g[0] = _wgrad_q8(pe8, g8, pe_s, col_s, group_rows)
+        else:
+            h8, s_h, _ = q8_act(acts[i - 1].float(), group_rows)
+            g[i] = _wgrad_q8(h8, g8, s_h, col_s, group_rows)
+            if i == 5:
+                g[5] = torch.cat([g[5], _wgrad_q8(pe8, g8, pe_s, col_s, group_rows)], dim=0)
+        g_in = ((g8 @ w8s[i].t()) * _rows(s_g, group_rows)).to(dtype)
+        if i == 5:
+            g_h, g_pe = g_in[:, :256], g_in[:, 256:]
+        elif i == 0:
+            g_pe = g_pe + g_in
+        else:
+            g_h = g_in
+    return g_pe, torch.stack(gamax, dim=1)
+
+
 def heads(h, emb64, w, dtype):
     """Per-sample heads from the trunk output h and the (M, 64) padded
     embedding: (sigma, albedo, ts, tb) and the residuals their backward
@@ -380,15 +554,18 @@ def heads_backward(h, res, d_sigma, d_val, w, dtype, g):
     return g_h, g_t[:, 256:260].float()
 
 
-def sigma_backward(pe, acts, masks, sig_pre, d_sigma, w, dtype):
+def sigma_backward(pe, acts, masks, sig_pre, d_sigma, w, dtype, trunk_grads=None):
     """VJP of the density trunk and sigma head for the sigma cotangent
     d_sigma (M, 1): the 36 float32 gradients (exact zeros past the density
-    prefix) and the PE cotangent (compute dtype)."""
+    prefix) and the PE cotangent (compute dtype). ``trunk_grads(g_h, g)``
+    replaces the trunk's backward (:func:`trunk_backward` by default)."""
     g_sig_pre = d_sigma * torch.sigmoid(sig_pre)
     g = [torch.zeros(x.shape, device=pe.device) for x in flatten_weights(w)]
     g[16], g[17] = outer(acts[-1], g_sig_pre.to(dtype)), colsum(g_sig_pre)
-    g_pe = trunk_backward(pe, acts, masks, mm_t(g_sig_pre, w.sigma_w, dtype), w, dtype, g)
-    return g, g_pe
+    g_h = mm_t(g_sig_pre, w.sigma_w, dtype)
+    if trunk_grads is None:
+        return g, trunk_backward(pe, acts, masks, g_h, w, dtype, g)
+    return g, trunk_grads(g_h, g)
 
 
 def pack_grads(flat):

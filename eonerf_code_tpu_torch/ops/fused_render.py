@@ -20,6 +20,16 @@ input and output, forward and backward.
   ``fused_coarse``: the coarse op on detached inputs, as the JAX package's
   ``stop_gradient`` wrapper.
 
+The int8 trunk tier (the JAX package's ``trunk_quant`` True and "full"):
+given ``q8`` (:class:`Q8Weights`) the ops run the trunk in int8 with one
+activation scale per group of ``rt_of(KPAD, target, R)`` rays x KPAD rows
+(targets 2048 forward, 1024 backward), the call padded with zero rays to
+whole groups; ``camera_forward_q8``, ``shadow_forward_q8``,
+``coarse_forward_q8``, ``camera_backward_q8`` / ``_q8_full`` and
+``shadow_backward_q8`` / ``_q8_full`` are their wrappers, and
+``fused_camera``, ``fused_shadow`` and ``fused_coarse`` take
+``trunk_quant``.
+
 ``rayin`` rows are [origin(3), direction(3), embedding(4), 0*6]; ``deltam``
 is delta * valid_mask with the camera pass's 1e10 last-valid sentinel
 already applied. The sample axis is padded to KPAD = round8(K) with z = 0
@@ -41,7 +51,10 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     BIAS_ELEMENTS,
     MAT_ELEMENTS,
     PE_PAD,
+    Q8_POINTS,
+    TRUNK_MAT_ELEMENTS,
     KernelWeights,
+    Q8Weights,
     check_f32,
     check_weights,
     emb_block,
@@ -55,16 +68,57 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     pe_from_args,
     pe_lanes,
     pe_pattern,
+    quantize_kernel_trunk,
     sigma_backward,
     softplus,
     trunk,
     trunk_backward,
+    trunk_backward_q8,
+    trunk_q8,
 )
 from eonerf_code_tpu_torch.ops.volrend import exclusive_cumsum
 
 RAYIN_COLS = 16   # [o(3), d(3), emb(4), pad(6)]
 ACC_COLS = 8      # [depth, albedo r g b, t_s, t_beta, opacity, pad]
 MAX_KPAD = 1024   # the kernels keep every sample of a ray's results in shared memory
+
+
+# ---------------------------------------------------------------------------
+# the int8 tier's scale groups
+# ---------------------------------------------------------------------------
+
+def kpad_of(k):
+    """Samples padded to a multiple of 8 (the kernels' tile rows)."""
+    return ((max(k, 1) + 7) // 8) * 8
+
+
+def rt_of(kpad, target, n_rays):
+    """Rays per scale group of the int8 tier: about ``target`` rows, a
+    multiple of 8 rays, never more than the call's rays rounded up to 8 (the
+    JAX package's rays per Pallas tile, whose block is the group)."""
+    rt = max((target // kpad) // 8 * 8, 8)
+    return min(rt, ((n_rays + 7) // 8) * 8)
+
+
+def q8_plan(r, k, target):
+    """(KPAD, rays per group, padded ray count) of an int8 call of r rays of
+    k samples: the call is padded with zero rays to whole groups."""
+    kpad = kpad_of(k)
+    rt = rt_of(kpad, target, r)
+    return kpad, rt, -(-r // rt) * rt
+
+
+def _pad_call(rp, kpad, per_ray, per_sample):
+    """Rows padded with zeros to rp rays, samples to kpad (z = 0, deltam =
+    0, mask = 0: padded samples add no extinction; zero rays and padded
+    samples still run the trunk and count in their group's scales)."""
+    return ([F.pad(x, (0, 0, 0, rp - x.shape[0])) for x in per_ray],
+            [F.pad(x, (0, kpad - x.shape[1], 0, rp - x.shape[0])) for x in per_sample])
+
+
+def _keep(stats, **tensors):
+    if stats is not None:
+        stats.update(tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -88,46 +142,78 @@ def _emb64(rayin, r, k):
     return emb_block(rayin[:, 6:10])[:, None, :].expand(r, k, PE_PAD).reshape(-1, PE_PAD)
 
 
-def camera_forward_reference(weights: KernelWeights, rayin, z, deltam):
+def _trunk_of(pe, w, dtype, q8, group_rows):
+    """(activations, masks, group amax or None): the bf16 trunk, or with
+    ``q8`` the int8 trunk in groups of ``group_rows`` rows."""
+    if q8 is None:
+        return (*trunk(pe, w, dtype), None)
+    return trunk_q8(pe, w, q8, dtype, group_rows)
+
+
+def _inputs(rayin, per_sample, q8, target, per_ray=()):
+    """float32 inputs; with ``q8``, padded to whole scale groups. Returns
+    (rayin, per-ray tensors, per-sample tensors, rows per group or None)."""
+    rayin, per_ray = rayin.float(), [x.float() for x in per_ray]
+    per_sample = [x.float() for x in per_sample]
+    if q8 is None:
+        return rayin, per_ray, per_sample, None
+    kpad, rt, rp = q8_plan(rayin.shape[0], per_sample[0].shape[1], target)
+    (rayin, *per_ray), per_sample = _pad_call(rp, kpad, [rayin, *per_ray], per_sample)
+    return rayin, per_ray, per_sample, rt * kpad
+
+
+def camera_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
+                             tile_target=2048, stats=None):
     """Plain PyTorch version of :func:`camera_forward` (any K, no padding
-    needed: padded samples add nothing)."""
+    needed: padded samples add nothing). With ``q8`` the trunk runs int8 in
+    scale groups of about ``tile_target`` rows (the call padded to whole
+    groups); ``stats`` (a dict) then receives the group amax (G, 8)."""
     dtype = weights.dtype
     w = kernel_views(weights)
+    n = z.shape[0]
+    rayin, _, (z, deltam), gr = _inputs(rayin, (z, deltam), q8, tile_target)
     r, k = z.shape
-    z = z.float()
-    pe = _pe(rayin.float(), z, dtype)
-    sigma, albedo, ts, tb, _ = heads(trunk(pe, w, dtype)[0][-1], _emb64(rayin, r, k), w,
-                                     dtype)
-    sdelta = sigma.view(r, k) * deltam.float()
+    acts, _, amax = _trunk_of(_pe(rayin, z, dtype), w, dtype, q8, gr)
+    sigma, albedo, ts, tb, _ = heads(acts[-1], _emb64(rayin, r, k), w, dtype)
+    sdelta = sigma.view(r, k) * deltam
     weights_rk = torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta))
     values = torch.cat([z[..., None], albedo.view(r, k, 3), ts.view(r, k, 1),
                         tb.view(r, k, 1), torch.ones_like(z)[..., None],
                         torch.zeros_like(z)[..., None]], dim=-1)
-    return (weights_rk[..., None] * values).sum(dim=1)
+    _keep(stats, amax=amax)
+    return (weights_rk[..., None] * values).sum(dim=1)[:n]
 
 
-def shadow_forward_reference(weights: KernelWeights, rayin, z, deltam, mask):
-    """Plain PyTorch version of :func:`shadow_forward`."""
+def _sigma_of(rayin, z, w, dtype, q8, group_rows):
+    acts, _, amax = _trunk_of(_pe(rayin, z, dtype), w, dtype, q8, group_rows)
+    return softplus(mm(acts[-1], w.sigma_w, w.sigma_b)).view(z.shape), amax
+
+
+def shadow_forward_reference(weights: KernelWeights, rayin, z, deltam, mask, q8=None,
+                             tile_target=2048, stats=None):
+    """Plain PyTorch version of :func:`shadow_forward`; ``q8``, ``tile_target``
+    and ``stats`` as in :func:`camera_forward_reference`."""
     dtype = weights.dtype
-    w = kernel_views(weights)
-    r, k = z.shape
-    pe = _pe(rayin.float(), z.float(), dtype)
-    sigma = softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b)).view(r, k)
-    sdelta = sigma * deltam.float()
-    return torch.exp(-(sdelta * _before_last(mask)).sum(dim=-1))
+    n = z.shape[0]
+    rayin, _, (z, deltam, mask), gr = _inputs(rayin, (z, deltam, mask), q8, tile_target)
+    sigma, amax = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
+    _keep(stats, amax=amax)
+    return torch.exp(-(sigma * deltam * _before_last(mask)).sum(dim=-1))[:n]
 
 
-def coarse_forward_reference(weights: KernelWeights, rayin, z, deltam):
+def coarse_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
+                             tile_target=2048, stats=None):
     """Plain PyTorch version of :func:`coarse_forward`: the density trunk and
     the per-sample weights T_i (1 - e^(-sigma_i deltam_i)) with the
-    EXCLUSIVE transmittance T_i, as ``render_weights``."""
+    EXCLUSIVE transmittance T_i, as ``render_weights``; ``q8``,
+    ``tile_target`` and ``stats`` as in :func:`camera_forward_reference`."""
     dtype = weights.dtype
-    w = kernel_views(weights)
-    r, k = z.shape
-    pe = _pe(rayin.float(), z.float(), dtype)
-    sigma = softplus(mm(trunk(pe, w, dtype)[0][-1], w.sigma_w, w.sigma_b)).view(r, k)
-    sdelta = sigma * deltam.float()
-    return torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta))
+    n, k = z.shape
+    rayin, _, (z, deltam), gr = _inputs(rayin, (z, deltam), q8, tile_target)
+    sigma, amax = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
+    sdelta = sigma * deltam
+    _keep(stats, amax=amax)
+    return (torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta)))[:n, :k]
 
 
 def _before_last(mask):
@@ -150,19 +236,28 @@ def _ray_grads(xb, z, g_pe, dtype, r, k):
     return d_xb.sum(dim=1) @ pat.t(), (d_xb * z[..., None]).sum(dim=1) @ pat.t()
 
 
-def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
+def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc, q8=None,
+                              full=False, tile_target=1024, stats=None):
     """Plain PyTorch version of :func:`camera_backward`: the VJP of the
     camera op for the per-ray cotangent ``gacc`` (R, 8), recomputing the
     forward. Mirrors the JAX package's ``_camera_bwd_kernel`` step by step
     at its rounding points. Returns (d_mats, d_biases) in the packed
-    layout, float32, and d_rayin (R, 16) = [d_o, d_d, d_emb, 0]."""
+    layout, float32, and d_rayin (R, 16) = [d_o, d_d, d_emb, 0].
+
+    With ``q8`` the recompute runs the int8 trunk in the backward's scale
+    groups (about ``tile_target`` rows); the trunk's dgrad and wgrad then run
+    in the compute dtype against the unquantized weights (``int8``,
+    straight-through), or with ``full`` in int8 (``int8_full``). ``stats``
+    receives the recompute's group amax and, with ``full``, the cotangents'
+    (``gamax``)."""
     dtype = weights.dtype
     w = kernel_views(weights)
+    n = z.shape[0]
+    rayin, (gacc,), (z, deltam), gr = _inputs(rayin, (z, deltam), q8, tile_target, (gacc,))
     r, k = z.shape
-    z, deltam, gacc = z.float(), deltam.float(), gacc.float()
-    xb = _pe_args(rayin.float(), z)
+    xb = _pe_args(rayin, z)
     pe = pe_from_args(xb, dtype)
-    acts, masks = trunk(pe, w, dtype)
+    acts, masks, amax = _trunk_of(pe, w, dtype, q8, gr)
     h = acts[-1]
     sigma, albedo, ts, tb, res = heads(h, _emb64(rayin, r, k), w, dtype)
 
@@ -183,55 +278,72 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc):
 
     g = [None] * 36
     g_h, g_emb = heads_backward(h, res, d_sigma, d_val, w, dtype, g)
-    g_pe = trunk_backward(pe, acts, masks, g_h, w, dtype, g)
+    g_pe = _trunk_grads(pe, acts, masks, g_h, w, dtype, g, q8, full, gr, stats)
+    _keep(stats, amax=amax)
     d_o, d_d = _ray_grads(xb, z, g_pe, dtype, r, k)
     d_emb = g_emb.view(r, k, 4).sum(dim=1)
     d_rayin = torch.cat([d_o, d_d, d_emb, torch.zeros((r, RAYIN_COLS - 10), device=z.device)],
                         dim=1)
-    return (*pack_grads(g), d_rayin)
+    return (*pack_grads(g), d_rayin[:n])
 
 
-def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, ggeo):
+def _trunk_grads(pe, acts, masks, g_h, w, dtype, g, q8, full, group_rows, stats):
+    """The trunk's backward: int8 with ``full`` (keeping the cotangents'
+    group amax in ``stats``), else in the compute dtype."""
+    if not full:
+        return trunk_backward(pe, acts, masks, g_h, w, dtype, g)
+    g_pe, gamax = trunk_backward_q8(pe, acts, masks, g_h, q8, dtype, g, group_rows)
+    _keep(stats, gamax=gamax)
+    return g_pe
+
+
+def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, ggeo, q8=None,
+                              full=False, tile_target=1024, stats=None):
     """Plain PyTorch version of :func:`shadow_backward`: the VJP of the
     shadow op for the per-ray cotangent ``ggeo`` (R,), mirroring the JAX
     package's ``_shadow_bwd_kernel``. Returns (d_mats, d_biases) in the
     packed layout, float32, zero past the density prefix (the heads get
-    exact zeros), and d_rayin (R, 16) = [d_o, d_d, 0]."""
+    exact zeros), and d_rayin (R, 16) = [d_o, d_d, 0]. ``q8``, ``full``,
+    ``tile_target`` and ``stats`` as in :func:`camera_backward_reference`."""
     dtype = weights.dtype
     w = kernel_views(weights)
+    n = z.shape[0]
+    rayin, (ggeo,), (z, deltam, mask), gr = _inputs(rayin, (z, deltam, mask), q8, tile_target,
+                                                    (ggeo.reshape(-1, 1),))
     r, k = z.shape
-    z, deltam = z.float(), deltam.float()
-    xb = _pe_args(rayin.float(), z)
+    xb = _pe_args(rayin, z)
     pe = pe_from_args(xb, dtype)
-    acts, masks = trunk(pe, w, dtype)
+    acts, masks, amax = _trunk_of(pe, w, dtype, q8, gr)
     sig_pre = mm(acts[-1], w.sigma_w, w.sigma_b)
     before_last = _before_last(mask)
     geo = torch.exp(-(softplus(sig_pre).view(r, k) * deltam * before_last).sum(dim=-1))
-    d_ev = -geo * ggeo.float().reshape(-1)
+    d_ev = -geo * ggeo.reshape(-1)
     d_sigma = (d_ev[:, None] * before_last * deltam).reshape(-1, 1)
-    g, g_pe = sigma_backward(pe, acts, masks, sig_pre, d_sigma, w, dtype)
+    g, g_pe = sigma_backward(
+        pe, acts, masks, sig_pre, d_sigma, w, dtype,
+        lambda g_h, g: _trunk_grads(pe, acts, masks, g_h, w, dtype, g, q8, full, gr, stats))
+    _keep(stats, amax=amax)
     d_o, d_d = _ray_grads(xb, z, g_pe, dtype, r, k)
     d_rayin = torch.cat([d_o, d_d, torch.zeros((r, RAYIN_COLS - 6), device=z.device)], dim=1)
-    return (*pack_grads(g), d_rayin)
+    return (*pack_grads(g), d_rayin[:n])
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def kpad_of(k):
-    """Samples padded to a multiple of 8 (the kernels' tile rows)."""
-    return ((max(k, 1) + 7) // 8) * 8
-
-
 def _padded(x, kpad):
     return F.pad(x, (0, kpad - x.shape[1])).contiguous()
 
 
-def camera_forward(weights: KernelWeights, rayin, z, deltam):
+def camera_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_target=2048,
+                   stats=None):
     """Per-ray camera accumulators (R, 8) for rays (R, 16), z and deltam
     (R, K). CPU tensors: the plain version. CUDA tensors: the hand-written
-    bf16 kernel (raises if it cannot be built or launched)."""
+    bf16 kernel (raises if it cannot be built or launched); with ``q8``
+    (Q8Weights) the int8 trunk's kernels, :func:`camera_forward_q8`."""
+    if q8 is not None:
+        return camera_forward_q8(weights, q8, rayin, z, deltam, tile_target, stats)
     if rayin.device.type == "cpu":
         return camera_forward_reference(weights, rayin, z, deltam)
     r, k = z.shape
@@ -256,10 +368,14 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam):
 camera_forward.launches = 0
 
 
-def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask):
+def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask, q8=None, tile_target=2048,
+                   stats=None):
     """Per-ray sun visibility (R,) for shadow rays (R, 16), z, deltam and
     the float 0/1 validity mask (R, K). CPU tensors: the plain version. CUDA
-    tensors: the hand-written bf16 kernel (raises if it cannot run)."""
+    tensors: the hand-written bf16 kernel (raises if it cannot run); with
+    ``q8`` :func:`shadow_forward_q8`."""
+    if q8 is not None:
+        return shadow_forward_q8(weights, q8, rayin, z, deltam, mask, tile_target, stats)
     if rayin.device.type == "cpu":
         return shadow_forward_reference(weights, rayin, z, deltam, mask)
     r, k = z.shape
@@ -285,10 +401,14 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask):
 shadow_forward.launches = 0
 
 
-def coarse_forward(weights: KernelWeights, rayin, z, deltam):
+def coarse_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_target=2048,
+                   stats=None):
     """Per-sample compositing weights (R, K) of the density field for rays
     (R, 16), z and deltam (R, K). CPU tensors: the plain version. CUDA
-    tensors: the hand-written bf16 kernel (raises if it cannot run)."""
+    tensors: the hand-written bf16 kernel (raises if it cannot run); with
+    ``q8`` :func:`coarse_forward_q8`."""
+    if q8 is not None:
+        return coarse_forward_q8(weights, q8, rayin, z, deltam, tile_target, stats)
     if rayin.device.type == "cpu":
         return coarse_forward_reference(weights, rayin, z, deltam)
     r, k = z.shape
@@ -321,11 +441,17 @@ def _workspace(camera, r, kpad, dev):
     return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
 
 
-def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc):
+def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc, q8=None, full=False,
+                    tile_target=1024, stats=None):
     """VJP of :func:`camera_forward` for the per-ray cotangent ``gacc``
     (R, 8): (d_mats, d_biases) float32 in the packed layout and d_rayin
     (R, 16). CPU tensors: the plain version. CUDA tensors: the hand-written
-    bf16 kernels (raises if they cannot be built or launched)."""
+    bf16 kernels (raises if they cannot be built or launched); with ``q8``
+    the int8 tier's, :func:`camera_backward_q8` (``full``:
+    :func:`camera_backward_q8_full`)."""
+    if q8 is not None:
+        op = camera_backward_q8_full if full else camera_backward_q8
+        return op(weights, q8, rayin, z, deltam, gacc, tile_target, stats)
     if rayin.device.type == "cpu":
         return camera_backward_reference(weights, rayin, z, deltam, gacc)
     r, k = z.shape
@@ -354,12 +480,17 @@ def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc):
 camera_backward.launches = 0
 
 
-def shadow_backward(weights: KernelWeights, rayin, z, deltam, mask, ggeo):
+def shadow_backward(weights: KernelWeights, rayin, z, deltam, mask, ggeo, q8=None, full=False,
+                    tile_target=1024, stats=None):
     """VJP of :func:`shadow_forward` for the per-ray cotangent ``ggeo``
     (R,): (d_mats, d_biases) float32 in the packed layout (zero past the
     density prefix) and d_rayin (R, 16). CPU tensors: the plain version.
     CUDA tensors: the hand-written bf16 kernels (raises if they cannot
-    run)."""
+    run); with ``q8`` :func:`shadow_backward_q8` (``full``:
+    :func:`shadow_backward_q8_full`)."""
+    if q8 is not None:
+        op = shadow_backward_q8_full if full else shadow_backward_q8
+        return op(weights, q8, rayin, z, deltam, mask, ggeo, tile_target, stats)
     if rayin.device.type == "cpu":
         return shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo)
     r, k = z.shape
@@ -390,59 +521,274 @@ shadow_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the int8 tier's wrappers
+# ---------------------------------------------------------------------------
+
+_MODES = {"camera": 0, "shadow": 1, "coarse": 2}
+
+
+def check_q8(q8: Q8Weights, device):
+    for name, t, dtype, n in (("w8", q8.w8, torch.int8, TRUNK_MAT_ELEMENTS),
+                              ("w8t", q8.w8t, torch.int8, TRUNK_MAT_ELEMENTS),
+                              ("scales", q8.scales, torch.float32, 8 * 256)):
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != (n,):
+            raise ValueError(f"q8.{name} must be {dtype} ({n},) on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"q8.{name} must be contiguous and 16-byte aligned")
+
+
+def _q8_call(weights, q8, rayin, per_sample, target, per_ray=()):
+    """Checks, then the call padded to whole scale groups: (padded rayin,
+    per-ray and per-sample tensors, KPAD, rays per group, padded rays)."""
+    r, k = per_sample[0].shape
+    dev = rayin.device
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    for i, x in enumerate(per_sample):
+        check_f32(f"per-sample input {i}", x, (r, k), dev)
+    check_weights(weights, dev)
+    check_q8(q8, dev)
+    kpad, rt, rp = q8_plan(r, k, target)
+    if kpad > MAX_KPAD:
+        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
+    (rayin, *per_ray), per_sample = _pad_call(rp, kpad, [rayin, *per_ray], list(per_sample))
+    return ([x.contiguous() for x in (rayin, *per_ray)], [x.contiguous() for x in per_sample],
+            kpad, rt, rp)
+
+
+def _q8_forward(mode, weights, q8, rayin, z, deltam, mask, target, stats):
+    r, k = z.shape
+    per_sample = (z, deltam) if mask is None else (z, deltam, mask)
+    (rayin_p,), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target)
+    dev = rayin.device
+    lib = _build.load_library()
+    ws = torch.empty((lib.eonerf_q8_fwd_workspace_bytes(_MODES[mode], rp, kpad),),
+                     dtype=torch.uint8, device=dev)
+    amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
+    shape = {"camera": (rp, ACC_COLS), "shadow": (rp,), "coarse": (rp, kpad)}[mode]
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    launch("eonerf_q8_fwd", f"{mode} int8 forward kernel launch", dev, _MODES[mode], rayin_p,
+           ps[0], ps[1], ps[2] if mask is not None else None, weights.mats, weights.biases, q8.w8,
+           q8.scales, ws, amax, out, rp, kpad, rt * kpad)
+    _keep(stats, amax=amax)
+    return out[:r, :k] if mode == "coarse" else out[:r]
+
+
+def camera_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, tile_target=2048,
+                      stats=None):
+    """:func:`camera_forward` with the trunk in int8, scale groups of about
+    ``tile_target`` rows. CPU tensors: the plain version. CUDA tensors: the
+    int8 trunk kernels, then the heads and compositing from the activation
+    stream (raises if they cannot run). ``stats`` receives the group amax."""
+    if rayin.device.type == "cpu":
+        return camera_forward_reference(weights, rayin, z, deltam, q8, tile_target, stats)
+    out = _q8_forward("camera", weights, q8, rayin, z, deltam, None, tile_target, stats)
+    camera_forward_q8.launches += 1
+    return out
+
+
+camera_forward_q8.launches = 0
+
+
+def shadow_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, mask,
+                      tile_target=2048, stats=None):
+    """:func:`shadow_forward` with the trunk in int8, as
+    :func:`camera_forward_q8`."""
+    if rayin.device.type == "cpu":
+        return shadow_forward_reference(weights, rayin, z, deltam, mask, q8, tile_target, stats)
+    out = _q8_forward("shadow", weights, q8, rayin, z, deltam, mask, tile_target, stats)
+    shadow_forward_q8.launches += 1
+    return out
+
+
+shadow_forward_q8.launches = 0
+
+
+def coarse_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, tile_target=2048,
+                      stats=None):
+    """:func:`coarse_forward` with the trunk in int8, as
+    :func:`camera_forward_q8`."""
+    if rayin.device.type == "cpu":
+        return coarse_forward_reference(weights, rayin, z, deltam, q8, tile_target, stats)
+    out = _q8_forward("coarse", weights, q8, rayin, z, deltam, None, tile_target, stats)
+    coarse_forward_q8.launches += 1
+    return out
+
+
+coarse_forward_q8.launches = 0
+
+
+def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, stats):
+    r, k = z.shape
+    dev = rayin.device
+    if camera:
+        check_f32("gacc", gin, (r, ACC_COLS), dev)
+        per_sample = (z, deltam)
+    else:
+        check_f32("ggeo", gin, (r,), dev)
+        per_sample, gin = (z, deltam, mask), gin.reshape(-1, 1)
+    (rayin_p, gin_p), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target, (gin,))
+    lib = _build.load_library()
+    ws = torch.empty((lib.eonerf_q8_bwd_workspace_bytes(int(camera), int(full), rp, kpad,
+                                                        rt * kpad),),
+                     dtype=torch.uint8, device=dev)
+    amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
+    gamax = torch.zeros_like(amax)
+    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
+    d_rayin = torch.zeros((rp, RAYIN_COLS), dtype=torch.float32, device=dev)
+    launch("eonerf_q8_bwd", f"{'camera' if camera else 'shadow'} int8 backward kernel launch",
+           dev, int(camera), int(full), rayin_p, ps[0], ps[1], None if camera else ps[2], gin_p,
+           weights.mats, weights.biases, q8.w8, q8.w8t, q8.scales, ws, amax, gamax, d_mats,
+           d_biases, d_rayin, rp, kpad, rt * kpad)
+    _keep(stats, amax=amax, **({"gamax": gamax} if full else {}))
+    return d_mats, d_biases, d_rayin[:r]
+
+
+def camera_backward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, gacc,
+                       tile_target=1024, stats=None):
+    """:func:`camera_backward` of the ``int8`` tier: the int8 recompute in
+    scale groups of about ``tile_target`` rows, then the bf16 dgrad and wgrad
+    against the unquantized weights (straight-through). CPU tensors: the
+    plain version. CUDA tensors: the kernels (raises if they cannot run)."""
+    if rayin.device.type == "cpu":
+        return camera_backward_reference(weights, rayin, z, deltam, gacc, q8, False, tile_target,
+                                         stats)
+    out = _q8_backward(True, False, weights, q8, rayin, z, deltam, None, gacc, tile_target, stats)
+    camera_backward_q8.launches += 1
+    return out
+
+
+camera_backward_q8.launches = 0
+
+
+def camera_backward_q8_full(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, gacc,
+                            tile_target=1024, stats=None):
+    """:func:`camera_backward` of the ``int8_full`` tier: the int8 recompute,
+    then the trunk's dgrad and wgrad in int8 layer by layer (the heads' in
+    bf16). CPU tensors: the plain version. CUDA tensors: the kernels."""
+    if rayin.device.type == "cpu":
+        return camera_backward_reference(weights, rayin, z, deltam, gacc, q8, True, tile_target,
+                                         stats)
+    out = _q8_backward(True, True, weights, q8, rayin, z, deltam, None, gacc, tile_target, stats)
+    camera_backward_q8_full.launches += 1
+    return out
+
+
+camera_backward_q8_full.launches = 0
+
+
+def shadow_backward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, mask, ggeo,
+                       tile_target=1024, stats=None):
+    """:func:`shadow_backward` of the ``int8`` tier, as
+    :func:`camera_backward_q8`."""
+    if rayin.device.type == "cpu":
+        return shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo, q8, False,
+                                         tile_target, stats)
+    out = _q8_backward(False, False, weights, q8, rayin, z, deltam, mask, ggeo, tile_target,
+                       stats)
+    shadow_backward_q8.launches += 1
+    return out
+
+
+shadow_backward_q8.launches = 0
+
+
+def shadow_backward_q8_full(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, mask, ggeo,
+                            tile_target=1024, stats=None):
+    """:func:`shadow_backward` of the ``int8_full`` tier, as
+    :func:`camera_backward_q8_full`."""
+    if rayin.device.type == "cpu":
+        return shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo, q8, True,
+                                         tile_target, stats)
+    out = _q8_backward(False, True, weights, q8, rayin, z, deltam, mask, ggeo, tile_target,
+                       stats)
+    shadow_backward_q8_full.launches += 1
+    return out
+
+
+shadow_backward_q8_full.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # differentiable ops (the JAX package's custom_vjp pairs, recompute mode)
 # ---------------------------------------------------------------------------
 
+def _quantized(mats, dtype, trunk_quant):
+    """The compute-dtype weights' matrices and, for an int8 tier, the int8
+    trunk quantized from the float32 ones (None otherwise)."""
+    return mats.to(dtype), (quantize_kernel_trunk(mats) if trunk_quant else None)
+
+
 class _Camera(torch.autograd.Function):
-    """Forward saves only its inputs; the backward recomputes."""
+    """Forward saves only its inputs (and the int8 trunk); the backward
+    recomputes. ``trunk_quant``: False, True (int8) or "full" (int8_full);
+    ``tiles``: the forward's and the backward's scale-group targets."""
 
     @staticmethod
-    def forward(ctx, mats, biases, rayin, z, deltam, dtype):
-        kw = KernelWeights(mats.to(dtype), biases)
-        ctx.save_for_backward(kw.mats, biases, rayin, z, deltam)
-        return camera_forward(kw, rayin, z, deltam)
+    def forward(ctx, mats, biases, rayin, z, deltam, dtype, trunk_quant, tiles):
+        mats_cd, q8 = _quantized(mats, dtype, trunk_quant)
+        ctx.quant, ctx.bwd_tile = trunk_quant, tiles[1]
+        ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, *(q8 or ()))
+        return camera_forward(KernelWeights(mats_cd, biases), rayin, z, deltam, q8, tiles[0])
 
     @staticmethod
     def backward(ctx, gacc):
-        mats, biases, rayin, z, deltam = ctx.saved_tensors
-        d_mats, d_biases, d_rayin = camera_backward(KernelWeights(mats, biases), rayin, z,
-                                                    deltam, gacc.contiguous())
-        return d_mats, d_biases, d_rayin, None, None, None
+        mats, biases, rayin, z, deltam, *q8 = ctx.saved_tensors
+        d_mats, d_biases, d_rayin = camera_backward(
+            KernelWeights(mats, biases), rayin, z, deltam, gacc.contiguous(),
+            Q8Weights(*q8) if q8 else None, ctx.quant == "full", ctx.bwd_tile)
+        return d_mats, d_biases, d_rayin, None, None, None, None, None
 
 
 class _Shadow(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mats, biases, rayin, z, deltam, mask, dtype):
-        kw = KernelWeights(mats.to(dtype), biases)
-        ctx.save_for_backward(kw.mats, biases, rayin, z, deltam, mask)
-        return shadow_forward(kw, rayin, z, deltam, mask)
+    def forward(ctx, mats, biases, rayin, z, deltam, mask, dtype, trunk_quant, tiles):
+        mats_cd, q8 = _quantized(mats, dtype, trunk_quant)
+        ctx.quant, ctx.bwd_tile = trunk_quant, tiles[1]
+        ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, mask, *(q8 or ()))
+        return shadow_forward(KernelWeights(mats_cd, biases), rayin, z, deltam, mask, q8,
+                              tiles[0])
 
     @staticmethod
     def backward(ctx, ggeo):
-        mats, biases, rayin, z, deltam, mask = ctx.saved_tensors
-        d_mats, d_biases, d_rayin = shadow_backward(KernelWeights(mats, biases), rayin, z,
-                                                    deltam, mask, ggeo.contiguous())
-        return d_mats, d_biases, d_rayin, None, None, None, None
+        mats, biases, rayin, z, deltam, mask, *q8 = ctx.saved_tensors
+        d_mats, d_biases, d_rayin = shadow_backward(
+            KernelWeights(mats, biases), rayin, z, deltam, mask, ggeo.contiguous(),
+            Q8Weights(*q8) if q8 else None, ctx.quant == "full", ctx.bwd_tile)
+        return d_mats, d_biases, d_rayin, None, None, None, None, None, None
 
 
-def fused_camera(weights: KernelWeights, rayin, z, deltam, compute_dtype):
+def fused_camera(weights: KernelWeights, rayin, z, deltam, compute_dtype, trunk_quant=False,
+                 tile=2048, bwd_tile=1024):
     """Differentiable camera op. ``weights`` holds the float32 packed
     matrices (cast to ``compute_dtype`` inside, so their gradients arrive in
     float32, as the parameters' own dtype); gradients flow to the weights
-    and to ``rayin``, none to z or deltam."""
-    return _Camera.apply(weights.mats, weights.biases, rayin, z, deltam, compute_dtype)
+    and to ``rayin``, none to z or deltam. ``trunk_quant`` True runs the
+    trunk in int8 (forward and the backward's recompute; straight-through
+    gradients), "full" also the trunk's dgrad and wgrad; ``tile`` and
+    ``bwd_tile`` are the forward's and the backward's scale-group targets
+    in rows (the JAX package's ``PallasField`` tile sizes)."""
+    return _Camera.apply(weights.mats, weights.biases, rayin, z, deltam, compute_dtype,
+                         trunk_quant, (tile, bwd_tile))
 
 
-def fused_shadow(weights: KernelWeights, rayin, z, deltam, mask, compute_dtype):
+def fused_shadow(weights: KernelWeights, rayin, z, deltam, mask, compute_dtype, trunk_quant=False,
+                 tile=2048, bwd_tile=1024):
     """Differentiable shadow op, as :func:`fused_camera`."""
-    return _Shadow.apply(weights.mats, weights.biases, rayin, z, deltam, mask, compute_dtype)
+    return _Shadow.apply(weights.mats, weights.biases, rayin, z, deltam, mask, compute_dtype,
+                         trunk_quant, (tile, bwd_tile))
 
 
-def fused_coarse(weights: KernelWeights, rayin, z, deltam, compute_dtype):
+def fused_coarse(weights: KernelWeights, rayin, z, deltam, compute_dtype, trunk_quant=False,
+                 tile=2048):
     """The coarse op, forward only: inputs and result cut from autograd (the
     JAX package's ``stop_gradient`` around ``make_fused_coarse``), since the
     hierarchical sampler draws its fine samples under a stop-gradient.
-    ``weights`` holds the float32 packed matrices, cast here."""
+    ``weights`` holds the float32 packed matrices, cast here; with
+    ``trunk_quant`` the trunk runs in int8 (scale groups of about ``tile``
+    rows)."""
     with torch.no_grad():
-        kw = KernelWeights(weights.mats.detach().to(compute_dtype), weights.biases.detach())
-        return coarse_forward(kw, rayin.detach(), z.detach(), deltam.detach())
+        mats_cd, q8 = _quantized(weights.mats.detach(), compute_dtype, trunk_quant)
+        return coarse_forward(KernelWeights(mats_cd, weights.biases.detach()), rayin.detach(),
+                              z.detach(), deltam.detach(), q8, tile)

@@ -127,7 +127,10 @@ def check_supported(cfg: TrainConfig):
     if cfg.freq_reg_end_step > 0:
         later.append("freq_reg_end_step > 0 (coarse-to-fine PE annealing: bundle-adjustment "
                      "slice)")
-    if cfg.bwd_acts != "recompute":
+    # an int8 tier takes the recompute backward whatever bwd_acts says (the
+    # JAX package's fallback, announced by make_render_field)
+    int8_saved = cfg.bwd_acts == "saved" and cfg.trunk_quant != "none"
+    if cfg.bwd_acts != "recompute" and not int8_saved:
         later.append(f"bwd_acts={cfg.bwd_acts!r} (the saved-activations stream: a later "
                      "kernel slice; use 'recompute')")
     if later:
@@ -174,7 +177,7 @@ class Trainer:
             radiometric_normalization=cfg.radiometric_normalization,
             rpc_correction=cfg.rpc_correction, compute_dtype=dtype, device=self.device,
             generator=torch.Generator().manual_seed(cfg.seed))
-        self.render_field = make_render_field(self.field)
+        self.render_field = make_render_field(self.field, cfg)
         self.lr_schedule = make_lr_schedule(cfg, self.steps_per_epoch)
         self.optimizer = make_optimizer(self.field.parameters(), cfg)
         self.occ_grid = (OccupancyGrid.create(cfg.n_grid, device=self.device)

@@ -1,16 +1,18 @@
 """Where a training step's device time goes, by kernel, on one CUDA card.
 
     python -m eonerf_code_tpu_torch.train.profile_step [--steps 10]
-        [--sampler uniform|hierarchical]
+        [--sampler uniform|hierarchical] [--trunk_quant none|int8|int8_full]
 
 Builds the training configuration ``chip_smoke.py`` drives (full-width
 bf16 field, batch 1024, 128 camera / 64 shadow samples, a synthetic pool
 of 2^20 rays over 20 views; ``--sampler hierarchical``: 96 coarse + 48
-fine camera samples, as sampler="auto" resolves on a wide envelope), takes
-warm-up steps past the shadow and beta gates, then traces ``--steps``
+fine camera samples, as sampler="auto" resolves on a wide envelope;
+``--trunk_quant``: the int8 trunk tier, as ``TrainConfig.trunk_quant``),
+takes warm-up steps past the shadow and beta gates, then traces ``--steps``
 steps with ``torch.profiler``. Prints one JSON object: device milliseconds
 per step for each group of kernels (the fused forwards, the coarse pass,
-the three passes and the reduction of each backward, Adam, the rest), the
+the three passes and the reduction of each backward, the int8 trunk's
+layers and its backward chain, Adam, the rest), the
 step's host-clock milliseconds, and the device's idle share (1 - device
 kernel time / step time). Exits 1 without a CUDA device, and 2 when the
 trace holds no device time.
@@ -27,17 +29,29 @@ import time
 import torch
 
 # kernel groups by a substring of the CUDA kernel's name, first match wins
-# (fused_fwd_kernel<MODE, BWD>: MODE 0 camera, 1 shadow, 2 coarse)
+# (fused_fwd_kernel<MODE, BWD, FROM_STREAM>: MODE 0 camera, 1 shadow, 2
+# coarse; FROM_STREAM, the heads of the int8 tier from its stream;
+# dgrad_kernel<CAMERA, POINT, TRUNK>, wgrad_kernel<CAMERA>)
 GROUPS = (
-    ("camera_fwd", "fused_fwd_kernel<0, false>"),
-    ("shadow_fwd", "fused_fwd_kernel<1, false>"),
-    ("coarse_fwd", "fused_fwd_kernel<2, false>"),
-    ("camera_bwd_recompute", "fused_fwd_kernel<0, true>"),
-    ("shadow_bwd_recompute", "fused_fwd_kernel<1, true>"),
-    ("camera_bwd_dgrad", "dgrad_kernel<true>"),
-    ("shadow_bwd_dgrad", "dgrad_kernel<false>"),
-    ("camera_bwd_wgrad", "wgrad_kernel<true>"),
-    ("shadow_bwd_wgrad", "wgrad_kernel<false>"),
+    ("q8_trunk", "q8_layer_kernel"),
+    ("q8_pe", "q8_pe_kernel"),
+    ("q8_bwd_gamax", "q8_gamax_kernel"),
+    ("q8_bwd_dgrad", "q8_dgrad_kernel"),
+    ("q8_bwd_wgrad", "q8_wgrad_kernel"),
+    ("q8_bwd_reduce", "q8_reduce_kernel"),
+    ("q8_bwd_ray_grads", "q8_ray_grads_kernel"),
+    ("camera_fwd", "fused_fwd_kernel<0, false, false>"),
+    ("shadow_fwd", "fused_fwd_kernel<1, false, false>"),
+    ("coarse_fwd", "fused_fwd_kernel<2, false, false>"),
+    ("camera_fwd_heads", "fused_fwd_kernel<0, false, true>"),
+    ("shadow_fwd_heads", "fused_fwd_kernel<1, false, true>"),
+    ("coarse_fwd_heads", "fused_fwd_kernel<2, false, true>"),
+    ("camera_bwd_recompute", "fused_fwd_kernel<0, true"),
+    ("shadow_bwd_recompute", "fused_fwd_kernel<1, true"),
+    ("camera_bwd_dgrad", "dgrad_kernel<true"),
+    ("shadow_bwd_dgrad", "dgrad_kernel<false"),
+    ("camera_bwd_wgrad", "wgrad_kernel<true"),
+    ("shadow_bwd_wgrad", "wgrad_kernel<false"),
     ("bwd_reduce", "reduce_kernel"),
     ("adam", "adam"),
 )
@@ -55,6 +69,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=12)
     ap.add_argument("--sampler", choices=("uniform", "hierarchical"), default="uniform")
+    ap.add_argument("--trunk_quant", choices=("none", "int8", "int8_full"), default="none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -69,6 +84,7 @@ def main(argv=None):
     try:
         cfg = TrainConfig(logs_dir=logs, exp_name="profile", sampler=args.sampler,
                           occ_enabled=False, bwd_acts="recompute", compute_dtype="bfloat16",
+                          trunk_quant=args.trunk_quant,
                           batch_size=1024, n_samples=128, sc_n_samples=64,
                           first_shadow_step=args.warmup // 2, first_beta_step=args.warmup // 2,
                           save_freq=10 ** 9, seed=0)
@@ -95,7 +111,8 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     device_ms = sum(per_group.values())
-    print(json.dumps({"sampler": args.sampler, "steps": args.steps, "ms_per_step": step_ms,
+    print(json.dumps({"sampler": args.sampler, "trunk_quant": args.trunk_quant,
+                      "steps": args.steps, "ms_per_step": step_ms,
                       "device_ms_per_step": per_group, "device_ms_total": device_ms,
                       "idle_share": 1.0 - device_ms / step_ms if step_ms else None,
                       "card": card}), flush=True)

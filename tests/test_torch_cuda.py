@@ -410,3 +410,161 @@ def test_kernel_field_call_launches_forward_and_backward(dev):
                                                                        before[1] + 1)
     emb = field.transient_encoder.weight.grad
     assert emb is not None and bool(torch.isfinite(emb).all()) and float(emb.abs().max()) > 0
+
+
+# ---- the int8 trunk tier ----
+
+# Both sides quantize the same bf16 PE and form the same exact int32
+# products, dequantized in the same order, so each group's amax agrees
+# unless a PE lane's sin rounds to another bf16 on one side; held at 1e-3
+# relative per group and quantization point. The cotangents' amax
+# (int8_full) is compared at layer 7, the chain's first quantization: it
+# follows the bf16 head chain, whose sums run in another order (an ulp or
+# two); each lower layer's inherits the chain's drift below.
+Q8_AMAX_REL = 1e-3
+Q8_GAMAX_REL = 2e-2
+# int8_full: where the bf16 head chain's other summation order moves a
+# group's cotangent amax by an ulp, the whole group re-rounds, and the
+# trunk's gradients and d_rayin move with it, more at each layer down the
+# chain (NVIDIA H100 80GB HBM3, 700 W: trunk layer 0 at 2.1e-2 rel-L2 at
+# 1024 x 127; the shadow op, whose cotangent enters the chain without a head
+# chain, agrees to 1.4e-6). Held at 5e-2, and the kernel no farther than
+# 1.25 times the plain version from the plain version in float32.
+Q8_FULL_REL_L2 = 5e-2
+Q8_FULL_F32_RATIO = 1.25
+
+
+@pytest.fixture(scope="module")
+def q8(weights):
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' exact integer sums
+    return ff.quantize_kernel_trunk(weights.mats.float())
+
+
+def _amax_err(got, ref):
+    """Largest relative difference of the per-group amax (and the groups
+    must be the same)."""
+    assert got.shape == ref.shape
+    return float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+
+
+# (r, k, tile): 192-row groups straddling the 128-row tiles with a padded
+# last group (37 rays of 17 samples at tile 256: 5 groups of 8 rays), and the
+# main path's groups (16 rays at K=63 and K=95, 8 at K=143)
+@pytest.mark.parametrize("r,k,tile", [(37, 17, 256), (64, 63, 2048), (50, 95, 2048),
+                                      (40, 143, 2048)])
+def test_q8_forward_kernels_match_plain_versions(dev, weights, q8, r, k, tile):
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=k)
+    dcam = _camera_deltam(deltam, mask)
+    counted = (fr.camera_forward_q8, fr.shadow_forward_q8, fr.coarse_forward_q8)
+    before = [fn.launches for fn in counted]
+    cases = ((fr.camera_forward_q8, fr.camera_forward_reference, (rayin, z, dcam), TOL),
+             (fr.shadow_forward_q8, fr.shadow_forward_reference, (rayin, z, deltam, mask), TOL),
+             (fr.coarse_forward_q8, fr.coarse_forward_reference, (rayin, z, dcam), COARSE_TOL))
+    for kern, plain, args, tol in cases:
+        sk, sp = {}, {}
+        got = kern(weights, q8, *args, tile_target=tile, stats=sk)
+        ref = plain(weights, *args, q8, tile, sp)
+        _check(got, ref, tol)
+        err = _amax_err(sk["amax"], sp["amax"])
+        print(f"q8 forward {kern.__name__} r={r} k={k}: max abs "
+              f"{float((got - ref).abs().max()):.3e}, amax rel {err:.3e}")
+        assert err < Q8_AMAX_REL
+    assert [fn.launches for fn in counted] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("r,k,tile", [(37, 17, 256), (1024, 127, 1024), (1024, 63, 1024)])
+def test_q8_backward_kernels_match_plain_versions(dev, weights, q8, r, k, tile, full):
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=k)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    gacc = torch.randn((r, fr.ACC_COLS), generator=gen, device=dev)
+    ggeo = torch.randn((r,), generator=gen, device=dev)
+    dcam = _camera_deltam(deltam, mask)
+    cam = fr.camera_backward_q8_full if full else fr.camera_backward_q8
+    sh = fr.shadow_backward_q8_full if full else fr.shadow_backward_q8
+    before = (cam.launches, sh.launches)
+    for kern, plain, args in ((cam, fr.camera_backward_reference, (rayin, z, dcam, gacc)),
+                              (sh, fr.shadow_backward_reference, (rayin, z, deltam, mask, ggeo))):
+        sk, sp = {}, {}
+        got = kern(weights, q8, *args, tile, sk)
+        ref = plain(weights, *args, q8, full, tile, sp)
+        errs = _q8_grad_errors(got, ref)
+        errs_amax = {key: _amax_err(sk[key][:, -1:] if key == "gamax" else sk[key],
+                                    sp[key][:, -1:] if key == "gamax" else sp[key])
+                     for key in sp}
+        print(f"q8 backward {kern.__name__} r={r} k={k}: worst rel-L2 {max(errs):.3e} "
+              f"(tensor {errs.index(max(errs))}), amax rel {errs_amax}")
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        if not full:
+            assert max(errs) < GRAD_REL_L2, errs
+        else:
+            chain = errs[:16] + errs[-1:]    # the trunk's weights and biases, d_rayin
+            assert max(errs[16:-1]) < GRAD_REL_L2 and max(chain) < Q8_FULL_REL_L2, errs
+            w32 = ff.KernelWeights(weights.mats.float(), weights.biases)
+            ref32 = plain(w32, *args, q8, full, tile)
+            kern32 = _q8_grad_errors(got, ref32)
+            plain32 = _q8_grad_errors(ref, ref32)
+            chain32 = (max(kern32[:16] + kern32[-1:]), max(plain32[:16] + plain32[-1:]))
+            print(f"  vs float32: kernel {chain32[0]:.3e}, plain {chain32[1]:.3e}")
+            assert chain32[0] <= Q8_FULL_F32_RATIO * chain32[1]
+        assert errs_amax["amax"] < Q8_AMAX_REL
+        if full:
+            assert errs_amax["gamax"] < Q8_GAMAX_REL
+    assert float(got[0][ff.DENSITY_MAT_ELEMENTS:].abs().max()) == 0.0   # shadow: heads get zeros
+    assert (cam.launches, sh.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _q8_grad_errors(got, ref):
+    """rel-L2 of the 36 gradient tensors (FieldWeights order) and d_rayin."""
+    torch.cuda.synchronize()
+    views = [flatten_weights(ff.kernel_views(ff.KernelWeights(m, b))) for m, b, _ in (got, ref)]
+    return [_rel_l2(g, r) for g, r in zip(*views)] + [_rel_l2(got[2], ref[2])]
+
+
+def test_q8_backward_kernels_are_deterministic(dev, weights, q8):
+    """The group amax is an atomic max (order-free) and every sum runs in a
+    fixed order: two calls give the same bits."""
+    rayin, z, deltam, mask = _inputs(dev, 96, 63, seed=3)
+    gacc = torch.randn((96, fr.ACC_COLS), generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    dcam = _camera_deltam(deltam, mask)
+    for kern in (fr.camera_backward_q8, fr.camera_backward_q8_full):
+        a = kern(weights, q8, rayin, z, dcam, gacc, 512)
+        b = kern(weights, q8, rayin, z, dcam, gacc, 512)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("trunk_quant", [True, "full"])
+def test_q8_autograd_functions_launch_the_int8_kernels(dev, weights, trunk_quant):
+    """fused_camera / fused_shadow / fused_coarse with trunk_quant on CUDA
+    tensors launch the int8 kernels and never the bf16 trunk ones."""
+    rayin, z, deltam, mask = _inputs(dev, 40, 63, seed=4)
+    mats = weights.mats.float().requires_grad_()
+    kw = ff.KernelWeights(mats, weights.biases.clone())
+    full = trunk_quant == "full"
+    counted = (fr.camera_forward, fr.shadow_forward, fr.coarse_forward, fr.camera_backward,
+               fr.shadow_backward, fr.camera_forward_q8, fr.shadow_forward_q8,
+               fr.coarse_forward_q8, fr.camera_backward_q8, fr.shadow_backward_q8,
+               fr.camera_backward_q8_full, fr.shadow_backward_q8_full)
+    before = [fn.launches for fn in counted]
+    dcam = _camera_deltam(deltam, mask)
+    acc = fr.fused_camera(kw, rayin, z, dcam, torch.bfloat16, trunk_quant)
+    geo = fr.fused_shadow(kw, rayin, z, deltam, mask, torch.bfloat16, trunk_quant)
+    fr.fused_coarse(kw, rayin, z, dcam, torch.bfloat16, trunk_quant)
+    (acc.sum() + geo.sum()).backward()
+    assert bool(torch.isfinite(mats.grad).all()) and float(mats.grad.abs().max()) > 0
+    delta = [fn.launches - n for fn, n in zip(counted, before)]
+    assert delta == [0] * 5 + [1, 1, 1] + ([0, 0, 1, 1] if full else [1, 1, 0, 0])
+
+
+def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev, weights, q8):
+    rayin, z, deltam, mask = _inputs(dev, 8, 16, seed=0)
+    bad = ff.Q8Weights(q8.w8.float(), q8.w8t, q8.scales)
+    with pytest.raises(ValueError):
+        fr.camera_forward_q8(weights, bad, rayin, z, deltam)
+    with pytest.raises(ValueError):
+        fr.shadow_backward_q8(weights, ff.Q8Weights(q8.w8.cpu(), q8.w8t, q8.scales), rayin, z,
+                              deltam, mask, torch.zeros(8, device=dev))
+    with pytest.raises(TypeError):
+        fr.coarse_forward_q8(ff.KernelWeights(weights.mats.float(), weights.biases), q8, rayin,
+                             z, deltam)
