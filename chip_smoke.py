@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render-and-DSM path, its training step, its
-sampler=auto training (hierarchical and occupancy-tightened), its
-per-sample branch (ray entropy and the nadir diagnostics, render and
-training) and its int8 trunk tier (trunk_quant int8 and int8_full, render
-and training) once on one CUDA card.
+saved-activations backward, its sampler=auto training (hierarchical and
+occupancy-tightened), its per-sample branch (ray entropy and the nadir
+diagnostics, render and training), its int8 trunk tier (trunk_quant int8
+and int8_full, render and training), and the JAX package's default
+training run from a generated scene on disk, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -30,8 +31,16 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  launches at the same shapes (forwards in scale groups of the
                  2048-row target, backwards of the 1024-row one, int8 and
                  int8_full), each against its plain version, with the group
-                 amax each quantized with. A second shape of a kernel goes
-                 into its summary row under other_shapes.
+                 amax each quantized with. Then the saved-activations pair at
+                 the training shapes (camera K=127 and K=143, shadow K=63):
+                 the forward that writes the activation stream against its
+                 plain version (outputs, and h0..h7 of the stream) and bit
+                 for bit against the non-saving kernel, the backward from the
+                 stream against the plain backward from the plain
+                 activations and against the recompute kernel (rel-L2 1e-6;
+                 the same bits expected), with the stream's MiB. A second
+                 shape of a kernel goes into its summary row under
+                 other_shapes.
 3. render      - a full-width EONerfField (20 images, seeded init, bf16)
                  behind make_render_field renders a 512x512 orthographic
                  nadir sweep with shadows in 4096-ray chunks. All 13
@@ -57,6 +66,12 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  the gradient through the per-sample module path. Then 10
                  more steps are timed: rays/s and ms per step split into
                  forward kernels, backward kernels, optimizer and the rest.
+6b. train_saved - phase 6's configuration with bwd_acts="saved" (the JAX
+                 package's default): the save forwards and the saved
+                 backwards once per step that runs them, the plain forwards
+                 and the recompute backwards never, step_save_ok true, one
+                 batch's whole-step gradient against the recompute
+                 backward's (rel-L2 1e-6), 10 timed steps beside phase 6's.
 7. train_auto  - Trainer with sampler="auto" and the occupancy grid at the
                  JAX package's defaults (n_grid 128, 262,144 cells a
                  grid update, batch 1024, n_samples 128), on the same pool:
@@ -100,12 +115,25 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  against the bf16 kernels the whole-step weight-gradient
                  cosine (above 0.95) and the camera op's origin-gradient
                  cosine (above 0.9).
+12. data       - generate_scene writes the hermetic scene (20 train views of
+                 256x256, 2 test views) under logs/, and SatelliteDataset
+                 builds its train pool: (1,310,720, 11) finite rays in the
+                 cube, altitude envelope (-2, 32) m; seconds of each.
+13. train_default - Trainer(TrainConfig(root_dir, img_dir,
+                 compute_dtype="bfloat16")) on that scene with every other
+                 field at the JAX package's default (bwd_acts "saved",
+                 sampler "auto" resolving to occupancy tightening, 8x256,
+                 batch 1024, 128 samples), the shadow and beta gates cut from
+                 epoch 2 to step 10: 20 steps (losses finite, parameters
+                 moved, the saved kernels once per step that runs them),
+                 then 10 timed.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Exits non-zero without printing results when no CUDA device is present.
 """
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -215,6 +243,13 @@ Q8_CAMERA_REL_L2 = 0.05
 Q8_RENDER_REL_L2 = 0.1
 Q8_GRAD_COS = 0.95
 Q8_ORIGIN_COS = 0.9
+# saved-activations backward vs the recompute kernel: the stream holds the
+# recompute's own bf16 activations, so the same bits are expected; held at
+# the JAX package's saved-vs-recompute pin (tests/test_fused_render.py)
+SAVED_REL_L2 = 1e-6
+# the JAX package's default training run on the generated scene
+SCENE_VIEWS, SCENE_SIZE = 20, 256
+SCENE_ENVELOPE = (-2.0, 32.0)
 DSM_SHIFT = (3, -2)        # (dx, dy) in cells
 DSM_ZBIAS = 1.5            # metres
 
@@ -791,6 +826,100 @@ def main():
             raise AssertionError(f"{name} at K={args[1].shape[1]}: kernel disagrees with its "
                                  f"plain version (rel-L2 {rel}, amax {amax_rel})")
 
+    # the saved-activations pair (bwd_acts="saved", the JAX package's default)
+    # at the training shapes: the forward that writes the activation stream
+    # against the plain forward with save=True and against the non-saving
+    # kernel (the same bits), the backward from that stream against the plain
+    # backward from the plain activations and against the recompute kernel
+    # (the same bits: the trunk's activations are the recompute's)
+    saved_cases = [
+        ("camera", b_in, gacc, int(mask[:nb].sum()), camera_macs),
+        ("shadow", b_sc, ggeo, int(sc_mask[:nb].sum()), density_macs),
+        ("camera", b_in_h, gacc, int(h_mask[:nb].sum()), camera_macs),
+    ]
+    saved_ops = {
+        "camera": (fr.camera_forward, fr.camera_forward_save, fr.camera_forward_reference,
+                   fr.camera_backward, fr.camera_backward_saved, fr.camera_backward_reference),
+        "shadow": (fr.shadow_forward, fr.shadow_forward_save, fr.shadow_forward_reference,
+                   fr.shadow_backward, fr.shadow_backward_saved, fr.shadow_backward_reference)}
+    saved_cols = fr.act_stream_cols(False)    # the PE and h0..h7 of a sample row
+    for op, args, gin, n_valid, macs in saved_cases:
+        cam = op == "camera"
+        fwd, fwd_save, fwd_ref, bwd, bwd_saved, bwd_ref = saved_ops[op]
+        k = args[1].shape[1]
+        kpad = fr.kpad_of(k)
+        out_s, stream = fwd_save(kw, *args)
+        out_k = fwd(kw, *args)
+        ref_out, ref_acts = fwd_ref(kw, *args, save=True)
+        got_b = bwd_saved(kw, *args, gin, stream)
+        rec_b = bwd(kw, *args, gin)
+        ref_b = bwd_ref(kw, *args, gin, acts=ref_acts)
+        torch.cuda.synchronize()
+        err = (out_s - ref_out).abs()
+        fwd_errs = {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                    "vs_plain_kernel_max_abs": float((out_s - out_k).abs().max()),
+                    "acts_rel_l2": float((fr.stream_trunk_acts(stream, cam, nb, k).float()
+                                          - ref_acts.float()).norm() / ref_acts.float().norm())}
+        rel_b, max_err_b = grad_errors(ff, got_b, ref_b)
+        rel_rec, _ = grad_errors(ff, got_b, rec_b)
+        rec_row = kernel_rows[f"{op}_bwd"]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got_b, rec_b))
+        finite = (bool(torch.isfinite(out_s).all())
+                  and all(bool(torch.isfinite(t).all()) for t in got_b))
+        stream_mib = {"stream_mib": stream.numel() * stream.element_size() / 2 ** 20,
+                      "jax_formula_mib": fr.saved_stream_bytes(nb, k, torch.bfloat16) / 2 ** 20}
+        ms_f = time_ms(torch, lambda: fwd_save(kw, *args), 10)
+        plain_f = time_ms(torch, lambda: fwd_ref(kw, *args, save=True), 3)
+        ms_b = time_ms(torch, lambda: bwd_saved(kw, *args, gin, stream), 10)
+        plain_b = time_ms(torch, lambda: bwd_ref(kw, *args, gin, acts=ref_acts), 3)
+        # least times: the forward's products of the in-cube samples against
+        # its inputs, outputs and the stream it writes (the PE and h0..h7 of
+        # every row); the saved backward's dgrad and wgrad and the heads'
+        # recompute against its inputs (the stream read once) and outputs
+        in_bytes = sum(t.numel() * 4 for t in args) + (
+            (ff.MAT_ELEMENTS * 2 + ff.BIAS_ELEMENTS * 4) if cam
+            else (ff.DENSITY_MAT_ELEMENTS * 2 + ff.DENSITY_BIAS_ELEMENTS * 4))
+        stream_bytes = nb * kpad * saved_cols * 2
+        grad_bytes = ((ff.MAT_ELEMENTS + ff.BIAS_ELEMENTS) if cam else
+                      (ff.DENSITY_MAT_ELEMENTS + ff.DENSITY_BIAS_ELEMENTS)) * 4
+        bounds = {
+            "fwd": (2.0 * macs * n_valid / PEAK_BF16_FLOPS * 1e3,
+                    (in_bytes + out_s.numel() * 4 + stream_bytes) / PEAK_BYTES * 1e3),
+            "bwd": (2.0 * n_valid * (2 * macs + macs - trunk_macs) / PEAK_BF16_FLOPS * 1e3,
+                    (in_bytes + gin.numel() * 4 + stream_bytes + grad_bytes
+                     + nb * fr.RAYIN_COLS * 4) / PEAK_BYTES * 1e3)}
+        for part, name, ms, plain_ms, max_err in (
+                ("fwd", f"{op}_fwd_save", ms_f, plain_f, fwd_errs["max_abs"]),
+                ("bwd", f"{op}_bwd_saved", ms_b, plain_b, max_err_b)):
+            ops_ms, bytes_ms = bounds[part]
+            record(name, k, {
+                "name": name, "route": "cuda", "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+                "replaces": tpu_kernel_site(f"_{op}_{part}_kernel"), "launches": None,
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+                **stream_mib})
+        emit({"phase": "kernels", "name": f"{op}_saved_pair", "rays": nb, "samples": k,
+              "valid_samples": n_valid, **stream_mib, "fwd_errors": fwd_errs,
+              "fwd_tolerance": {**KERNEL_TOL, "vs_plain_kernel_max_abs": 0.0,
+                                "acts_rel_l2": BWD_REL_L2},
+              "bwd_max_rel_l2": max(rel_b), "bwd_rel_l2_d_rayin": rel_b[-1],
+              "bwd_tolerance_rel_l2": BWD_REL_L2, "bwd_vs_recompute_max_rel_l2": max(rel_rec),
+              "bwd_vs_recompute_tolerance": SAVED_REL_L2, "bwd_bitwise_recompute": bitwise,
+              "finite": finite, "fwd_ms": ms_f, "fwd_plain_ms": plain_f, "bwd_ms": ms_b,
+              "bwd_plain_ms": plain_b,
+              "recompute_bwd_ms": next((o["ms"] for o in rec_row.get("other_shapes", [])
+                                        if o["samples"] == k), rec_row["ms"]),
+              "bound_ms": {part: max(b) for part, b in bounds.items()}, "card": card})
+        if not (finite and fwd_errs["max_abs"] <= KERNEL_TOL["max_abs"]
+                and fwd_errs["mean_abs"] <= KERNEL_TOL["mean_abs"]
+                and fwd_errs["vs_plain_kernel_max_abs"] == 0.0
+                and fwd_errs["acts_rel_l2"] <= BWD_REL_L2 and max(rel_b) <= BWD_REL_L2
+                and max(rel_rec) <= SAVED_REL_L2):
+            raise AssertionError(f"{op} saved pair at K={k}: {fwd_errs}, backward rel-L2 {rel_b},"
+                                 f" vs recompute {rel_rec}")
+        del stream
+
     # ---- 3. the main path: a 512x512 nadir sweep with shadows ----
     n_rays = rays_np.shape[0]
     n_chunks = -(-n_rays // N_CHUNK)
@@ -967,25 +1096,6 @@ def main():
     if not grad_rel <= GRAD_PATH_REL_L2:
         raise AssertionError(f"kernel-path gradient vs per-sample path: rel-L2 {grad_rel}")
 
-    # ---- 7. sampler="auto": hierarchical on a wide envelope, tightened on a
-    # compact one, the occupancy grid at the JAX package's defaults ----
-    pool = tr.device_data
-    del tr
-    auto_counted = {"coarse_fwd": fr.coarse_forward, "density_fwd": ff.density_forward,
-                    "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward,
-                    "camera_bwd": fr.camera_backward, "shadow_bwd": fr.shadow_backward}
-
-    def auto_trainer(name, envelope, **kw):
-        """A Trainer at the sampler=auto defaults on the chip_smoke pool."""
-        cfg_a = TrainConfig(logs_dir=str(log_root), exp_name=name, sampler="auto",
-                            occ_enabled=True, bwd_acts="recompute", compute_dtype="bfloat16",
-                            save_freq=10 ** 9, seed=1, **kw)
-        shutil.rmtree(log_root / name, ignore_errors=True)
-        t = Trainer(cfg_a, pool, n_images=N_VIEWS, device=dev, alt_envelope=envelope)
-        if not isinstance(t.render_field, KernelField):
-            raise RuntimeError("the trainer did not pick the kernels for a bf16 8x256 field")
-        return t
-
     def recording(t):
         """Wrap the trainer's step: record each step's loss (kept on the
         card, read at the end) and whether the sampler got the grid."""
@@ -1021,6 +1131,78 @@ def main():
         t.run(max_steps=max_steps, log_every=10 ** 9)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
+
+    # ---- 6b. train_saved: phase 6's configuration with bwd_acts="saved" (the
+    # JAX package's default): the forwards write the activation stream, the
+    # backwards read it; the same seed, so the same weights and draws ----
+    pool = tr.device_data
+    recompute_losses = losses
+    del tr
+    saved_counted = {"camera_fwd_save": fr.camera_forward_save,
+                     "shadow_fwd_save": fr.shadow_forward_save,
+                     "camera_bwd_saved": fr.camera_backward_saved,
+                     "shadow_bwd_saved": fr.shadow_backward_saved,
+                     "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward,
+                     "camera_bwd": fr.camera_backward, "shadow_bwd": fr.shadow_backward}
+    shutil.rmtree(log_root / "chip_smoke_saved", ignore_errors=True)
+    cfg_s = dataclasses.replace(cfg_t, exp_name="chip_smoke_saved", bwd_acts="saved")
+    ts = Trainer(cfg_s, pool, n_images=N_VIEWS, device=dev)
+    if not (isinstance(ts.render_field, KernelField) and ts.render_field.save_acts):
+        raise RuntimeError("the trainer did not pick the saved-activations kernels")
+    save_ok = ts.render_field.step_save_ok(N_TRAIN, 127, 63)
+    losses_s, _ = recording(ts)
+    before_s = [p.detach().clone() for p in ts.field.parameters()]
+    for fn in saved_counted.values():
+        fn.launches = 0
+    ts.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
+    launches_s = {n: fn.launches for n, fn in saved_counted.items()}
+    expect_s = {"camera_fwd_save": TRAIN_STEPS, "shadow_fwd_save": shadow_steps,
+                "camera_bwd_saved": TRAIN_STEPS, "shadow_bwd_saved": shadow_steps,
+                "camera_fwd": 0, "shadow_fwd": 0, "camera_bwd": 0, "shadow_bwd": 0}
+    saved_res = branch_result(ts, before_s, losses_s, launches_s, expect_s, {"save_ok": save_ok})
+    step_ms_s = timed_run(ts, TRAIN_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS
+    # one batch, shadows and beta on: the whole-step gradient of the saved
+    # backward against the recompute backward on the same weights and draws
+    batch = {k: v[:N_TRAIN] for k, v in pool.items()}
+    grads = []
+    for rfield in (ts.render_field, KernelField(ts.field)):
+        ts.field.zero_grad(set_to_none=True)
+        loss, _ = make_loss_fn(rfield, ts.rcfg)(batch, 0.0, True, True,
+                                                torch.Generator(device=dev).manual_seed(12))
+        loss.backward()
+        grads.append(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                .float().flatten() for p in ts.field.parameters()]))
+    saved_res.update(
+        grad_vs_recompute_rel_l2=float((grads[0] - grads[1]).norm() / grads[1].norm()),
+        grad_bitwise_recompute=bool(torch.equal(grads[0], grads[1])),
+        loss_max_abs_diff_vs_train=max(abs(float(a) - b)
+                                       for a, b in zip(losses_s, recompute_losses)),
+        ms_per_step=step_ms_s, rays_per_s=N_TRAIN / (step_ms_s * 1e-3),
+        recompute_ms_per_step=step_ms)
+    for name in ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved"):
+        kernel_rows[name]["launches_by_path"] = {"train_saved": launches_s[name]}
+    emit({"phase": "train_saved", "batch": N_TRAIN, "pool_rays": N_POOL, **saved_res,
+          "tolerance": SAVED_REL_L2, "card": card})
+    del ts
+    if not (save_ok and saved_res["grad_vs_recompute_rel_l2"] <= SAVED_REL_L2):
+        raise AssertionError(f"saved-activations step: {saved_res}")
+
+    # ---- 7. sampler="auto": hierarchical on a wide envelope, tightened on a
+    # compact one, the occupancy grid at the JAX package's defaults ----
+    auto_counted = {"coarse_fwd": fr.coarse_forward, "density_fwd": ff.density_forward,
+                    "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward,
+                    "camera_bwd": fr.camera_backward, "shadow_bwd": fr.shadow_backward}
+
+    def auto_trainer(name, envelope, **kw):
+        """A Trainer at the sampler=auto defaults on the chip_smoke pool."""
+        cfg_a = TrainConfig(logs_dir=str(log_root), exp_name=name, sampler="auto",
+                            occ_enabled=True, bwd_acts="recompute", compute_dtype="bfloat16",
+                            save_freq=10 ** 9, seed=1, **kw)
+        shutil.rmtree(log_root / name, ignore_errors=True)
+        t = Trainer(cfg_a, pool, n_images=N_VIEWS, device=dev, alt_envelope=envelope)
+        if not isinstance(t.render_field, KernelField):
+            raise RuntimeError("the trainer did not pick the kernels for a bf16 8x256 field")
+        return t
 
     # wide envelope -> hierarchical: the coarse kernel once per step; the
     # grid is kept up to date (step 0 here) but not sampled from
@@ -1393,11 +1575,77 @@ def main():
                 and res["origin_grad_cosine_vs_bf16"] > Q8_ORIGIN_COS):
             raise AssertionError(f"{tier} step gradient vs bf16: {res}")
 
+    # ---- 12. data: the hermetic scene on disk and the port's dataset ----
+    from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
+    from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec, generate_scene
+
+    scene_root = log_root / "chip_smoke_scene"
+    shutil.rmtree(scene_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = generate_scene(str(scene_root), SyntheticSceneSpec(n_views=SCENE_VIEWS,
+                                                              img_size=SCENE_SIZE))
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = SatelliteDataset(info["root_dir"], info["img_dir"], split="train")
+    dataset_s = time.perf_counter() - t0
+    n_scene = SCENE_VIEWS * SCENE_SIZE * SCENE_SIZE
+    data = {"phase": "data", "views": SCENE_VIEWS, "img_size": SCENE_SIZE,
+            "scene_seconds": scene_s, "dataset_seconds": dataset_s,
+            "pool_shape": list(ds.all_rays.shape), "expected_pool_shape": [n_scene, 11],
+            "alt_envelope": list(ds.alt_envelope()), "expected_envelope": list(SCENE_ENVELOPE),
+            "rays_finite": bool(np.isfinite(ds.all_rays).all()),
+            "rays_in_cube": float(np.abs(ds.all_rays[:, :3]).max()), "card": card}
+    emit(data)
+    if not (data["pool_shape"] == data["expected_pool_shape"] and data["rays_finite"]
+            and tuple(data["alt_envelope"]) == SCENE_ENVELOPE
+            and data["rays_in_cube"] <= 1.0 + 1e-5):
+        raise AssertionError(f"the dataset's ray pool is wrong: {data}")
+    del ds
+
+    # ---- 13. train_default: the JAX package's default training run through
+    # the port on that scene, TrainConfig's defaults (bwd_acts "saved",
+    # sampler "auto", the occupancy grid, 8x256, batch 1024, 128 samples) at
+    # bf16, the shadow and beta gates cut from epoch 2 (2,560 steps on this
+    # scene) to step 10 ----
+    shutil.rmtree(log_root / "chip_smoke_default", ignore_errors=True)
+    cfg_d0 = TrainConfig(root_dir=info["root_dir"], img_dir=info["img_dir"],
+                         compute_dtype="bfloat16", first_shadow_step=TRAIN_STEPS // 2,
+                         first_beta_step=TRAIN_STEPS // 2, logs_dir=str(log_root),
+                         exp_name="chip_smoke_default")
+    t0 = time.perf_counter()
+    td = Trainer(cfg_d0, device=dev)
+    trainer_s = time.perf_counter() - t0
+    if not (isinstance(td.render_field, KernelField) and td.render_field.save_acts):
+        raise RuntimeError("the default configuration did not pick the saved-activations kernels")
+    losses_dd, tightened_d = recording(td)
+    before_dd = [p.detach().clone() for p in td.field.parameters()]
+    for fn in saved_counted.values():
+        fn.launches = 0
+    td.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
+    launches_dd = {n: fn.launches for n, fn in saved_counted.items()}
+    for name in ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved"):
+        kernel_rows[name]["launches"] = launches_dd[name]
+        kernel_rows[name]["launches_by_path"]["train_default"] = launches_dd[name]
+    default_res = branch_result(td, before_dd, losses_dd, launches_dd, expect_s, {
+        "steps_per_epoch": td.steps_per_epoch, "n_images": td.n_images,
+        "alt_envelope": list(td.alt_envelope), "occ_tighten": td.cfg.occ_tighten,
+        "tightened_steps": sum(tightened_d), "trainer_build_s": trainer_s,
+        "save_ok": td.render_field.step_save_ok(N_TRAIN, 127, td.cfg.sc_n_samples - 1)})
+    step_ms_dd = timed_run(td, TRAIN_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS
+    default_res.update(ms_per_step=step_ms_dd, rays_per_s=N_TRAIN / (step_ms_dd * 1e-3))
+    emit({"phase": "train_default", "batch": td.cfg.batch_size, "pool_rays": td.n_rays,
+          "bwd_acts": td.cfg.bwd_acts, **default_res, "card": card})
+    if default_res["sampler"] != "tighten" or not default_res["save_ok"]:
+        raise AssertionError(f"the default run resolved otherwise: {default_res}")
+    del td
+    shutil.rmtree(scene_root, ignore_errors=True)
+
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",
         "field_fwd", "field_bwd", "density_bwd", "camera_fwd_q8", "shadow_fwd_q8",
         "coarse_fwd_q8", "camera_bwd_q8", "shadow_bwd_q8", "camera_bwd_q8_full",
-        "shadow_bwd_q8_full")]})
+        "shadow_bwd_q8_full", "camera_fwd_save", "camera_bwd_saved", "shadow_fwd_save",
+        "shadow_bwd_saved")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,14 +2,11 @@
 (config.py) that the port's trainer reads, with the same names and
 defaults, and JSON round trip.
 
-Left out until the slices that read them: dataset paths and options,
+Left out until the slices that read them: ``gt_dir`` and ``aoi_id``,
 validation cadence and eval, data parallelism, and ``steps_per_call`` (the
 JAX megastep's scan length, which a per-step loop has no use for). The
-trainer raises ``NotImplementedError`` on the values of the fields below
-that need a later slice (``freq_reg_end_step`` > 0, ``bwd_acts="saved"``
-with ``trunk_quant="none"``), so a default configuration must set
-``bwd_acts="recompute"`` or an int8 ``trunk_quant`` (with which the JAX
-package, too, falls back to the recompute backward).
+trainer raises ``NotImplementedError`` on ``freq_reg_end_step`` > 0 (the
+bundle-adjustment slice); every other default trains.
 """
 
 import dataclasses
@@ -22,12 +19,18 @@ from typing import Optional
 @dataclasses.dataclass
 class TrainConfig:
     # paths
+    root_dir: str = ""                   # scene: view jsons, train.txt, test.txt
+    img_dir: Optional[str] = None        # images (None = root_dir)
     logs_dir: str = "logs"
+    cache_dir: Optional[str] = None      # per-image ray and prior caches
     ckpt_path: Optional[str] = None      # resume from this checkpoint directory
     exp_name: str = "eo-nerf"
 
-    # model
+    # model / dataset
     model: str = "eo-nerf"               # eo-nerf | sat-nerf (no radiometric norm)
+    img_downscale: float = 1.0
+    ecef: bool = False                   # ECEF scene frame instead of UTM
+    subset_n_views: Optional[int] = None  # train on the first N views of train.txt
 
     # training
     lr: float = 5e-4
@@ -78,7 +81,11 @@ class TrainConfig:
                                          # mean normalized weight entropy is <=
                                          # this (None: no entropy gate)
 
-    # priors
+    # priors: a DSM reprojected into every view as per-ray depth (with an
+    # optional confidence raster), and binary shadow masks
+    init_dsm_path: Optional[str] = None
+    init_conf_path: Optional[str] = None
+    shadow_masks_dir: Optional[str] = None
     depth_weight: float = 100.0
     depth_weight_decay: float = 0.8      # per epoch
 
@@ -92,7 +99,11 @@ class TrainConfig:
     # "int8_full" also runs the trunk's dgrad and wgrad in int8
     trunk_quant: str = "none"
 
-    # fused-kernel backward: "recompute" (this port) or "saved" (later slice)
+    # fused-kernel backward: "saved" streams the trunk activations from the
+    # differentiated forward to the backward, which then skips the trunk's
+    # recompute (all or nothing per step, under KernelField's stream cap);
+    # "recompute" reruns the forward inside the backward. int8 tiers always
+    # recompute.
     bwd_acts: str = "saved"
 
     def __post_init__(self):

@@ -63,7 +63,7 @@
 //
 // Backward: camera_bwd replaces `_camera_bwd_kernel` (make_fused_camera's
 // backward), shadow_bwd `_shadow_bwd_kernel` (make_fused_shadow's). Both
-// recompute the forward (flash-style; nothing is saved by the forward) and
+// recompute the forward (flash-style; the plain forward saves nothing) and
 // return f32 gradients of every packed weight plus the per-ray
 // d_rayin = [d_o, d_d, d_emb]. They are bound by operations as the forwards
 // are: three times the forward's products per sample (recompute, dgrad,
@@ -89,6 +89,26 @@
 //      gradients are the same bits from run to run (no atomics).
 // The streams cost (3072 + 2976) bf16 per camera sample: 1.6 GB at 1024
 // rays x 128 samples, read back once by each later pass.
+//
+// Saved activations (the JAX package's default bwd_acts="saved"):
+// camera_fwd_save and shadow_fwd_save replace `_camera_fwd_kernel` and
+// `_shadow_fwd_kernel` run with save=True, camera_bwd_saved and
+// shadow_bwd_saved their backwards with saved=True. The differentiated
+// forward is fused_fwd_kernel<MODE, false, false, /*SAVE=*/true>: the
+// plain forward (its outputs bit for bit) that also writes the PE and
+// h0..h7 of every sample row (ray * KPAD + k) into an activation stream
+// with the backward's layout and stride (ACT_CAM, ACT_SH), which the caller
+// keeps from forward to backward. The saved backward then skips the PE and
+// the eight trunk products: its first pass is fused_fwd_kernel<MODE, true,
+// /*FROM_STREAM=*/true>, the heads and the compositing backward from h7 in
+// that stream (the camera's head activations written into it), then the
+// same dgrad, wgrad and reduction, reading the stream in place of the
+// workspace's activation region, which the saved workspace leaves out. The
+// trunk's bf16 activations are the same bits in both modes, so the saved
+// gradients equal the recompute backward's. What bounds the saving: the
+// stream's bytes (2112 bf16 a sample, written once and read by the three
+// later passes) against the trunk's 0.49 M multiply-adds a sample that the
+// recompute would redo.
 //
 // field_bwd and density_bwd replace `_field_bwd_kernel` and
 // `_density_bwd_kernel` (make_fused_field's and make_fused_density's
@@ -283,13 +303,18 @@ __device__ void gemm(const bf16* A, int a_col0, int k_dim, const bf16* __restric
 
 // Copy rows [0, nrows) of a shared tile's columns [c0, c0 + ncols) into a
 // bf16 stream (rows row0.., columns dc0..). ncols, c0, dc0 multiples of 8.
+// The stores are streaming (st.global.cs, evict-first): a stream is hundreds
+// of MB written once per pass, and stored normally it evicts from L2 the
+// weights that every tile re-reads (chip_smoke.py on NVIDIA H100 80GB HBM3,
+// 700 W: the camera save forward at 1024 x 127 took 3.2 ms with plain
+// stores, 2.5 ms with these).
 __device__ void tile_to_stream(const bf16* tile, int c0, int ncols, bf16* stream,
                                long long stride, long long row0, int nrows, int dc0) {
   const int nv = ncols / 8;
   for (int v = threadIdx.x; v < nrows * nv; v += THREADS) {
     const int r = v / nv, c = (v % nv) * 8;
-    *reinterpret_cast<uint4*>(stream + (row0 + r) * stride + dc0 + c) =
-        *reinterpret_cast<const uint4*>(tile + r * LDA + c0 + c);
+    __stcs(reinterpret_cast<uint4*>(stream + (row0 + r) * stride + dc0 + c),
+           *reinterpret_cast<const uint4*>(tile + r * LDA + c0 + c));
   }
 }
 
@@ -409,7 +434,9 @@ __device__ __forceinline__ void camera_heads(bf16* P, bf16* Q, const bf16* __res
 // is read from `acts` (written there by the int8 trunk, or by any pass that
 // fills the stream's layout) instead of running the PE and the bf16 trunk;
 // the heads, their stream writes (BWD) and the compositing are unchanged.
-template <int MODE, bool BWD, bool FROM_STREAM = false>
+// SAVE (CAM and SHADOW forwards): the forward also writes the PE and the
+// trunk activations h0..h7 to `acts`, as the backward's recompute does.
+template <int MODE, bool BWD, bool FROM_STREAM = false, bool SAVE = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  const float* __restrict__ deltam, const float* __restrict__ mask,
@@ -417,7 +444,10 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  float* __restrict__ out, int R, int KPAD, int rpb,
                  const float* __restrict__ gin, bf16* __restrict__ acts,
                  float* __restrict__ hg) {
+  static_assert(!SAVE || (!BWD && !FROM_STREAM && MODE != COARSE),
+                "SAVE is a camera or shadow forward");
   constexpr bool CAMERA = MODE == CAM;
+  constexpr bool STREAM = BWD || SAVE;   // the PE and the trunk go to `acts`
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
@@ -460,11 +490,11 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
         bufX[r * LDA + W + c] = pv;
         bufY[r * LDA + W + c] = pv;
       }
-      if (BWD) {
+      if (STREAM) {
         __syncthreads();
         tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
       }
-      P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
+      P = trunk_tile<STREAM>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
     }
     for (int r = threadIdx.x; r < nrows; r += THREADS)
       res[(s0 + r) * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
@@ -659,7 +689,7 @@ size_t fwd_smem(int KPAD) {
          (size_t)rays_per_block(KPAD) * KPAD * RES * sizeof(float);
 }
 
-template <int MODE, bool BWD, bool FROM_STREAM = false>
+template <int MODE, bool BWD, bool FROM_STREAM = false, bool SAVE = false>
 int launch(const float* rayin, const float* z, const float* deltam, const float* mask,
            const void* wm, const float* wb, float* out, int R, int KPAD, cudaStream_t stream,
            const float* gin = nullptr, bf16* acts = nullptr, float* hg = nullptr) {
@@ -667,10 +697,10 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   const int rpb = rays_per_block(KPAD);
   const int grid = (R + rpb - 1) / rpb;
   const size_t smem = fwd_smem(KPAD);
-  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD, FROM_STREAM>,
+  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD, FROM_STREAM, SAVE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_fwd_kernel<MODE, BWD, FROM_STREAM><<<grid, THREADS, smem, stream>>>(
+  fused_fwd_kernel<MODE, BWD, FROM_STREAM, SAVE><<<grid, THREADS, smem, stream>>>(
       rayin, z, deltam, mask, static_cast<const bf16*>(wm), wb, out, R, KPAD, rpb, gin, acts,
       hg);
   return (int)cudaGetLastError();
@@ -1125,8 +1155,10 @@ struct BwdLayout {
 
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
-// S stream rows (samples or points) in nblocks dgrad blocks.
-BwdLayout bwd_layout(bool camera, long long S, int nblocks) {
+// S stream rows (samples or points) in nblocks dgrad blocks. Without
+// `with_acts` (the saved backward) the activation stream is the caller's and
+// the workspace starts at the cotangent stream.
+BwdLayout bwd_layout(bool camera, long long S, int nblocks, bool with_acts = true) {
   BwdLayout L;
   L.S = S;
   L.nblocks = nblocks;
@@ -1135,7 +1167,7 @@ BwdLayout bwd_layout(bool camera, long long S, int nblocks) {
   const long long as = camera ? ACT_CAM : ACT_SH, gs = camera ? GP_CAM : GP_SH;
   const long long n_mat = camera ? M_END : M_BOTT, n_bias = camera ? B_END : B_BOTT;
   L.acts = 0;
-  L.gpre = align256(L.acts + (size_t)L.S * as * sizeof(bf16));
+  L.gpre = align256(L.acts + (with_acts ? (size_t)L.S * as * sizeof(bf16) : 0));
   L.hg = align256(L.gpre + (size_t)L.S * gs * sizeof(bf16));
   L.bpart = align256(L.hg + (size_t)L.S * HG * sizeof(float));
   L.wpart = align256(L.bpart + (size_t)L.nblocks * n_bias * sizeof(float));
@@ -1145,9 +1177,9 @@ BwdLayout bwd_layout(bool camera, long long S, int nblocks) {
 
 // Rays: blocks of whole rays. Points: KPAD = 1, whose rays_per_block is MT,
 // so 128 points a block, the point kernels' blocks.
-BwdLayout ray_bwd_layout(bool camera, int R, int KPAD) {
+BwdLayout ray_bwd_layout(bool camera, int R, int KPAD, bool with_acts = true) {
   const int rpb = rays_per_block(KPAD);
-  return bwd_layout(camera, (long long)R * KPAD, (R + rpb - 1) / rpb);
+  return bwd_layout(camera, (long long)R * KPAD, (R + rpb - 1) / rpb, with_acts);
 }
 
 struct Scratch {
@@ -1201,16 +1233,26 @@ int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const 
   return (int)cudaGetLastError();
 }
 
+// saved != nullptr: the saved backward, on the stream the forward wrote
+// (fused_fwd_kernel<MODE, false, false, true>) in place of the recompute.
 template <bool CAMERA>
 int launch_bwd(const float* rayin, const float* z, const float* deltam, const float* mask,
                const float* gin, const void* wm_, const float* wb, void* ws, float* dmats,
-               float* dbias, float* drayin, int R, int KPAD, cudaStream_t stream) {
+               float* dbias, float* drayin, int R, int KPAD, cudaStream_t stream,
+               bf16* saved = nullptr) {
   if (R <= 0 || KPAD <= 0 || KPAD % 8 != 0 || KPAD > MAX_KPAD) return (int)cudaErrorInvalidValue;
   const bf16* wm = static_cast<const bf16*>(wm_);
-  const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD);
-  const Scratch sc = carve(L, ws);
-  int err = launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
-                                                stream, gin, sc.acts, sc.hg);
+  const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD, saved == nullptr);
+  Scratch sc = carve(L, ws);
+  int err;
+  if (saved != nullptr) {
+    sc.acts = saved;
+    err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R,
+                                                    KPAD, stream, gin, sc.acts, sc.hg);
+  } else {
+    err = launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
+                                              stream, gin, sc.acts, sc.hg);
+  }
   if (err != 0) return err;
   return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
                                    stream);
@@ -1957,6 +1999,56 @@ int eonerf_shadow_bwd(const float* rayin, const float* z, const float* deltam, c
                       float* dbias, float* drayin, int R, int KPAD, void* stream) {
   return launch_bwd<false>(rayin, z, deltam, mask, ggeo, wm, wb, ws, dmats, dbias, drayin, R,
                            KPAD, static_cast<cudaStream_t>(stream));
+}
+
+// The saved-activations pair. Columns of one activation-stream row (camera
+// != 0: the camera's, ACT_CAM; else the shadow's, ACT_SH).
+long long eonerf_act_stream_cols(int camera) { return camera ? ACT_CAM : ACT_SH; }
+
+// The camera forward that also writes the PE and h0..h7 of every sample row
+// into acts (R * KPAD rows of eonerf_act_stream_cols(1) bf16 columns).
+int eonerf_camera_fwd_save(const float* rayin, const float* z, const float* deltam,
+                           const void* wm, const float* wb, float* acc, void* acts, int R,
+                           int KPAD, void* stream) {
+  return launch<CAM, false, false, true>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD,
+                                         static_cast<cudaStream_t>(stream), nullptr,
+                                         static_cast<bf16*>(acts));
+}
+
+// The shadow forward that also writes its stream (eonerf_act_stream_cols(0)
+// columns a row).
+int eonerf_shadow_fwd_save(const float* rayin, const float* z, const float* deltam,
+                           const float* mask, const void* wm, const float* wb, float* geo,
+                           void* acts, int R, int KPAD, void* stream) {
+  return launch<SHADOW, false, false, true>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD,
+                                            static_cast<cudaStream_t>(stream), nullptr,
+                                            static_cast<bf16*>(acts));
+}
+
+// Bytes of scratch of a saved backward: the recompute backward's without its
+// activation region.
+long long eonerf_saved_bwd_workspace_bytes(int camera, int R, int KPAD) {
+  return (long long)ray_bwd_layout(camera != 0, R, KPAD, false).total;
+}
+
+// Backward of the camera op from the forward's stream acts (the camera's
+// head columns are written into it): outputs as eonerf_camera_bwd's.
+int eonerf_camera_bwd_saved(const float* rayin, const float* z, const float* deltam,
+                            const float* gacc, const void* wm, const float* wb, void* acts,
+                            void* ws, float* dmats, float* dbias, float* drayin, int R, int KPAD,
+                            void* stream) {
+  return launch_bwd<true>(rayin, z, deltam, nullptr, gacc, wm, wb, ws, dmats, dbias, drayin, R,
+                          KPAD, static_cast<cudaStream_t>(stream), static_cast<bf16*>(acts));
+}
+
+// Backward of the shadow op from the forward's stream acts: outputs as
+// eonerf_shadow_bwd's.
+int eonerf_shadow_bwd_saved(const float* rayin, const float* z, const float* deltam,
+                            const float* mask, const float* ggeo, const void* wm, const float* wb,
+                            void* acts, void* ws, float* dmats, float* dbias, float* drayin, int R,
+                            int KPAD, void* stream) {
+  return launch_bwd<false>(rayin, z, deltam, mask, ggeo, wm, wb, ws, dmats, dbias, drayin, R,
+                           KPAD, static_cast<cudaStream_t>(stream), static_cast<bf16*>(acts));
 }
 
 // Backward of the field op: g (N, 8) -> d_mats, d_biases, d_pos (N, 3) and

@@ -1,6 +1,6 @@
 """A seeded ray pool in the trainer's layout, made on the device: for
-driving and timing the training step where no dataset is at hand (the
-dataset loader arrives with the data-and-eval slice)."""
+driving and timing the training step without a scene on disk (the
+dataset path is ``data/satellite.py``)."""
 
 import math
 

@@ -15,7 +15,9 @@ transient embedding through the ops' d_rayin or per-point d_emb.
 The int8 trunk tier (``TrainConfig.trunk_quant`` "int8" or "int8_full")
 runs the camera, shadow and coarse ops with their trunk in int8; the
 per-point field and density ops stay in the compute dtype, as in the JAX
-package.
+package. ``TrainConfig.bwd_acts="saved"`` (the default) makes the camera
+and shadow ops keep the trunk's activations from the forward for the
+backward, all or nothing per step (``KernelField.step_save_ok``).
 """
 
 import torch
@@ -26,7 +28,13 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     pack_kernel_weights,
     pack_params,
 )
-from eonerf_code_tpu_torch.ops.fused_render import fused_camera, fused_coarse, fused_shadow
+from eonerf_code_tpu_torch.ops.fused_render import (
+    fits_saved_cap,
+    fused_camera,
+    fused_coarse,
+    fused_shadow,
+    saved_stream_bytes,
+)
 
 
 def _device_of(field):
@@ -40,20 +48,23 @@ def make_render_field(field, cfg=None):
     """The field the renderer should evaluate through: ``KernelField`` for a
     bfloat16 field with the 8x256 trunk on a CUDA device (the fused
     kernels' shape and type), the field itself otherwise (the per-sample
-    path). ``cfg`` (a TrainConfig, or anything with its ``trunk_quant`` and
-    ``bwd_acts``) selects the int8 trunk tier; the saved-activations
-    backward is not combined with it (the JAX package falls back to the
-    recompute backward, with a notice)."""
+    path, where ``bwd_acts`` means nothing, as in the JAX package off its
+    Pallas path). ``cfg`` (a TrainConfig, or anything with its
+    ``trunk_quant`` and ``bwd_acts``) selects the int8 trunk tier and the
+    saved-activations backward; the two are not combined (the JAX package
+    falls back to the recompute backward, with a notice)."""
     use_kernels = (field.compute_dtype == torch.bfloat16
                    and _device_of(field).type == "cuda"
                    and field.net_depth == 8 and field.net_width == 256)
     if not use_kernels:
         return field
     quant = TRUNK_QUANT.get(getattr(cfg, "trunk_quant", "none"), False)
-    if quant and getattr(cfg, "bwd_acts", "recompute") == "saved":
+    save_acts = getattr(cfg, "bwd_acts", "recompute") == "saved"
+    if quant and save_acts:
         print("trunk_quant=int8: bwd_acts=saved unsupported, falling back to recompute",
               flush=True)
-    return KernelField(field, trunk_quant=quant)
+        save_acts = False
+    return KernelField(field, trunk_quant=quant, save_acts=save_acts)
 
 
 class KernelField:
@@ -62,15 +73,23 @@ class KernelField:
     ``trunk_quant`` (False, True for int8, "full" for int8_full) goes to the
     camera, shadow and coarse ops; ``tile`` and ``bwd_tile`` are their
     scale-group targets in rows, forward and backward (the JAX package's
-    ``PallasField`` tile sizes)."""
+    ``PallasField`` tile sizes). ``save_acts``: the camera and shadow ops
+    keep the trunk's activations for the backward when the step's streams
+    fit ``save_acts_cap_mb`` (:meth:`step_save_ok`) and the call's own does
+    (the per-call gate); never with ``trunk_quant``."""
 
     supports_fused_render = True
 
-    def __init__(self, field, trunk_quant=False, tile=2048, bwd_tile=1024):
+    def __init__(self, field, trunk_quant=False, tile=2048, bwd_tile=1024, save_acts=False,
+                 save_acts_cap_mb=8192):
+        if save_acts and trunk_quant:
+            raise ValueError("save_acts is never combined with the int8 trunk tier")
         self.field = field
         self.trunk_quant = trunk_quant
         self.tile = tile
         self.bwd_tile = bwd_tile
+        self.save_acts = save_acts
+        self.save_acts_cap_mb = save_acts_cap_mb
         self.beta_min = field.beta_min
         self.rpc_correction = field.rpc_correction
         self.n_images = field.n_images
@@ -99,13 +118,34 @@ class KernelField:
     def transient_embedding(self, img_idx):
         return self.field.transient_encoder(img_idx)
 
-    def fused_camera(self, weights, rayin, z, deltam):
-        return fused_camera(weights, rayin, z, deltam, self.compute_dtype, self.trunk_quant,
-                            self.tile, self.bwd_tile)
+    def step_save_ok(self, r, k_cam, k_sc=0):
+        """The all-or-nothing saved-activations gate of one render step (the
+        JAX package's ``PallasField.step_save_ok``): True only when the sum
+        of the step's streams (camera K = k_cam, shadow K = k_sc; 0 = no
+        shadow pass), both live from forward to backward, fits
+        ``save_acts_cap_mb``. The sum fitting implies each stream fits the
+        per-call gate (the same cap and predicate), so a True here means both
+        ops save: a step never mixes a saving op with a recomputing one."""
+        if not self.save_acts:
+            return False
+        total = saved_stream_bytes(r, k_cam, self.compute_dtype)
+        if k_sc:
+            total += saved_stream_bytes(r, k_sc, self.compute_dtype)
+        return total <= self.save_acts_cap_mb * 2**20
 
-    def fused_shadow(self, weights, rayin, z, deltam, mask):
+    def _save(self, save_ok, z):
+        """The per-call gate: the step's ``save_ok`` and this stream's fit."""
+        return (self.save_acts and save_ok
+                and fits_saved_cap(z.shape[0], z.shape[1], self.compute_dtype,
+                                   self.save_acts_cap_mb))
+
+    def fused_camera(self, weights, rayin, z, deltam, save_ok=True):
+        return fused_camera(weights, rayin, z, deltam, self.compute_dtype, self.trunk_quant,
+                            self.tile, self.bwd_tile, self._save(save_ok, z))
+
+    def fused_shadow(self, weights, rayin, z, deltam, mask, save_ok=True):
         return fused_shadow(weights, rayin, z, deltam, mask, self.compute_dtype,
-                            self.trunk_quant, self.tile, self.bwd_tile)
+                            self.trunk_quant, self.tile, self.bwd_tile, self._save(save_ok, z))
 
     def fused_coarse(self, weights, rayin, z, deltam):
         """Per-sample weights (R, K) of the density-only coarse pass; no

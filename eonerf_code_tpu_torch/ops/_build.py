@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 ``nvcc`` compiles ``csrc/fused_render.cu`` (the fused render kernels,
-forward and backward, the coarse-weights kernel, the per-point field
+forward and backward, with and without the saved activations, the
+coarse-weights kernel, the per-point field
 and density kernels, forward and backward, and the int8 trunk tier's
 kernels) for sm_90a into a shared library
 with a plain C interface, on first use, into ``_build/`` beside the package
@@ -87,6 +88,18 @@ def load_library():
     lib.eonerf_density_bwd.argtypes = [p] * 8 + [i, p]
     lib.eonerf_density_bwd.restype = i
     ll = ctypes.c_longlong
+    lib.eonerf_act_stream_cols.argtypes = [i]
+    lib.eonerf_act_stream_cols.restype = ll
+    lib.eonerf_camera_fwd_save.argtypes = [p] * 7 + [i, i, p]
+    lib.eonerf_camera_fwd_save.restype = i
+    lib.eonerf_shadow_fwd_save.argtypes = [p] * 8 + [i, i, p]
+    lib.eonerf_shadow_fwd_save.restype = i
+    lib.eonerf_saved_bwd_workspace_bytes.argtypes = [i, i, i]
+    lib.eonerf_saved_bwd_workspace_bytes.restype = ll
+    lib.eonerf_camera_bwd_saved.argtypes = [p] * 11 + [i, i, p]
+    lib.eonerf_camera_bwd_saved.restype = i
+    lib.eonerf_shadow_bwd_saved.argtypes = [p] * 12 + [i, i, p]
+    lib.eonerf_shadow_bwd_saved.restype = i
     lib.eonerf_q8_fwd_workspace_bytes.argtypes = [i, i, i]
     lib.eonerf_q8_fwd_workspace_bytes.restype = ll
     lib.eonerf_q8_fwd.argtypes = [i] + [p] * 11 + [i, i, ll, p]

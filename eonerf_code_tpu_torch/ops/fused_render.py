@@ -20,6 +20,13 @@ input and output, forward and backward.
   ``fused_coarse``: the coarse op on detached inputs, as the JAX package's
   ``stop_gradient`` wrapper.
 
+The saved-activations mode (the JAX package's ``save_acts``, its default
+``bwd_acts="saved"``): ``camera_forward_save`` / ``shadow_forward_save``
+also return the trunk's activations, which ``camera_backward_saved`` /
+``shadow_backward_saved`` read in place of the recompute; ``fused_camera``
+and ``fused_shadow`` take ``save``, and ``saved_stream_bytes`` /
+``fits_saved_cap`` are the JAX package's gate.
+
 The int8 trunk tier (the JAX package's ``trunk_quant`` True and "full"):
 given ``q8`` (:class:`Q8Weights`) the ops run the trunk in int8 with one
 activation scale per group of ``rt_of(KPAD, target, R)`` rays x KPAD rows
@@ -163,16 +170,22 @@ def _inputs(rayin, per_sample, q8, target, per_ray=()):
 
 
 def camera_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
-                             tile_target=2048, stats=None):
+                             tile_target=2048, stats=None, save=False):
     """Plain PyTorch version of :func:`camera_forward` (any K, no padding
     needed: padded samples add nothing). With ``q8`` the trunk runs int8 in
     scale groups of about ``tile_target`` rows (the call padded to whole
-    groups); ``stats`` (a dict) then receives the group amax (G, 8)."""
+    groups); ``stats`` (a dict) then receives the group amax (G, 8). With
+    ``save`` (the compute dtype's trunk only) returns (acc, acts): acts
+    (R*K, 2048) are the post-ReLU h0..h7 of every sample in the compute
+    dtype, the JAX package's saved stream, which
+    :func:`camera_backward_reference` takes as ``acts``."""
     dtype = weights.dtype
     w = kernel_views(weights)
     n = z.shape[0]
     rayin, _, (z, deltam), gr = _inputs(rayin, (z, deltam), q8, tile_target)
     r, k = z.shape
+    if save and q8 is not None:
+        raise ValueError("the saved activations are never combined with the int8 trunk")
     acts, _, amax = _trunk_of(_pe(rayin, z, dtype), w, dtype, q8, gr)
     sigma, albedo, ts, tb, _ = heads(acts[-1], _emb64(rayin, r, k), w, dtype)
     sdelta = sigma.view(r, k) * deltam
@@ -181,24 +194,28 @@ def camera_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
                         tb.view(r, k, 1), torch.ones_like(z)[..., None],
                         torch.zeros_like(z)[..., None]], dim=-1)
     _keep(stats, amax=amax)
-    return (weights_rk[..., None] * values).sum(dim=1)[:n]
+    acc = (weights_rk[..., None] * values).sum(dim=1)[:n]
+    return (acc, torch.cat(acts, dim=1)) if save else acc
 
 
 def _sigma_of(rayin, z, w, dtype, q8, group_rows):
     acts, _, amax = _trunk_of(_pe(rayin, z, dtype), w, dtype, q8, group_rows)
-    return softplus(mm(acts[-1], w.sigma_w, w.sigma_b)).view(z.shape), amax
+    return softplus(mm(acts[-1], w.sigma_w, w.sigma_b)).view(z.shape), amax, acts
 
 
 def shadow_forward_reference(weights: KernelWeights, rayin, z, deltam, mask, q8=None,
-                             tile_target=2048, stats=None):
-    """Plain PyTorch version of :func:`shadow_forward`; ``q8``, ``tile_target``
-    and ``stats`` as in :func:`camera_forward_reference`."""
+                             tile_target=2048, stats=None, save=False):
+    """Plain PyTorch version of :func:`shadow_forward`; ``q8``, ``tile_target``,
+    ``stats`` and ``save`` as in :func:`camera_forward_reference`."""
     dtype = weights.dtype
     n = z.shape[0]
     rayin, _, (z, deltam, mask), gr = _inputs(rayin, (z, deltam, mask), q8, tile_target)
-    sigma, amax = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
+    if save and q8 is not None:
+        raise ValueError("the saved activations are never combined with the int8 trunk")
+    sigma, amax, acts = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
     _keep(stats, amax=amax)
-    return torch.exp(-(sigma * deltam * _before_last(mask)).sum(dim=-1))[:n]
+    geo = torch.exp(-(sigma * deltam * _before_last(mask)).sum(dim=-1))[:n]
+    return (geo, torch.cat(acts, dim=1)) if save else geo
 
 
 def coarse_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
@@ -210,7 +227,7 @@ def coarse_forward_reference(weights: KernelWeights, rayin, z, deltam, q8=None,
     dtype = weights.dtype
     n, k = z.shape
     rayin, _, (z, deltam), gr = _inputs(rayin, (z, deltam), q8, tile_target)
-    sigma, amax = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
+    sigma, amax, _ = _sigma_of(rayin, z, kernel_views(weights), dtype, q8, gr)
     sdelta = sigma * deltam
     _keep(stats, amax=amax)
     return (torch.exp(-exclusive_cumsum(sdelta)) * (1.0 - torch.exp(-sdelta)))[:n, :k]
@@ -236,8 +253,21 @@ def _ray_grads(xb, z, g_pe, dtype, r, k):
     return d_xb.sum(dim=1) @ pat.t(), (d_xb * z[..., None]).sum(dim=1) @ pat.t()
 
 
+def _trunk_or_saved(pe, w, dtype, q8, group_rows, acts):
+    """The trunk's (activations, masks, group amax): recomputed, or split
+    from the saved (M, 2048) stream ``acts`` (never with ``q8``) with the
+    masks from the post-ReLU values (h > 0 iff its pre-activation was), as
+    the JAX package's ``_masks_from_acts``."""
+    if acts is None:
+        return _trunk_of(pe, w, dtype, q8, group_rows)
+    if q8 is not None:
+        raise ValueError("the saved activations are never combined with the int8 trunk")
+    hs = list(acts.split(256, dim=1))
+    return hs, [(h.float() > 0).to(dtype) for h in hs], None
+
+
 def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc, q8=None,
-                              full=False, tile_target=1024, stats=None):
+                              full=False, tile_target=1024, stats=None, acts=None):
     """Plain PyTorch version of :func:`camera_backward`: the VJP of the
     camera op for the per-ray cotangent ``gacc`` (R, 8), recomputing the
     forward. Mirrors the JAX package's ``_camera_bwd_kernel`` step by step
@@ -249,7 +279,10 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc, q8
     in the compute dtype against the unquantized weights (``int8``,
     straight-through), or with ``full`` in int8 (``int8_full``). ``stats``
     receives the recompute's group amax and, with ``full``, the cotangents'
-    (``gamax``)."""
+    (``gamax``). With ``acts`` (the saved (R*K, 2048) stream of
+    ``camera_forward_reference(..., save=True)``) the trunk is read from it
+    in place of the recompute; the PE is recomputed, as in the JAX
+    package's saved backward."""
     dtype = weights.dtype
     w = kernel_views(weights)
     n = z.shape[0]
@@ -257,7 +290,7 @@ def camera_backward_reference(weights: KernelWeights, rayin, z, deltam, gacc, q8
     r, k = z.shape
     xb = _pe_args(rayin, z)
     pe = pe_from_args(xb, dtype)
-    acts, masks, amax = _trunk_of(pe, w, dtype, q8, gr)
+    acts, masks, amax = _trunk_or_saved(pe, w, dtype, q8, gr, acts)
     h = acts[-1]
     sigma, albedo, ts, tb, res = heads(h, _emb64(rayin, r, k), w, dtype)
 
@@ -298,13 +331,14 @@ def _trunk_grads(pe, acts, masks, g_h, w, dtype, g, q8, full, group_rows, stats)
 
 
 def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, ggeo, q8=None,
-                              full=False, tile_target=1024, stats=None):
+                              full=False, tile_target=1024, stats=None, acts=None):
     """Plain PyTorch version of :func:`shadow_backward`: the VJP of the
     shadow op for the per-ray cotangent ``ggeo`` (R,), mirroring the JAX
     package's ``_shadow_bwd_kernel``. Returns (d_mats, d_biases) in the
     packed layout, float32, zero past the density prefix (the heads get
     exact zeros), and d_rayin (R, 16) = [d_o, d_d, 0]. ``q8``, ``full``,
-    ``tile_target`` and ``stats`` as in :func:`camera_backward_reference`."""
+    ``tile_target``, ``stats`` and ``acts`` as in
+    :func:`camera_backward_reference`."""
     dtype = weights.dtype
     w = kernel_views(weights)
     n = z.shape[0]
@@ -313,7 +347,7 @@ def shadow_backward_reference(weights: KernelWeights, rayin, z, deltam, mask, gg
     r, k = z.shape
     xb = _pe_args(rayin, z)
     pe = pe_from_args(xb, dtype)
-    acts, masks, amax = _trunk_of(pe, w, dtype, q8, gr)
+    acts, masks, amax = _trunk_or_saved(pe, w, dtype, q8, gr, acts)
     sig_pre = mm(acts[-1], w.sigma_w, w.sigma_b)
     before_last = _before_last(mask)
     geo = torch.exp(-(softplus(sig_pre).view(r, k) * deltam * before_last).sum(dim=-1))
@@ -336,6 +370,31 @@ def _padded(x, kpad):
     return F.pad(x, (0, kpad - x.shape[1])).contiguous()
 
 
+def _check_call(weights, rayin, z, *named):
+    """The bf16 wrappers' checks: rayin (R, 16), z (R, K) and each (name,
+    tensor, shape) of ``named`` float32 and contiguous on rayin's device,
+    the packed weights, and K within the kernels' limit. Returns
+    (R, KPAD)."""
+    r, k = z.shape
+    dev = rayin.device
+    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
+    check_f32("z", z, (r, k), dev)
+    for name, t, shape in named:
+        check_f32(name, t, shape, dev)
+    check_weights(weights, dev)
+    kpad = kpad_of(k)
+    if kpad > MAX_KPAD:
+        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
+    return r, kpad
+
+
+def _zero_grads(r, dev):
+    """(d_mats, d_biases, d_rayin) float32 zeros for a backward of r rays."""
+    return (torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev),
+            torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev),
+            torch.zeros((r, RAYIN_COLS), dtype=torch.float32, device=dev))
+
+
 def camera_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_target=2048,
                    stats=None):
     """Per-ray camera accumulators (R, 8) for rays (R, 16), z and deltam
@@ -346,21 +405,12 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_targe
         return camera_forward_q8(weights, q8, rayin, z, deltam, tile_target, stats)
     if rayin.device.type == "cpu":
         return camera_forward_reference(weights, rayin, z, deltam)
-    r, k = z.shape
-    kpad = kpad_of(k)
-    dev = rayin.device
-    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    check_f32("z", z, (r, k), dev)
-    check_f32("deltam", deltam, (r, k), dev)
-    check_weights(weights, dev)
-    if kpad > MAX_KPAD:
-        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
-    acc = torch.empty((r, ACC_COLS), dtype=torch.float32, device=dev)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape))
+    acc = torch.empty((r, ACC_COLS), dtype=torch.float32, device=rayin.device)
     if r == 0:
         return acc
-    zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    launch("eonerf_camera_fwd", "camera_forward kernel launch", dev, rayin, zp, dp, weights.mats,
-           weights.biases, acc, r, kpad)
+    launch("eonerf_camera_fwd", "camera_forward kernel launch", rayin.device, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, acc, r, kpad)
     camera_forward.launches += 1
     return acc
 
@@ -378,22 +428,13 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask, q8=None, tile
         return shadow_forward_q8(weights, q8, rayin, z, deltam, mask, tile_target, stats)
     if rayin.device.type == "cpu":
         return shadow_forward_reference(weights, rayin, z, deltam, mask)
-    r, k = z.shape
-    kpad = kpad_of(k)
-    dev = rayin.device
-    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    check_f32("z", z, (r, k), dev)
-    check_f32("deltam", deltam, (r, k), dev)
-    check_f32("mask", mask, (r, k), dev)
-    check_weights(weights, dev)
-    if kpad > MAX_KPAD:
-        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
-    geo = torch.empty((r,), dtype=torch.float32, device=dev)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape), ("mask", mask, z.shape))
+    geo = torch.empty((r,), dtype=torch.float32, device=rayin.device)
     if r == 0:
         return geo
-    zp, dp, mp = _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad)
-    launch("eonerf_shadow_fwd", "shadow_forward kernel launch", dev, rayin, zp, dp, mp,
-           weights.mats, weights.biases, geo, r, kpad)
+    launch("eonerf_shadow_fwd", "shadow_forward kernel launch", rayin.device, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad), weights.mats,
+           weights.biases, geo, r, kpad)
     shadow_forward.launches += 1
     return geo
 
@@ -411,34 +452,26 @@ def coarse_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_targe
         return coarse_forward_q8(weights, q8, rayin, z, deltam, tile_target, stats)
     if rayin.device.type == "cpu":
         return coarse_forward_reference(weights, rayin, z, deltam)
-    r, k = z.shape
-    kpad = kpad_of(k)
-    dev = rayin.device
-    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    check_f32("z", z, (r, k), dev)
-    check_f32("deltam", deltam, (r, k), dev)
-    check_weights(weights, dev)
-    if kpad > MAX_KPAD:
-        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
-    out = torch.empty((r, kpad), dtype=torch.float32, device=dev)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape))
+    out = torch.empty((r, kpad), dtype=torch.float32, device=rayin.device)
     if r == 0:
-        return out[:, :k]
-    zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    launch("eonerf_coarse_fwd", "coarse_forward kernel launch", dev, rayin, zp, dp, weights.mats,
-           weights.biases, out, r, kpad)
+        return out[:, :z.shape[1]]
+    launch("eonerf_coarse_fwd", "coarse_forward kernel launch", rayin.device, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, out, r, kpad)
     coarse_forward.launches += 1
-    return out[:, :k]
+    return out[:, :z.shape[1]]
 
 
 coarse_forward.launches = 0
 
 
-def _workspace(camera, r, kpad, dev):
-    """The backward kernels' scratch (activations, cotangents and the
-    partial sums of the fixed-order gradient reduction), sized by the
-    library itself."""
-    nbytes = _build.load_library().eonerf_bwd_workspace_bytes(int(camera), r, kpad)
-    return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+def _workspace(camera, r, kpad, dev, saved=False):
+    """The backward kernels' scratch (activations, unless ``saved``;
+    cotangents and the partial sums of the fixed-order gradient reduction),
+    sized by the library itself."""
+    lib = _build.load_library()
+    size = lib.eonerf_saved_bwd_workspace_bytes if saved else lib.eonerf_bwd_workspace_bytes
+    return torch.empty((size(int(camera), r, kpad),), dtype=torch.uint8, device=dev)
 
 
 def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc, q8=None, full=False,
@@ -454,27 +487,17 @@ def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc, q8=None, ful
         return op(weights, q8, rayin, z, deltam, gacc, tile_target, stats)
     if rayin.device.type == "cpu":
         return camera_backward_reference(weights, rayin, z, deltam, gacc)
-    r, k = z.shape
-    kpad = kpad_of(k)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape),
+                          ("gacc", gacc, (z.shape[0], ACC_COLS)))
     dev = rayin.device
-    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    check_f32("z", z, (r, k), dev)
-    check_f32("deltam", deltam, (r, k), dev)
-    check_f32("gacc", gacc, (r, ACC_COLS), dev)
-    check_weights(weights, dev)
-    if kpad > MAX_KPAD:
-        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
-    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_rayin = torch.zeros((r, RAYIN_COLS), dtype=torch.float32, device=dev)
+    grads = _zero_grads(r, dev)
     if r == 0:
-        return d_mats, d_biases, d_rayin
-    zp, dp = _padded(z, kpad), _padded(deltam, kpad)
-    launch("eonerf_camera_bwd", "camera_backward kernel launch", dev, rayin, zp, dp, gacc,
-           weights.mats, weights.biases, _workspace(True, r, kpad, dev), d_mats, d_biases,
-           d_rayin, r, kpad)
+        return grads
+    launch("eonerf_camera_bwd", "camera_backward kernel launch", dev, rayin, _padded(z, kpad),
+           _padded(deltam, kpad), gacc, weights.mats, weights.biases,
+           _workspace(True, r, kpad, dev), *grads, r, kpad)
     camera_backward.launches += 1
-    return d_mats, d_biases, d_rayin
+    return grads
 
 
 camera_backward.launches = 0
@@ -493,31 +516,173 @@ def shadow_backward(weights: KernelWeights, rayin, z, deltam, mask, ggeo, q8=Non
         return op(weights, q8, rayin, z, deltam, mask, ggeo, tile_target, stats)
     if rayin.device.type == "cpu":
         return shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo)
-    r, k = z.shape
-    kpad = kpad_of(k)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape), ("mask", mask, z.shape),
+                          ("ggeo", ggeo, (z.shape[0],)))
     dev = rayin.device
-    check_f32("rayin", rayin, (r, RAYIN_COLS), dev)
-    check_f32("z", z, (r, k), dev)
-    check_f32("deltam", deltam, (r, k), dev)
-    check_f32("mask", mask, (r, k), dev)
-    check_f32("ggeo", ggeo, (r,), dev)
-    check_weights(weights, dev)
-    if kpad > MAX_KPAD:
-        raise ValueError(f"{k} samples per ray exceed the kernel's {MAX_KPAD}")
-    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_rayin = torch.zeros((r, RAYIN_COLS), dtype=torch.float32, device=dev)
+    grads = _zero_grads(r, dev)
     if r == 0:
-        return d_mats, d_biases, d_rayin
-    zp, dp, mp = _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad)
-    launch("eonerf_shadow_bwd", "shadow_backward kernel launch", dev, rayin, zp, dp, mp, ggeo,
-           weights.mats, weights.biases, _workspace(False, r, kpad, dev), d_mats, d_biases,
-           d_rayin, r, kpad)
+        return grads
+    launch("eonerf_shadow_bwd", "shadow_backward kernel launch", dev, rayin, _padded(z, kpad),
+           _padded(deltam, kpad), _padded(mask, kpad), ggeo, weights.mats, weights.biases,
+           _workspace(False, r, kpad, dev), *grads, r, kpad)
     shadow_backward.launches += 1
-    return d_mats, d_biases, d_rayin
+    return grads
 
 
 shadow_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the saved-activations mode: the forward keeps the trunk's activations, the
+# backward reads them in place of the recompute
+# ---------------------------------------------------------------------------
+
+N_TRUNK_ACTS_COLS = 8 * 256   # the JAX package's saved stream: h0..h7
+
+
+def saved_stream_bytes(r, k, compute_dtype):
+    """Device bytes one saved stream (camera or shadow) holds from forward
+    to backward for R rays x K samples, by the JAX package's formula
+    (R x KPAD x 2048 x itemsize). The port's kernels keep wider rows
+    (:func:`act_stream_cols`: the PE, and for the camera the heads, beside
+    h0..h7); the gate keeps the JAX formula so that both packages save on
+    the same steps."""
+    return r * kpad_of(k) * N_TRUNK_ACTS_COLS * compute_dtype.itemsize
+
+
+def fits_saved_cap(r, k, compute_dtype, cap_mb):
+    """The one fit predicate of the saved stream, shared by the per-call
+    gate (``KernelField``) and the per-step one (``step_save_ok``)."""
+    return saved_stream_bytes(r, k, compute_dtype) <= cap_mb * 2**20
+
+
+def act_stream_cols(camera):
+    """bf16 columns of one row of the kernels' activation stream, from the
+    library: the camera's 3072 (h0..h4, PE, h5..h7, then the heads') or the
+    shadow's 2112 (h0..h4, PE, h5..h7)."""
+    return int(_build.load_library().eonerf_act_stream_cols(int(camera)))
+
+
+def _stream_for(camera, r, kpad, dev, stream=None):
+    """The activation stream of a saved call, (R*KPAD, act_stream_cols)
+    bfloat16: allocated, or ``stream`` checked."""
+    shape = (r * kpad, act_stream_cols(camera))
+    if stream is None:
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    if (stream.dtype != torch.bfloat16 or tuple(stream.shape) != shape or stream.device != dev
+            or not stream.is_contiguous()):
+        raise ValueError(f"the activation stream must be contiguous bfloat16 {shape} on {dev}, "
+                         f"got {stream.dtype} {tuple(stream.shape)} on {stream.device}")
+    return stream
+
+
+def _act_col(i):
+    """First column of h_i in the kernels' activation stream (act_h of
+    csrc/fused_render.cu): h0..h4, the PE, h5..h7."""
+    return i * 256 if i < 5 else 5 * 256 + PE_PAD + (i - 5) * 256
+
+
+def stream_trunk_acts(stream, camera, r, k):
+    """h0..h7 of a kernel's activation stream in the plain version's saved
+    layout (R*K, 2048): the rows of the K real samples, layers in order."""
+    rows = stream.view(r, -1, act_stream_cols(camera))[:, :k]
+    return torch.cat([rows[..., _act_col(i):_act_col(i) + 256] for i in range(8)],
+                     dim=-1).reshape(r * k, N_TRUNK_ACTS_COLS)
+
+
+def camera_forward_save(weights: KernelWeights, rayin, z, deltam, stream=None):
+    """:func:`camera_forward` that also keeps the trunk's activations for
+    :func:`camera_backward_saved`: returns (acc (R, 8), acts). CPU tensors:
+    the plain version, acts (R*K, 2048) = h0..h7 in the compute dtype. CUDA
+    tensors: the hand-written kernel (raises if it cannot run), the same acc
+    bit for bit as :func:`camera_forward`'s; acts is the activation stream
+    (R*KPAD, act_stream_cols(True)) bfloat16, row ray * KPAD + k holding that
+    sample's PE and h0..h7 (the backward writes the head columns). ``stream``
+    passes it in preallocated."""
+    if rayin.device.type == "cpu":
+        return camera_forward_reference(weights, rayin, z, deltam, save=True)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape))
+    acc = torch.empty((r, ACC_COLS), dtype=torch.float32, device=rayin.device)
+    acts = _stream_for(True, r, kpad, rayin.device, stream)
+    if r == 0:
+        return acc, acts
+    launch("eonerf_camera_fwd_save", "camera_forward_save kernel launch", rayin.device, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, acc, acts, r,
+           kpad)
+    camera_forward_save.launches += 1
+    return acc, acts
+
+
+camera_forward_save.launches = 0
+
+
+def shadow_forward_save(weights: KernelWeights, rayin, z, deltam, mask, stream=None):
+    """:func:`shadow_forward` that also keeps the trunk's activations for
+    :func:`shadow_backward_saved`: (geo (R,), acts), as
+    :func:`camera_forward_save` (the stream has act_stream_cols(False)
+    columns)."""
+    if rayin.device.type == "cpu":
+        return shadow_forward_reference(weights, rayin, z, deltam, mask, save=True)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape), ("mask", mask, z.shape))
+    geo = torch.empty((r,), dtype=torch.float32, device=rayin.device)
+    acts = _stream_for(False, r, kpad, rayin.device, stream)
+    if r == 0:
+        return geo, acts
+    launch("eonerf_shadow_fwd_save", "shadow_forward_save kernel launch", rayin.device, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad), weights.mats,
+           weights.biases, geo, acts, r, kpad)
+    shadow_forward_save.launches += 1
+    return geo, acts
+
+
+shadow_forward_save.launches = 0
+
+
+def camera_backward_saved(weights: KernelWeights, rayin, z, deltam, gacc, acts):
+    """:func:`camera_backward` from the activations ``acts`` that
+    :func:`camera_forward_save` kept, in place of the trunk's recompute: the
+    same outputs. CPU tensors: the plain version. CUDA tensors: the
+    hand-written kernels (the heads from the stream, then dgrad, wgrad and
+    the reduction; raises if they cannot run)."""
+    if rayin.device.type == "cpu":
+        return camera_backward_reference(weights, rayin, z, deltam, gacc, acts=acts)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape),
+                          ("gacc", gacc, (z.shape[0], ACC_COLS)))
+    dev = rayin.device
+    _stream_for(True, r, kpad, dev, acts)
+    grads = _zero_grads(r, dev)
+    if r == 0:
+        return grads
+    launch("eonerf_camera_bwd_saved", "camera_backward_saved kernel launch", dev, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), gacc, weights.mats, weights.biases, acts,
+           _workspace(True, r, kpad, dev, saved=True), *grads, r, kpad)
+    camera_backward_saved.launches += 1
+    return grads
+
+
+camera_backward_saved.launches = 0
+
+
+def shadow_backward_saved(weights: KernelWeights, rayin, z, deltam, mask, ggeo, acts):
+    """:func:`shadow_backward` from the activations ``acts`` that
+    :func:`shadow_forward_save` kept, as :func:`camera_backward_saved`."""
+    if rayin.device.type == "cpu":
+        return shadow_backward_reference(weights, rayin, z, deltam, mask, ggeo, acts=acts)
+    r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape), ("mask", mask, z.shape),
+                          ("ggeo", ggeo, (z.shape[0],)))
+    dev = rayin.device
+    _stream_for(False, r, kpad, dev, acts)
+    grads = _zero_grads(r, dev)
+    if r == 0:
+        return grads
+    launch("eonerf_shadow_bwd_saved", "shadow_backward_saved kernel launch", dev, rayin,
+           _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad), ggeo, weights.mats,
+           weights.biases, acts, _workspace(False, r, kpad, dev, saved=True), *grads, r, kpad)
+    shadow_backward_saved.launches += 1
+    return grads
+
+
+shadow_backward_saved.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -634,9 +799,7 @@ def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target,
                      dtype=torch.uint8, device=dev)
     amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
     gamax = torch.zeros_like(amax)
-    d_mats = torch.zeros((MAT_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_biases = torch.zeros((BIAS_ELEMENTS,), dtype=torch.float32, device=dev)
-    d_rayin = torch.zeros((rp, RAYIN_COLS), dtype=torch.float32, device=dev)
+    d_mats, d_biases, d_rayin = _zero_grads(rp, dev)
     launch("eonerf_q8_bwd", f"{'camera' if camera else 'shadow'} int8 backward kernel launch",
            dev, int(camera), int(full), rayin_p, ps[0], ps[1], None if camera else ps[2], gin_p,
            weights.mats, weights.biases, q8.w8, q8.w8t, q8.scales, ws, amax, gamax, d_mats,
@@ -711,7 +874,7 @@ shadow_backward_q8_full.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# differentiable ops (the JAX package's custom_vjp pairs, recompute mode)
+# differentiable ops (the JAX package's custom_vjp pairs)
 # ---------------------------------------------------------------------------
 
 def _quantized(mats, dtype, trunk_quant):
@@ -720,47 +883,75 @@ def _quantized(mats, dtype, trunk_quant):
     return mats.to(dtype), (quantize_kernel_trunk(mats) if trunk_quant else None)
 
 
+def _check_save(save, trunk_quant):
+    if save and trunk_quant:
+        raise ValueError("the saved activations are never combined with the int8 trunk "
+                         "(the JAX package refuses the pair too)")
+
+
 class _Camera(torch.autograd.Function):
-    """Forward saves only its inputs (and the int8 trunk); the backward
-    recomputes. ``trunk_quant``: False, True (int8) or "full" (int8_full);
-    ``tiles``: the forward's and the backward's scale-group targets."""
+    """``save``: the forward keeps the trunk's activations (when some input
+    needs a gradient) and the backward reads them; else the forward saves
+    only its inputs (and the int8 trunk) and the backward recomputes.
+    ``trunk_quant``: False, True (int8) or "full" (int8_full); ``tiles``: the
+    forward's and the backward's scale-group targets."""
 
     @staticmethod
-    def forward(ctx, mats, biases, rayin, z, deltam, dtype, trunk_quant, tiles):
+    def forward(ctx, mats, biases, rayin, z, deltam, dtype, trunk_quant, tiles, save):
         mats_cd, q8 = _quantized(mats, dtype, trunk_quant)
         ctx.quant, ctx.bwd_tile = trunk_quant, tiles[1]
+        ctx.saved = save and any(ctx.needs_input_grad[:3])
+        weights = KernelWeights(mats_cd, biases)
+        if ctx.saved:
+            acc, acts = camera_forward_save(weights, rayin, z, deltam)
+            ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, acts)
+            return acc
         ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, *(q8 or ()))
-        return camera_forward(KernelWeights(mats_cd, biases), rayin, z, deltam, q8, tiles[0])
+        return camera_forward(weights, rayin, z, deltam, q8, tiles[0])
 
     @staticmethod
     def backward(ctx, gacc):
-        mats, biases, rayin, z, deltam, *q8 = ctx.saved_tensors
-        d_mats, d_biases, d_rayin = camera_backward(
-            KernelWeights(mats, biases), rayin, z, deltam, gacc.contiguous(),
-            Q8Weights(*q8) if q8 else None, ctx.quant == "full", ctx.bwd_tile)
-        return d_mats, d_biases, d_rayin, None, None, None, None, None
+        mats, biases, rayin, z, deltam, *extra = ctx.saved_tensors
+        weights = KernelWeights(mats, biases)
+        if ctx.saved:
+            grads = camera_backward_saved(weights, rayin, z, deltam, gacc.contiguous(), extra[0])
+        else:
+            grads = camera_backward(weights, rayin, z, deltam, gacc.contiguous(),
+                                    Q8Weights(*extra) if extra else None, ctx.quant == "full",
+                                    ctx.bwd_tile)
+        return (*grads, None, None, None, None, None, None)
 
 
 class _Shadow(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mats, biases, rayin, z, deltam, mask, dtype, trunk_quant, tiles):
+    def forward(ctx, mats, biases, rayin, z, deltam, mask, dtype, trunk_quant, tiles, save):
         mats_cd, q8 = _quantized(mats, dtype, trunk_quant)
         ctx.quant, ctx.bwd_tile = trunk_quant, tiles[1]
+        ctx.saved = save and any(ctx.needs_input_grad[:3])
+        weights = KernelWeights(mats_cd, biases)
+        if ctx.saved:
+            geo, acts = shadow_forward_save(weights, rayin, z, deltam, mask)
+            ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, mask, acts)
+            return geo
         ctx.save_for_backward(mats_cd, biases, rayin, z, deltam, mask, *(q8 or ()))
-        return shadow_forward(KernelWeights(mats_cd, biases), rayin, z, deltam, mask, q8,
-                              tiles[0])
+        return shadow_forward(weights, rayin, z, deltam, mask, q8, tiles[0])
 
     @staticmethod
     def backward(ctx, ggeo):
-        mats, biases, rayin, z, deltam, mask, *q8 = ctx.saved_tensors
-        d_mats, d_biases, d_rayin = shadow_backward(
-            KernelWeights(mats, biases), rayin, z, deltam, mask, ggeo.contiguous(),
-            Q8Weights(*q8) if q8 else None, ctx.quant == "full", ctx.bwd_tile)
-        return d_mats, d_biases, d_rayin, None, None, None, None, None, None
+        mats, biases, rayin, z, deltam, mask, *extra = ctx.saved_tensors
+        weights = KernelWeights(mats, biases)
+        if ctx.saved:
+            grads = shadow_backward_saved(weights, rayin, z, deltam, mask, ggeo.contiguous(),
+                                          extra[0])
+        else:
+            grads = shadow_backward(weights, rayin, z, deltam, mask, ggeo.contiguous(),
+                                    Q8Weights(*extra) if extra else None, ctx.quant == "full",
+                                    ctx.bwd_tile)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def fused_camera(weights: KernelWeights, rayin, z, deltam, compute_dtype, trunk_quant=False,
-                 tile=2048, bwd_tile=1024):
+                 tile=2048, bwd_tile=1024, save=False):
     """Differentiable camera op. ``weights`` holds the float32 packed
     matrices (cast to ``compute_dtype`` inside, so their gradients arrive in
     float32, as the parameters' own dtype); gradients flow to the weights
@@ -768,16 +959,22 @@ def fused_camera(weights: KernelWeights, rayin, z, deltam, compute_dtype, trunk_
     trunk in int8 (forward and the backward's recompute; straight-through
     gradients), "full" also the trunk's dgrad and wgrad; ``tile`` and
     ``bwd_tile`` are the forward's and the backward's scale-group targets
-    in rows (the JAX package's ``PallasField`` tile sizes)."""
+    in rows (the JAX package's ``PallasField`` tile sizes). ``save`` keeps
+    the trunk's activations from the forward for the backward (never with
+    ``trunk_quant``); a call under ``torch.no_grad()``, or with no input
+    that needs a gradient, saves nothing, as the JAX package's
+    undifferentiated primal."""
+    _check_save(save, trunk_quant)
     return _Camera.apply(weights.mats, weights.biases, rayin, z, deltam, compute_dtype,
-                         trunk_quant, (tile, bwd_tile))
+                         trunk_quant, (tile, bwd_tile), save and torch.is_grad_enabled())
 
 
 def fused_shadow(weights: KernelWeights, rayin, z, deltam, mask, compute_dtype, trunk_quant=False,
-                 tile=2048, bwd_tile=1024):
+                 tile=2048, bwd_tile=1024, save=False):
     """Differentiable shadow op, as :func:`fused_camera`."""
+    _check_save(save, trunk_quant)
     return _Shadow.apply(weights.mats, weights.biases, rayin, z, deltam, mask, compute_dtype,
-                         trunk_quant, (tile, bwd_tile))
+                         trunk_quant, (tile, bwd_tile), save and torch.is_grad_enabled())
 
 
 def fused_coarse(weights: KernelWeights, rayin, z, deltam, compute_dtype, trunk_quant=False,

@@ -303,7 +303,11 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
     deltam = set_last_valid(delta, mask, cfg.inf_delta) * mask
     emb = field.transient_embedding(rays.img_idx).to(o.dtype)
     rayin = torch.cat([o, d, emb, torch.zeros((r, 6), dtype=o.dtype, device=o.device)], dim=1)
-    acc = field.fused_camera(w, rayin.contiguous(), z_mid.contiguous(), deltam.contiguous())
+    # the step-level saved-activations gate: both ops save, or neither
+    # (KernelField.step_save_ok)
+    save_ok = field.step_save_ok(r, z_mid.shape[1], (cfg.sc_n_samples - 1) if shadows else 0)
+    acc = field.fused_camera(w, rayin.contiguous(), z_mid.contiguous(), deltam.contiguous(),
+                             save_ok=save_ok)
     depth = acc[:, 0]
     albedo_acc = acc[:, 1:4]
     t_s_acc = acc[:, 4:5]
@@ -321,7 +325,8 @@ def _render_rays_fused(field, rays: SatRays, cfg: RenderConfig, shadows: bool, g
         rayin_sc = torch.cat([sc_o, sc_d, torch.zeros((r, 10), dtype=o.dtype, device=o.device)],
                              dim=1)
         geo = field.fused_shadow(w, rayin_sc.contiguous(), sc_z.contiguous(),
-                                 (sc_delta * sc_mask).contiguous(), sc_mask.float())
+                                 (sc_delta * sc_mask).contiguous(), sc_mask.float(),
+                                 save_ok=save_ok)
         geo_shadow = geo[:, None]
         sc_pts = sc_mask.sum(dim=-1).to(albedo_acc.dtype)[:, None]
     else:
@@ -349,7 +354,8 @@ def render_depth(field, rays: SatRays, cfg: RenderConfig, generator=None, occ_gr
         rayin = torch.cat([o, rays.viewdirs,
                            torch.zeros((r, 10), dtype=o.dtype, device=o.device)], dim=1)
         acc = field.fused_camera(w, rayin.contiguous(), z_mid.contiguous(),
-                                 (delta_cam * mask).contiguous())
+                                 (delta_cam * mask).contiguous(),
+                                 save_ok=field.step_save_ok(r, z_mid.shape[1]))
         return acc[:, 0:1]
     weights, _, _ = render_weights(field.density(pos), delta_cam, mask)
     return accumulate(weights, z_mid)[:, None]

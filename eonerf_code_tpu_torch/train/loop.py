@@ -1,5 +1,8 @@
 """The EO-NeRF single-AOI training loop, as the JAX package's train/loop.py.
 
+- The ray pool comes from ``SatelliteDataset(cfg.root_dir, ...)`` (the
+  train split, with the depth, confidence and shadow priors the config
+  names), or from the caller (``data``, ``n_images``, ``alt_envelope``).
 - The whole ray pool lives on the device; each epoch draws a permutation
   (``torch.randperm`` from an explicit device generator seeded from
   ``cfg.seed``) and each step gathers its batch by index.
@@ -20,9 +23,8 @@
   samples as the uninterrupted run.
 
 The JAX package scans K steps inside one compiled call (its megastep); here
-the steps are a plain Python loop. Waiting for the data-and-eval slice:
-``SatelliteDataset`` (the caller hands the trainer its ray pool and the
-scene's altitude envelope), validation and its DSM MAE.
+the steps are a plain Python loop. Waiting for the eval slice: validation
+and its DSM MAE.
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from eonerf_code_tpu_torch.config import TrainConfig
+from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
 from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.fused import make_render_field
@@ -122,33 +125,55 @@ def make_train_step(field, optimizer, lr_schedule, rcfg: RenderConfig, has_depth
 
 
 def check_supported(cfg: TrainConfig):
-    """Raise for the options whose code waits for a later slice of the port."""
-    later = []
+    """Raise for the options whose code waits for a later slice of the port:
+    only ``freq_reg_end_step > 0`` (coarse-to-fine PE annealing, the
+    bundle-adjustment slice). ``bwd_acts="saved"`` with an int8 tier takes
+    the recompute backward (the JAX package's fallback, announced by
+    make_render_field)."""
     if cfg.freq_reg_end_step > 0:
-        later.append("freq_reg_end_step > 0 (coarse-to-fine PE annealing: bundle-adjustment "
-                     "slice)")
-    # an int8 tier takes the recompute backward whatever bwd_acts says (the
-    # JAX package's fallback, announced by make_render_field)
-    int8_saved = cfg.bwd_acts == "saved" and cfg.trunk_quant != "none"
-    if cfg.bwd_acts != "recompute" and not int8_saved:
-        later.append(f"bwd_acts={cfg.bwd_acts!r} (the saved-activations stream: a later "
-                     "kernel slice; use 'recompute')")
-    if later:
-        raise NotImplementedError("not in the port yet: " + "; ".join(later))
+        raise NotImplementedError("not in the port yet: freq_reg_end_step > 0 (coarse-to-fine "
+                                  "PE annealing: bundle-adjustment slice)")
+
+
+def dataset_pool(cfg: TrainConfig):
+    """(train dataset, ray pool, n_images) from ``cfg.root_dir``: the pool
+    the JAX package's Trainer puts on the device (rays (N, 11), rgbs, ts and
+    the priors the dataset has)."""
+    ds = SatelliteDataset(
+        cfg.root_dir, cfg.img_dir, split="train", img_downscale=cfg.img_downscale,
+        utm=not cfg.ecef, cache_dir=cfg.cache_dir, prior_dsm_path=cfg.init_dsm_path,
+        prior_conf_path=cfg.init_conf_path, shadow_masks_dir=cfg.shadow_masks_dir,
+        subset=cfg.subset_n_views)
+    data = {"rays": ds.all_rays, "rgbs": ds.all_rgbs.astype(np.float32),
+            "ts": ds.all_ids_img[:, 0].astype(np.int32)}
+    if ds.prior_depths is not None:
+        data["depth_prior"] = ds.prior_depths
+        if ds.prior_confs is not None:
+            data["conf_prior"] = ds.prior_confs
+    if ds.prior_shadows is not None:
+        data["shadow_prior"] = ds.prior_shadows
+    return ds, data, len(ds.json_files)
 
 
 class Trainer:
-    """Single-AOI trainer over a ray pool given by the caller: ``data`` holds
-    ``rays`` (N, 11), ``rgbs`` (N, 3), ``ts`` (N,) image indices and
-    optionally ``depth_prior``, ``conf_prior``, ``shadow_prior`` (N,), as the
-    JAX package's Trainer builds them from its dataset; ``n_images`` sizes
-    the per-image embeddings; ``alt_envelope`` = (lo, hi), the scene's
-    altitude envelope in metres, is what ``sampler="auto"`` reads. Runs on
-    ``device`` (the card by default)."""
+    """Single-AOI trainer. With no ``data`` it builds the ray pool, the
+    image count and the altitude envelope from ``SatelliteDataset`` over
+    ``cfg.root_dir`` (:func:`dataset_pool`), as the JAX package's Trainer.
+    Else the caller gives the pool: ``data`` holds ``rays`` (N, 11), ``rgbs``
+    (N, 3), ``ts`` (N,) image indices and optionally ``depth_prior``,
+    ``conf_prior``, ``shadow_prior`` (N,); ``n_images`` sizes the per-image
+    embeddings; ``alt_envelope`` = (lo, hi), the scene's altitude envelope in
+    metres, is what ``sampler="auto"`` reads. Runs on ``device`` (the card
+    by default)."""
 
-    def __init__(self, cfg: TrainConfig, data, n_images, device="cuda", alt_envelope=None):
+    def __init__(self, cfg: TrainConfig, data=None, n_images=None, device="cuda",
+                 alt_envelope=None):
         check_supported(cfg)
         self.cfg = cfg
+        self.train_ds = None
+        if data is None:
+            self.train_ds, data, n_images = dataset_pool(cfg)
+            alt_envelope = self.train_ds.alt_envelope()
         self.alt_envelope = alt_envelope
         self.device = torch.device(device)
         self.log_dir = cfg.log_dir()

@@ -568,3 +568,105 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev, weights, q8):
     with pytest.raises(TypeError):
         fr.coarse_forward_q8(ff.KernelWeights(weights.mats.float(), weights.biases), q8, rayin,
                              z, deltam)
+
+
+# ---- the saved-activations pair (bwd_acts="saved") ----
+
+SAVED_REL_L2 = 1e-6    # the JAX package's saved-vs-recompute pin
+
+
+def _saved_case(dev, r, k, seed):
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return ((rayin, z, _camera_deltam(deltam, mask)), torch.randn((r, fr.ACC_COLS), generator=gen,
+                                                                  device=dev),
+            (rayin, z, deltam, mask), torch.randn((r,), generator=gen, device=dev))
+
+
+def _rel_errors(got, ref):
+    views = [flatten_weights(ff.kernel_views(ff.KernelWeights(m, b))) for m, b, _ in (got, ref)]
+    return [_rel_l2(g, r) for g, r in zip(*views)] + [_rel_l2(got[2], ref[2])]
+
+
+@pytest.mark.parametrize("r", [5, 127, 129, 1024])
+def test_saved_kernels_match_plain_versions(dev, weights, r):
+    """The save forwards against their plain versions (outputs and the
+    stream's h0..h7) and bit for bit against the non-saving kernels; the
+    saved backwards against the plain backward from the plain activations,
+    and against the recompute kernels (the same bits expected, held at the
+    JAX pin). Camera K=127, shadow K=63."""
+    cam, gacc, _, _ = _saved_case(dev, r, 127, seed=r)
+    _, _, sh, ggeo = _saved_case(dev, r, 63, seed=r + 1)
+    for args, g, fwd, fwd_save, fwd_ref, bwd, bwd_saved, bwd_ref, camera in (
+            (cam, gacc, fr.camera_forward, fr.camera_forward_save, fr.camera_forward_reference,
+             fr.camera_backward, fr.camera_backward_saved, fr.camera_backward_reference, True),
+            (sh, ggeo, fr.shadow_forward, fr.shadow_forward_save, fr.shadow_forward_reference,
+             fr.shadow_backward, fr.shadow_backward_saved, fr.shadow_backward_reference, False)):
+        k = args[1].shape[1]
+        out, stream = fwd_save(weights, *args)
+        assert stream.shape == (r * fr.kpad_of(k), fr.act_stream_cols(camera))
+        assert torch.equal(out, fwd(weights, *args))
+        ref_out, ref_acts = fwd_ref(weights, *args, save=True)
+        _check(out, ref_out)
+        acts = fr.stream_trunk_acts(stream, camera, r, k)
+        assert _rel_l2(acts.float(), ref_acts.float()) < GRAD_REL_L2
+        got = bwd_saved(weights, *args, g, stream)
+        _check_grads(got, bwd_ref(weights, *args, g, acts=ref_acts))
+        assert max(_rel_errors(got, bwd(weights, *args, g))) <= SAVED_REL_L2
+
+
+def test_saved_kernels_are_deterministic_on_a_poisoned_stream(dev, weights):
+    """A stream buffer filled with NaN, inside a larger NaN buffer: the save
+    forward writes every column the backward reads and nothing past its
+    rows, so the gradients are the same bits as on a fresh stream, twice."""
+    cam, gacc, sh, ggeo = _saved_case(dev, 96, 63, seed=7)
+    for args, g, fwd_save, bwd_saved, camera in (
+            (cam, gacc, fr.camera_forward_save, fr.camera_backward_saved, True),
+            (sh, ggeo, fr.shadow_forward_save, fr.shadow_backward_saved, False)):
+        rows = 96 * 64
+        big = torch.full((rows + 300, fr.act_stream_cols(camera)), float("nan"),
+                         dtype=torch.bfloat16, device=dev)
+        _, fresh = fwd_save(weights, *args)
+        want = bwd_saved(weights, *args, g, fresh)
+        _, poisoned = fwd_save(weights, *args, stream=big[:rows])
+        for _ in range(2):
+            got = bwd_saved(weights, *args, g, poisoned)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool(torch.isnan(big[rows:].float()).all())
+        assert torch.equal(poisoned, fresh)
+
+
+def test_saved_autograd_functions_launch_the_saved_kernels(dev, weights):
+    """Through the autograd Functions with save: the save forward and the
+    saved backward once each, the plain forward and the recompute backward
+    never; under torch.no_grad() the plain forward and no stream."""
+    cam, _, sh, _ = _saved_case(dev, 40, 63, seed=4)
+    mats = weights.mats.float().requires_grad_()
+    biases = weights.biases.clone().requires_grad_()
+    ray = cam[0].clone().requires_grad_()
+    kw = ff.KernelWeights(mats, biases)
+    counted = (fr.camera_forward_save, fr.camera_backward_saved, fr.shadow_forward_save,
+               fr.shadow_backward_saved, fr.camera_forward, fr.camera_backward,
+               fr.shadow_forward, fr.shadow_backward)
+    before = [fn.launches for fn in counted]
+    acc = fr.fused_camera(kw, ray, *cam[1:], torch.bfloat16, save=True)
+    geo = fr.fused_shadow(kw, ray, *sh[1:], torch.bfloat16, save=True)
+    (acc.sum() + geo.sum()).backward()
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1, 0, 0, 0, 0]
+    assert bool(torch.isfinite(mats.grad).all()) and float(ray.grad.abs().max()) > 0
+    before = [fn.launches for fn in counted]
+    with torch.no_grad():
+        fr.fused_camera(kw, ray, *cam[1:], torch.bfloat16, save=True)
+        fr.fused_shadow(kw, ray, *sh[1:], torch.bfloat16, save=True)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [0, 0, 0, 0, 1, 0, 1, 0]
+
+
+def test_saved_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
+    cam, gacc, sh, ggeo = _saved_case(dev, 8, 16, seed=0)
+    _, stream = fr.camera_forward_save(weights, *cam)
+    with pytest.raises(ValueError):
+        fr.camera_backward_saved(weights, *cam, gacc, stream[:-8])
+    with pytest.raises(ValueError):
+        fr.camera_backward_saved(weights, *cam, gacc, stream.float())
+    with pytest.raises(ValueError):      # the camera's stream is wider than the shadow's
+        fr.shadow_backward_saved(weights, *sh, ggeo, stream)

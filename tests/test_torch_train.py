@@ -378,13 +378,14 @@ def test_checkpoint_tags(tmp_path):
 
 @pytest.mark.parametrize("option,error", [
     (dict(freq_reg_end_step=100), NotImplementedError),
-    (dict(bwd_acts="saved"), NotImplementedError),
+    (dict(bwd_acts="saved", freq_reg_end_step=100), NotImplementedError),
     (dict(sampler="auto"), ValueError),               # no altitude envelope given
     (dict(sampler="stratified"), ValueError),
     (dict(freq_reg_end_step=100, sampler="auto"), NotImplementedError)])
 def test_unported_options_raise(tmp_path, option, error):
-    """Options whose code waits for a later slice raise NotImplementedError;
-    the auto sampler without the scene's altitude envelope and an unknown
-    sampler raise ValueError."""
+    """Options whose code waits for a later slice raise NotImplementedError
+    (the saved backward trains; with freq_reg_end_step it still raises for
+    the annealing); the auto sampler without the scene's altitude envelope
+    and an unknown sampler raise ValueError."""
     with pytest.raises(error):
         tloop.Trainer(_small_cfg(tmp_path, **option), _pool(), 2, device="cpu")

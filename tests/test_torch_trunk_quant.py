@@ -350,8 +350,9 @@ def test_make_render_field_reads_trunk_quant(setup, monkeypatch, capsys):
 def test_config_and_check_supported(tmp_path):
     check_supported(TrainConfig(trunk_quant="int8"))           # saved -> recompute fallback
     check_supported(TrainConfig(trunk_quant="int8_full", bwd_acts="recompute"))
-    with pytest.raises(NotImplementedError, match="bwd_acts"):
-        check_supported(TrainConfig())                         # saved, no int8
+    check_supported(TrainConfig())                             # saved, no int8: ported
+    with pytest.raises(NotImplementedError, match="freq_reg_end_step"):
+        check_supported(TrainConfig(trunk_quant="int8", freq_reg_end_step=10))
     with pytest.raises(ValueError, match="trunk_quant"):
         TrainConfig(trunk_quant="int4")
     cfg = TrainConfig(trunk_quant="int8_full")
