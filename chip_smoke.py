@@ -3,15 +3,17 @@
 saved-activations backward, its sampler=auto training (hierarchical and
 occupancy-tightened), its per-sample branch (ray entropy and the nadir
 diagnostics, render and training), its int8 trunk tier (trunk_quant int8
-and int8_full, render and training), and the JAX package's default
-training run from a generated scene on disk, once on one CUDA card.
+and int8_full, render and training), the JAX package's default
+training run from a generated scene on disk, and its kernel-variant bench,
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (one JSON line each; any failure raises and exits non-zero):
 
-1. build       - nvcc builds the kernels from the checkout
-                 (eonerf_code_tpu_torch/csrc/fused_render.cu) into the
+1. build       - nvcc builds the two libraries from the checkout
+                 (eonerf_code_tpu_torch/csrc/fused_render.cu and
+                 kernel_variants.cu, both started together) into the
                  git-ignored eonerf_code_tpu_torch/_build/.
 2. kernels     - every kernel against its plain PyTorch version at its
                  main-path shapes, full 8x256 bf16 field: the camera and
@@ -127,6 +129,21 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  epoch 2 to step 10: 20 steps (losses finite, parameters
                  moved, the saved kernels once per step that runs them),
                  then 10 timed.
+14. variants   - the kernel-variant bench through its entry points
+                 (bench.kernel_variants.main with all 20 variants and
+                 bench.composite.main with all 4) at the TPU scripts'
+                 defaults: 1,040,384 points, 2048-row tiles, 10 timed calls
+                 after one warm-up, so each variant's launch count is 11.
+                 Then each variant's kernel against its plain version at the
+                 gates below (and the compositing epilogue on the density
+                 kernel's own sigma; mm_i8 and mm_i8_k512 also from a random
+                 int8 h0, timed too), one line each: ms, plain ms, bound ms
+                 and its share, the rate and its share of the H100 SXM peak,
+                 and for the slab chains the same chain as library calls
+                 (torch.matmul, torch._int_mm, torch._scaled_mm; "none" and
+                 why where there is none). Then the save-or-recompute
+                 decision: t(mm_fwd_save) + t(mm_bwd_saved) against
+                 t(mm_only) + t(mm_bwd_rec).
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -134,6 +151,7 @@ Exits non-zero without printing results when no CUDA device is present.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -251,6 +269,9 @@ SAVED_REL_L2 = 1e-6
 SCENE_VIEWS, SCENE_SIZE = 20, 256
 SCENE_ENVELOPE = (-2.0, 32.0)
 DSM_SHIFT = (3, -2)        # (dx, dy) in cells
+# the kernel-variant bench at the TPU script's defaults
+VARIANT_N, VARIANT_TILE, VARIANT_ITERS = 1040384, 2048, 10
+# (the gates of a variant against its plain version: bench/variants.py)
 DSM_ZBIAS = 1.5            # metres
 
 
@@ -267,8 +288,11 @@ def card_line():
 
 def tpu_kernel_site(fn_name, module="fused_render.py"):
     """file:line of a Pallas kernel body in the JAX reference package that
-    sits beside the port (read as text, never imported)."""
-    for path in sorted(ROOT.glob(f"*/ops/pallas/{module}")):
+    sits beside the port, or in one of its research scripts under scripts/
+    (module "bench_kernel_variants.py" or "proto_composite.py"); read as
+    text, never imported."""
+    paths = sorted(ROOT.glob(f"scripts/{module}")) + sorted(ROOT.glob(f"*/ops/pallas/{module}"))
+    for path in paths:
         if path.parts[-4] == "eonerf_code_tpu_torch":
             continue
         for i, line in enumerate(path.read_text().splitlines(), 1):
@@ -288,6 +312,12 @@ def grad_errors(ff, got, ref):
         rel.append(float((a - b).norm()) / den if den > 0 else float(a.norm()))
     max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     return rel, max_abs
+
+
+def rel_l2(a, b):
+    den = float(b.float().norm())
+    diff = float((a.float() - b.float()).norm())
+    return diff / den if den > 0 else diff
 
 
 def time_ms(torch, fn, reps):
@@ -337,12 +367,14 @@ def main():
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    lib_path, log = _build.build()
+    built = _build.build_all()     # one nvcc a source, started together
     _build.load_library()
+    _build.load_variants_library()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": lib_path.name,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln],
+          **{stem: {"library": path.name,
+                    "ptxas": [ln.strip() for ln in log.splitlines()
+                              if "registers" in ln or "spill" in ln]}
+             for stem, (path, log) in built.items()},
           "card": card})
 
     # ---- 2. kernels against their plain versions at main-path shapes ----
@@ -1445,9 +1477,6 @@ def main():
     if not (isinstance(rf_q, KernelField) and rf_q.trunk_quant is True):
         raise RuntimeError("make_render_field did not pick the int8 kernels for trunk_quant=int8")
 
-    def rel_l2(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
     # the camera op at int8 against bf16 on the phase-2 chunk
     acc_q = fr.camera_forward_q8(kw, q8w, rayin, z_mid, deltam)
     acc_b = fr.camera_forward(kw, rayin, z_mid, deltam)
@@ -1640,12 +1669,111 @@ def main():
     del td
     shutil.rmtree(scene_root, ignore_errors=True)
 
+    # ---- 14. variants: the kernel-variant bench (the TPU research kernels'
+    # counterparts) through its two entry points at the TPU script's
+    # defaults, each variant's kernel against its plain version, and the
+    # slab chains against the same chain as library calls ----
+    from eonerf_code_tpu_torch.bench import composite as kv_composite
+    from eonerf_code_tpu_torch.bench import kernel_variants as kv_bench
+    from eonerf_code_tpu_torch.bench import variants as vr
+
+    vr.reset_launches()
+    t0 = time.perf_counter()
+    bench_ms = kv_bench.main(VARIANT_N, VARIANT_TILE, VARIANT_ITERS, ",".join(vr.VARIANTS),
+                             device="cuda")
+    bench_ms.update(kv_composite.main("all", VARIANT_N, VARIANT_TILE, VARIANT_ITERS,
+                                      device="cuda"))
+    bench_s = time.perf_counter() - t0
+    launches_v = dict(vr.LAUNCHES)
+    unlaunched = {v: c for v, c in launches_v.items() if c != VARIANT_ITERS + 1}
+    if unlaunched:
+        raise AssertionError(f"bench variants launched other than warm-up + iters: {unlaunched}")
+    kw_v, sw_v, pos_v, emb_v, acts_v = kv_bench.bench_inputs(VARIANT_N, dev)
+    _, pos_c, sd_c = kv_composite.composite_inputs(VARIANT_N, dev)
+    gen_v = torch.Generator(device=dev).manual_seed(2)
+    n_v = VARIANT_N
+    variant_rows = []
+    for v in vr.VARIANTS + vr.COMPOSITES:
+        if v in vr.COMPOSITES:
+            args = (v, kw_v, pos_c, sd_c, VARIANT_TILE)
+            kern = functools.partial(vr.run_composite, *args)
+            plain = functools.partial(vr.composite_reference, *args)
+        else:
+            args = (v, kw_v, sw_v, pos_v, emb_v, acts_v, VARIANT_TILE)
+            kern, plain = functools.partial(vr.run, *args), functools.partial(vr.reference, *args)
+        if v == "mm_bwd_rec":
+            # held against the plain backward on the kernel's own recomputed
+            # activations (the stream of the same ReLU-chain kernel), then
+            # against the all-plain one, whose recompute may put a ReLU mask
+            # on the other side of a kink in a few of the 508 seeded tiles,
+            # each weighing as its 2048 identical rows
+            got = kern()
+            own = vr.run("mm_fwd_save", kw_v, sw_v, pos_v, tile=VARIANT_TILE)[1]
+            res = vr.check(v, got, vr.slab_bwd_reference(
+                sw_v.w1.t(), pos_v, VARIANT_TILE, own))
+            del own
+            res["rel_l2_all_plain"] = vr.check(v, got, plain())["rel_l2"]
+            res["ok"] &= res["rel_l2_all_plain"] <= vr.REC_ALL_PLAIN_REL_L2
+            del got
+        else:
+            res = vr.check(v, kern(), plain())
+        torch.cuda.empty_cache()
+        if v in ("reshape", "colscan", "accmm"):
+            sigma = vr.run_composite("base", kw_v, pos_c, sd_c, VARIANT_TILE)[:, 0]
+            res["epilogue_rel_l2"] = vr.rel_l2(kern(), vr.composite_epilogue(v, sigma, sd_c))
+            res["ok"] = res["ok"] and res["epilogue_rel_l2"] <= vr.EPILOGUE_REL_L2
+        if v in ("mm_i8", "mm_i8_k512"):
+            # the seeded chain is int8(pos) = 0 throughout; time it from a
+            # random int8 h0 as well, and hold that against the plain version
+            width = 2 * 256 if v == "mm_i8_k512" else 256
+            h0 = torch.randint(-127, 128, (n_v, width), generator=gen_v, device=dev).to(
+                torch.int8)
+            res["random_h0_equal"] = bool(torch.equal(
+                vr.run(v, kw_v, sw_v, pos_v, tile=VARIANT_TILE, h0=h0),
+                vr.reference(v, kw_v, sw_v, pos_v, tile=VARIANT_TILE, h0=h0)))
+            res["ms_random_h0"] = time_ms(
+                torch, lambda v=v, h0=h0: vr.run(v, kw_v, sw_v, pos_v, tile=VARIANT_TILE, h0=h0),
+                VARIANT_ITERS)
+            res["ok"] = res["ok"] and res["random_h0_equal"]
+        plain_ms = time_ms(torch, plain, 2)
+        lib = vr.library_chain(v, sw_v, pos_v, acts_v, VARIANT_TILE)
+        library_ms = time_ms(torch, lib, VARIANT_ITERS) if callable(lib) else None
+        bound, bound_by = vr.bound_ms(v, n_v)
+        ms = bench_ms[v]
+        top, unit = vr.peak(v)
+        emit({"phase": "variants", "name": v, "n": n_v, "tile": VARIANT_TILE, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+              "share_of_bound": bound / ms, "rate": vr.flops(v, n_v) / (ms * 1e-3) / 1e12,
+              "unit": unit, "share_of_peak": vr.flops(v, n_v) / (ms * 1e-3) / top,
+              "library_ms": library_ms, **({} if callable(lib) else {"library": lib}),
+              "cuda_launches_per_call": vr.CUDA_LAUNCHES[v], **res, "card": card})
+        if not res["ok"]:
+            raise AssertionError(f"variant {v}: kernel disagrees with its plain version: {res}")
+        script = "proto_composite.py" if v in vr.COMPOSITES else "bench_kernel_variants.py"
+        own = v not in ("full", "trunk", "base")
+        kernel_rows[("composite_" if v in vr.COMPOSITES else "variant_") + v] = {
+            "name": ("composite_" if v in vr.COMPOSITES else "variant_") + v, "route": "cuda",
+            "source": "eonerf_code_tpu_torch/csrc/"
+                      + ("kernel_variants.cu" if own else "fused_render.cu"),
+            "replaces": tpu_kernel_site(f"kernel_{v}", script), "launches": launches_v[v],
+            "max_abs_err": res["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+        variant_rows.append(v)
+        torch.cuda.empty_cache()
+    saved_ms = bench_ms["mm_fwd_save"] + bench_ms["mm_bwd_saved"]
+    rec_ms = bench_ms["mm_only"] + bench_ms["mm_bwd_rec"]
+    emit({"phase": "variants_decision", "rule": "t(mm_fwd_save) + t(mm_bwd_saved) against "
+          "t(mm_only) + t(mm_bwd_rec)", "saved_ms": saved_ms, "recompute_ms": rec_ms,
+          "decision": "save" if saved_ms < rec_ms else "recompute", "bench_seconds": bench_s,
+          "card": card})
+
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",
         "field_fwd", "field_bwd", "density_bwd", "camera_fwd_q8", "shadow_fwd_q8",
         "coarse_fwd_q8", "camera_bwd_q8", "shadow_bwd_q8", "camera_bwd_q8_full",
         "shadow_bwd_q8_full", "camera_fwd_save", "camera_bwd_saved", "shadow_fwd_save",
-        "shadow_bwd_saved")]})
+        "shadow_bwd_saved")] + [kernel_rows[("composite_" if v in vr.COMPOSITES else "variant_")
+                                            + v] for v in variant_rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

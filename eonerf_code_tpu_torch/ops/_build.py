@@ -1,17 +1,19 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles ``csrc/fused_render.cu`` (the fused render kernels,
-forward and backward, with and without the saved activations, the
-coarse-weights kernel, the per-point field
-and density kernels, forward and backward, and the int8 trunk tier's
-kernels) for sm_90a into a shared library
-with a plain C interface, on first use, into ``_build/`` beside the package
-sources (git-ignored); the file name carries a hash of the source and the
-flags, so an edit rebuilds and an unchanged source is reused. ``ctypes``
-loads it. Nothing here runs at import time: the CPU tests import every
-module of the package on a machine without ``nvcc``.
+``nvcc`` compiles each source for sm_90a into a shared library with a plain
+C interface, on first use, into ``_build/`` beside the package sources
+(git-ignored): ``csrc/fused_render.cu`` (the fused render kernels, forward
+and backward, with and without the saved activations, the coarse-weights
+kernel, the per-point field and density kernels, forward and backward, and
+the int8 trunk tier's kernels) and ``csrc/kernel_variants.cu`` (the
+kernel-variant bench). Both include ``csrc/tile_common.cuh``. The file name
+carries a hash of the source, every header beside it and the flags, so an
+edit rebuilds and an unchanged tree is reused. ``ctypes`` loads it. Nothing
+here runs at import time: the CPU tests import every module of the package
+on a machine without ``nvcc``.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -22,6 +24,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "csrc" / "fused_render.cu"
+VARIANTS_SOURCE = PACKAGE_DIR / "csrc" / "kernel_variants.cu"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,12 +38,17 @@ def nvcc_path():
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build(source=SOURCE):
-    """Compile ``source`` unless an up-to-date library exists. Returns
-    (library path, compiler log: ptxas register/spill report, empty when
-    the library was reused). Raises RuntimeError when nvcc fails."""
-    source = Path(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def build(source=None):
+    """Compile ``source`` (by default :data:`SOURCE` as it is bound when
+    called) unless an up-to-date library exists. Returns (library path,
+    compiler log: ptxas register/spill report, empty when the library was
+    reused). Raises RuntimeError when nvcc fails."""
+    source = Path(source or SOURCE)
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if out.exists():
         return out, ""
@@ -56,11 +64,20 @@ def build(source=SOURCE):
     return out, proc.stdout + proc.stderr
 
 
+def build_all():
+    """Both libraries, their two nvcc runs started together. Returns
+    {source stem: (library path, compiler log)}."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        done = {src.stem: pool.submit(build, src) for src in (SOURCE, VARIANTS_SOURCE)}
+        return {stem: f.result() for stem, f in done.items()}
+
+
 @functools.cache
 def load_library():
-    """Build (if needed) and load the fused-render library, with every C
-    entry point's argument and result types declared."""
-    path, _ = build()
+    """Build (if needed) and load the fused-render library from
+    :data:`SOURCE`, with every C entry point's argument and result types
+    declared."""
+    path, _ = build(SOURCE)
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eonerf_weight_layout.argtypes = [p]
@@ -113,6 +130,31 @@ def load_library():
     return lib
 
 
+@functools.cache
+def load_variants_library():
+    """Build (if needed) and load the kernel-variant bench's library, with
+    every C entry point's argument and result types declared."""
+    path, _ = build(VARIANTS_SOURCE)
+    lib = ctypes.CDLL(str(path))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kv_bf16_chain.argtypes = [i, p, p, p, i, p, p, ll, ll, p]
+    lib.kv_q_chain.argtypes = [i, i, p, p, p, p, i, p, ll, ll, p]
+    lib.kv_dyn_workspace_bytes.argtypes = [ll]
+    lib.kv_dyn_workspace_bytes.restype = ll
+    lib.kv_i8_dyn.argtypes = [p] * 6 + [ll, ll, ll, p]
+    lib.kv_slab_bwd_workspace_bytes.argtypes = [i, ll]
+    lib.kv_slab_bwd_workspace_bytes.restype = ll
+    lib.kv_slab_bwd.argtypes = [p] * 7 + [ll, ll, p]
+    lib.kv_trunk_variant.argtypes = [i, p, p, p, p, ll, p]
+    lib.kv_composite.argtypes = [i, p, p, p, p, p, ll, p]
+    for name in ("kv_bf16_chain", "kv_q_chain", "kv_i8_dyn", "kv_slab_bwd", "kv_trunk_variant",
+                 "kv_composite"):
+        getattr(lib, name).restype = i
+    lib.kv_error_string.argtypes = [i]
+    lib.kv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def kernel_weight_layout():
     """(mat elements, bias elements, density-prefix mat elements,
     density-prefix bias elements) as the compiled kernels index them."""
@@ -121,8 +163,9 @@ def kernel_weight_layout():
     return tuple(sizes)
 
 
-def check(code, what):
-    """Raise if a C entry point returned a CUDA error."""
+def check(code, what, error_string=None):
+    """Raise if a C entry point returned a CUDA error (its message from
+    ``error_string``, by default the fused-render library's)."""
     if code != 0:
-        msg = load_library().eonerf_error_string(code).decode()
+        msg = (error_string or load_library().eonerf_error_string)(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from eonerf_code_tpu_torch.bench import variants as vr
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.fused import KernelField
 from eonerf_code_tpu_torch.ops import fused_field as ff
@@ -670,3 +671,126 @@ def test_saved_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
         fr.camera_backward_saved(weights, *cam, gacc, stream.float())
     with pytest.raises(ValueError):      # the camera's stream is wider than the shadow's
         fr.shadow_backward_saved(weights, *sh, ggeo, stream)
+
+
+# ---- the kernel-variant bench (csrc/kernel_variants.cu) ----
+
+N_VAR, TILE_VAR = 4096, 2048
+
+
+def _variant_inputs(dev, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
+    emb = torch.randn((n, 4), generator=gen, device=dev)
+    acts = torch.randn((n, vr.ACTS_COLS), generator=gen, device=dev).to(torch.bfloat16)
+    sd = torch.rand((n,), generator=gen, device=dev) * 0.1
+    return pos, emb, acts, sd, gen
+
+
+def _hold(variant, got, ref):
+    """A variant's outputs against its plain version's at the bench gates."""
+    res = vr.check(variant, got, ref)
+    assert res["ok"], (variant, res)
+
+
+@pytest.mark.parametrize("variant", vr.VARIANTS + vr.COMPOSITES)
+def test_variant_kernels_match_plain_versions(dev, weights, variant):
+    """Each of the bench's 24 variants at the TPU script's seeding (two
+    2048-row tiles); the compositing kernels also against the plain
+    epilogue on the density kernel's own sigma."""
+    sw = vr.slab_weights(weights)
+    pos, emb, acts, sd, _ = _variant_inputs(dev, N_VAR, seed=3)
+    before = vr.LAUNCHES[variant]
+    if variant in vr.COMPOSITES:
+        got = vr.run_composite(variant, weights, pos, sd, TILE_VAR)
+        _hold(variant, got, vr.composite_reference(variant, weights, pos, sd, TILE_VAR))
+        if variant != "base":
+            sigma = vr.run_composite("base", weights, pos, sd, TILE_VAR)[:, 0]
+            assert vr.rel_l2(got, vr.composite_epilogue(variant, sigma, sd)) <= vr.EPILOGUE_REL_L2
+    else:
+        got = vr.run(variant, weights, sw, pos, emb, acts, TILE_VAR)
+        _hold(variant, got, vr.reference(variant, weights, sw, pos, emb, acts, TILE_VAR))
+    assert vr.LAUNCHES[variant] == before + 1
+
+
+def _random_h0(variant, n, width, gen, dev):
+    if variant in ("mm_i8", "mm_i8_k512"):
+        return torch.randint(-127, 128, (n, width), generator=gen, device=dev).to(torch.int8)
+    x = torch.randn((n, width), generator=gen, device=dev)
+    if variant == "mm_f8":
+        x[7] = 448.0           # e4m3's largest value: its products overflow to NaN
+        return vr.f8_round(x).to(torch.float8_e4m3fn)
+    return x if variant == "mm_i8_dyn" else x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("variant", ["mm_only", "mm_int2", "mm_int4", "mm_seq2", "mm_merged2",
+                                     "mm_k512", "mm_fwd_save", "mm_i8", "mm_i8_k512", "mm_f8",
+                                     "mm_i8_dyn", "mm_bwd_rec", "mm_bwd_saved"])
+def test_slab_kernels_from_a_random_h0(dev, weights, variant):
+    """The slab chains and backwards from a random h0 on every row (the
+    TPU seeding gives one value a block, which hides indexing faults), on a
+    row count that is not a multiple of 128 where no 2048-row group is
+    needed (mm_i8_dyn's amax group is)."""
+    n = N_VAR if variant == "mm_i8_dyn" else 1000
+    pos, emb, acts, _, gen = _variant_inputs(dev, n, seed=5)
+    width = 2 * 256 if variant in ("mm_k512", "mm_i8_k512") else 256
+    h0 = _random_h0(variant, n, width, gen, dev)
+    sw = vr.slab_weights(weights)
+    got = vr.run(variant, weights, sw, pos, emb, acts, TILE_VAR, h0)
+    _hold(variant, got, vr.reference(variant, weights, sw, pos, emb, acts, TILE_VAR, h0))
+    if variant == "mm_f8":
+        assert bool(torch.isnan(got).any()) and not bool(torch.isnan(got).all())
+
+
+def test_f8_seed_overflow_is_nan(dev, weights):
+    """e4m3 as ml_dtypes rounds: 465 -> NaN (a saturating conversion would
+    give 448), so the first tile's chain is NaN throughout, the second's
+    finite."""
+    pos = torch.zeros((4096, 3), device=dev)
+    pos[0, 0], pos[2048, 0] = 465.0, 0.25
+    sw = vr.slab_weights(weights)
+    got = vr.run("mm_f8", weights, sw, pos, tile=2048)
+    ref = vr.reference("mm_f8", weights, sw, pos, tile=2048)
+    _hold("mm_f8", got, ref)
+    assert bool(torch.isnan(got[:2048]).all()) and not bool(torch.isnan(got[2048:]).any())
+
+
+def test_i8_dyn_group_amax_matches_plain_version(dev, weights):
+    pos, *_ = _variant_inputs(dev, N_VAR, seed=9)
+    sw = vr.slab_weights(weights)
+    (out, amax), (ref, ref_amax) = (vr.i8_dyn(sw, pos, TILE_VAR),
+                                    vr.i8_dyn_reference(sw.w1.t(), pos, TILE_VAR))
+    torch.cuda.synchronize()
+    assert amax.shape == (N_VAR // TILE_VAR, 8)
+    assert _rel_l2(amax, ref_amax) <= 1e-6 and _rel_l2(out, ref) <= vr.REL_L2
+
+
+@pytest.mark.parametrize("variant", ["nope", "norelu", "nocast", "trunk_int2"])
+def test_trunk_variant_kernels_on_ragged_rows(dev, weights, variant):
+    pos, *_ = _variant_inputs(dev, 1000, seed=6)
+    _hold(variant, vr.run(variant, weights, vr.slab_weights(weights), pos),
+          vr.reference(variant, weights, vr.slab_weights(weights), pos))
+
+
+def test_slab_backward_is_deterministic(dev, weights):
+    pos, emb, acts, _, _ = _variant_inputs(dev, N_VAR, seed=2)
+    sw = vr.slab_weights(weights)
+    for variant in ("mm_bwd_rec", "mm_bwd_saved"):
+        a = vr.run(variant, weights, sw, pos, emb, acts, TILE_VAR)
+        b = vr.run(variant, weights, sw, pos, emb, acts, TILE_VAR)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_variant_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
+    pos, emb, acts, sd, _ = _variant_inputs(dev, N_VAR, seed=1)
+    sw = vr.slab_weights(weights)
+    with pytest.raises(ValueError):       # h0 of another type
+        vr.run("mm_i8", weights, sw, pos, h0=torch.zeros((N_VAR, 256), device=dev))
+    with pytest.raises(ValueError):       # the amax group must divide the rows
+        vr.run("mm_i8_dyn", weights, sw, pos[:1000], tile=2048)
+    with pytest.raises(ValueError):
+        vr.run("mm_bwd_saved", weights, sw, pos, acts=acts[:, :256].contiguous())
+    with pytest.raises(ValueError):       # rays of 128 samples
+        vr.run_composite("reshape", weights, pos[:1000], sd[:1000])
+    with pytest.raises(ValueError):
+        vr.run_composite("colscan", weights, pos, sd, tile=1024)
