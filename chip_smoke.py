@@ -141,7 +141,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  and its share, the rate and its share of the H100 SXM peak,
                  and for the slab chains the same chain as library calls
                  (torch.matmul, torch._int_mm, torch._scaled_mm; "none" and
-                 why where there is none). Then the save-or-recompute
+                 why where there is none); mm_bwd_saved also with its
+                 passes timed one by one (slab_dgrad on dgemm, slab_wgrad,
+                 reduce) beside the 8-product g @ W^T chain and the 8
+                 A^T G products as library calls. Then the save-or-recompute
                  decision: t(mm_fwd_save) + t(mm_bwd_saved) against
                  t(mm_only) + t(mm_bwd_rec).
 
@@ -1735,6 +1738,12 @@ def main():
                 torch, lambda v=v, h0=h0: vr.run(v, kw_v, sw_v, pos_v, tile=VARIANT_TILE, h0=h0),
                 VARIANT_ITERS)
             res["ok"] = res["ok"] and res["random_h0_equal"]
+        if v == "mm_bwd_saved":
+            # its passes one by one beside their library chains: the
+            # cotangent chain on dgemm (slab_dgrad: 8 products g @ W^T) and
+            # the weight gradients (slab_wgrad: 8 products A^T G)
+            res["pass_ms"] = kv_bench.slab_split_ms(sw_v, pos_v, acts_v, VARIANT_TILE,
+                                                    VARIANT_ITERS)
         plain_ms = time_ms(torch, plain, 2)
         lib = vr.library_chain(v, sw_v, pos_v, acts_v, VARIANT_TILE)
         library_ms = time_ms(torch, lib, VARIANT_ITERS) if callable(lib) else None

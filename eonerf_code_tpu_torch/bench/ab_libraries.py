@@ -1,9 +1,11 @@
 """Two builds of the fused-render kernels on one card, in one process: the
 checkout's csrc/fused_render.cu against another copy of it (a parent
 commit's, unpacked with `git archive` into a git-ignored directory), on the
-same inputs. Prints whether every output is the same bits, then each build's
-kernel times in turns (other, this, this, other), so a change to the
-kernels or to csrc/tile_common.cuh is compared on one card.
+same inputs, one case for each production instantiation of the shared
+products in csrc/tile_common.cuh. Prints whether every output is the same
+bits, the largest absolute difference of each case where it is not, then
+each build's kernel times in turns (other, this, this, other), so a change
+to the kernels or to csrc/tile_common.cuh is compared on one card.
 
     python -m eonerf_code_tpu_torch.bench.ab_libraries OTHER/fused_render.cu
 
@@ -23,11 +25,18 @@ from eonerf_code_tpu_torch.ops import fused_render as fr
 
 
 def cases(device):
-    """name -> call of a kernel wrapper at a main-path shape: the camera
-    forward at a render chunk (4096 x 127), the save forward and the
-    backward at a training batch (1024 x 127), the density forward at the
-    entropy probe (131,072 points), the field forward and backward."""
+    """name -> call of a kernel wrapper at a main-path shape, one a
+    production instantiation of the shared products (gemm, dgemm): the
+    camera forward at a render chunk (4096 x 127) and at the hierarchical
+    K = 143, the shadow forward (4096 x 63) and the coarse one (4096 x 95);
+    at a training batch (1024 rays) the save forward, the camera and shadow
+    backwards, the saved camera backward (on the stream of the save forward
+    that runs first), the int8 tier's camera backward (its bf16 dgrad) and
+    the int8_full one (the heads-only dgrad); the density forward at the
+    entropy probe (131,072 points), its backward (1024 x 63 points), the
+    field forward and backward."""
     kw, _ = bench_weights(device)
+    q8 = ff.quantize_kernel_trunk(kw.mats.float())
     gen = torch.Generator(device=device).manual_seed(3)
 
     def rays(r, k):
@@ -40,15 +49,37 @@ def cases(device):
         dm = torch.diff(z, dim=1, append=torch.full((r, 1), 2.0, device=device))
         return rayin.contiguous(), z.contiguous(), dm.contiguous()
 
-    render, batch = rays(4096, 127), rays(1024, 127)
+    def shadow(r, k):
+        rayin, z, dm = rays(r, k)
+        return rayin, z, dm, torch.ones_like(z)
+
+    render, render143, batch = rays(4096, 127), rays(4096, 143), rays(1024, 127)
+    render_sh, batch_sh, coarse = shadow(4096, 63), shadow(1024, 63), rays(4096, 95)
     gacc = torch.randn((1024, fr.ACC_COLS), generator=gen, device=device)
+    ggeo = torch.randn((1024,), generator=gen, device=device)
     pos = torch.rand((131072, 3), generator=gen, device=device) * 2.0 - 1.0
     emb = torch.randn((131072, ff.EMB_DIM), generator=gen, device=device)
     g = torch.randn((16384, ff.FIELD_COLS), generator=gen, device=device)
+    g_sigma = torch.randn((1024 * 63,), generator=gen, device=device)
+    saved = {}
+
+    def stream():   # the first build to run it makes the stream both builds read
+        if "acts" not in saved:
+            saved["acts"] = fr.camera_forward_save(kw, *batch)[1]
+        return saved["acts"]
+
     return {"camera_fwd": lambda: fr.camera_forward(kw, *render),
+            "camera_fwd_k143": lambda: fr.camera_forward(kw, *render143),
+            "shadow_fwd": lambda: fr.shadow_forward(kw, *render_sh),
+            "coarse_fwd": lambda: fr.coarse_forward(kw, *coarse),
             "camera_fwd_save": lambda: fr.camera_forward_save(kw, *batch),
             "camera_bwd": lambda: fr.camera_backward(kw, *batch, gacc),
+            "camera_bwd_saved": lambda: fr.camera_backward_saved(kw, *batch, gacc, stream()),
+            "shadow_bwd": lambda: fr.shadow_backward(kw, *batch_sh, ggeo),
+            "camera_bwd_q8": lambda: fr.camera_backward_q8(kw, q8, *batch, gacc),
+            "camera_bwd_q8_full": lambda: fr.camera_backward_q8_full(kw, q8, *batch, gacc),
             "density_fwd": lambda: ff.density_forward(kw, pos),
+            "density_bwd": lambda: ff.density_backward(kw, pos[:1024 * 63], g_sigma),
             "field_fwd": lambda: ff.field_forward(kw, pos, emb),
             "field_bwd": lambda: ff.field_backward(kw, pos[:16384], emb[:16384], g)}
 
@@ -72,8 +103,23 @@ def _outputs(name, fn):
     return [t.clone() for t in (out if isinstance(out, tuple) else (out,))]
 
 
+def _compare(got, ref):
+    """True where every output is the same bits, else the largest absolute
+    difference over the outputs (NaN where their NaNs differ)."""
+    if all(torch.equal(a, b) for a, b in zip(got, ref)):
+        return True
+    worst = 0.0
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("nan")
+        worst = max(worst, float(torch.nan_to_num(a - b).abs().max()))
+    return worst
+
+
 def main(other, device=None, reps=20):
-    """Returns ({case: same bits}, [(build, {case: ms})] in turns)."""
+    """Returns ({case: True where every output is the same bits, else the
+    largest absolute difference}, [(build, {case: ms})] in turns)."""
     dev = resolve_device(device)
     this = _build.SOURCE
     calls = cases(dev)
@@ -85,9 +131,10 @@ def main(other, device=None, reps=20):
         _use(other)
         ref = {name: _outputs(name, fn) for name, fn in calls.items()}
         _use(this)
-        same = {name: all(torch.equal(a, b) for a, b in zip(_outputs(name, fn), ref[name]))
-                for name, fn in calls.items()}
-        print("same bits:", same, flush=True)
+        same = {name: _compare(_outputs(name, fn), ref[name]) for name, fn in calls.items()}
+        print("same bits:", {name: s is True for name, s in same.items()}, flush=True)
+        print("largest abs difference where not:",
+              {name: s for name, s in same.items() if s is not True}, flush=True)
         turns = []
         for label, src in (("other", other), ("this", this), ("this", this), ("other", other)):
             _use(src)

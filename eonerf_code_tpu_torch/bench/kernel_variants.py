@@ -88,6 +88,17 @@ def bench_inputs(n, device, with_acts=True):
     return kw, sw, pos, emb, acts
 
 
+def slab_split_ms(sw, pos, acts, tile, iters):
+    """mm_bwd_saved's passes timed one by one on the card, beside their
+    library chains: {slab_dgrad, slab_wgrad, reduce, library_dgrad,
+    library_wgrad: ms}."""
+    split = vr.slab_pass_ms(sw, pos, acts, tile, iters)
+    dgrad, wgrad = vr.library_slab_passes(sw, pos, acts, tile)
+    split.update(library_dgrad=time_ms(dgrad, iters, pos.device),
+                 library_wgrad=time_ms(wgrad, iters, pos.device))
+    return split
+
+
 def report(variant, tile, n, ms, device):
     """The variant's line: ms, and on the card its rate and share of peak."""
     if device.type == "cpu":
@@ -112,6 +123,9 @@ def main(n=1040384, tile=2048, iters=10, only=None, device=None):
         ms = time_ms(lambda: vr.run(variant, kw, sw, pos, emb, acts, tile), iters, dev)
         results[variant] = ms
         print(report(variant, tile, n, ms, dev), flush=True)
+        if variant == "mm_bwd_saved" and dev.type == "cuda":
+            split = slab_split_ms(sw, pos, acts, tile, iters)
+            print("  " + "  ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
     decision = {"mm_only", "mm_fwd_save", "mm_bwd_rec", "mm_bwd_saved"}
     if dev.type == "cuda" and decision <= set(results):
         saved = results["mm_fwd_save"] + results["mm_bwd_saved"]

@@ -439,16 +439,35 @@ def library_chain(variant, sw, pos, acts=None, tile=2048):
     return _library_int8(variant, w, pos, tile)
 
 
-def _library_slab(variant, w, pos, acts, tile):
+def _library_slab_inputs(w, pos, tile):
     n = pos.shape[0]
     h0 = _h0_or_seed(None, pos, tile, W, lambda s: s.to(BF16)).contiguous()
     g0 = _seeds(pos, tile, 1).to(BF16)[:, None].expand(n, W).contiguous()
-    stream = torch.empty((n, ACTS_COLS), dtype=BF16, device=pos.device)
     try:    # bf16 operands, float32 out, as the kernels' dW
         torch.mm(h0[:8].t(), g0[:8], out_dtype=torch.float32)
         out_f32 = {"out_dtype": torch.float32}
     except (TypeError, RuntimeError, NotImplementedError):
         out_f32 = {}                # this PyTorch has none: bf16 out
+
+    def dgrad(layers):
+        """The cotangent chain g *= (acts_i > 0), g = g @ W^T for i = 7..0:
+        (the last g, the masked cotangents g_0..g_7)."""
+        g, cots = g0, [None] * 8
+        for i in range(7, -1, -1):
+            g = g * (layers[i] > 0)
+            cots[i] = g
+            g = torch.matmul(g, w.t())
+        return g, cots
+
+    def wgrad(layers, cots):
+        """The 8 weight-gradient products inp_i^T g_i."""
+        return [torch.mm((layers[i - 1] if i else h0).t(), cots[i], **out_f32) for i in range(8)]
+    return h0, dgrad, wgrad
+
+
+def _library_slab(variant, w, pos, acts, tile):
+    h0, dgrad, wgrad = _library_slab_inputs(w, pos, tile)
+    stream = torch.empty((pos.shape[0], ACTS_COLS), dtype=BF16, device=pos.device)
 
     def forward():
         h, layers = h0, []
@@ -459,11 +478,8 @@ def _library_slab(variant, w, pos, acts, tile):
         return layers
 
     def backward(layers):
-        g = g0
-        for i in range(7, -1, -1):
-            g = g * (layers[i] > 0)
-            torch.mm((layers[i - 1] if i else h0).t(), g, **out_f32)
-            g = torch.matmul(g, w.t())
+        g, cots = dgrad(layers)
+        wgrad(layers, cots)
         return g
     if variant == "mm_fwd_save":
         return forward
@@ -471,6 +487,51 @@ def _library_slab(variant, w, pos, acts, tile):
         return lambda: backward(forward())
     saved = [acts[:, W * i:W * (i + 1)] for i in range(8)]
     return lambda: backward(saved)
+
+
+def library_slab_passes(sw, pos, acts, tile=2048):
+    """mm_bwd_saved's two products as separate library chains on the same
+    rows and seeds, the yardsticks of :func:`slab_pass_ms`: (dgrad, wgrad).
+    ``dgrad()``: the masked cotangent chain through ``torch.matmul``,
+    (g (n, 256) after layer 0, the masked cotangents g_0..g_7). ``wgrad()``:
+    the 8 products inp_i^T g_i through ``torch.mm`` (float32 out where this
+    PyTorch has it), on the cotangents of one dgrad() run made here. For
+    timing; the port never calls them."""
+    w = sw.w1.t()
+    _, dgrad, wgrad = _library_slab_inputs(w, pos, tile)
+    layers = [acts[:, W * i:W * (i + 1)] for i in range(8)]
+    cots = dgrad(layers)[1]
+    return (lambda: dgrad(layers)), (lambda: wgrad(layers, cots))
+
+
+def slab_pass_ms(sw, pos, acts, tile=2048, iters=10):
+    """mm_bwd_saved's three CUDA launches timed one by one on the card, as
+    the variant runs them on its workspace (CUDA events over ``iters``
+    launches after a warm-up): {"slab_dgrad", "slab_wgrad", "reduce": ms}.
+    Measurement launches: not counted in :data:`LAUNCHES`."""
+    n, dev = pos.shape[0], pos.device
+    if dev.type != "cuda":
+        raise RuntimeError("slab_pass_ms times the kernels: CUDA tensors only")
+    _check("acts", acts, (n, ACTS_COLS), BF16, dev)
+    lib = _build.load_variants_library()
+    ws = torch.empty((lib.kv_slab_bwd_workspace_bytes(1, n),), dtype=torch.uint8, device=dev)
+    out = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    dw = torch.empty((8, W, W), dtype=torch.float32, device=dev)
+    times = {}
+    for p, name in enumerate(("slab_dgrad", "slab_wgrad", "reduce")):
+        def launch(p=p, name=name):
+            _launch("kv_slab_bwd_pass", f"mm_bwd_saved {name} launch", dev, p, pos, None, acts,
+                    sw.w1, ws, out, dw, n, tile)
+        launch()        # warm-up; fills what the next pass reads
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            launch()
+        end.record()
+        torch.cuda.synchronize(dev)
+        times[name] = start.elapsed_time(end) / iters
+    return times
 
 
 def _library_int8(variant, w, pos, tile):

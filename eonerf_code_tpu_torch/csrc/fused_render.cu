@@ -46,14 +46,14 @@
 // takes as many rays as fill its tiles exactly, see rays_per_block); the
 // activations ping-pong between two bf16 tiles in shared memory (128 x 328
 // each, 164 KB together), every
-// layer is a tensor-core product (mma.sync m16n8k16, bf16 in, f32 accumulate)
-// with 32-deep chunks of the weights staged through shared memory, and the
-// f32 bias + ReLU + bf16 rounding happen in the product's epilogue. The TPU
-// kernel's 0/1 selector matmuls (its only way to move between the
+// layer is a tensor-core product (tile_common.cuh gemm: wgmma m64nNk16, bf16
+// in, f32 accumulate, the tile's rows from registers) with 32-deep chunks of
+// the weights streamed through a 3-stage cp.async ring in shared memory, and
+// the f32 bias + ReLU + bf16 rounding happen in the product's epilogue. The
+// TPU kernel's 0/1 selector matmuls (its only way to move between the
 // (points, features) and (rays, samples) shapes) become plain indexing, and
 // the compositing scan runs per ray in f32 from per-sample results kept in
-// shared memory. This first version does not pipeline the weight loads
-// (no cp.async/TMA) and uses mma.sync rather than wgmma.
+// shared memory.
 //
 // Semantics kept from the TPU kernel: xb = o*B + (d*B)*z in f32, B the
 // power-of-two frequency pattern, cos lanes as one phased sin(xb + pi/2);
@@ -77,9 +77,10 @@
 //      exclusive scan as a running suffix), giving each sample's head
 //      cotangents;
 //   2. dgrad_kernel: per 128-sample tile, the cotangent chain from the heads
-//      down to the PE in bf16 tiles in shared memory (each g @ W^T an
-//      mma.sync product, f32 accumulation, bf16 rounding at its output, as
-//      the JAX package's _mm_t), ReLU masks read back from the activation
+//      down to the PE in bf16 tiles in shared memory (each g @ W^T a
+//      wgmma product, tile_common.cuh dgemm, f32 accumulation, bf16
+//      rounding at its output, as the JAX package's _mm_t), ReLU masks read
+//      back from the activation
 //      stream; it writes every layer's pre-activation cotangent to a
 //      cotangent stream, its block's f32 bias-gradient sums, and d_rayin;
 //   3. wgrad_kernel: every weight gradient as inputs^T @ cotangents over all
@@ -232,11 +233,11 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                 "SAVE is a camera or shadow forward");
   constexpr bool CAMERA = MODE == CAM;
   constexpr bool STREAM = BWD || SAVE;   // the PE and the trunk go to `acts`
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
-  float* res = reinterpret_cast<float*>(wst + NC * LDW);
+  float* res = reinterpret_cast<float*>(wst + WST);
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
   const int ray0 = blockIdx.x * rpb;
   const int nray = min(rpb, R - ray0);
@@ -406,11 +407,11 @@ point_kernel(const float* __restrict__ pos, const float* __restrict__ emb,
              const bf16* __restrict__ wm, const float* __restrict__ wb, float* __restrict__ out,
              int N, const float* __restrict__ gin, bf16* __restrict__ acts,
              float* __restrict__ hg) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
-  float* res = reinterpret_cast<float*>(wst + NC * LDW);   // MT x RES
+  float* res = reinterpret_cast<float*>(wst + WST);   // MT x RES
   constexpr long long AS = FIELD ? ACT_CAM : ACT_SH;
   constexpr int NO = FIELD ? ACC : 1;                     // outputs per point
   const long long p0 = (long long)blockIdx.x * MT;
@@ -469,7 +470,7 @@ int rays_per_block(int KPAD) {
 }
 
 size_t fwd_smem(int KPAD) {
-  return (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) +
+  return (size_t)(2 * MT * LDA + WST) * sizeof(bf16) +
          (size_t)rays_per_block(KPAD) * KPAD * RES * sizeof(float);
 }
 
@@ -496,7 +497,7 @@ int launch_point(const float* pos, const float* emb, const void* wm, const float
                  float* hg = nullptr) {
   if (N <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) + (size_t)MT * RES * sizeof(float);
+      (size_t)(2 * MT * LDA + WST) * sizeof(bf16) + (size_t)MT * RES * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(point_kernel<FIELD, BWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -566,7 +567,7 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
              const float* __restrict__ hg, bf16* __restrict__ gpre,
              float* __restrict__ bias_part, float* __restrict__ dout, float* __restrict__ demb,
              int R, int KPAD, int rpb, bf16* __restrict__ gh) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   constexpr int NB = CAMERA ? B_END : B_BOTT;
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
   constexpr long long GS = CAMERA ? GP_CAM : GP_SH;
@@ -575,7 +576,7 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
-  float* bsum = reinterpret_cast<float*>(wst + NC * LDW);  // B_END floats
+  float* bsum = reinterpret_cast<float*>(wst + WST);  // B_END floats
   float* hs = bsum + B_END + 2;      // MT x 8: bf16-rounded head cotangents
   float* rowacc = hs + MT * 8;       // MT x 10: per-sample [d_o, d_d, d_emb]
   float* rayacc = rowacc + MT * 10;  // rpb x 10
@@ -898,7 +899,7 @@ Scratch carve(const BwdLayout& L, void* ws) {
 }
 
 size_t dgrad_smem(int KPAD) {
-  return (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16) +
+  return (size_t)(2 * MT * LDA + WST) * sizeof(bf16) +
          (size_t)(B_END + 2 + MT * 8 + MT * 10 + rays_per_block(KPAD) * 10) * sizeof(float);
 }
 

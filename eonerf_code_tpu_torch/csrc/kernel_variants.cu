@@ -12,9 +12,9 @@
 //
 // The variants are an attribution of fused_render.cu's design, so they are
 // built from its tile machinery (tile_common.cuh): 128-row bf16 tiles
-// ping-ponged in shared memory, every layer an mma.sync m16n8k16 product with
-// the weights staged 32 deep and the bias/ReLU/bf16 rounding in its epilogue
-// (gemm), the trunk over a tile (trunk_tile), the per-point PE (as
+// ping-ponged in shared memory, every layer a wgmma product with the weights
+// streamed 32 deep through a cp.async ring and the bias/ReLU/bf16 rounding
+// in its epilogue (gemm), the trunk over a tile (trunk_tile), the per-point PE (as
 // point_kernel), the cotangent product (dgemm), the weight gradients as
 // per-split partials summed in a fixed order (reduce_kernel), and the int8
 // tier's m16n8k32 products with the group amax folded by atomicMax on the
@@ -82,10 +82,13 @@ cudaError_t set_smem(F* kernel, size_t bytes) {
 // h = round_bf16(act(h @ W)) `depth` times, W the packed (out, in) matrix
 // `wt` (KW x KW), from h0 (n, KW) bf16 or, without it, each row's seed
 // pos[first row of its block, 0] broadcast over the row; out = h[:, 0].
-// The schedules (template): CH row blocks a warp issues back to back (gemm's
-// chains; int2 and int4), TILES 128-row tiles a block walks one after the
-// other (seq2), 64-row tiles at K = 512 (two 64 x 520 bf16 tiles; at 128 rows
-// they would take 266 KB of shared memory), SAVE the ReLU chain that also
+// The schedules (template): CH independent accumulator chains a warpgroup
+// issues back to back on each k step (gemm's chains; int2 and int4: the
+// warpgroup's 128 columns as 2 x 64 or 4 x 32, since a wgmma covers 64
+// rows and the TPU's row sub-blocks would be 32 rows at CH = 4), TILES
+// 128-row tiles a block walks one after the other (seq2), 64-row tiles at
+// K = 512 (two 64 x 520 bf16 tiles, each warpgroup 64 of a pass's columns;
+// at 128 rows they would take 266 KB of shared memory), SAVE the ReLU chain that also
 // streams h0..h7 into `acts` (n, 2048).
 // ---------------------------------------------------------------------------
 
@@ -94,7 +97,7 @@ __host__ __device__ constexpr int chain_ld() { return KW == W ? LDA : KW + 8; }
 
 template <int KW, int ROWS>
 constexpr size_t chain_smem() {
-  return (size_t)(2 * ROWS * chain_ld<KW>() + NC * LDW) * sizeof(bf16);
+  return (size_t)(2 * ROWS * chain_ld<KW>() + WST) * sizeof(bf16);
 }
 
 template <int KW, int ROWS, int CH, bool RELU, bool SAVE, int TILES>
@@ -104,7 +107,8 @@ bf16_chain_kernel(const float* __restrict__ pos, const bf16* __restrict__ h0,
                   bf16* __restrict__ acts, long long n, long long seg) {
   static_assert(!SAVE || (KW == W && ROWS == MT), "the saved stream is the 8x256 trunk's");
   constexpr int LD = chain_ld<KW>(), NV = KW / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(2 * ROWS * LD * 2 % 1024 == 0, "the weight ring stays 1024-byte aligned");
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + ROWS * LD;
   bf16* wst = bufY + ROWS * LD;
@@ -484,7 +488,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 slab_dgrad_kernel(const float* __restrict__ pos, const bf16* __restrict__ acts,
                   const bf16* __restrict__ wt, bf16* __restrict__ gp, float* __restrict__ out,
                   long long n, long long seg) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
@@ -610,10 +614,14 @@ SlabBwdLayout slab_bwd_layout(bool saved, long long n) {
   return L;
 }
 
+// pass < 0: the whole backward; 0, 1, 2: only slab_dgrad_kernel,
+// slab_wgrad_kernel or reduce_kernel of a saved backward, on a workspace
+// that the passes before it filled (to time each pass on its own)
 int launch_slab_bwd(const float* pos, const void* h0, const void* acts_in, const void* wt_,
                     void* ws, float* out, float* dw, long long n, long long seg,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, int pass = -1) {
   const bool saved = acts_in != nullptr;
+  if (pass >= 0 && !saved) return (int)cudaErrorInvalidValue;
   const SlabBwdLayout L = slab_bwd_layout(saved, n);
   unsigned char* base = static_cast<unsigned char*>(ws);
   const bf16* wt = static_cast<const bf16*>(wt_);
@@ -627,19 +635,25 @@ int launch_slab_bwd(const float* pos, const void* h0, const void* acts_in, const
     if (err != 0) return err;
     acts = rec;
   }
-  const size_t smem = chain_smem<W, MT>();
-  cudaError_t e = set_smem(slab_dgrad_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  slab_dgrad_kernel<<<(unsigned)((n + MT - 1) / MT), THREADS, smem, stream>>>(pos, acts, wt, gp,
-                                                                              out, n, seg);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  slab_wgrad_kernel<<<dim3(8 * 4, L.splits), THREADS, 0, stream>>>(
-      pos, static_cast<const bf16*>(h0), acts, gp, wpart, n, L.chunk, seg);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<1024, THREADS, 0, stream>>>(wpart, L.splits, 8LL * W * W, nullptr, 0, 0, dw,
-                                              nullptr, 0, 0);
+  cudaError_t e = cudaSuccess;
+  if (pass < 0 || pass == 0) {
+    const size_t smem = chain_smem<W, MT>();
+    e = set_smem(slab_dgrad_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    slab_dgrad_kernel<<<(unsigned)((n + MT - 1) / MT), THREADS, smem, stream>>>(pos, acts, wt,
+                                                                                gp, out, n, seg);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (pass < 0 || pass == 1) {
+    slab_wgrad_kernel<<<dim3(8 * 4, L.splits), THREADS, 0, stream>>>(
+        pos, static_cast<const bf16*>(h0), acts, gp, wpart, n, L.chunk, seg);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (pass < 0 || pass == 2)
+    reduce_kernel<<<1024, THREADS, 0, stream>>>(wpart, L.splits, 8LL * W * W, nullptr, 0, 0, dw,
+                                                nullptr, 0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -649,8 +663,8 @@ int launch_slab_bwd(const float* pos, const void* h0, const void* acts_in, const
 // skip kept), `kernel_nocast` :107 (the exact f32 sin/cos PE; its f32
 // activations round to bf16 at each product's input, the values of trunk's
 // rounding after the ReLU), `kernel_trunk_int2` :211 (nocast's function over
-// two independent row blocks a tile, layers interleaved: gemm's two chains a
-// warp). point_kernel's density path with a PE mode and a ReLU switch:
+// two independent chains a tile, layers interleaved: gemm's two chains a
+// warpgroup). point_kernel's density path with a PE mode and a ReLU switch:
 // sigma = softplus(h7 . w_sigma + b_sigma), (n,).
 // ---------------------------------------------------------------------------
 
@@ -683,13 +697,13 @@ __device__ __forceinline__ void point_pe(const float* __restrict__ pos, long lon
   }
 }
 
-constexpr size_t trunk_smem() { return (size_t)(2 * MT * LDA + NC * LDW) * sizeof(bf16); }
+constexpr size_t trunk_smem() { return (size_t)(2 * MT * LDA + WST) * sizeof(bf16); }
 
 template <int PEM, bool RELU, int CH>
 __global__ void __launch_bounds__(THREADS, 1)
 trunk_variant_kernel(const float* __restrict__ pos, const bf16* __restrict__ wm,
                      const float* __restrict__ wb, float* __restrict__ out, long long n) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
@@ -738,11 +752,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 composite_kernel(const float* __restrict__ pos, const float* __restrict__ sd,
                  const bf16* __restrict__ wm, const float* __restrict__ wb,
                  float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
-  float* sig = reinterpret_cast<float*>(wst + NC * LDW);
+  float* sig = reinterpret_cast<float*>(wst + WST);
   float* sdl = sig + MT;
   float* zs = sdl + MT;   // two MT buffers of the column scan
   const long long p0 = (long long)blockIdx.x * MT;
@@ -815,8 +829,8 @@ int launch_composite(const float* pos, const float* sd, const void* wm, const fl
 
 extern "C" {
 
-// The bf16 slab chains (K1). schedule: 0 one chain a warp (mm_only,
-// mm_merged2/4 by depth), 1 two row blocks a warp (mm_int2), 2 four
+// The bf16 slab chains (K1). schedule: 0 one chain a warpgroup (mm_only,
+// mm_merged2/4 by depth), 1 two chains a warpgroup (mm_int2), 2 four
 // (mm_int4), 3 two 128-row tiles a block (mm_seq2), 4 K = 512 on 64-row
 // tiles (mm_k512; wt 512 x 512), 5 the ReLU chain streaming h0..h7 into
 // acts (mm_fwd_save). h0 (n, KW) bf16 or null for the seeds of blocks of seg
@@ -870,6 +884,20 @@ int kv_slab_bwd(const float* pos, const void* h0, const void* acts, const void* 
                 float* out, float* dw, long long n, long long seg, void* stream) {
   if (n <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
   return launch_slab_bwd(pos, h0, acts, wt, ws, out, dw, n, seg, static_cast<cudaStream_t>(stream));
+}
+
+// One pass of mm_bwd_saved (K2), as kv_slab_bwd runs it, on a workspace the
+// passes before it filled: 0 slab_dgrad_kernel (the cotangent chain on
+// dgemm: the masked cotangents into the workspace, out), 1
+// slab_wgrad_kernel (the per-split partials of dW), 2 reduce_kernel (dw).
+// For timing each pass on its own.
+int kv_slab_bwd_pass(int pass, const float* pos, const void* h0, const void* acts,
+                     const void* wt, void* ws, float* out, float* dw, long long n, long long seg,
+                     void* stream) {
+  if (n <= 0 || seg <= 0 || acts == nullptr || pass < 0 || pass > 2)
+    return (int)cudaErrorInvalidValue;
+  return launch_slab_bwd(pos, h0, acts, wt, ws, out, dw, n, seg, static_cast<cudaStream_t>(stream),
+                         pass);
 }
 
 // The trunk variants (K3), packed weights as fused_render.cu's: mode 0 nope,

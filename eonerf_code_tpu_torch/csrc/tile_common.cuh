@@ -1,10 +1,11 @@
 // Device code shared by the port's two CUDA sources: fused_render.cu (the
 // production kernels) and kernel_variants.cu (the kernel-variant bench, which
 // measures that design's costs one by one). The tile machinery: the 128-row
-// bf16 activation tiles and their stride, the mma.sync products with weights
-// staged 32 deep (gemm, dgemm), the trunk over a tile, the PE lanes, the
-// packed weight layout, the fixed-order reduction of per-block partial sums,
-// and the int8 pieces (mma, quantization, the group amax fold).
+// bf16 activation tiles and their stride, the two tensor-core products with
+// their weights staged through an asynchronous ring (gemm, dgemm), the trunk
+// over a tile, the PE lanes, the packed weight layout, the fixed-order
+// reduction of per-block partial sums, and the int8 pieces (mma,
+// quantization, the group amax fold).
 //
 // The build (ops/_build.py) hashes every .cuh beside the sources, so an edit
 // here rebuilds both libraries.
@@ -25,10 +26,13 @@ constexpr int HALF = 128;     // head width
 constexpr int CAT = W + PE;   // layer-5 input and transient input width
 constexpr int MT = 128;       // sample rows per tile: 8 warps x 16 rows
 constexpr int THREADS = 256;
-constexpr int LDA = CAT + 8;  // activation row stride; +8 keeps fragment loads conflict-free
-constexpr int KC = 32;        // depth of one staged weight chunk
-constexpr int LDW = KC + 8;   // staged weight row stride
+constexpr int LDA = CAT + 8;  // activation row stride; +8 keeps ldmatrix conflict-free
+constexpr int KC = 32;        // depth of one staged chunk (products and weight gradients)
+constexpr int LDW = KC + 8;   // the weight-gradient kernels' staged row stride
 constexpr int NC = 128;       // output columns per pass
+constexpr int STAGES = 3;     // stages of the products' weight ring
+constexpr int WST = STAGES * NC * KC;   // the ring, bf16 elements (24,576 bytes)
+static_assert(2 * MT * LDA * 2 % 1024 == 0, "a ring after two tiles stays 1024-byte aligned");
 // per-sample results kept in shared memory: sigma, albedo x3, t_s, t_beta,
 // and (backward) transmittance and d_weight
 constexpr int RES = 8;
@@ -100,6 +104,139 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous, cached in L2 only
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the newest N groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory, lane l giving the row address
+// of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The A fragment of a 16 x 16 step (rows row0..row0 + 15, columns col..col +
+// 15 of a bf16 tile with row stride LD) in one ldmatrix: a0..a3 as the PTX
+// fragment layout of mma m16n8k16 and of wgmma's A in registers orders them.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, smem_addr(tile + (row0 + (lane & 15)) * LD + col + (lane >> 4) * 8));
+}
+
+// wgmma.mma_async m64nNk16, bf16 -> f32, A from registers (each warp of the
+// warpgroup holds its 16 rows in mma m16n8k16's A layout), B from shared
+// memory through a matrix descriptor; TRANS_B = 1 reads B MN-major. The
+// accumulator d holds the warp's 16 rows as mma m16n8k16's C layout, one
+// n8 tile after the other: d[4 j + i] is (row g + 8 (i / 2), column 8 j +
+// 2 t + i % 2).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+}
+
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (N == 32) wgmma_m64n32<TRANS_B>(d, a, desc);
+  else if constexpr (N == 64) wgmma_m64n64<TRANS_B>(d, a, desc);
+  else wgmma_m64n128<TRANS_B>(d, a, desc);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// close the warpgroup's wgmmas since the fence into one group
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of the warpgroup's groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving an accumulator's reads or writes across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a swizzled operand: start address,
+// leading and stride byte offsets, layout (1: 128-byte swizzle, 2: 64-byte).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
@@ -119,74 +256,163 @@ __device__ __forceinline__ float dot_row(const bf16* a, const bf16* __restrict__
   return s;
 }
 
+// The weight ring, STAGES chunks of NC x KC bf16 (8 KB each) at `wst`,
+// 1024-byte aligned. gemm's chunk holds 128 of Wt's (n, k) rows, 32 deep:
+// 64 bytes a row, its four 16-byte units u stored at u ^ ((n >> 1) & 3), the
+// 64-byte swizzle of wgmma's K-major operand layout. dgemm's holds 32 of
+// Wp's (k, n) rows, 128 columns wide, as two 64-column halves: 128 bytes a
+// row, its eight units u stored at u ^ (k & 7), the 128-byte swizzle of the
+// MN-major layout. No row padding: the swizzle keeps the copies' stores
+// and the tensor cores' reads free of bank conflicts.
+constexpr int STAGE_BYTES = NC * KC * 2;
+
+__device__ __forceinline__ void stage_wt(uint32_t st, const bf16* __restrict__ Wt, int k_dim,
+                                         int n0, int k0) {
+#pragma unroll
+  for (int i = 0; i < NC * KC / 8 / THREADS; ++i) {
+    const int v = threadIdx.x + i * THREADS, n = v >> 2, u = v & 3;
+    cp_async16(st + n * 64 + ((u ^ ((n >> 1) & 3)) << 4),
+               Wt + (long long)(n0 + n) * k_dim + k0 + u * 8);
+  }
+}
+
+// columns past n_dim are not copied (their products are skipped)
+__device__ __forceinline__ void stage_wp(uint32_t st, const bf16* __restrict__ Wp, int n_dim,
+                                         int n0, int k0) {
+#pragma unroll
+  for (int i = 0; i < NC * KC / 8 / THREADS; ++i) {
+    const int v = threadIdx.x + i * THREADS, k = v >> 4, nu = v & 15;
+    if (n0 + nu * 8 < n_dim)
+      cp_async16(st + (nu >> 3) * (KC * 128) + k * 128 + (((nu & 7) ^ (k & 7)) << 4),
+                 Wp + (long long)(k0 + k) * n_dim + n0 + nu * 8);
+  }
+}
+
+// The ring's schedule, shared by both products: chunk q of the call
+// (passes of NC output columns outer, KC-deep slices inner) is copied
+// STAGES - 1 chunks ahead of its products, so its L2 round trip runs under
+// the products of the chunks before it, and the passes run on without a
+// drain. One block barrier a chunk: after it, chunk q has landed for every
+// thread and every warpgroup is done with chunk q - 1, whose stage the
+// copy of chunk q + STAGES - 1 then takes. stage(s, q) issues chunk q's
+// copies into stage s.
+template <typename Stage>
+__device__ __forceinline__ void ring_prologue(int total, Stage stage) {
+  __syncthreads();   // the caller's writes are visible; the ring's last readers are done
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) {
+    if (q < total) stage(q, q);
+    cp_async_commit();
+  }
+}
+
+template <typename Stage>
+__device__ __forceinline__ uint32_t ring_next(int q, int total, uint32_t ring, Stage stage) {
+  cp_async_wait<STAGES - 2>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+  __syncthreads();
+  const int qn = q + STAGES - 1;
+  if (qn < total) stage(qn % STAGES, qn);
+  cp_async_commit();
+  return ring + (q % STAGES) * STAGE_BYTES;
+}
+
+// One chunk's products for a warpgroup: its warp's A fragments for the
+// chunk's KC columns (ldmatrix, into the registers wgmma reads), then one
+// wgmma a k step and chain c < nch, and the wait for them (the next
+// barrier hands their stage to a copy). desc(s, c): B's descriptor for k
+// step s and chain c.
+template <int LD, int N, int CH, int TRANS_B, typename Desc>
+__device__ __forceinline__ void chunk_products(float (&acc)[CH][N / 2], const bf16* A, int row0,
+                                               int acol, int nch, Desc desc) {
+  uint32_t a[KC / 16][4];
+#pragma unroll
+  for (int s = 0; s < KC / 16; ++s) load_a<LD>(a[s], A, row0, acol + 16 * s);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KC / 16; ++s)
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (c < nch) wgmma<N, TRANS_B>(acc[c], a[s], desc(s, c));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+}
+
+// The TPU kernels' layer product: the JAX package's ops/pallas/fused_field.py
+// `_mm` (:199), the product of every Pallas body's trunk and head layers.
 // out[r, n] = act(sum_k A[r, a_col0 + k] * Wt[n, k] + bias[n]) for the
-// ROWS rows of the tile, n < n_dim, rounded to bf16; LD is the tiles' row
-// stride. Wt (n_dim x k_dim, row-major) is staged 128 x 32 at a time. The
-// 8 warps split the tile's CH row blocks (independent chains, ROWS / CH
-// rows each) into WR = ROWS / (16 CH) row groups and a pass's 128 output
-// columns into WC = 8 / WR column groups: a warp owns 16 rows of every block
-// and 128 / WC columns, and issues the CH blocks' products back to back on
-// each weight fragment it loads. The defaults (WR = 8, WC = 1) are the
-// production kernels': 16 rows and all 128 columns a warp. A and out must be
-// different tiles. Starts with a block barrier, so writes made before the
-// call by any thread are visible.
+// ROWS rows of the tile, n < n_dim (a multiple of 128), rounded to bf16; LD
+// is the tiles' row stride. Wt (n_dim x k_dim, row-major) streams through
+// the weight ring, 128 x 32 a chunk. The two warpgroups split the tile
+// into 64-row halves (ROWS = 128) or a pass's 128 columns into 64-column
+// halves (ROWS = 64); each warp loads its 16 rows of A with ldmatrix into
+// the registers wgmma reads, and each warpgroup issues its share of the
+// chunk as CH wgmma chains of 128 / CH (ROWS = 64: 64) columns back to back
+// on each 16-deep k step (independent accumulators; the production kernels
+// use CH = 1, one m64n128k16 a step). A and out must be different tiles.
+// Starts with a block barrier, so writes made before the call by any
+// thread are visible.
+//
+// Bound on an H100 SXM: operations, 2 ROWS n_dim k_dim a call at 989
+// TFLOP/s, 7.5 an SM (a 256 x 256 layer on a 128-row tile: 2.2 us on its
+// SM); the weights are L2-resident and the tile never leaves shared memory.
+// Fits: the ring is 24,576 bytes beside two 128 x 328 tiles (167,936),
+// which leaves the camera forward 36,864 bytes of per-ray results at K = 143
+// under the 232,448-byte limit (a deeper ring of two 64-deep stages, 32,768
+// bytes, does not fit there). What the design does about the costs of the
+// staging it replaced (32-deep synchronous __ldg copies into one padded
+// buffer, two block barriers a chunk, 32 mma.sync a warp a chunk on
+// fragments read as 32-bit shared loads): cp.async copies two chunks ahead
+// (the L2 round trip runs under the products), one barrier a chunk, A's
+// fragments one ldmatrix.x4 a k step, and B read by the tensor cores
+// straight from the swizzled ring, two wgmma a warpgroup a chunk.
 template <bool RELU, int LD = LDA, int ROWS = MT, int CH = 1>
 __device__ void gemm(const bf16* A, int a_col0, int k_dim, const bf16* __restrict__ Wt,
                      const float* __restrict__ bias, int n_dim, bf16* out, bf16* wst) {
-  constexpr int WR = ROWS / (16 * CH), WC = 8 / WR, NJ = NC / WC / 8, BLK = ROWS / CH;
-  static_assert(WR * WC == THREADS / 32 && NJ * WC * 8 == NC, "the 8 warps cover the tile");
+  constexpr int WGR = ROWS / 64, WGC = 2 / WGR, NW = NC / WGC, N = NW / CH;
+  static_assert(ROWS % 64 == 0 && WGR * WGC == 2 && (N == 32 || N == 64 || N == 128),
+                "two warpgroups of 64 rows cover the tile; a chain is 32, 64 or 128 wide");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = warp % WR, wc = warp / WR;
-  const bf16* arow = A + (wr * 16 + g) * LD + a_col0 + 2 * t;
-  bf16* orow = out + (wr * 16 + g) * LD + wc * (NC / WC) + 2 * t;
+  const int wg = warp >> 2, row0 = wg % WGR * 64 + (warp & 3) * 16, col0 = wg / WGR * NW;
+  bf16* orow = out + (row0 + g) * LD + col0 + 2 * t;
+  const uint32_t ring = smem_addr(wst);
+  const int nk = k_dim / KC, total = n_dim / NC * nk;
+  auto stage = [&](int s, int q) {
+    stage_wt(ring + s * STAGE_BYTES, Wt, k_dim, q / nk * NC, q % nk * KC);
+  };
+  ring_prologue(total, stage);
+  int q = 0;
   for (int n0 = 0; n0 < n_dim; n0 += NC) {
-    float acc[CH][NJ][4];
+    float acc[CH][N / 2];
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+      for (int i = 0; i < N / 2; ++i) acc[c][i] = 0.f;
     for (int k0 = 0; k0 < k_dim; k0 += KC) {
-      __syncthreads();
-      for (int v = threadIdx.x; v < NC * KC / 8; v += THREADS) {
-        const int n = v / (KC / 8), kv = (v % (KC / 8)) * 8;
-        *reinterpret_cast<uint4*>(wst + n * LDW + kv) =
-            __ldg(reinterpret_cast<const uint4*>(Wt + (long long)(n0 + n) * k_dim + k0 + kv));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        uint32_t a[CH][4];
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          const bf16* ap = arow + c * BLK * LD + k0 + kk;
-          a[c][0] = ld_u32(ap);
-          a[c][1] = ld_u32(ap + 8 * LD);
-          a[c][2] = ld_u32(ap + 8);
-          a[c][3] = ld_u32(ap + 8 * LD + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const bf16* bp = wst + (wc * (NC / WC) + j * 8 + g) * LDW + kk + 2 * t;
-          const uint32_t b0 = ld_u32(bp), b1 = ld_u32(bp + 8);
-#pragma unroll
-          for (int c = 0; c < CH; ++c) mma_bf16(acc[c][j], a[c][0], a[c][1], a[c][2], a[c][3], b0, b1);
-        }
-      }
+      const uint32_t st = ring_next(q++, total, ring, stage);
+      // K-major B: (n, k) rows of 64 bytes, 8-row groups 512 apart
+      chunk_products<LD, N, CH, 0>(acc, A, row0, a_col0 + k0, CH, [&](int s, int c) {
+        return gmma_desc(st + (col0 + c * N) * 64 + 32 * s, 16, 512, 2);
+      });
     }
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = n0 + wc * (NC / WC) + j * 8 + 2 * t;
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = n0 + col0 + c * N + j * 8 + 2 * t;
         const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-        float v0 = acc[c][j][0] + b0, v1 = acc[c][j][1] + b1;
-        float v2 = acc[c][j][2] + b0, v3 = acc[c][j][3] + b1;
+        float v0 = acc[c][4 * j] + b0, v1 = acc[c][4 * j + 1] + b1;
+        float v2 = acc[c][4 * j + 2] + b0, v3 = acc[c][4 * j + 3] + b1;
         if (RELU) {
           v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
           v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
         }
-        bf16* op = orow + c * BLK * LD + n0 + j * 8;
+        bf16* op = orow + n0 + c * N + j * 8;
         *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(v0, v1);
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * LD) = __floats2bfloat162_rn(v2, v3);
       }
@@ -261,63 +487,71 @@ __device__ __forceinline__ float pe_value(int c, float xb) {
   return c < 3 ? xb : sinf(c < 33 ? xb : __fadd_rn(xb, HALF_PI));
 }
 
+// The TPU kernels' cotangent product: the JAX package's ops/pallas/
+// fused_field.py `_mm_t` (:207), g @ W^T, every trunk and head dgrad product.
 // out[r, oc0 + n] = round(sum_k A[r, a_col0 + k] * Wp[k, n]) for n < n_dim,
-// Wp a packed (out, in) matrix read as (k = out) x (n = in), i.e. the
-// product g @ W^T of the JAX package's _mm_t: f32 accumulation, bf16
-// rounding at the output. ADD: out = round(out + round(product)). A and out
-// may be one tile if their column ranges are disjoint. Starts with a block
-// barrier; the caller syncs before reading out.
+// Wp a packed (out, in) matrix read as (k = out) x (n = in): f32
+// accumulation, bf16 rounding at the output. ADD: out = round(out +
+// round(product)). A and out may be one tile if their column ranges are
+// disjoint (each warp reads and writes only its own 16 rows). Wp's (k, n)
+// rows stream through the weight ring as they lie in memory, 32 x 128 a
+// chunk, and wgmma reads them MN-major (its transpose bit): each warpgroup
+// owns 64 rows of the 128-row tile and issues one m64n64k16 a 64-column
+// half and k step, skipping the halves past n_dim (n_dim 64 and 320 leave
+// one half in their last pass). Starts with a block barrier; the caller
+// syncs before reading out.
+//
+// Bound, shared memory and the ring as gemm's. What it replaces: gemm's
+// staging, plus a transpose while staging, 8 scalar 2-byte stores a
+// 16-byte load, 16-way bank conflicts each (the 16 lanes with one k wrote
+// rows 8 apart, 640 bytes: one bank); the tensor cores now read the
+// untransposed chunk.
 template <bool ADD>
 __device__ void dgemm(const bf16* A, int a_col0, int k_dim, const bf16* __restrict__ Wp,
                       int n_dim, bf16* out, int oc0, bf16* wst) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* arow = A + (warp * 16 + g) * LDA + a_col0 + 2 * t;
-  bf16* orow = out + (warp * 16 + g) * LDA + oc0 + 2 * t;
+  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;
+  bf16* orow = out + (row0 + g) * LDA + oc0 + 2 * t;
+  const uint32_t ring = smem_addr(wst);
+  const int nk = k_dim / KC, total = (n_dim + NC - 1) / NC * nk;
+  auto stage = [&](int s, int q) {
+    stage_wp(ring + s * STAGE_BYTES, Wp, n_dim, q / nk * NC, q % nk * KC);
+  };
+  ring_prologue(total, stage);
+  int q = 0;
   for (int n0 = 0; n0 < n_dim; n0 += NC) {
-    float acc[NC / 8][4];
+    const int nh = min(NC, n_dim - n0) / 64;   // 64-column halves of this pass
+    float acc[2][32];
 #pragma unroll
-    for (int j = 0; j < NC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
     for (int k0 = 0; k0 < k_dim; k0 += KC) {
-      __syncthreads();
-      // stage the (n, k) chunk transposed from the (k, n) rows of Wp
-      for (int v = threadIdx.x; v < KC * NC / 8; v += THREADS) {
-        const int kk = v / (NC / 8), nv = (v % (NC / 8)) * 8;
-        uint4 w8 = make_uint4(0u, 0u, 0u, 0u);
-        if (n0 + nv < n_dim)
-          w8 = __ldg(reinterpret_cast<const uint4*>(Wp + (long long)(k0 + kk) * n_dim + n0 + nv));
-        const bf16* we = reinterpret_cast<const bf16*>(&w8);
+      const uint32_t st = ring_next(q++, total, ring, stage);
+      // MN-major B: (k, n) rows of 128 bytes, 8-row groups 1024 apart, the
+      // second 64-column half KC * 128 further
+      chunk_products<LDA, 64, 2, 1>(acc, A, row0, a_col0 + k0, nh, [&](int s, int h) {
+        return gmma_desc(st + h * (KC * 128) + 2048 * s, KC * 128, 1024, 1);
+      });
+    }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) wst[(nv + j) * LDW + kk] = we[j];
-      }
-      __syncthreads();
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        const bf16* ap = arow + k0 + kk;
-        const uint32_t a0 = ld_u32(ap), a1 = ld_u32(ap + 8 * LDA);
-        const uint32_t a2 = ld_u32(ap + 8), a3 = ld_u32(ap + 8 * LDA + 8);
-#pragma unroll
-        for (int j = 0; j < NC / 8; ++j) {
-          const bf16* bp = wst + (j * 8 + g) * LDW + kk + 2 * t;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(bp), ld_u32(bp + 8));
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + h * 64 + j * 8;
+        if (col >= n_dim) continue;
+        float v0 = bf_round(acc[h][4 * j]), v1 = bf_round(acc[h][4 * j + 1]);
+        float v2 = bf_round(acc[h][4 * j + 2]), v3 = bf_round(acc[h][4 * j + 3]);
+        __nv_bfloat162* p0 = reinterpret_cast<__nv_bfloat162*>(orow + col);
+        __nv_bfloat162* p1 = reinterpret_cast<__nv_bfloat162*>(orow + col + 8 * LDA);
+        if (ADD) {
+          const float2 e0 = __bfloat1622float2(*p0), e1 = __bfloat1622float2(*p1);
+          v0 += e0.x; v1 += e0.y; v2 += e1.x; v3 += e1.y;
         }
+        *p0 = __floats2bfloat162_rn(v0, v1);
+        *p1 = __floats2bfloat162_rn(v2, v3);
       }
-    }
-#pragma unroll
-    for (int j = 0; j < NC / 8; ++j) {
-      const int col = n0 + j * 8;
-      if (col >= n_dim) continue;
-      float v0 = bf_round(acc[j][0]), v1 = bf_round(acc[j][1]);
-      float v2 = bf_round(acc[j][2]), v3 = bf_round(acc[j][3]);
-      __nv_bfloat162* p0 = reinterpret_cast<__nv_bfloat162*>(orow + col);
-      __nv_bfloat162* p1 = reinterpret_cast<__nv_bfloat162*>(orow + col + 8 * LDA);
-      if (ADD) {
-        const float2 e0 = __bfloat1622float2(*p0), e1 = __bfloat1622float2(*p1);
-        v0 += e0.x; v1 += e0.y; v2 += e1.x; v3 += e1.y;
-      }
-      *p0 = __floats2bfloat162_rn(v0, v1);
-      *p1 = __floats2bfloat162_rn(v2, v3);
-    }
   }
 }
 

@@ -145,10 +145,11 @@ def load_variants_library():
     lib.kv_slab_bwd_workspace_bytes.argtypes = [i, ll]
     lib.kv_slab_bwd_workspace_bytes.restype = ll
     lib.kv_slab_bwd.argtypes = [p] * 7 + [ll, ll, p]
+    lib.kv_slab_bwd_pass.argtypes = [i] + [p] * 7 + [ll, ll, p]
     lib.kv_trunk_variant.argtypes = [i, p, p, p, p, ll, p]
     lib.kv_composite.argtypes = [i, p, p, p, p, p, ll, p]
-    for name in ("kv_bf16_chain", "kv_q_chain", "kv_i8_dyn", "kv_slab_bwd", "kv_trunk_variant",
-                 "kv_composite"):
+    for name in ("kv_bf16_chain", "kv_q_chain", "kv_i8_dyn", "kv_slab_bwd", "kv_slab_bwd_pass",
+                 "kv_trunk_variant", "kv_composite"):
         getattr(lib, name).restype = i
     lib.kv_error_string.argtypes = [i]
     lib.kv_error_string.restype = ctypes.c_char_p

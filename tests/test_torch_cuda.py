@@ -794,3 +794,139 @@ def test_variant_wrappers_refuse_what_the_kernels_do_not_take(dev, weights):
         vr.run_composite("reshape", weights, pos[:1000], sd[:1000])
     with pytest.raises(ValueError):
         vr.run_composite("colscan", weights, pos, sd, tile=1024)
+
+
+# ---------------------------------------------------------------------------
+# the two shared products of csrc/tile_common.cuh (gemm, the layer product;
+# dgemm, the cotangent product) at every shape their callers give them
+# ---------------------------------------------------------------------------
+
+# (case, rays or points, samples): each forward and backward that runs on
+# them, sized so that the last block has fewer rows than its tiles: camera
+# K=127 (a ray a tile) and K=143 (8 rays in 9 tiles; 1021 rays leave a block
+# of 5), shadow K=63 (2 rays a tile; 1023 leave one), coarse K=95 (4 rays in
+# 3 tiles; 1023 leave 3), points not a multiple of 128. gemm runs at k_dim
+# 64, 128, 256 and 320 and n_dim 128 and 256 in every forward and recompute;
+# dgemm at k_dim 128 and 256 and n_dim 64, 128, 256 and 320 in every dgrad
+# (the int8 tier's, and int8_full's heads-only one, included).
+PRODUCT_CASES = [("camera_fwd", 1021, 127), ("camera_fwd", 1021, 143), ("shadow_fwd", 1023, 63),
+                 ("coarse_fwd", 1023, 95), ("density_fwd", 128 * 100 + 77, None),
+                 ("field_fwd", 128 * 50 + 5, None), ("camera_bwd", 1021, 127),
+                 ("camera_bwd", 1021, 143), ("shadow_bwd", 1023, 63),
+                 ("camera_bwd_saved", 1021, 127), ("shadow_bwd_saved", 1023, 63),
+                 ("camera_bwd_q8", 1021, 127), ("camera_bwd_q8_full", 1021, 127),
+                 ("density_bwd", 1024 * 63 + 5, None), ("field_bwd", 4096 + 77, None)]
+PRODUCT_BACKWARDS = ["camera_bwd", "shadow_bwd", "camera_bwd_saved", "shadow_bwd_saved",
+                     "camera_bwd_q8", "camera_bwd_q8_full", "density_bwd", "field_bwd"]
+
+
+def _product_case(dev, weights, q8, case, n, k):
+    """(kernel call, plain call, float32 plain call or None) of a product
+    case, on inputs from a seed."""
+    if k is None:
+        pos, emb, g, gd = _points(dev, n, seed=n)
+        fwd = {"density_fwd": (ff.density_forward, ff.density_forward_reference, (pos,)),
+               "field_fwd": (ff.field_forward, ff.field_forward_reference, (pos, emb)),
+               "density_bwd": (ff.density_backward, ff.density_backward_reference, (pos, gd)),
+               "field_bwd": (ff.field_backward, ff.field_backward_reference, (pos, emb, g))}
+        kern, plain, args = fwd[case]
+        return (lambda: kern(weights, *args), lambda: plain(weights, *args),
+                lambda: plain(_f32(weights), *args))
+    cam, gacc, sh, ggeo = _saved_case(dev, n, k, seed=n + k)
+    camera = case.startswith("camera")
+    args, g = (cam, gacc) if camera else (sh, ggeo)
+    bwd_ref = fr.camera_backward_reference if camera else fr.shadow_backward_reference
+    if case.endswith("_saved"):
+        fwd_save = fr.camera_forward_save if camera else fr.shadow_forward_save
+        bwd_saved = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+        fwd_ref = fr.camera_forward_reference if camera else fr.shadow_forward_reference
+        stream = fwd_save(weights, *args)[1]
+        ref_acts = fwd_ref(weights, *args, save=True)[1]
+        return (lambda: bwd_saved(weights, *args, g, stream),
+                lambda: bwd_ref(weights, *args, g, acts=ref_acts), None)
+    if case.startswith("camera_bwd_q8"):
+        full = case.endswith("_full")
+        kern = fr.camera_backward_q8_full if full else fr.camera_backward_q8
+        return (lambda: kern(weights, q8, *cam, gacc, 1024),
+                lambda: bwd_ref(weights, *cam, gacc, q8, full, 1024), None)
+    if case.endswith("_bwd"):
+        kern = fr.camera_backward if camera else fr.shadow_backward
+        return lambda: kern(weights, *args, g), lambda: bwd_ref(weights, *args, g), None
+    kern, plain = {"camera_fwd": (fr.camera_forward, fr.camera_forward_reference),
+                   "shadow_fwd": (fr.shadow_forward, fr.shadow_forward_reference),
+                   "coarse_fwd": (fr.coarse_forward, fr.coarse_forward_reference)}[case]
+    args = sh if case == "shadow_fwd" else cam
+    return lambda: kern(weights, *args), lambda: plain(weights, *args), None
+
+
+RAY_BACKWARDS = ("camera_bwd", "shadow_bwd", "camera_bwd_saved", "shadow_bwd_saved")
+
+
+def _check_ray_backward_pinned(dev, weights, case, n, k, got, ref):
+    """A ray backward on the products with the trunk's ReLU masks pinned:
+    the saved kernel on the save forward's own stream against the plain
+    backward on that stream's activations (GRAD_REL_L2), the recompute
+    kernel equal to it (SAVED_REL_L2), and the kernel no farther from the
+    float32 plain version than POINT_GRAD_F32_RATIO times the bf16 plain
+    version (``got``, ``ref``: the kernel's and the bf16 plain version's
+    gradients). Against the all-plain backward, a mask that flips between
+    the two recomputed forwards moves d_rayin past GRAD_REL_L2 at some
+    ragged sizes (1.2-1.5 % at 1021 rays on NVIDIA H100 80GB HBM3, 700 W,
+    the parent build's kernels giving the same bits, both bf16 versions
+    9.4-9.9 % from float32); test_backward_kernels_match_plain_versions
+    holds that comparison at its own sizes."""
+    camera = case.startswith("camera")
+    cam, gacc, sh, ggeo = _saved_case(dev, n, k, seed=n + k)
+    args, g = (cam, gacc) if camera else (sh, ggeo)
+    fwd_save = fr.camera_forward_save if camera else fr.shadow_forward_save
+    bwd = fr.camera_backward if camera else fr.shadow_backward
+    bwd_saved = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+    bwd_ref = fr.camera_backward_reference if camera else fr.shadow_backward_reference
+    stream = fwd_save(weights, *args)[1]
+    saved = bwd_saved(weights, *args, g, stream)
+    _check_grads(saved, bwd_ref(weights, *args, g,
+                                acts=fr.stream_trunk_acts(stream, camera, n, k)))
+    assert max(_rel_errors(bwd(weights, *args, g), saved)) <= SAVED_REL_L2
+    ref32 = bwd_ref(_f32(weights), *args, g)
+    k32, p32 = max(_rel_errors(got, ref32)), max(_rel_errors(ref, ref32))
+    assert k32 <= POINT_GRAD_F32_RATIO * p32, (k32, p32)
+
+
+@pytest.mark.parametrize("case,n,k", PRODUCT_CASES)
+def test_shared_products_at_every_caller_shape(dev, weights, q8, case, n, k):
+    """Each kernel on gemm / dgemm against its plain version at a caller's
+    shape with a ragged last block, at the gates of the tests above."""
+    kern, plain, plain32 = _product_case(dev, weights, q8, case, n, k)
+    got, ref = kern(), plain()
+    if case == "density_fwd":
+        _check_sigma(got, ref)
+    elif case == "field_fwd":
+        _check_field(got, ref)
+    elif case == "coarse_fwd":
+        _check(got, ref, COARSE_TOL)
+    elif case.endswith("_fwd"):
+        _check(got, ref)
+    elif plain32 is not None:
+        _check_point_grads(got, ref, plain32())
+    elif case in RAY_BACKWARDS:
+        _check_ray_backward_pinned(dev, weights, case, n, k, got, ref)
+    elif case == "camera_bwd_q8_full":
+        errs = _q8_grad_errors(got, ref)
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        # the heads' dgrad runs on dgemm in bf16, the trunk's chain in int8
+        assert max(errs[16:-1]) < GRAD_REL_L2, errs
+        assert max(errs[:16] + errs[-1:]) < Q8_FULL_REL_L2, errs
+    else:
+        _check_grads(got, ref)
+
+
+@pytest.mark.parametrize("case", PRODUCT_BACKWARDS)
+def test_shared_product_backwards_repeat_bit_for_bit(dev, weights, q8, case):
+    """Every backward on dgemm, launched twice on the same inputs, gives the
+    same bits: the products and the fixed-order reduction depend on no
+    scheduling."""
+    n, k = {c: (n, k) for c, n, k in PRODUCT_CASES}[case]
+    kern = _product_case(dev, weights, q8, case, n, k)[0]
+    a, b = kern(), kern()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -180,3 +180,24 @@ def test_both_clis_run_the_plain_versions_on_the_cpu(capsys):
     assert kernel_variants.parse(["8192", "2048", "3", "mm_only,trunk", "--device", "cpu"]) == {
         "n": 8192, "tile": 2048, "iters": 3, "only": "mm_only,trunk", "device": "cpu"}
     assert composite.parse(["accmm", "4096"]) == {"only": "accmm", "n": 4096}
+
+
+@pytest.mark.parametrize("part", ["dgrad", "wgrad"])
+def test_split_slab_library_chains_match_the_plain_backward(setup, part):
+    """mm_bwd_saved's library yardsticks, split as its kernel passes are
+    timed (bench/variants.py library_slab_passes): the g @ W^T chain gives
+    the plain backward's out, the 8 A^T G products its dW, at the bench's
+    gate (the CPU's bf16 products round their output, the card's keep
+    float32)."""
+    pos = torch.from_numpy(setup["pos"])
+    dgrad, wgrad = vr.library_slab_passes(setup["sw"], pos, setup["acts"], TILE)
+    out, dw = vr.slab_bwd_reference(setup["sw"].w1.t(), pos, TILE, setup["acts"])
+    if part == "dgrad":
+        g, cots = dgrad()
+        assert len(cots) == 8 and bool(out.any())
+        assert vr.rel_l2(g[:, :1].float(), out) <= vr.REL_L2
+    else:
+        got = wgrad()
+        assert len(got) == 8
+        for i in range(8):
+            assert vr.rel_l2(got[i].float(), dw[i]) <= vr.REL_L2, i
