@@ -40,9 +40,12 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  for bit against the non-saving kernel, the backward from the
                  stream against the plain backward from the plain
                  activations and against the recompute kernel (rel-L2 1e-6;
-                 the same bits expected), with the stream's MiB. A second
-                 shape of a kernel goes into its summary row under
-                 other_shapes.
+                 the same bits expected), with the stream's MiB; then, for
+                 the saved camera (K=127) and shadow backwards, their four
+                 launches timed one by one beside the wgrad pass's library
+                 yardstick and each launch's bound
+                 (bench/backward_passes.py). A second shape of a kernel
+                 goes into its summary row under other_shapes.
 3. render      - a full-width EONerfField (20 images, seeded init, bf16)
                  behind make_render_field renders a 512x512 orthographic
                  nadir sweep with shadows in 4096-ray chunks. All 13
@@ -144,7 +147,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  why where there is none); mm_bwd_saved also with its
                  passes timed one by one (slab_dgrad on dgemm, slab_wgrad,
                  reduce) beside the 8-product g @ W^T chain and the 8
-                 A^T G products as library calls. Then the save-or-recompute
+                 A^T G products as library calls, each pass's bound and
+                 slab_wgrad's bytes a second. Then the save-or-recompute
                  decision: t(mm_fwd_save) + t(mm_bwd_saved) against
                  t(mm_only) + t(mm_bwd_rec).
 
@@ -344,6 +348,7 @@ def main():
               file=sys.stderr)
         return 1
 
+    from eonerf_code_tpu_torch.bench import backward_passes as bp
     from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
     from eonerf_code_tpu_torch.eval.device import device_dsm_mae
     from eonerf_code_tpu_torch.models.eonerf import EONerfField
@@ -878,6 +883,7 @@ def main():
         "shadow": (fr.shadow_forward, fr.shadow_forward_save, fr.shadow_forward_reference,
                    fr.shadow_backward, fr.shadow_backward_saved, fr.shadow_backward_reference)}
     saved_cols = fr.act_stream_cols(False)    # the PE and h0..h7 of a sample row
+    pass_rows = {}
     for op, args, gin, n_valid, macs in saved_cases:
         cam = op == "camera"
         fwd, fwd_save, fwd_ref, bwd, bwd_saved, bwd_ref = saved_ops[op]
@@ -953,6 +959,15 @@ def main():
                 and max(rel_rec) <= SAVED_REL_L2):
             raise AssertionError(f"{op} saved pair at K={k}: {fwd_errs}, backward rel-L2 {rel_b},"
                                  f" vs recompute {rel_rec}")
+        if op not in pass_rows:
+            # the saved backward's four launches one by one (measurement
+            # launches, outside the counts), the wgrad pass beside its
+            # library yardstick (the same products as torch.mm on the same
+            # stream slices) and each launch's bound
+            pass_rows[op] = bp.backward_pass_ms(kw, *args[:3], gin, stream,
+                                                None if cam else args[3], 10)
+            emit({"phase": "kernels", "name": f"{op}_bwd_saved_passes", "rays": nb,
+                  "samples": k, **pass_rows[op], "card": card})
         del stream
 
     # ---- 3. the main path: a 512x512 nadir sweep with shadows ----

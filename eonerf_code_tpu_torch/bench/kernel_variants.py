@@ -90,12 +90,19 @@ def bench_inputs(n, device, with_acts=True):
 
 def slab_split_ms(sw, pos, acts, tile, iters):
     """mm_bwd_saved's passes timed one by one on the card, beside their
-    library chains: {slab_dgrad, slab_wgrad, reduce, library_dgrad,
-    library_wgrad: ms}."""
+    library chains and bounds: {slab_dgrad, slab_wgrad, reduce,
+    library_dgrad, library_wgrad: ms, bound_ms: {pass: ms}, bound_by:
+    {pass: ...}, slab_wgrad_bytes_per_s: the bytes slab_wgrad must move over
+    its time}."""
     split = vr.slab_pass_ms(sw, pos, acts, tile, iters)
     dgrad, wgrad = vr.library_slab_passes(sw, pos, acts, tile)
     split.update(library_dgrad=time_ms(dgrad, iters, pos.device),
                  library_wgrad=time_ms(wgrad, iters, pos.device))
+    bounds = vr.slab_pass_bounds(pos.shape[0])
+    wgrad_bytes = bounds.pop("slab_wgrad_bytes")
+    split.update(bound_ms={p: b[0] for p, b in bounds.items()},
+                 bound_by={p: b[1] for p, b in bounds.items()},
+                 slab_wgrad_bytes_per_s=wgrad_bytes / (split["slab_wgrad"] * 1e-3))
     return split
 
 
@@ -125,7 +132,11 @@ def main(n=1040384, tile=2048, iters=10, only=None, device=None):
         print(report(variant, tile, n, ms, dev), flush=True)
         if variant == "mm_bwd_saved" and dev.type == "cuda":
             split = slab_split_ms(sw, pos, acts, tile, iters)
-            print("  " + "  ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
+            print("  " + "  ".join(f"{k} {split[k]:.3f} ms" for k in (
+                "slab_dgrad", "slab_wgrad", "reduce", "library_dgrad", "library_wgrad")), flush=True)
+            print("  bounds " + "  ".join(f"{k} {v:.3f} ms ({split['bound_by'][k]})"
+                                          for k, v in split["bound_ms"].items())
+                  + f"  slab_wgrad {split['slab_wgrad_bytes_per_s'] / 1e12:.2f} TB/s", flush=True)
     decision = {"mm_only", "mm_fwd_save", "mm_bwd_rec", "mm_bwd_saved"}
     if dev.type == "cuda" and decision <= set(results):
         saved = results["mm_fwd_save"] + results["mm_bwd_saved"]

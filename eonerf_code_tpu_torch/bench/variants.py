@@ -504,6 +504,30 @@ def library_slab_passes(sw, pos, acts, tile=2048):
     return (lambda: dgrad(layers)), (lambda: wgrad(layers, cots))
 
 
+def slab_pass_bounds(n):
+    """mm_bwd_saved's three launches on n rows: {pass: (least ms on an H100
+    SXM, "operations" | "bytes"), "slab_wgrad_bytes": bytes}. Operations:
+    the 8 products at the bf16 peak (dgrad and wgrad). Bytes at 3.35 TB/s,
+    each input read once and each output written once: slab_dgrad reads
+    the 8 layers' ReLU masks (h0..h7) and the seeds and writes the 8 masked
+    cotangents and out; slab_wgrad reads h0..h6 (layer 0's input, the seed,
+    from pos) and the 8 cotangents and writes the per-split partials; the
+    reduction reads those and writes dW."""
+    splits = max(1, min(16, n // 1024))
+    mats = 8 * W * W * 4
+    ops_ms = 2.0 * 8 * W * W * n / PEAK_BF16 * 1e3
+    nbytes = {"slab_dgrad": n * 12 + 2 * n * ACTS_COLS * 2 + n * 4 + W * W * 2,
+              "slab_wgrad": n * 12 + n * (7 * W + ACTS_COLS) * 2 + splits * mats,
+              "reduce": (splits + 1) * mats}
+    out = {}
+    for name, b in nbytes.items():
+        o = ops_ms if name != "reduce" else 0.0
+        bm = b / PEAK_BYTES * 1e3
+        out[name] = (o, "operations") if o >= bm else (bm, "bytes")
+    out["slab_wgrad_bytes"] = nbytes["slab_wgrad"]
+    return out
+
+
 def slab_pass_ms(sw, pos, acts, tile=2048, iters=10):
     """mm_bwd_saved's three CUDA launches timed one by one on the card, as
     the variant runs them on its workspace (CUDA events over ``iters``

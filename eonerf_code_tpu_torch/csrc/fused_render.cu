@@ -84,8 +84,9 @@
 //      stream; it writes every layer's pre-activation cotangent to a
 //      cotangent stream, its block's f32 bias-gradient sums, and d_rayin;
 //   3. wgrad_kernel: every weight gradient as inputs^T @ cotangents over all
-//      samples (mma.sync, f32), split over the sample axis into per-block
-//      partial sums;
+//      samples (tile_common.cuh wgemm: both streams' rows staged as they lie
+//      by cp.async, the transposes in wgmma, f32), split over the sample
+//      axis into per-block partial sums;
 //   4. reduce_kernel: the partial sums added in a fixed order, so the
 //      gradients are the same bits from run to run (no atomics).
 // The streams cost (3072 + 2976) bf16 per camera sample: 1.6 GB at 1024
@@ -771,15 +772,18 @@ int n_wgrad_tiles(bool camera) { return wgrad_tiles_of(n_mats(camera)); }
 int n_trunk_wgrad_tiles() { return wgrad_tiles_of(8); }
 
 // Third pass: every weight gradient as a tensor-core product over the
-// samples. blockIdx.x walks the (matrix, 128 x 128 output tile) list,
-// blockIdx.y the split of the sample axis; each block writes its partial
-// sums to its own slice of `wpart` (no atomics).
+// samples (tile_common.cuh wgemm: the stream rows staged as they lie through
+// a cp.async ring, the transposes in wgmma). blockIdx.x walks the (matrix,
+// 128 x 128 output tile) list from tile0, blockIdx.y the split of the
+// sample axis; each block writes its partial sums to its own slice of
+// `wpart` (no atomics). Consecutive blocks are the tiles of one split, so a
+// split's tiles stream its rows together and the rows they share are read
+// from HBM about once.
 template <bool CAMERA>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 wgrad_kernel(const bf16* __restrict__ acts, const bf16* __restrict__ gpre,
              float* __restrict__ wpart, long long S, long long chunk, int tile0) {
-  __shared__ __align__(16) bf16 sa[WG_TILE * LDW];
-  __shared__ __align__(16) bf16 sb[WG_TILE * LDW];
+  extern __shared__ __align__(1024) unsigned char wring[];
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
   constexpr long long GS = CAMERA ? GP_CAM : GP_SH;
   constexpr long long NMAT = CAMERA ? M_END : M_BOTT;
@@ -795,55 +799,44 @@ wgrad_kernel(const bf16* __restrict__ acts, const bf16* __restrict__ gpre,
   const int out_pad = (jb.out + 7) / 8 * 8;
   const long long sbeg = blockIdx.y * chunk;
   const long long send = min(S, sbeg + chunk);
+  const bf16* a_src = acts + jb.a_col + m0;
+  const bf16* g_src = gpre + jb.b_col + n0;
+  const int a_cols = min(WG_TILE, jb.in - m0), g_cols = min(WG_TILE, out_pad - n0);
+  const uint32_t ring = smem_addr(wring);
+  float acc[64];
+  wgemm(acc, (int)max(0LL, (send - sbeg + WKC - 1) / WKC), m0 + (threadIdx.x >> 7) * 64 < jb.in,
+        wring, [&](int s, int q) {
+          const uint32_t st = ring + s * WSTAGE_BYTES;
+          const long long r0 = sbeg + (long long)q * WKC;
+          stage_rows(st, a_src, AS, r0, send, a_cols);
+          stage_rows(st + WOP_BYTES, g_src, GS, r0, send, g_cols);
+        });
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  float acc[WG_TILE / 8][4];
-#pragma unroll
-  for (int j = 0; j < WG_TILE / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (long long k0 = sbeg; k0 < send; k0 += KC) {
-    __syncthreads();
-    // stage A^T and G^T chunks: (feature, sample) in shared memory
-    for (int v = threadIdx.x; v < KC * (WG_TILE / 8); v += THREADS) {
-      const int kk = v / (WG_TILE / 8), cv = (v % (WG_TILE / 8)) * 8;
-      const long long s = k0 + kk;
-      uint4 a8 = make_uint4(0u, 0u, 0u, 0u), b8 = make_uint4(0u, 0u, 0u, 0u);
-      if (s < send) {
-        if (m0 + cv < jb.in)
-          a8 = *reinterpret_cast<const uint4*>(acts + s * AS + jb.a_col + m0 + cv);
-        if (n0 + cv < out_pad)
-          b8 = *reinterpret_cast<const uint4*>(gpre + s * GS + jb.b_col + n0 + cv);
-      }
-      const bf16* ae = reinterpret_cast<const bf16*>(&a8);
-      const bf16* be = reinterpret_cast<const bf16*>(&b8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sa[(cv + j) * LDW + kk] = ae[j];
-        sb[(cv + j) * LDW + kk] = be[j];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      const bf16* ap = sa + (warp * 16 + g) * LDW + kk + 2 * tq;
-      const uint32_t a0 = ld_u32(ap), a1 = ld_u32(ap + 8 * LDW);
-      const uint32_t a2 = ld_u32(ap + 8), a3 = ld_u32(ap + 8 * LDW + 8);
-#pragma unroll
-      for (int j = 0; j < WG_TILE / 8; ++j) {
-        const bf16* bp = sb + (j * 8 + g) * LDW + kk + 2 * tq;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(bp), ld_u32(bp + 8));
-      }
-    }
-  }
   float* dst = wpart + blockIdx.y * NMAT + jb.m_off;
+  const int m = m0 + warp * 16 + g;
 #pragma unroll
   for (int j = 0; j < WG_TILE / 8; ++j) {
     const int n = n0 + j * 8 + 2 * tq;
-    const int m = m0 + warp * 16 + g;
+#pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int mm = m + (q >= 2 ? 8 : 0), nn = n + (q & 1);
-      if (mm < jb.in && nn < jb.out) dst[(long long)nn * jb.in + mm] = acc[j][q];
+      if (mm < jb.in && nn < jb.out) dst[(long long)nn * jb.in + mm] = acc[4 * j + q];
     }
   }
+}
+
+// Launch the weight-gradient pass: the tiles from tile0 over L.splits
+// sample splits of L.chunk rows.
+template <bool CAMERA>
+int launch_wgrad(const bf16* acts, const bf16* gpre, float* wpart, long long S, int splits,
+                 long long chunk, int tile0, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgrad_kernel<CAMERA>, cudaFuncAttributeMaxDynamicSharedMemorySize, WRING_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA) - tile0, splits), THREADS, WRING_BYTES,
+                         stream>>>(acts, gpre, wpart, S, chunk, tile0);
+  return (int)cudaGetLastError();
 }
 
 // Scratch of one backward call, carved out of one workspace in this order.
@@ -907,56 +900,67 @@ size_t dgrad_smem(int KPAD) {
 // stream and the head cotangents: dgrad, wgrad and the fixed-order reduction.
 // HEADS_ONLY (the int8_full backward): dgrad stops at the trunk output,
 // writing g_h7 to `gh`; wgrad and the reduction skip the trunk's matrices and
-// biases, which the int8 passes compute.
+// biases, which the int8 passes compute. pass 1, 2 or 3 (measurement): that
+// pass alone (dgrad, wgrad, the reduction), on scratch the passes before it
+// filled; < 0 all three.
 template <bool CAMERA, bool POINT, bool HEADS_ONLY = false>
 int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const float* z,
                const bf16* wm, float* dmats, float* dbias, float* dout, float* demb, int R,
-               int KPAD, cudaStream_t stream, bf16* gh = nullptr) {
-  const size_t smem = dgrad_smem(KPAD);
-  cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT, !HEADS_ONLY>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dgrad_kernel<CAMERA, POINT, !HEADS_ONLY><<<L.nblocks, THREADS, smem, stream>>>(
-      rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD, rays_per_block(KPAD),
-      gh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int tile0 = HEADS_ONLY ? n_trunk_wgrad_tiles() : 0;
-  wgrad_kernel<CAMERA><<<dim3(n_wgrad_tiles(CAMERA) - tile0, L.splits), THREADS, 0, stream>>>(
-      sc.acts, sc.gpre, sc.wpart, L.S, L.chunk, tile0);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long n_mat = CAMERA ? M_END : M_BOTT;
-  const int n_bias = CAMERA ? B_END : B_BOTT;
-  reduce_kernel<<<1024, THREADS, 0, stream>>>(sc.wpart, L.splits, n_mat, sc.bpart, L.nblocks,
-                                              n_bias, dmats, dbias, HEADS_ONLY ? M_SIG : 0,
-                                              HEADS_ONLY ? B_SIG : 0);
+               int KPAD, cudaStream_t stream, bf16* gh = nullptr, int pass = -1) {
+  if (pass < 0 || pass == 1) {
+    const size_t smem = dgrad_smem(KPAD);
+    const cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT, !HEADS_ONLY>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dgrad_kernel<CAMERA, POINT, !HEADS_ONLY><<<L.nblocks, THREADS, smem, stream>>>(
+        rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD,
+        rays_per_block(KPAD), gh);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (pass < 0 || pass == 2) {
+    const int err = launch_wgrad<CAMERA>(sc.acts, sc.gpre, sc.wpart, L.S, L.splits, L.chunk,
+                                         HEADS_ONLY ? n_trunk_wgrad_tiles() : 0, stream);
+    if (err != 0) return err;
+  }
+  if (pass < 0 || pass == 3) {
+    const long long n_mat = CAMERA ? M_END : M_BOTT;
+    const int n_bias = CAMERA ? B_END : B_BOTT;
+    reduce_kernel<<<1024, THREADS, 0, stream>>>(sc.wpart, L.splits, n_mat, sc.bpart, L.nblocks,
+                                                n_bias, dmats, dbias, HEADS_ONLY ? M_SIG : 0,
+                                                HEADS_ONLY ? B_SIG : 0);
+  }
   return (int)cudaGetLastError();
 }
 
 // saved != nullptr: the saved backward, on the stream the forward wrote
 // (fused_fwd_kernel<MODE, false, false, true>) in place of the recompute.
+// pass 0..3 (measurement): one of the four launches alone (the first pass,
+// dgrad, wgrad, the reduction) on a workspace the passes before it filled;
+// < 0 all four.
 template <bool CAMERA>
 int launch_bwd(const float* rayin, const float* z, const float* deltam, const float* mask,
                const float* gin, const void* wm_, const float* wb, void* ws, float* dmats,
                float* dbias, float* drayin, int R, int KPAD, cudaStream_t stream,
-               bf16* saved = nullptr) {
-  if (R <= 0 || KPAD <= 0 || KPAD % 8 != 0 || KPAD > MAX_KPAD) return (int)cudaErrorInvalidValue;
+               bf16* saved = nullptr, int pass = -1) {
+  if (R <= 0 || KPAD <= 0 || KPAD % 8 != 0 || KPAD > MAX_KPAD || pass > 3)
+    return (int)cudaErrorInvalidValue;
   const bf16* wm = static_cast<const bf16*>(wm_);
   const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD, saved == nullptr);
   Scratch sc = carve(L, ws);
-  int err;
-  if (saved != nullptr) {
-    sc.acts = saved;
-    err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R,
-                                                    KPAD, stream, gin, sc.acts, sc.hg);
-  } else {
-    err = launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
-                                              stream, gin, sc.acts, sc.hg);
+  if (saved != nullptr) sc.acts = saved;
+  if (pass < 0 || pass == 0) {
+    const int err =
+        saved != nullptr
+            ? launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R,
+                                                        KPAD, stream, gin, sc.acts, sc.hg)
+            : launch<CAMERA ? CAM : SHADOW, true>(rayin, z, deltam, mask, wm, wb, nullptr, R,
+                                                  KPAD, stream, gin, sc.acts, sc.hg);
+    if (err != 0 || pass == 0) return err;
   }
-  if (err != 0) return err;
   return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
-                                   stream);
+                                   stream, nullptr, pass);
 }
 
 template <bool FIELD>
@@ -1709,6 +1713,71 @@ int eonerf_shadow_bwd_saved(const float* rayin, const float* z, const float* del
                             int KPAD, void* stream) {
   return launch_bwd<false>(rayin, z, deltam, mask, ggeo, wm, wb, ws, dmats, dbias, drayin, R,
                            KPAD, static_cast<cudaStream_t>(stream), static_cast<bf16*>(acts));
+}
+
+// Measurement: one launch of a camera (camera != 0) or shadow backward
+// alone, on a workspace that the launches before it filled: pass 0 the
+// first pass (the recompute, or with acts the heads from the saved stream),
+// 1 dgrad, 2 wgrad, 3 the fixed-order reduction. Arguments as the four
+// backward entries' (mask null for the camera, acts null for the
+// recompute).
+int eonerf_bwd_pass(int camera, int pass, const float* rayin, const float* z,
+                    const float* deltam, const float* mask, const float* gin, const void* wm,
+                    const float* wb, void* acts, void* ws, float* dmats, float* dbias,
+                    float* drayin, int R, int KPAD, void* stream) {
+  if (pass < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* saved = static_cast<bf16*>(acts);
+  if (camera)
+    return launch_bwd<true>(rayin, z, deltam, nullptr, gin, wm, wb, ws, dmats, dbias, drayin, R,
+                            KPAD, st, saved, pass);
+  return launch_bwd<false>(rayin, z, deltam, mask, gin, wm, wb, ws, dmats, dbias, drayin, R,
+                           KPAD, st, saved, pass);
+}
+
+// Where a backward of R rays of KPAD samples (or R points, KPAD 1) keeps
+// its streams in its workspace (every backward's workspace, the int8 ones'
+// included, starts with this layout): out = [activation stream's byte
+// offset (-1 when saved: the caller's), cotangent stream's byte offset,
+// activation columns, cotangent columns, sample splits, rows a split, dgrad
+// blocks].
+void eonerf_bwd_stream_layout(int camera, int R, int KPAD, int saved, long long* out) {
+  const BwdLayout L = ray_bwd_layout(camera != 0, R, KPAD, saved == 0);
+  out[0] = saved ? -1 : (long long)L.acts;
+  out[1] = (long long)L.gpre;
+  out[2] = camera ? ACT_CAM : ACT_SH;
+  out[3] = camera ? GP_CAM : GP_SH;
+  out[4] = L.splits;
+  out[5] = L.chunk;
+  out[6] = L.nblocks;
+}
+
+// Bytes of the per-split partial sums of eonerf_wgrad over S rows.
+long long eonerf_wgrad_partial_bytes(int camera, long long S) {
+  const BwdLayout L = bwd_layout(camera != 0, S, 1);
+  return (long long)L.splits * (camera ? M_END : M_BOTT) * (long long)sizeof(float);
+}
+
+// The weight-gradient pass alone on given streams of S rows (acts: S x
+// ACT_CAM or ACT_SH bf16, gpre: S x GP_CAM or GP_SH), split as a backward of
+// S rows splits them, then the fixed-order reduction of its matrices into
+// dmats (the packed layout; heads_only: the matrices past the trunk, as
+// int8_full's backward runs it, and dmats' trunk is not written).
+int eonerf_wgrad(int camera, int heads_only, const void* acts, const void* gpre, long long S,
+                 void* wpart, float* dmats, void* stream) {
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdLayout L = bwd_layout(camera != 0, S, 1);
+  const bf16* a = static_cast<const bf16*>(acts);
+  const bf16* g = static_cast<const bf16*>(gpre);
+  float* wp = static_cast<float*>(wpart);
+  const int tile0 = heads_only ? n_trunk_wgrad_tiles() : 0;
+  const int err = camera ? launch_wgrad<true>(a, g, wp, S, L.splits, L.chunk, tile0, st)
+                         : launch_wgrad<false>(a, g, wp, S, L.splits, L.chunk, tile0, st);
+  if (err != 0) return err;
+  reduce_kernel<<<1024, THREADS, 0, st>>>(wp, L.splits, camera ? M_END : M_BOTT, nullptr, 0, 0,
+                                          dmats, nullptr, heads_only ? M_SIG : 0, 0);
+  return (int)cudaGetLastError();
 }
 
 // Backward of the field op: g (N, 8) -> d_mats, d_biases, d_pos (N, 3) and

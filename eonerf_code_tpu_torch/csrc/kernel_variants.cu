@@ -527,68 +527,51 @@ slab_dgrad_kernel(const float* __restrict__ pos, const bf16* __restrict__ acts,
 
 // dW_i (in x out, row-major f32) = inp_i^T g_i over the rows of split
 // blockIdx.y, for the 128 x 128 output tile blockIdx.x % 4 of layer
-// blockIdx.x / 4, into wpart[split][i]. As fused_render.cu's wgrad_kernel:
-// 32-row chunks of both operands staged transposed, mma.sync, no atomics.
-__global__ void __launch_bounds__(THREADS)
+// blockIdx.x / 4, into wpart[split][i]: fused_render.cu's wgrad_kernel on
+// the same shared product (tile_common.cuh wgemm: the stream rows staged as
+// they lie by cp.async, the transposes in wgmma), no atomics. Layer 0's
+// input is h0, or without it the row's seed, written into the ring by
+// st.shared in the swizzled layout the copies have.
+__global__ void __launch_bounds__(THREADS, 2)
 slab_wgrad_kernel(const float* __restrict__ pos, const bf16* __restrict__ h0,
                   const bf16* __restrict__ acts, const bf16* __restrict__ gp,
                   float* __restrict__ wpart, long long n, long long chunk, long long seg) {
-  __shared__ __align__(16) bf16 sa[WG_TILE * LDW];
-  __shared__ __align__(16) bf16 sb[WG_TILE * LDW];
+  extern __shared__ __align__(1024) unsigned char wring[];
   const int layer = blockIdx.x / 4, m0 = ((blockIdx.x % 4) / 2) * WG_TILE,
             n0 = (blockIdx.x % 2) * WG_TILE;
   const long long sbeg = blockIdx.y * chunk;
   const long long send = min(n, sbeg + chunk);
+  const uint32_t ring = smem_addr(wring);
+  float acc[64];
+  wgemm(acc, (int)max(0LL, (send - sbeg + WKC - 1) / WKC), true, wring, [&](int s, int q) {
+    const uint32_t st = ring + s * WSTAGE_BYTES;
+    const long long r0 = sbeg + (long long)q * WKC;
+    if (layer > 0) {
+      stage_rows(st, acts + (layer - 1) * W + m0, ACTS_COLS, r0, send, WG_TILE);
+    } else if (h0 != nullptr) {
+      stage_rows(st, h0 + m0, W, r0, send, WG_TILE);
+    } else {
+#pragma unroll
+      for (int i = 0; i < WKC * 16 / THREADS; ++i) {
+        const int v = threadIdx.x + i * THREADS, k = v >> 4;
+        const uint4 x = r0 + k < send ? splat_bf16(seed_of(pos, r0 + k, seg, 0))
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(wring + s * WSTAGE_BYTES + wunit(k, v & 15)) = x;
+      }
+    }
+    stage_rows(st + WOP_BYTES, gp + layer * W + n0, ACTS_COLS, r0, send, WG_TILE);
+  });
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  float acc[WG_TILE / 8][4];
-#pragma unroll
-  for (int j = 0; j < WG_TILE / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (long long k0 = sbeg; k0 < send; k0 += KC) {
-    __syncthreads();
-    for (int v = threadIdx.x; v < KC * (WG_TILE / 8); v += THREADS) {
-      const int kk = v / (WG_TILE / 8), cv = (v % (WG_TILE / 8)) * 8;
-      const long long s = k0 + kk;
-      uint4 a8 = make_uint4(0u, 0u, 0u, 0u), b8 = make_uint4(0u, 0u, 0u, 0u);
-      if (s < send) {
-        if (layer > 0)
-          a8 = *reinterpret_cast<const uint4*>(acts + s * ACTS_COLS + (layer - 1) * W + m0 + cv);
-        else if (h0 != nullptr)
-          a8 = *reinterpret_cast<const uint4*>(h0 + s * W + m0 + cv);
-        else
-          a8 = splat_bf16(seed_of(pos, s, seg, 0));
-        b8 = *reinterpret_cast<const uint4*>(gp + s * ACTS_COLS + layer * W + n0 + cv);
-      }
-      const bf16* ae = reinterpret_cast<const bf16*>(&a8);
-      const bf16* be = reinterpret_cast<const bf16*>(&b8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sa[(cv + j) * LDW + kk] = ae[j];
-        sb[(cv + j) * LDW + kk] = be[j];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      const bf16* ap = sa + (warp * 16 + g) * LDW + kk + 2 * tq;
-      const uint32_t a0 = ld_u32(ap), a1 = ld_u32(ap + 8 * LDW);
-      const uint32_t a2 = ld_u32(ap + 8), a3 = ld_u32(ap + 8 * LDW + 8);
-#pragma unroll
-      for (int j = 0; j < WG_TILE / 8; ++j) {
-        const bf16* bp = sb + (j * 8 + g) * LDW + kk + 2 * tq;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(bp), ld_u32(bp + 8));
-      }
-    }
-  }
   float* dst = wpart + ((long long)blockIdx.y * 8 + layer) * W * W;
+  const int mm = m0 + warp * 16 + g;
 #pragma unroll
   for (int j = 0; j < WG_TILE / 8; ++j) {
     const int nn = n0 + j * 8 + 2 * tq;
-    const int mm = m0 + warp * 16 + g;
-    dst[(long long)mm * W + nn] = acc[j][0];
-    dst[(long long)mm * W + nn + 1] = acc[j][1];
-    dst[(long long)(mm + 8) * W + nn] = acc[j][2];
-    dst[(long long)(mm + 8) * W + nn + 1] = acc[j][3];
+    dst[(long long)mm * W + nn] = acc[4 * j];
+    dst[(long long)mm * W + nn + 1] = acc[4 * j + 1];
+    dst[(long long)(mm + 8) * W + nn] = acc[4 * j + 2];
+    dst[(long long)(mm + 8) * W + nn + 1] = acc[4 * j + 3];
   }
 }
 
@@ -646,7 +629,9 @@ int launch_slab_bwd(const float* pos, const void* h0, const void* acts_in, const
     if (e != cudaSuccess) return (int)e;
   }
   if (pass < 0 || pass == 1) {
-    slab_wgrad_kernel<<<dim3(8 * 4, L.splits), THREADS, 0, stream>>>(
+    e = set_smem(slab_wgrad_kernel, WRING_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    slab_wgrad_kernel<<<dim3(8 * 4, L.splits), THREADS, WRING_BYTES, stream>>>(
         pos, static_cast<const bf16*>(h0), acts, gp, wpart, n, L.chunk, seg);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

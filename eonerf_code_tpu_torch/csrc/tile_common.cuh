@@ -2,10 +2,11 @@
 // production kernels) and kernel_variants.cu (the kernel-variant bench, which
 // measures that design's costs one by one). The tile machinery: the 128-row
 // bf16 activation tiles and their stride, the two tensor-core products with
-// their weights staged through an asynchronous ring (gemm, dgemm), the trunk
-// over a tile, the PE lanes, the packed weight layout, the fixed-order
-// reduction of per-block partial sums, and the int8 pieces (mma,
-// quantization, the group amax fold).
+// their weights staged through an asynchronous ring (gemm, dgemm), the
+// weight-gradient product with both operands staged through one (wgemm),
+// the trunk over a tile, the PE lanes, the packed weight layout, the
+// fixed-order reduction of per-block partial sums, and the int8 pieces
+// (mma, quantization, the group amax fold).
 //
 // The build (ops/_build.py) hashes every .cuh beside the sources, so an edit
 // here rebuilds both libraries.
@@ -27,8 +28,7 @@ constexpr int CAT = W + PE;   // layer-5 input and transient input width
 constexpr int MT = 128;       // sample rows per tile: 8 warps x 16 rows
 constexpr int THREADS = 256;
 constexpr int LDA = CAT + 8;  // activation row stride; +8 keeps ldmatrix conflict-free
-constexpr int KC = 32;        // depth of one staged chunk (products and weight gradients)
-constexpr int LDW = KC + 8;   // the weight-gradient kernels' staged row stride
+constexpr int KC = 32;        // depth of one staged weight chunk; weight-gradient splits are multiples
 constexpr int NC = 128;       // output columns per pass
 constexpr int STAGES = 3;     // stages of the products' weight ring
 constexpr int WST = STAGES * NC * KC;   // the ring, bf16 elements (24,576 bytes)
@@ -90,20 +90,6 @@ __device__ __forceinline__ int act_h(int i) { return i < 5 ? i * W : A_PE + PE +
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float bf_round(float x) { return bf(__float2bfloat16_rn(x)); }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -115,6 +101,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// cp_async16 with a source size of 0 or 16 bytes: the rest of the 16 are
+// zero-filled (0: nothing is read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes) : "memory");
 }
 
 // this thread's copies of all but the newest N groups have landed
@@ -294,27 +287,29 @@ __device__ __forceinline__ void stage_wp(uint32_t st, const bf16* __restrict__ W
 // the products of the chunks before it, and the passes run on without a
 // drain. One block barrier a chunk: after it, chunk q has landed for every
 // thread and every warpgroup is done with chunk q - 1, whose stage the
-// copy of chunk q + STAGES - 1 then takes. stage(s, q) issues chunk q's
-// copies into stage s.
-template <typename Stage>
+// copy of chunk q + ST - 1 then takes. stage(s, q) issues chunk q's
+// copies into stage s (stores it makes itself with st.shared are ordered
+// before the tensor cores' reads as the copies are). ST stages of SB bytes:
+// the products' ring by default, wgemm's its own.
+template <int ST = STAGES, typename Stage>
 __device__ __forceinline__ void ring_prologue(int total, Stage stage) {
   __syncthreads();   // the caller's writes are visible; the ring's last readers are done
 #pragma unroll
-  for (int q = 0; q < STAGES - 1; ++q) {
+  for (int q = 0; q < ST - 1; ++q) {
     if (q < total) stage(q, q);
     cp_async_commit();
   }
 }
 
-template <typename Stage>
+template <int ST = STAGES, int SB = STAGE_BYTES, typename Stage>
 __device__ __forceinline__ uint32_t ring_next(int q, int total, uint32_t ring, Stage stage) {
-  cp_async_wait<STAGES - 2>();
+  cp_async_wait<ST - 2>();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
   __syncthreads();
-  const int qn = q + STAGES - 1;
-  if (qn < total) stage(qn % STAGES, qn);
+  const int qn = q + ST - 1;
+  if (qn < total) stage(qn % ST, qn);
   cp_async_commit();
-  return ring + (q % STAGES) * STAGE_BYTES;
+  return ring + (q % ST) * SB;
 }
 
 // One chunk's products for a warpgroup: its warp's A fragments for the
@@ -552,6 +547,142 @@ __device__ void dgemm(const bf16* A, int a_col0, int k_dim, const bf16* __restri
         *p0 = __floats2bfloat162_rn(v0, v1);
         *p1 = __floats2bfloat162_rn(v2, v3);
       }
+  }
+}
+
+// The weight-gradient product: the JAX package's weight-gradient sums, the
+// `outer` contributions (a^T g over a tile's rows, accumulated across the
+// sequential grid) of _camera_bwd_kernel and _shadow_bwd_kernel (its
+// ops/pallas/fused_render.py:312, :511), of the per-point _field_bwd_kernel
+// and _density_bwd_kernel (ops/pallas/fused_field.py:462, :571), and of
+// scripts/bench_kernel_variants.py's _bwd_core (:374).
+// acc = A^T G over the chunks of a sample range: A (samples x 128 input
+// features) and G (samples x 128 output features), both (sample, feature)
+// rows as they lie in the backward's streams. Each block owns one 128 x 128
+// output tile; warpgroup wg its input rows 64 wg .. 64 wg + 63 (`active`
+// false: none of them exists, and it issues no products). acc holds the
+// warpgroup's 64 x 128 result in wgmma's accumulator layout (as gemm's, one
+// warp's 16 rows: acc[4 j + i] is (row g + 8 (i / 2), column 8 j + 2 t + i %
+// 2)).
+//
+// Staging: stage(s, q) fills stage s (wring + s * WSTAGE_BYTES: A's chunk,
+// then G's at + WOP_BYTES) with chunk q, WKC samples of both operands, by
+// stage_rows (16-byte cp.async of the rows as they lie, zero-filled past the
+// range's end) or its own st.shared; the ring is gemm's schedule, WSTAGES
+// deep: copies WSTAGES - 1 chunks ahead, one block barrier a chunk. Both
+// chunks are MN-major (feature fastest) with the 128-byte swizzle that
+// dgemm's weight chunks have: two 64-feature halves, each sample row 128
+// bytes, its unit u at u ^ (sample & 7). The transposes are the tensor
+// cores': one wgmma m64n128k16 a warpgroup and 16-sample step, A and B both
+// read from the ring through descriptors with their transpose bits set
+// (bf16 allows it for A as well as B). Each output element sums its
+// range's samples in ascending 16-sample steps, as the mma.sync staging
+// this replaces did.
+//
+// Bound on an H100 SXM: bytes. A tile reads 512 bytes a sample and does
+// 2 x 128 x 128 flops on them, 64 flops a byte, under the 295 at which the
+// tensor cores (989 TFLOP/s) rather than memory (3.35 TB/s) would bound it;
+// so a pass is bounded by reading each stream byte it needs once (the
+// camera backward's at 1024 x 128 samples: the 3072 + 2950 bf16 columns its
+// products read, 1.58 GB, and its partial sums, 0.48 ms). Shared memory:
+// the ring only, WRING_BYTES (3 stages of 2 x 64 x 128 bf16: 98,304
+// bytes), dynamic and 1024-byte aligned; nothing else, so two blocks fit
+// an SM (the configurations measured are in PERF.md, from
+// bench/wgrad_rings.py). What the design does about the old staging's
+// costs: it stored both chunks transposed, 8 scalar 2-byte stores a 16-byte
+// load with 16-way bank conflicts (the 16 lanes that shared a sample wrote
+// rows 640 bytes apart), loaded synchronously between two barriers with
+// nothing in flight, and read fragments as 32-bit shared loads for 16
+// mma.sync a warp a step. Now 16-byte copies land conflict-free under the
+// swizzle with WSTAGES - 1 chunks (64 KB a block) in flight, and the tensor
+// cores take both transposes from the ring. The re-reads: the two output
+// tiles of a matrix's 128 input features, and the tiles of its 128 output
+// features, are neighbours in the grid and read one split's rows at about
+// the same time, so the second read of a row finds it in L2.
+constexpr int WKC = 64;                             // samples a chunk
+constexpr int WSTAGES = 3;                          // chunks in the ring
+constexpr int WOP_BYTES = WKC * WG_TILE * 2;        // one operand's chunk
+constexpr int WSTAGE_BYTES = 2 * WOP_BYTES;         // A's chunk, then G's
+constexpr int WRING_BYTES = WSTAGES * WSTAGE_BYTES;
+static_assert(WKC % 16 == 0 && WKC * 16 % THREADS == 0 && WSTAGES >= 2,
+              "a chunk is whole 16-sample steps, copied in whole rounds of the block");
+static_assert(WOP_BYTES % 1024 == 0, "every chunk starts on a swizzle atom");
+
+// wgmma.mma_async m64n128k16, bf16 -> f32, A and B both from shared memory
+// through descriptors; TRANS_A / TRANS_B = 1 reads them MN-major.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// Byte offset in an operand's chunk of sample row k's 16-byte unit nu (8
+// features): half nu / 8, unit nu % 8 swizzled by the row.
+__device__ __forceinline__ uint32_t wunit(int k, int nu) {
+  return (nu >> 3) * (WKC * 128) + k * 128 + (((nu & 7) ^ (k & 7)) << 4);
+}
+
+// One operand's chunk into the ring at dst: rows r0 .. r0 + WKC - 1 of a
+// row-major bf16 stream (`src` at the chunk's first column, `stride`
+// elements a row), its first ncols (a multiple of 8) of 128 columns. Rows at
+// or past rend are zero-filled without a read; the units past ncols are not
+// copied (their products land in output rows or columns that are never
+// written), so no copy reads past a stream row or past its end.
+__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* __restrict__ src,
+                                           long long stride, long long r0, long long rend,
+                                           int ncols) {
+#pragma unroll
+  for (int i = 0; i < WKC * 16 / THREADS; ++i) {
+    const int v = threadIdx.x + i * THREADS, k = v >> 4, nu = v & 15;
+    if (nu * 8 < ncols) {
+      const bool in = r0 + k < rend;
+      cp_async16_zfill(dst + wunit(k, nu), src + (in ? (r0 + k) * stride : 0) + nu * 8,
+                       in ? 16 : 0);
+    }
+  }
+}
+
+template <typename Stage>
+__device__ void wgemm(float (&acc)[64], int nchunks, bool active, unsigned char* wring,
+                      Stage stage) {
+  const uint32_t ring = smem_addr(wring);
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  ring_prologue<WSTAGES>(nchunks, stage);
+  for (int q = 0; q < nchunks; ++q) {
+    const uint32_t st = ring_next<WSTAGES, WSTAGE_BYTES>(q, nchunks, ring, stage);
+    if (!active) continue;
+    fence_regs(acc);
+    wgmma_fence();
+    // MN-major A and B: 8-sample groups of 128-byte rows 1024 apart, a
+    // 16-sample step 2048; A's 64 rows are one half, B's second 64 columns
+    // the half WKC * 128 further
+#pragma unroll
+    for (int s = 0; s < WKC / 16; ++s)
+      wgmma_ss_m64n128<1, 1>(acc, gmma_desc(st + wg * (WKC * 128) + 2048 * s, WKC * 128, 1024, 1),
+                             gmma_desc(st + WOP_BYTES + 2048 * s, WKC * 128, 1024, 1));
+    wgmma_commit();
+    wgmma_wait<0>();   // the next barrier hands this stage to a copy
+    fence_regs(acc);
   }
 }
 

@@ -125,6 +125,14 @@ def load_library():
     lib.eonerf_q8_bwd_workspace_bytes.restype = ll
     lib.eonerf_q8_bwd.argtypes = [i, i] + [p] * 16 + [i, i, ll, p]
     lib.eonerf_q8_bwd.restype = i
+    # the measurement and test entries of the backward's passes, which a
+    # build of an older tree (bench/ab_libraries.py) may lack
+    for name, args, res in (("eonerf_bwd_pass", [i, i] + [p] * 12 + [i, i, p], i),
+                            ("eonerf_bwd_stream_layout", [i, i, i, i, p], None),
+                            ("eonerf_wgrad_partial_bytes", [i, ll], ll),
+                            ("eonerf_wgrad", [i, i, p, p, ll, p, p, p], i)):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]
     lib.eonerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -783,6 +783,14 @@ def coarse_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, t
 coarse_forward_q8.launches = 0
 
 
+def _q8_workspace(camera, full, rp, kpad, group_rows, dev):
+    """The int8 backward kernels' scratch (it starts with the bf16
+    backward's), sized by the library."""
+    nbytes = _build.load_library().eonerf_q8_bwd_workspace_bytes(int(camera), int(full), rp, kpad,
+                                                                 group_rows)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+
+
 def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, stats):
     r, k = z.shape
     dev = rayin.device
@@ -793,10 +801,7 @@ def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target,
         check_f32("ggeo", gin, (r,), dev)
         per_sample, gin = (z, deltam, mask), gin.reshape(-1, 1)
     (rayin_p, gin_p), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target, (gin,))
-    lib = _build.load_library()
-    ws = torch.empty((lib.eonerf_q8_bwd_workspace_bytes(int(camera), int(full), rp, kpad,
-                                                        rt * kpad),),
-                     dtype=torch.uint8, device=dev)
+    ws = _q8_workspace(camera, full, rp, kpad, rt * kpad, dev)
     amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
     gamax = torch.zeros_like(amax)
     d_mats, d_biases, d_rayin = _zero_grads(rp, dev)

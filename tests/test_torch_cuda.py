@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from eonerf_code_tpu_torch.bench import backward_passes as bpass
 from eonerf_code_tpu_torch.bench import variants as vr
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.fused import KernelField
+from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 from eonerf_code_tpu_torch.ops.fused_field import flatten_weights, pack_params
@@ -930,3 +932,141 @@ def test_shared_product_backwards_repeat_bit_for_bit(dev, weights, q8, case):
     a, b = kern(), kern()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the weight-gradient product of csrc/tile_common.cuh (wgemm: wgrad_kernel
+# and slab_wgrad_kernel) alone, against float64 sums of its own operands
+# ---------------------------------------------------------------------------
+
+# (case, rays or points, samples): every caller of wgrad_kernel, sized as
+# PRODUCT_CASES: the camera recompute at K=127 and 143, the shadow, the
+# saved pair, the int8 tier's bf16 pass (on the int8 recompute's stream),
+# int8_full's heads-only tiles (tile0 past the trunk), the field and density
+# backwards per point (rows not a multiple of the 32-row chunk)
+WGRAD_CASES = [("camera_bwd", 1021, 127), ("camera_bwd", 1021, 143), ("shadow_bwd", 1023, 63),
+               ("camera_bwd_saved", 1021, 127), ("shadow_bwd_saved", 1023, 63),
+               ("camera_bwd_q8", 1021, 127), ("camera_bwd_q8_full", 1021, 127),
+               ("field_bwd", 4096 + 77, None), ("density_bwd", 1024 * 63 + 5, None)]
+
+
+def _capture(monkeypatch, module, name, shape, seen):
+    """Append (camera, rays or points, KPAD, workspace) of each call of a
+    workspace allocator to ``seen``; ``shape`` reads the first three off its
+    arguments."""
+    real = getattr(module, name)
+
+    def wrap(*args, **kw):
+        ws = real(*args, **kw)
+        seen.append((*shape(*args, **kw), ws))
+        return ws
+    monkeypatch.setattr(module, name, wrap)
+
+
+def _wgrad_f64(camera, acts, gpre):
+    """float64 A^T G of every product, and sum |a g|, packed."""
+    ops = bpass.wgrad_operands(camera, acts, gpre)
+    return (bpass.pack_wgrad([a.double().t() @ g.double() for a, g in ops]),
+            bpass.pack_wgrad([a.double().abs().t() @ g.double().abs() for a, g in ops]))
+
+
+@pytest.mark.parametrize("case,n,k", WGRAD_CASES)
+def test_wgrad_pass_on_the_kernels_own_streams(dev, weights, q8, monkeypatch, case, n, k):
+    """Each backward's weight gradients against the float64 sums A^T G of
+    the activation and cotangent streams it left in its workspace (free of
+    the ReLU-kink differences of whole-backward comparisons). Tolerance: f32
+    accumulation of exact bf16 products, |error| <= (chunk + splits) 2^-23
+    sum |a g|: a rounding of at most 2^-23 relative at every addition along
+    a split's rows and across the splits."""
+    seen = []
+    _capture(monkeypatch, fr, "_workspace", lambda c, r, kp, d, saved=False: (c, r, kp), seen)
+    _capture(monkeypatch, ff, "point_workspace", lambda c, r, d: (c, r, 1), seen)
+    _capture(monkeypatch, fr, "_q8_workspace", lambda c, f, r, kp, gr, d: (c, r, kp), seen)
+    acts = None
+    if case.endswith("_saved"):
+        camera = case.startswith("camera")
+        cam, gacc, sh, ggeo = _saved_case(dev, n, k, seed=n + k)
+        args, g = (cam, gacc) if camera else (sh, ggeo)
+        acts = (fr.camera_forward_save if camera else fr.shadow_forward_save)(weights, *args)[1]
+        bwd = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+        got = bwd(weights, *args, g, acts)
+    else:
+        got = _product_case(dev, weights, q8, case, n, k)[0]()
+    torch.cuda.synchronize()
+    assert len(seen) == 1, [x[:3] for x in seen]
+    camera, r, kpad, ws = seen[0]
+    exact, scale = _wgrad_f64(camera, *bpass.workspace_streams(ws, camera, r, kpad, acts))
+    lay = bpass.stream_layout(camera, r, kpad, acts is not None)
+    first = ff.TRUNK_MAT_ELEMENTS if case == "camera_bwd_q8_full" else 0
+    tol = ((lay["chunk"] + lay["splits"]) * 2.0 ** -23 * scale)[first:]
+    err = (got[0].double() - exact).abs()[first:]
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert float(scale[first:].sum()) > 0
+
+
+# (camera, rows, heads only): the pass alone at callers' row counts: one
+# split of 1000 rows (not a multiple of the chunk), 16 splits of the
+# camera's and shadow's training streams, the field's and density's points,
+# int8_full's heads-only tiles
+WGRAD_ROWS = [(True, 1000, False), (True, 1021 * 128, False), (False, 1023 * 64, False),
+              (True, 4096 + 77, False), (False, 1024 * 63 + 5, False), (True, 1021 * 128, True)]
+
+
+def _int_streams(camera, s, gen, dev):
+    """Streams of small integers, whose products and sums f32 holds exactly."""
+    a_cols, g_cols = bpass.STREAM_COLS[camera]
+    return [torch.randint(-3, 4, (s, c), generator=gen, device=dev).to(torch.bfloat16)
+            for c in (a_cols, g_cols)]
+
+
+@pytest.mark.parametrize("camera,s,heads_only", WGRAD_ROWS)
+def test_wgrad_product_is_exact_on_integer_streams(dev, camera, s, heads_only):
+    """On integer streams every sum is exact in f32 whatever its order, so
+    the pass must give the float64 sums bit for bit: a staging, swizzle or
+    transpose fault shows as any difference."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    acts, gpre = _int_streams(camera, s, gen, dev)
+    got = bpass.wgrad_alone(camera, acts, gpre, heads_only)
+    exact, _ = _wgrad_f64(camera, acts, gpre)
+    first = ff.TRUNK_MAT_ELEMENTS if heads_only else 0
+    assert torch.equal(got.double()[first:], exact[first:])
+    if heads_only:
+        assert not bool(got[:first].any())
+
+
+def test_wgrad_pass_repeats_bit_for_bit(dev):
+    """Launched twice on the same random streams, the pass gives the same
+    bits (per-split partials, fixed-order reduction)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    acts, gpre = [torch.randn((1021 * 128, c), generator=gen, device=dev).to(torch.bfloat16)
+                  for c in bpass.STREAM_COLS[True]]
+    a, b = bpass.wgrad_alone(True, acts, gpre), bpass.wgrad_alone(True, acts, gpre)
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("n,with_h0", [(1000, True), (1000, False), (4096 + 77, True)])
+def test_slab_wgrad_is_exact_on_integer_streams(dev, weights, n, with_h0):
+    """mm_bwd_saved's slab_wgrad pass alone (kv_slab_bwd_pass 1, then the
+    reduction) on integer activations, h0 or seeds, and cotangents written
+    into its workspace: the float64 sums bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(n + with_h0)
+    pos = torch.randint(-3, 4, (n, 3), generator=gen, device=dev).float()
+    acts = torch.randint(-3, 4, (n, vr.ACTS_COLS), generator=gen, device=dev).to(torch.bfloat16)
+    h0 = (torch.randint(-3, 4, (n, vr.W), generator=gen, device=dev).to(torch.bfloat16)
+          if with_h0 else None)
+    lib = _build.load_variants_library()
+    ws = torch.empty((lib.kv_slab_bwd_workspace_bytes(1, n),), dtype=torch.uint8, device=dev)
+    gp = ws[:n * vr.ACTS_COLS * 2].view(torch.bfloat16).view(n, vr.ACTS_COLS)   # offset 0 when saved
+    gp.copy_(torch.randint(-3, 4, (n, vr.ACTS_COLS), generator=gen, device=dev))
+    out = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    dw = torch.empty((8, vr.W, vr.W), dtype=torch.float32, device=dev)
+    sw = vr.slab_weights(weights)
+    for p in (1, 2):
+        vr._launch("kv_slab_bwd_pass", "slab wgrad pass", dev, p, pos, h0, acts, sw.w1, ws, out,
+                   dw, n, 256)
+    torch.cuda.synchronize()
+    inp0 = h0 if with_h0 else vr._seeds(pos, 256, 0).to(torch.bfloat16)[:, None].expand(n, vr.W)
+    for i in range(8):
+        a = (acts[:, vr.W * (i - 1):vr.W * i] if i else inp0).double()
+        assert torch.equal(dw[i].double(), a.t() @ gp[:, vr.W * i:vr.W * (i + 1)].double()), i
