@@ -33,7 +33,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  launches at the same shapes (forwards in scale groups of the
                  2048-row target, backwards of the 1024-row one, int8 and
                  int8_full), each against its plain version, with the group
-                 amax each quantized with. Then the saved-activations pair at
+                 amax each quantized with, and each one's int8 trunk alone
+                 (fused_render.q8_trunk): the path the shape takes (one
+                 cluster launch, or layer-major past 16 CTAs a group), the
+                 cluster's CTAs, the clusters the card holds at once, the
+                 trunk's CUDA-event time against its bound and beside the
+                 layer-major path's on the same inputs, both paths' stream
+                 columns and group amax the same bits. Then the saved-activations pair at
                  the training shapes (camera K=127 and K=143, shadow K=63):
                  the forward that writes the activation stream against its
                  plain version (outputs, and h0..h7 of the stream) and bit
@@ -441,7 +447,8 @@ def main():
         if name in kernel_rows:
             kernel_rows[name].setdefault("other_shapes", []).append(
                 {"samples": k, **{key: row[key] for key in
-                                  ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+                                  ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "trunk")
+                                  if key in row}})
         else:
             kernel_rows[name] = row
 
@@ -783,8 +790,63 @@ def main():
          sum(t.numel() * 4 for t in b_in_h) + camera_bwd_bytes),
     ]
 
+    def q8_trunk_launched(call):
+        """The int8 trunk's CUDA kernels that one call launches, by the
+        library's own launch counts: how many of each."""
+        before = fr.q8_trunk_kernel_launches()
+        call()
+        torch.cuda.synchronize()
+        return {k: n - before[k] for k, n in fr.q8_trunk_kernel_launches().items()}
+
+    def q8_trunk_alone(args, n_valid, target, camera, write_all, amax, call):
+        """The int8 trunk alone at a case's shape (the forwards': the PE and
+        h7 to the stream; the backwards': every h): the path the shape
+        takes, its cluster, the clusters the card holds at once, its
+        CUDA-event time and its bound (the int8 operations of the valid
+        samples at the int8 peak against the bytes of rayin, z and the
+        stream columns written), beside the layer-major path's time on the
+        same inputs; both paths' written columns and amax, and the case's
+        own amax, must be the same bits; and the case's own call must have
+        launched that path's kernels alone (one cluster launch, or the PE
+        and 8 layer kernels)."""
+        lib = _build.load_library()
+        rayin_, z_ = args[0], args[1]
+        kpad, rt, rp = fr.q8_plan(rayin_.shape[0], z_.shape[1], target)
+        path, ctas, last = fr.q8_trunk_plan(kpad, rt * kpad)
+        if lib.eonerf_q8_trunk_path(kpad, rt * kpad) != fr.Q8_TRUNK_PATHS.index(path):
+            raise AssertionError(f"the library's int8 trunk path differs from the plan {path}")
+        launched = q8_trunk_launched(call)
+        want = ({"q8_trunk_cluster_kernel": 1, "q8_pe_kernel": 0, "q8_layer_kernel": 0}
+                if path == "cluster" else
+                {"q8_trunk_cluster_kernel": 0, "q8_pe_kernel": 1, "q8_layer_kernel": 8})
+        if launched != want:
+            raise AssertionError(f"int8 call on the {path} path launched {launched}")
+        runs = {p: fr.q8_trunk(kw, q8w, rayin_, z_, target, camera, write_all, p)
+                for p in dict.fromkeys((path, "layer_major"))}
+        same = all(torch.equal(a, runs[path][1]) and torch.equal(
+            fr.q8_stream_written(st, write_all), fr.q8_stream_written(runs[path][0], write_all))
+            for st, a in runs.values()) and torch.equal(runs[path][1], amax)
+        del runs
+        ms = time_ms(torch, lambda: fr.q8_trunk(kw, q8w, rayin_, z_, target, camera, write_all),
+                     10)
+        lm_ms = time_ms(torch, lambda: fr.q8_trunk(kw, q8w, rayin_, z_, target, camera, write_all,
+                                                   "layer_major"), 10)
+        cols = sum(b - a for a, b in fr.q8_stream_cols(write_all))
+        ops_ms = 2.0 * trunk_macs * n_valid / PEAK_INT8_OPS * 1e3
+        bytes_ms = (rayin_.numel() * 4 + z_.numel() * 4 + rp * kpad * cols * 2) / PEAK_BYTES * 1e3
+        res = {"path": path, "group_rows": rt * kpad, "cluster_ctas": ctas, "last_cta_rows": last,
+               "active_clusters": (lib.eonerf_q8_trunk_active_clusters(ctas)
+                                   if path == "cluster" else None),
+               "ms": ms, "layer_major_ms": lm_ms, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "same_bits_as_layer_major": same, "launched": launched}
+        if not same:
+            raise AssertionError(f"int8 trunk at {rayin_.shape[0]} x {z_.shape[1]}: the {path} "
+                                 f"path differs from the layer-major one or from the call's amax")
+        return res
+
     def q8_row(name, k, n_valid, macs, passes_int8, passes_bf16, nbytes, ms, plain_ms,
-               max_err, tpu_fn):
+               max_err, tpu_fn, trunk):
         """Least time of an int8 launch: the trunk's multiply-adds of the
         in-cube samples at the int8 peak for the passes that run int8, the
         rest (heads; the bf16 passes) at the bf16 peak, against the bytes."""
@@ -797,7 +859,8 @@ def main():
                "replaces": tpu_kernel_site(tpu_fn, "fused_field.py"), "launches": None,
                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+               "trunk": trunk}
         record(name, k, row)
         return row
 
@@ -810,20 +873,24 @@ def main():
         errs = {"max_abs": float(err.max()), "mean_abs": float(err.mean())}
         if tol is COARSE_TOL:
             errs["mean_rel"] = errs["mean_abs"] / float(ref.abs().mean())
-        amax_rel = float(((sk["amax"] - sp["amax"]).abs() / sp["amax"].abs().clamp(min=1e-30))
-                         .max())
+        amax_k = sk.pop("amax")   # (the stream the kernels wrote goes with sk)
+        amax_rel = float(((amax_k - sp["amax"]).abs() / sp["amax"].abs().clamp(min=1e-30)).max())
         finite = bool(torch.isfinite(got).all())
+        del sk
         ms = time_ms(torch, lambda: kern(kw, q8w, *args), 10)
         plain_ms = time_ms(torch, lambda: plain(kw, *args, q8w, 2048), 3)
+        trunk = q8_trunk_alone(args, n_valid, 2048, name.startswith("camera"), False, amax_k,
+                               lambda: kern(kw, q8w, *args))
         row = q8_row(name, args[1].shape[1], n_valid, macs, 1, 0, nbytes, ms, plain_ms,
-                     errs["max_abs"], "_trunk_fwd_q8")
+                     errs["max_abs"], "_trunk_fwd_q8", trunk)
         emit({"phase": "kernels", "name": name, "rays": args[0].shape[0],
-              "samples": args[1].shape[1], "groups": int(sk["amax"].shape[0]),
+              "samples": args[1].shape[1], "groups": int(sp["amax"].shape[0]),
               "valid_samples": n_valid, "errors": errs, "tolerance": tol,
               "amax_max_rel": amax_rel, "amax_tolerance": Q8_AMAX_REL, "finite": finite,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"], "card": card})
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"], "trunk": trunk,
+              "card": card})
         if not (finite and all(errs[key] <= tol[key] for key in tol)
-                and sk["amax"].shape == sp["amax"].shape and amax_rel <= Q8_AMAX_REL):
+                and amax_k.shape == sp["amax"].shape and amax_rel <= Q8_AMAX_REL):
             raise AssertionError(f"{name}: kernel disagrees with its plain version ({errs}, "
                                  f"amax {amax_rel}, finite {finite})")
     for name, kern, plain, args, n_valid, macs, full, nbytes in q8_bwd_cases:
@@ -848,9 +915,12 @@ def main():
                   <= Q8_FULL_F32_RATIO * vs_f32["plain_chain_max_rel_l2"])
         ms = time_ms(torch, lambda: kern(kw, q8w, *args), 10)
         plain_ms = time_ms(torch, lambda: plain(kw, *args, q8w, full, 1024), 3)
+        trunk = q8_trunk_alone(args, n_valid, 1024, name.startswith("camera"), True, sk["amax"],
+                               lambda: kern(kw, q8w, *args))
         # recompute int8 (and, int8_full, dgrad and wgrad too); the rest bf16
         row = q8_row(name, args[1].shape[1], n_valid, macs, 3 if full else 1, 0 if full else 2,
-                     nbytes, ms, plain_ms, max_err, "_trunk_bwd_q8" if full else "_trunk_fwd_q8")
+                     nbytes, ms, plain_ms, max_err, "_trunk_bwd_q8" if full else "_trunk_fwd_q8",
+                     trunk)
         emit({"phase": "kernels", "name": name, "rays": nb, "samples": args[1].shape[1],
               "groups": int(sk["amax"].shape[0]), "valid_samples": n_valid,
               "max_rel_l2": max(rel), "rel_l2_d_rayin": rel[-1], "max_abs_err": max_err,
@@ -860,7 +930,7 @@ def main():
               "amax_max_rel": amax_rel,
               "amax_tolerance": {"amax": Q8_AMAX_REL, "gamax": Q8_GAMAX_REL},
               "finite": finite, "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
-              "card": card})
+              "trunk": trunk, "card": card})
         if not (finite and ok and amax_rel["amax"] <= Q8_AMAX_REL
                 and amax_rel.get("gamax", 0.0) <= Q8_GAMAX_REL):
             raise AssertionError(f"{name} at K={args[1].shape[1]}: kernel disagrees with its "

@@ -2,7 +2,8 @@
 checkout's csrc/fused_render.cu against another copy of it (a parent
 commit's, unpacked with `git archive` into a git-ignored directory), on the
 same inputs, one case for each production instantiation of the shared
-products in csrc/tile_common.cuh. Prints whether every output is the same
+products in csrc/tile_common.cuh and one for each int8 forward (the int8
+trunk's launch). Prints whether every output is the same
 bits, the largest absolute difference of each case where it is not, then
 each build's kernel times in turns (other, this, this, other), so a change
 to the kernels or to csrc/tile_common.cuh is compared on one card.
@@ -18,7 +19,12 @@ from pathlib import Path
 
 import torch
 
-from eonerf_code_tpu_torch.bench.kernel_variants import bench_weights, resolve_device, time_ms
+from eonerf_code_tpu_torch.bench.kernel_variants import (
+    bench_rays,
+    bench_weights,
+    resolve_device,
+    time_ms,
+)
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
@@ -34,20 +40,17 @@ def cases(device):
     that runs first), the int8 tier's camera backward (its bf16 dgrad) and
     the int8_full one (the heads-only dgrad); the density forward at the
     entropy probe (131,072 points), its backward (1024 x 63 points), the
-    field forward and backward."""
+    field forward and backward; and the int8 tier's forwards at the render
+    shapes (camera 4096 x 127 and 143, shadow 4096 x 63, coarse 4096 x 95),
+    each a launch of the int8 trunk (and the heads on gemm). The int8 calls
+    take ``stats`` (:func:`_outputs` compares their group amax and, for the
+    forwards, the stream columns the trunk wrote)."""
     kw, _ = bench_weights(device)
     q8 = ff.quantize_kernel_trunk(kw.mats.float())
     gen = torch.Generator(device=device).manual_seed(3)
 
     def rays(r, k):
-        o = torch.rand((r, 3), generator=gen, device=device) * 1.2 - 0.6
-        o[:, 2] = 0.99
-        d = torch.nn.functional.normalize(torch.tensor([0.02, 0.01, -1.0], device=device), dim=0)
-        emb = torch.randn((r, 4), generator=gen, device=device)
-        rayin = torch.cat([o, d.expand(r, 3), emb, torch.zeros((r, 6), device=device)], 1)
-        z = torch.sort(torch.rand((r, k), generator=gen, device=device) * 2.0, dim=1)[0]
-        dm = torch.diff(z, dim=1, append=torch.full((r, 1), 2.0, device=device))
-        return rayin.contiguous(), z.contiguous(), dm.contiguous()
+        return bench_rays(r, k, gen, device)
 
     def shadow(r, k):
         rayin, z, dm = rays(r, k)
@@ -76,8 +79,13 @@ def cases(device):
             "camera_bwd": lambda: fr.camera_backward(kw, *batch, gacc),
             "camera_bwd_saved": lambda: fr.camera_backward_saved(kw, *batch, gacc, stream()),
             "shadow_bwd": lambda: fr.shadow_backward(kw, *batch_sh, ggeo),
-            "camera_bwd_q8": lambda: fr.camera_backward_q8(kw, q8, *batch, gacc),
-            "camera_bwd_q8_full": lambda: fr.camera_backward_q8_full(kw, q8, *batch, gacc),
+            "camera_bwd_q8": lambda **st: fr.camera_backward_q8(kw, q8, *batch, gacc, **st),
+            "camera_bwd_q8_full": lambda **st: fr.camera_backward_q8_full(kw, q8, *batch, gacc,
+                                                                          **st),
+            "camera_fwd_q8": lambda **st: fr.camera_forward_q8(kw, q8, *render, **st),
+            "camera_fwd_q8_k143": lambda **st: fr.camera_forward_q8(kw, q8, *render143, **st),
+            "shadow_fwd_q8": lambda **st: fr.shadow_forward_q8(kw, q8, *render_sh, **st),
+            "coarse_fwd_q8": lambda **st: fr.coarse_forward_q8(kw, q8, *coarse, **st),
             "density_fwd": lambda: ff.density_forward(kw, pos),
             "density_bwd": lambda: ff.density_backward(kw, pos[:1024 * 63], g_sigma),
             "field_fwd": lambda: ff.field_forward(kw, pos, emb),
@@ -97,10 +105,15 @@ def _use(source):
 
 
 def _outputs(name, fn):
-    out = fn()
+    stats = {}
+    out = fn(stats=stats) if "_q8" in name else fn()
+    out = list(out) if isinstance(out, tuple) else [out]
     if name == "camera_fwd_save" and out[1].is_cuda:   # the columns the forward writes
-        out = (out[0], fr.stream_trunk_acts(out[1], True, 1024, 127))
-    return [t.clone() for t in (out if isinstance(out, tuple) else (out,))]
+        out[1] = fr.stream_trunk_acts(out[1], True, 1024, 127)
+    out += [stats[k] for k in ("amax", "gamax") if k in stats]
+    if "acts" in stats:     # an int8 forward's stream: the PE and h7
+        out.append(fr.q8_stream_written(stats["acts"], False))
+    return [t.clone() for t in out]
 
 
 def _compare(got, ref):

@@ -74,6 +74,20 @@ def bench_weights(device, seed=0):
     return kw, vr.slab_weights(kw)
 
 
+def bench_rays(r, k, gen, device):
+    """r rays of k sorted samples in [0, 2) from (x, y, 0.99) of the unit
+    cube straight down (a slight tilt), a normal embedding: (rayin (r, 16),
+    z (r, k), deltam (r, k), the last sample's to 2), from ``gen``."""
+    o = torch.rand((r, 3), generator=gen, device=device) * 1.2 - 0.6
+    o[:, 2] = 0.99
+    d = torch.nn.functional.normalize(torch.tensor([0.02, 0.01, -1.0], device=device), dim=0)
+    emb = torch.randn((r, 4), generator=gen, device=device)
+    rayin = torch.cat([o, d.expand(r, 3), emb, torch.zeros((r, 6), device=device)], 1)
+    z = torch.sort(torch.rand((r, k), generator=gen, device=device) * 2.0, dim=1)[0]
+    dm = torch.diff(z, dim=1, append=torch.full((r, 1), 2.0, device=device))
+    return rayin.contiguous(), z.contiguous(), dm.contiguous()
+
+
 def bench_inputs(n, device, with_acts=True):
     """The bench's weights and inputs on n points: (KernelWeights,
     SlabWeights, pos (n, 3) uniform in [-1, 1), emb (n, 4) normal, acts

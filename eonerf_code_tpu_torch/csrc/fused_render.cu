@@ -122,6 +122,7 @@
 // Their streams have the camera's and the shadow's layouts, so wgrad and
 // the reduction are shared unchanged.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,6 +131,8 @@
 #include <numeric>
 
 #include "tile_common.cuh"   // the tile machinery, shared with kernel_variants.cu
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -991,22 +994,24 @@ int launch_point_bwd(const float* pos, const float* emb, const float* gin, const
 // point, where a group is the rows one TPU grid step holds (rt rays x KPAD
 // samples, padded samples and zero rays included; the caller pads the call
 // to whole groups). The scale needs the amax of the whole group's previous
-// layer, and a group spans up to 16 of this file's 128-row tiles, so the
-// trunk runs layer-major: one launch per layer over every row, each tile
-// quantizing its inputs on load with its group's scale and folding the
-// max |h| of its outputs into its group's amax with atomicMax on the float's
-// bits (order-free, so deterministic). The running activation stays f32 in
-// device memory between layers (two ping-pong buffers); its bf16 copy goes
-// to the activation stream the heads and the backward read. Products are
-// mma.sync m16n8k32 s8 x s8 -> s32 (exact), dequantized as
-// acc * (s_w * s_act) + b with explicit round-to-nearest operations (no
-// contraction into an fma), as the JAX function rounds.
+// layer, and a group spans up to 16 of this file's 128-row tiles. Where it
+// spans at most 16 (every call the port makes: group rows <= 2048), the
+// trunk is one cluster launch, a cluster a group, the activations on chip
+// (q8_trunk_cluster_kernel, below). Past that (KPAD > 256) it runs
+// layer-major: one launch per layer over every row, each tile quantizing
+// its inputs on load with its group's scale and folding the max |h| of its
+// outputs into its group's amax with atomicMax on the float's bits
+// (order-free, so deterministic); the running activation stays f32 in
+// device memory between layers (two ping-pong buffers). On both paths the
+// bf16 copy of the activations goes to the activation stream the heads and
+// the backward read, and the products are exact int8 x int8 -> int32
+// (layer-major: mma.sync m16n8k32), dequantized as acc * (s_w * s_act) + b
+// with explicit round-to-nearest operations (no contraction into an fma),
+// as the JAX function rounds: the two paths give the same bits.
 //
-// What bounds it on this card: the trunk's int8 products (1,979 TOP/s) and
-// the f32 activation traffic, 2 KB per sample and layer (read, written) at
-// 3.35 TB/s, which this layer-major design pays and a cluster design keeping
-// a group's activations on chip would not (a group is up to 16 tiles, over
-// the portable cluster size of 8).
+// What bounds it on this card: the trunk's int8 products (1,979 TOP/s); the
+// layer-major path also pays the f32 activation traffic, 2 KB per sample
+// and layer (read, written) at 3.35 TB/s.
 //
 // int8_full backward, layer by layer from 7 to 0: q8_gamax_kernel takes the
 // group amax of g = g_h * mask * s_w (and the bias gradient's per-tile sums
@@ -1446,15 +1451,516 @@ q8_ray_grads_kernel(const float* __restrict__ rayin, const float* __restrict__ z
   }
 }
 
-// The int8 trunk over `rows` rows (R rays x KPAD): the PE, then the eight
-// layers, f32 activations ping-ponging through hf (2 x rows x 256).
-int q8_trunk(const float* rayin, const float* z, bf16* acts, long long as, bool write_all,
-             const int8_t* w8, const float* sw, const float* wb, float* hf, float* amax,
-             long long rows, int KPAD, long long group_rows, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// the int8 trunk as one cluster launch
+// ---------------------------------------------------------------------------
+//
+// q8_trunk_cluster_kernel replaces q8_pe_kernel and the eight
+// q8_layer_kernel launches (the same `_trunk_fwd_q8`) whenever a scale group
+// spans at most Q8_CLUSTER_MAX 128-row CTAs: a thread-block cluster holds one
+// group, CTA `rank` its rows 128 rank .. (128, or 64 in a group's last CTA),
+// and the activations never leave the chip. Per CTA: the PE of its rows,
+// then the eight layers, each an int8 tensor-core product whose weights
+// stream through a cp.async ring (the trunk's chunks in one schedule, so
+// the next layer's first chunks are in flight during this layer's epilogue
+// and exchange), `wgmma.mma_async m64n128k32 .s32.s8.s8` for each of four
+// warpgroups' 64 rows x 128 output columns (A, the int8 activations, by
+// ldmatrix from the CTA's tile into registers, as gemm's A; B, the K-major
+// weight chunk, from the ring through a descriptor), and an epilogue in
+// registers: dequantize, bias, ReLU, the row maxima. The f32 activation
+// then waits in the accumulator registers while the CTAs of the cluster
+// exchange their maxima through distributed shared memory (each writes its
+// max into slot `rank` of every CTA's slots, one cluster barrier, its bf16
+// rows going to the stream meanwhile by bulk copies from a staging tile):
+// every CTA reads the same group amax, quantizes its registers into its
+// int8 tile for the next layer, and rank 0 writes the amax to `amax`. A
+// max is order-free, so this computes the layer-major kernels' bits: the
+// same int32 products (exact), the same dequantization and roundings, the
+// same group maxima.
+//
+// Bound on an H100 SXM: the trunk's int8 operations (491,520 multiply-adds a
+// sample at 1,979 TOP/s) against the bytes of rayin, z and the stream
+// written; the 2 KB a sample and layer of f32 activations that the
+// layer-major path moves through device memory are gone. One CTA an SM (512
+// threads, 64 accumulator registers each); a cluster's CTAs must be
+// resident together, so how many clusters fit the card
+// (cudaOccupancyMaxActiveClusters, eonerf_q8_trunk_active_clusters) sets how
+// many SMs work. No one cost dominates a CTA's time: taking out the
+// products, the weight copies, the exchange or the quantization each saves
+// 5-10 % of it (bench/q8_trunk.py attribution; PERF.md).
+
+constexpr int Q8_CLUSTER_MAX = 16;   // CTAs a cluster: the H100's non-portable limit
+constexpr int Q8_LAYER_MAJOR = 0, Q8_CLUSTER = 1;   // the trunk's two paths
+constexpr int Q8_THREADS = 512;   // four warpgroups, each 64 rows x 128 output columns
+constexpr int QKC = 64;      // int8 depth (bytes) of a staged weight chunk: a 64-byte swizzle atom
+constexpr int QSTAGES = 4;   // chunks in the ring
+constexpr int QSTAGE_BYTES = W * QKC;      // all 256 output rows
+constexpr int QRING_BYTES = QSTAGES * QSTAGE_BYTES;
+constexpr int NKH = W / QKC;               // chunks of a 256-deep layer
+// The trunk's chunks: layer 0's 64-deep PE, four 256-deep layers, layer 5
+// (256 of h4, then 64 of PE), two more 256-deep layers.
+constexpr int Q8_CHUNKS = 2 + 7 * NKH;
+constexpr int LDH = W + 16;    // int8 activation tile row stride (bytes): conflict-free ldmatrix
+constexpr int LDP = PE + 16;   // int8 PE tile row stride
+constexpr int LDS = 2 * W + 16;   // bf16 staging row stride (bytes): conflict-free pair stores
+static_assert(QKC == PE && QSTAGES >= 2, "a chunk is one 64-byte swizzle atom, the PE's depth");
+static_assert(QSTAGE_BYTES % 1024 == 0, "every chunk starts on a swizzle atom");
+
+// Shared memory: the ring, the int8 tiles, the bf16 staging tile of the
+// stream's rows, the per-column epilogue constants (s_w s of the layer's
+// input, b, and layer 5's s_w s_PE), the CTAs' maxima (a slot per
+// quantization point and rank) and the warps'.
+constexpr size_t Q8_CLUSTER_SMEM = QRING_BYTES + (size_t)MT * (LDH + LDP + LDS) +
+                                   3 * W * sizeof(float) +
+                                   (Q8P * Q8_CLUSTER_MAX + Q8_THREADS / 32) * sizeof(unsigned);
+static_assert(Q8_CLUSTER_SMEM <= 232448, "fits an H100 block's shared memory");
+
+size_t q8_cluster_smem() { return Q8_CLUSTER_SMEM; }
+
+// int32 <-> float by the 1.5 * 2^23 bias, exact for |x| < 2^22 (every
+// accumulator: |a| <= 127 * 127 * 256; every quantized value): the
+// accumulators start at Q8_BIAS_BITS, so float(acc) = bits - Q8_BIAS, and
+// round(y) half to even is the low byte of the bits of y + Q8_BIAS (the
+// sum's ulp is 1). Full-rate adds in place of the conversion instructions.
+constexpr float Q8_BIAS = 12582912.f;
+constexpr int Q8_BIAS_BITS = 0x4B400000;
+
+__device__ __forceinline__ float q8_acc(int acc) { return __fsub_rn(__int_as_float(acc), Q8_BIAS); }
+
+// q8_byte's byte (in the low 8 bits; the rest is not zero)
+__device__ __forceinline__ uint32_t q8_rbits(float v, float inv) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(v, inv), Q8_BIAS));
+}
+
+// cp.async.bulk: `bytes` (a multiple of 16) of shared memory to global,
+// asynchronous, in the issuing thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// chunk q of the trunk's schedule: its layer and its slice kc (layer 5's
+// slice NKH is its PE part)
+__device__ __forceinline__ void q8_chunk(int q, int& layer, int& kc) {
+  if (q == 0) { layer = 0; kc = 0; }
+  else if (q < 1 + 4 * NKH) { layer = 1 + (q - 1) / NKH; kc = (q - 1) % NKH; }
+  else if (q < 2 + 5 * NKH) { layer = 5; kc = q - (1 + 4 * NKH); }
+  else { layer = 6 + (q - 2 - 5 * NKH) / NKH; kc = (q - 2 - 5 * NKH) % NKH; }
+}
+
+// byte offset in a ring stage of output row n's 16-byte unit u: rows of 64
+// bytes, the units swizzled as wgmma's K-major layout (64-byte swizzle)
+__device__ __forceinline__ uint32_t qunit(int n, int u) {
+  return n * QKC + ((u ^ ((n >> 1) & 3)) << 4);
+}
+
+// B's descriptor at a stage's byte address `addr` (plus a row offset, and
+// 32 a k step): K-major, 8-row groups one swizzle atom apart
+__device__ __forceinline__ uint64_t qdesc(uint32_t addr) { return gmma_desc(addr, 16, 512, 2); }
+
+__device__ __forceinline__ void wgmma_s8_m64n32(int (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_iregs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The A fragments of a warp's 16 rows for one 32-deep k step of an int8 tile
+// (row stride LD bytes) at byte column col: ldmatrix's 8x8 b16 matrices are
+// the 8x16 int8 blocks of mma m16n8k32's (and wgmma k32's) A layout.
+template <int LD>
+__device__ __forceinline__ void load_a8(uint32_t (&a)[4], const int8_t* tile, int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, smem_addr(tile + (row0 + (lane & 15)) * LD + col + (lane >> 4) * 16));
+}
+
+// The group amax of one quantization point, in two halves so that work
+// can run between them: cluster_max_post folds the CTA's max (float bits of
+// values >= 0) into slot `rank` of every CTA of the cluster and arrives at
+// the cluster barrier (release); cluster_max_get waits on it (acquire) and
+// returns the max of the slots, the same in every CTA.
+__device__ __forceinline__ void cluster_max_post(unsigned m, unsigned* wmax, unsigned* slots,
+                                                 cg::cluster_group& cl, unsigned rank,
+                                                 unsigned C) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((tid & 31) == 0) wmax[tid >> 5] = m;
+  __syncthreads();
+  if (tid < (int)C) {
+    unsigned cm = 0u;
+#pragma unroll
+    for (int w = 0; w < Q8_THREADS / 32; ++w) cm = max(cm, wmax[w]);
+    cl.map_shared_rank(slots, tid)[rank] = cm;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float cluster_max_get(const unsigned* slots, unsigned C) {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  unsigned gm = 0u;
+  for (unsigned r = 0; r < C; ++r) gm = max(gm, slots[r]);
+  return __uint_as_float(gm);
+}
+
+__global__ void __launch_bounds__(Q8_THREADS, 1)
+q8_trunk_cluster_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
+                        bf16* __restrict__ acts, long long as, int write_all,
+                        const int8_t* __restrict__ w8, const float* __restrict__ sw,
+                        const float* __restrict__ wb, float* __restrict__ amax, int KPAD,
+                        long long group_rows) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring = smem_addr(smem);
+  int8_t* h8 = reinterpret_cast<int8_t*>(smem + QRING_BYTES);   // MT x LDH: the next layer's input
+  int8_t* pe8 = h8 + MT * LDH;                                   // MT x LDP: the quantized PE
+  unsigned char* stg = reinterpret_cast<unsigned char*>(pe8 + MT * LDP);   // MT x LDS bf16 rows
+  float* ssh = reinterpret_cast<float*>(stg + MT * LDS);        // a column's s_w s_in
+  float* bias = ssh + W;                                         // its b
+  float* ssp = bias + W;                                         // layer 5's s_w s_PE
+  unsigned* slots = reinterpret_cast<unsigned*>(ssp + W);       // Q8P x 16: the CTAs' maxima
+  unsigned* wmax = slots + Q8P * Q8_CLUSTER_MAX;                  // a warp's max
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned C = cl.num_blocks(), rank = cl.block_rank();
+  const long long grp = blockIdx.x / C;
+  const long long row0 = grp * group_rows + (long long)rank * MT;
+  const int nrows = (int)min((long long)MT, group_rows - (long long)rank * MT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // warpgroup wg: rows 64 (wg & 1) .., output columns c0 ..
+  const int wg = warp >> 2, c0 = (wg >> 1) * (W / 2);
+  const int wrow = (wg & 1) * 64 + (warp & 3) * 16;   // the warp's first tile row
+  const bool active = (wg & 1) * 64 < nrows;        // a 64-row CTA: the second row half idles
+  float* gamax = amax + grp * Q8P;
+
+  auto stage = [&](int s, int q) {
+    int layer, kc;
+    q8_chunk(q, layer, kc);
+    const int k_dim = layer == 0 ? PE : (layer == 5 ? CAT : W);
+    const int8_t* src = w8 + trunk_offset(layer) + kc * QKC;
+    const uint32_t dst = ring + s * QSTAGE_BYTES;
+#pragma unroll
+    for (int i = 0; i < W * QKC / 16 / Q8_THREADS; ++i) {
+      const int v = tid + i * Q8_THREADS, n = v / (QKC / 16), u = v % (QKC / 16);
+      cp_async16(dst + qunit(n, u), src + (long long)n * k_dim + u * 16);
+    }
+  };
+  // every CTA of the cluster must be running before any writes into its
+  // shared memory: arrive now, wait before the first exchange
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  ring_prologue<QSTAGES>(Q8_CHUNKS, stage);   // the first weights fly while the PE is computed
+
+  // the PE: lane c of rows r = tid / 64 + 8 i, rounded to bf16 into the stream
+  constexpr int PER = MT * PE / Q8_THREADS;   // PE values a thread
+  float pe[PER];
+  unsigned m = 0u;
+  {
+    const int c = tid & 63;
+    int j = 0;
+    float sc = 0.f;
+    if (c < 63) pe_lane(c, j, sc);
+    // a group is whole rays: its rays from grp * rays-a-group, 32-bit offsets
+    // within. Every load first (rows past the CTA's read its last row), so
+    // they are in flight together.
+    const float* ri0 = rayin + grp * (group_rows / KPAD) * RAYIN;
+    float zs[PER], os[PER], ds[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int r = min((tid >> 6) + (Q8_THREADS / PE) * i, nrows - 1);
+      const float* ri = ri0 + ((int)rank * MT + r) / KPAD * RAYIN;
+      zs[i] = z[row0 + r];
+      os[i] = ri[j];
+      ds[i] = ri[3 + j];
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int r = (tid >> 6) + (Q8_THREADS / PE) * i;
+      pe[i] = 0.f;
+      if (r < nrows) {
+        const long long row = row0 + r;
+        float v = 0.f;
+        if (c < 63)   // ray_xb's arithmetic on the loaded o, d and z
+          v = pe_value(c, __fadd_rn(__fmul_rn(os[i], sc), __fmul_rn(__fmul_rn(ds[i], sc), zs[i])));
+        const bf16 pv = __float2bfloat16_rn(v);
+        acts[row * as + A_PE + c] = pv;
+        pe[i] = bf(pv);
+        m = max(m, __float_as_uint(fabsf(pe[i])));
+      }
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cluster_max_post(m, wmax, slots, cl, rank, C);
+  const float gm0 = cluster_max_get(slots, C);
+  if (rank == 0 && tid == 0) gamax[0] = gm0;
+  const float inv_p = q8_inv(gm0), s_p = __fdiv_rn(1.f, inv_p);
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    pe8[((tid >> 6) + (Q8_THREADS / PE) * i) * LDP + (tid & 63)] =
+        (int8_t)q8_rbits(pe[i], inv_p);
+
+  // the warp's 16 rows x 128 columns: acc[4 j + i] is row g + 8 (i / 2),
+  // column c0 + 8 j + 2 t + i % 2
+  int acc[W / 4];
+  float s_in = s_p;   // the scale of the current layer's input
+  int q = 0;
+  for (int layer = 0; layer < 8; ++layer) {
+    // the layer's per-column constants (read after the ring's next barrier;
+    // the previous layer's readers are past the exchange)
+    if (tid < W) {
+      ssh[tid] = __fmul_rn(__ldg(sw + layer * W + tid), s_in);
+      bias[tid] = __ldg(wb + B_T + layer * W + tid);
+      if (layer == 5) ssp[tid] = __fmul_rn(__ldg(sw + layer * W + tid), s_p);
+    }
+    const int nk = layer == 0 ? 1 : (layer == 5 ? NKH + 1 : NKH);
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) acc[i] = Q8_BIAS_BITS;
+    for (int kc = 0; kc < nk; ++kc) {
+      const uint32_t st = ring_next<QSTAGES, QSTAGE_BYTES>(q++, Q8_CHUNKS, ring, stage);
+      if (!active) continue;
+      uint32_t a[QKC / 32][4];
+      if (layer == 5 && kc == NKH) {
+        // the skip layer's PE part at the PE's own scale: four 32-column
+        // products, each added at once to its columns of the f32 h4 part
+        // (acc, dequantized in place): pre = (A + B) + b
+#pragma unroll
+        for (int j = 0; j < W / 16; ++j) {
+          const float2 ss = *reinterpret_cast<const float2*>(ssh + c0 + 8 * j + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[4 * j + i] =
+                __float_as_int(__fmul_rn(q8_acc(acc[4 * j + i]), i & 1 ? ss.y : ss.x));
+        }
+        load_a8<LDP>(a[0], pe8, wrow, 0);
+        load_a8<LDP>(a[1], pe8, wrow, 32);
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          int accp[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) accp[i] = Q8_BIAS_BITS;
+          fence_iregs(accp);
+          wgmma_fence();
+          wgmma_s8_m64n32(accp, a[0], qdesc(st + (c0 + 32 * qq) * QKC));
+          wgmma_s8_m64n32(accp, a[1], qdesc(st + (c0 + 32 * qq) * QKC + 32));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_iregs(accp);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int col = c0 + 32 * qq + 8 * jj + 2 * t;
+            const float2 ss = *reinterpret_cast<const float2*>(ssp + col);
+            const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = 4 * (4 * qq + jj) + i;
+              const float pre = __fadd_rn(__fadd_rn(__int_as_float(acc[e]),
+                                                    __fmul_rn(q8_acc(accp[4 * jj + i]),
+                                                              i & 1 ? ss.y : ss.x)),
+                                          i & 1 ? bb.y : bb.x);
+              acc[e] = __float_as_int(fmaxf(pre, 0.f));
+            }
+          }
+        }
+        continue;
+      }
+      // layer 0 reads the PE (one chunk deep), the others the activation tile
+#pragma unroll
+      for (int s = 0; s < QKC / 32; ++s) {
+        if (layer == 0) load_a8<LDP>(a[s], pe8, wrow, 32 * s);
+        else load_a8<LDH>(a[s], h8, wrow, kc * QKC + 32 * s);
+      }
+      fence_iregs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < QKC / 32; ++s)
+        wgmma_s8_m64n128(acc, a[s], qdesc(st + c0 * QKC + 32 * s));
+      wgmma_commit();
+      wgmma_wait<0>();   // the next barrier hands this stage to a copy
+      fence_iregs(acc);
+    }
+    // the epilogue: pre = acc (s_w s) + b, ReLU (layer 5: done above), the
+    // maxima
+    m = 0u;
+    if (active) {
+      if (layer != 5) {
+#pragma unroll
+        for (int j = 0; j < W / 16; ++j) {
+          const float2 ss = *reinterpret_cast<const float2*>(ssh + c0 + 8 * j + 2 * t);
+          const float2 bb = *reinterpret_cast<const float2*>(bias + c0 + 8 * j + 2 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pre = __fadd_rn(__fmul_rn(q8_acc(acc[4 * j + i]), i & 1 ? ss.y : ss.x),
+                                        i & 1 ? bb.y : bb.x);
+            acc[4 * j + i] = __float_as_int(fmaxf(pre, 0.f));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) m = max(m, __float_as_uint(fabsf(__int_as_float(acc[i]))));
+    }
+    // the group amax of this layer's output, the next layer's input scale:
+    // posted, then the stream's rows while the other CTAs post theirs
+    unsigned* pslots = slots + (layer + 1) * Q8_CLUSTER_MAX;
+    if (layer < 7) cluster_max_post(m, wmax, pslots, cl, rank, C);
+    if (write_all || layer == 7) {
+      // the bf16 rows to the stream: into the staging tile (its previous
+      // rows' copies have read it), then one bulk copy a row
+      if (tid < nrows) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();
+      if (active) {
+        unsigned char* s0 = stg + (wrow + g) * LDS + 2 * (c0 + 2 * t);
+#pragma unroll
+        for (int j = 0; j < W / 16; ++j) {
+          const __nv_bfloat162 v01 = __floats2bfloat162_rn(__int_as_float(acc[4 * j]),
+                                                           __int_as_float(acc[4 * j + 1]));
+          const __nv_bfloat162 v23 = __floats2bfloat162_rn(__int_as_float(acc[4 * j + 2]),
+                                                           __int_as_float(acc[4 * j + 3]));
+          *reinterpret_cast<__nv_bfloat162*>(s0 + 16 * j) = v01;
+          *reinterpret_cast<__nv_bfloat162*>(s0 + 8 * LDS + 16 * j) = v23;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the copies
+      __syncthreads();
+      if (tid < nrows)
+        bulk_store(acts + (row0 + tid) * as + act_h(layer), smem_addr(stg + tid * LDS), 2 * W);
+    }
+    if (layer == 7) break;
+    const float gm = cluster_max_get(pslots, C);
+    if (rank == 0 && tid == 0) gamax[layer + 1] = gm;
+    const float inv = q8_inv(gm);
+    s_in = __fdiv_rn(1.f, inv);
+    if (active) {
+      int8_t* q0 = h8 + (wrow + g) * LDH + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < W / 16; ++j) {
+        *reinterpret_cast<uint16_t*>(q0 + 8 * j) = (uint16_t)__byte_perm(
+            q8_rbits(__int_as_float(acc[4 * j]), inv),
+            q8_rbits(__int_as_float(acc[4 * j + 1]), inv), 0x40);
+        *reinterpret_cast<uint16_t*>(q0 + 8 * LDH + 8 * j) = (uint16_t)__byte_perm(
+            q8_rbits(__int_as_float(acc[4 * j + 2]), inv),
+            q8_rbits(__int_as_float(acc[4 * j + 3]), inv), 0x40);
+      }
+    }
+  }
+  // the stream's last copies are done before the CTA's shared memory goes
+  if (tid < nrows) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+bool q8_shape_ok(int R, int KPAD, long long group_rows) {
+  return R > 0 && KPAD > 0 && KPAD % 8 == 0 && KPAD <= MAX_KPAD && group_rows > 0 &&
+         group_rows % KPAD == 0 && ((long long)R * KPAD) % group_rows == 0;
+}
+
+// The trunk's path, from the shape alone: one cluster launch when a scale
+// group is whole 64-row warpgroup slabs over at most Q8_CLUSTER_MAX CTAs of
+// 128 rows, else the layer-major kernels. `forced` (Q8_LAYER_MAJOR or
+// Q8_CLUSTER, for tests and measurements) overrides it; -1 keeps it.
+int q8_path(long long group_rows, int forced) {
+  if (forced == Q8_LAYER_MAJOR || forced == Q8_CLUSTER) return forced;
+  return group_rows % 64 == 0 && group_rows <= (long long)Q8_CLUSTER_MAX * MT ? Q8_CLUSTER
+                                                                               : Q8_LAYER_MAJOR;
+}
+
+int q8_cluster_size(long long group_rows) { return (int)((group_rows + MT - 1) / MT); }
+
+// f32 scratch of the layer-major path (two ping-pong activations); the
+// cluster path keeps them on chip
+size_t q8_hf_bytes(int path, long long rows) {
+  return path == Q8_CLUSTER ? 0 : align256((size_t)2 * rows * W * sizeof(float));
+}
+
+cudaError_t q8_cluster_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(q8_trunk_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)q8_cluster_smem());
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(q8_trunk_cluster_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t q8_cluster_config(long long groups, int C, cudaStream_t stream,
+                                     cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * C));
+  cfg.blockDim = dim3(Q8_THREADS);
+  cfg.dynamicSmemBytes = q8_cluster_smem();
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launches of the int8 trunk's kernels that q8_trunk has made, by kernel:
+// q8_trunk_cluster_kernel, q8_pe_kernel, q8_layer_kernel (read by
+// eonerf_q8_trunk_launches).
+long long q8_trunk_launch_counts[3];
+
+// The int8 trunk over `rows` rows (R rays x KPAD) on `path`: one cluster
+// launch (q8_trunk_cluster_kernel, a cluster a scale group), or the
+// layer-major kernels (the PE, then the eight layers, f32 activations
+// ping-ponging through hf, 2 x rows x 256). There is no retry on the other
+// path: a refused launch returns its error.
+int q8_trunk(int path, const float* rayin, const float* z, bf16* acts, long long as,
+             bool write_all, const int8_t* w8, const float* sw, const float* wb, float* hf,
+             float* amax, long long rows, int KPAD, long long group_rows, cudaStream_t stream) {
+  if (path == Q8_CLUSTER) {
+    if (group_rows % 64 != 0) return (int)cudaErrorInvalidValue;
+    const int C = q8_cluster_size(group_rows);
+    if (C > Q8_CLUSTER_MAX) return (int)cudaErrorInvalidClusterSize;
+    cudaError_t e = q8_cluster_attributes();
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = q8_cluster_config(rows / group_rows, C, stream, attr);
+    e = cudaLaunchKernelEx(&cfg, q8_trunk_cluster_kernel, rayin, z, acts, as, write_all ? 1 : 0,
+                           w8, sw, wb, amax, KPAD, group_rows);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ++q8_trunk_launch_counts[0];
+    return (int)e;
+  }
   const int tiles = (int)((rows + MT - 1) / MT);
   q8_pe_kernel<<<tiles, THREADS, 0, stream>>>(rayin, z, acts, as, amax, rows, KPAD, group_rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  ++q8_trunk_launch_counts[1];
   const size_t smem = q8_layer_smem();
   e = cudaFuncSetAttribute(q8_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -1465,33 +1971,30 @@ int q8_trunk(const float* rayin, const float* z, bf16* acts, long long as, bool 
         acts, as, write_all ? 1 : 0, w8, sw, wb, amax, rows, group_rows);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    ++q8_trunk_launch_counts[2];
   }
   return 0;
 }
 
-bool q8_shape_ok(int R, int KPAD, long long group_rows) {
-  return R > 0 && KPAD > 0 && KPAD % 8 == 0 && KPAD <= MAX_KPAD && group_rows > 0 &&
-         group_rows % KPAD == 0 && ((long long)R * KPAD) % group_rows == 0;
-}
-
-size_t q8_fwd_bytes(bool camera_layout, long long rows) {
+size_t q8_fwd_bytes(bool camera_layout, long long rows, int path) {
   return align256((size_t)rows * (camera_layout ? ACT_CAM : ACT_SH) * sizeof(bf16)) +
-         align256((size_t)2 * rows * W * sizeof(float));
+         q8_hf_bytes(path, rows);
 }
 
 // Scratch of an int8 backward past the bf16 backward's own (BwdLayout):
-// the f32 activations, and for int8_full the bf16 cotangents (ping-pong),
-// the PE cotangent, the int8 cotangent stream and the int8 passes' partials.
+// the f32 activations (layer-major path only), and for int8_full the bf16
+// cotangents (ping-pong), the PE cotangent, the int8 cotangent stream and
+// the int8 passes' partials.
 struct Q8Layout {
   size_t hf, gh, gpe, g8, qbpart, qwpart, total;
 };
 
-Q8Layout q8_bwd_layout(bool camera, bool full, int R, int KPAD, long long group_rows) {
+Q8Layout q8_bwd_layout(bool camera, bool full, int R, int KPAD, long long group_rows, int path) {
   const long long rows = (long long)R * KPAD;
   const long long tiles = (rows + MT - 1) / MT, groups = rows / group_rows;
   Q8Layout Q;
   Q.hf = ray_bwd_layout(camera, R, KPAD).total;
-  Q.gh = align256(Q.hf + (size_t)2 * rows * W * sizeof(float));
+  Q.gh = align256(Q.hf + q8_hf_bytes(path, rows));
   Q.gpe = align256(Q.gh + (full ? (size_t)2 * rows * W * sizeof(bf16) : 0));
   Q.g8 = align256(Q.gpe + (full ? (size_t)rows * PE * sizeof(bf16) : 0));
   Q.qbpart = align256(Q.g8 + (full ? (size_t)rows * G8S : 0));
@@ -1503,16 +2006,17 @@ Q8Layout q8_bwd_layout(bool camera, bool full, int R, int KPAD, long long group_
 int q8_fwd(int mode, const float* rayin, const float* z, const float* deltam, const float* mask,
            const void* wm, const float* wb, const void* w8, const float* sw, void* ws,
            float* amax, float* out, int R, int KPAD, long long group_rows,
-           cudaStream_t stream) {
+           cudaStream_t stream, int path) {
   if (!q8_shape_ok(R, KPAD, group_rows) || mode < CAM || mode > COARSE)
     return (int)cudaErrorInvalidValue;
+  path = q8_path(group_rows, path);
   const long long rows = (long long)R * KPAD;
   const long long as = mode == CAM ? ACT_CAM : ACT_SH;
   bf16* acts = static_cast<bf16*>(ws);
   float* hf = reinterpret_cast<float*>(static_cast<unsigned char*>(ws) +
                                        align256((size_t)rows * as * sizeof(bf16)));
-  int err = q8_trunk(rayin, z, acts, as, false, static_cast<const int8_t*>(w8), sw, wb, hf, amax,
-                     rows, KPAD, group_rows, stream);
+  int err = q8_trunk(path, rayin, z, acts, as, false, static_cast<const int8_t*>(w8), sw, wb, hf,
+                     amax, rows, KPAD, group_rows, stream);
   if (err != 0) return err;
   if (mode == CAM)
     return launch<CAM, false, true>(rayin, z, deltam, mask, wm, wb, out, R, KPAD, stream, nullptr,
@@ -1528,8 +2032,9 @@ template <bool CAMERA>
 int q8_bwd(bool full, const float* rayin, const float* z, const float* deltam, const float* mask,
            const float* gin, const void* wm_, const float* wb, const void* w8_, const void* w8t_,
            const float* sw, void* ws, float* amax, float* gamax, float* dmats, float* dbias,
-           float* drayin, int R, int KPAD, long long group_rows, cudaStream_t stream) {
+           float* drayin, int R, int KPAD, long long group_rows, cudaStream_t stream, int path) {
   if (!q8_shape_ok(R, KPAD, group_rows)) return (int)cudaErrorInvalidValue;
+  path = q8_path(group_rows, path);
   const bf16* wm = static_cast<const bf16*>(wm_);
   const int8_t* w8 = static_cast<const int8_t*>(w8_);
   const int8_t* w8t = static_cast<const int8_t*>(w8t_);
@@ -1537,13 +2042,13 @@ int q8_bwd(bool full, const float* rayin, const float* z, const float* deltam, c
   const long long rows = (long long)R * KPAD;
   const BwdLayout L = ray_bwd_layout(CAMERA, R, KPAD);
   const Scratch sc = carve(L, ws);
-  const Q8Layout Q = q8_bwd_layout(CAMERA, full, R, KPAD, group_rows);
+  const Q8Layout Q = q8_bwd_layout(CAMERA, full, R, KPAD, group_rows, path);
   unsigned char* base = static_cast<unsigned char*>(ws);
   float* hf = reinterpret_cast<float*>(base + Q.hf);
   // the recompute: the int8 trunk in the backward's groups, every activation
   // to the stream, then the heads from the stream and the compositing backward
-  int err = q8_trunk(rayin, z, sc.acts, AS, true, w8, sw, wb, hf, amax, rows, KPAD, group_rows,
-                     stream);
+  int err = q8_trunk(path, rayin, z, sc.acts, AS, true, w8, sw, wb, hf, amax, rows, KPAD,
+                     group_rows, stream);
   if (err != 0) return err;
   err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
                                                   stream, gin, sc.acts, sc.hg);
@@ -1804,26 +2309,77 @@ int eonerf_density_bwd(const float* pos, const float* g, const void* wm, const f
 // int8_full, gamax) is (groups, 8), zeroed by the caller, and returns the
 // group amax the kernels quantized with.
 
-// Bytes of scratch of an int8 forward (mode 0 camera, 1 shadow, 2 coarse).
-long long eonerf_q8_fwd_workspace_bytes(int mode, int R, int KPAD) {
-  return (long long)q8_fwd_bytes(mode == CAM, (long long)R * KPAD);
+// The int8 trunk's path for scale groups of group_rows rows of KPAD samples:
+// 1 one cluster launch (q8_trunk_cluster_kernel), 0 the layer-major kernels
+// (q8_pe_kernel, q8_layer_kernel x 8), -1 a shape no int8 call takes.
+int eonerf_q8_trunk_path(int KPAD, long long group_rows) {
+  if (!q8_shape_ok(1, KPAD, KPAD) || group_rows <= 0 || group_rows % KPAD != 0) return -1;
+  return q8_path(group_rows, -1);
+}
+
+// Clusters of C CTAs of q8_trunk_cluster_kernel that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+int eonerf_q8_trunk_active_clusters(int C) {
+  cudaError_t e = q8_cluster_attributes();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = q8_cluster_config(1, C, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, q8_trunk_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches of the int8 trunk's kernels made so far, into out[3]:
+// q8_trunk_cluster_kernel, q8_pe_kernel, q8_layer_kernel.
+void eonerf_q8_trunk_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = q8_trunk_launch_counts[i];
+}
+
+// Bytes of scratch of the int8 trunk alone (the layer-major path's f32
+// activations; 0 on the cluster path). path: -1 the shape's, 0 or 1 forced.
+long long eonerf_q8_trunk_workspace_bytes(int R, int KPAD, long long group_rows, int path) {
+  return (long long)q8_hf_bytes(q8_path(group_rows, path), (long long)R * KPAD);
+}
+
+// The int8 trunk alone, as the int8 forwards (write_all = 0: the PE and h7)
+// and backwards (write_all = 1: the PE and every h) run it, into the stream
+// acts (R * KPAD rows of `as` columns) and amax (groups, 8), zeroed by the
+// caller; ws: eonerf_q8_trunk_workspace_bytes. path as there.
+int eonerf_q8_trunk(int path, const float* rayin, const float* z, void* acts, long long as,
+                    int write_all, const void* w8, const float* sw, const float* wb, void* ws,
+                    float* amax, int R, int KPAD, long long group_rows, void* stream) {
+  if (!q8_shape_ok(R, KPAD, group_rows) || (as != ACT_CAM && as != ACT_SH))
+    return (int)cudaErrorInvalidValue;
+  return q8_trunk(q8_path(group_rows, path), rayin, z, static_cast<bf16*>(acts), as,
+                  write_all != 0, static_cast<const int8_t*>(w8), sw, wb, static_cast<float*>(ws),
+                  amax, (long long)R * KPAD, KPAD, group_rows, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch of an int8 forward (mode 0 camera, 1 shadow, 2 coarse);
+// path as eonerf_q8_trunk's.
+long long eonerf_q8_fwd_workspace_bytes(int mode, int R, int KPAD, long long group_rows,
+                                        int path) {
+  return (long long)q8_fwd_bytes(mode == CAM, (long long)R * KPAD, q8_path(group_rows, path));
 }
 
 // Forward through the int8 trunk: out as the bf16 op of the same mode
-// (camera acc (R, 8), shadow geo (R,), coarse weights (R, KPAD)).
+// (camera acc (R, 8), shadow geo (R,), coarse weights (R, KPAD)). The
+// stream (the first R * KPAD x 3072 (camera) or 2112 bf16 of ws) holds the
+// PE and h7.
 int eonerf_q8_fwd(int mode, const float* rayin, const float* z, const float* deltam,
                   const float* mask, const void* wm, const float* wb, const void* w8,
                   const float* sw, void* ws, float* amax, float* out, int R, int KPAD,
-                  long long group_rows, void* stream) {
+                  long long group_rows, void* stream, int path) {
   return q8_fwd(mode, rayin, z, deltam, mask, wm, wb, w8, sw, ws, amax, out, R, KPAD, group_rows,
-                static_cast<cudaStream_t>(stream));
+                static_cast<cudaStream_t>(stream), path);
 }
 
 // Bytes of scratch of an int8 backward (camera != 0: the camera's; full != 0:
 // int8_full).
 long long eonerf_q8_bwd_workspace_bytes(int camera, int full, int R, int KPAD,
-                                        long long group_rows) {
-  return (long long)q8_bwd_layout(camera != 0, full != 0, R, KPAD, group_rows).total;
+                                        long long group_rows, int path) {
+  return (long long)q8_bwd_layout(camera != 0, full != 0, R, KPAD, group_rows,
+                                  q8_path(group_rows, path)).total;
 }
 
 // Backward of the int8 camera (camera != 0; gin = gacc (R, 8)) or shadow op
@@ -1833,13 +2389,13 @@ int eonerf_q8_bwd(int camera, int full, const float* rayin, const float* z, cons
                   const float* mask, const float* gin, const void* wm, const float* wb,
                   const void* w8, const void* w8t, const float* sw, void* ws, float* amax,
                   float* gamax, float* dmats, float* dbias, float* drayin, int R, int KPAD,
-                  long long group_rows, void* stream) {
+                  long long group_rows, void* stream, int path) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (camera)
     return q8_bwd<true>(full != 0, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax,
-                        gamax, dmats, dbias, drayin, R, KPAD, group_rows, st);
+                        gamax, dmats, dbias, drayin, R, KPAD, group_rows, st, path);
   return q8_bwd<false>(full != 0, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax,
-                       gamax, dmats, dbias, drayin, R, KPAD, group_rows, st);
+                       gamax, dmats, dbias, drayin, R, KPAD, group_rows, st, path);
 }
 
 const char* eonerf_error_string(int code) {

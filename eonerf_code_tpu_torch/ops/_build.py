@@ -117,20 +117,28 @@ def load_library():
     lib.eonerf_camera_bwd_saved.restype = i
     lib.eonerf_shadow_bwd_saved.argtypes = [p] * 12 + [i, i, p]
     lib.eonerf_shadow_bwd_saved.restype = i
-    lib.eonerf_q8_fwd_workspace_bytes.argtypes = [i, i, i]
+    # the int8 entries end with the trunk's path (-1: the shape's), which a
+    # build of an older tree (bench/ab_libraries.py) ignores
+    lib.eonerf_q8_fwd_workspace_bytes.argtypes = [i, i, i, ll, i]
     lib.eonerf_q8_fwd_workspace_bytes.restype = ll
-    lib.eonerf_q8_fwd.argtypes = [i] + [p] * 11 + [i, i, ll, p]
+    lib.eonerf_q8_fwd.argtypes = [i] + [p] * 11 + [i, i, ll, p, i]
     lib.eonerf_q8_fwd.restype = i
-    lib.eonerf_q8_bwd_workspace_bytes.argtypes = [i, i, i, i, ll]
+    lib.eonerf_q8_bwd_workspace_bytes.argtypes = [i, i, i, i, ll, i]
     lib.eonerf_q8_bwd_workspace_bytes.restype = ll
-    lib.eonerf_q8_bwd.argtypes = [i, i] + [p] * 16 + [i, i, ll, p]
+    lib.eonerf_q8_bwd.argtypes = [i, i] + [p] * 16 + [i, i, ll, p, i]
     lib.eonerf_q8_bwd.restype = i
-    # the measurement and test entries of the backward's passes, which a
-    # build of an older tree (bench/ab_libraries.py) may lack
+    # the measurement and test entries, which a build of an older tree
+    # (bench/ab_libraries.py) may lack
     for name, args, res in (("eonerf_bwd_pass", [i, i] + [p] * 12 + [i, i, p], i),
                             ("eonerf_bwd_stream_layout", [i, i, i, i, p], None),
                             ("eonerf_wgrad_partial_bytes", [i, ll], ll),
-                            ("eonerf_wgrad", [i, i, p, p, ll, p, p, p], i)):
+                            ("eonerf_wgrad", [i, i, p, p, ll, p, p, p], i),
+                            ("eonerf_q8_trunk_path", [i, ll], i),
+                            ("eonerf_q8_trunk_active_clusters", [i], i),
+                            ("eonerf_q8_trunk_launches", [p], None),
+                            ("eonerf_q8_trunk_workspace_bytes", [i, i, ll, i], ll),
+                            ("eonerf_q8_trunk", [i, p, p, p, ll, i, p, p, p, p, p, i, i, ll, p],
+                             i)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]

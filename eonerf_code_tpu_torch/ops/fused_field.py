@@ -674,15 +674,15 @@ def check_weights(weights: KernelWeights, device):
         raise RuntimeError("the compiled kernels index another weight layout than this module")
 
 
-def launch(entry, what, device, *args):
+def launch(entry, what, device, *args, after_stream=()):
     """Call the library's C entry point ``entry`` on PyTorch's current stream
-    of ``device``; tensors go by data pointer, ints as they are. Raises on a
-    CUDA error."""
+    of ``device``; tensors go by data pointer, ints as they are, then the
+    stream, then ``after_stream``. Raises on a CUDA error."""
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, entry)(*(a.data_ptr() if torch.is_tensor(a) else a for a in args),
-                                   stream)
+                                   stream, *after_stream)
     _build.check(code, what)
 
 

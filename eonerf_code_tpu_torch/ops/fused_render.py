@@ -50,6 +50,8 @@ kernel (csrc/fused_render.cu) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -113,6 +115,29 @@ def q8_plan(r, k, target):
     kpad = kpad_of(k)
     rt = rt_of(kpad, target, r)
     return kpad, rt, -(-r // rt) * rt
+
+
+Q8_CLUSTER_MAX = 16   # CTAs a cluster of the int8 trunk's cluster kernel
+Q8_CTA_ROWS = 128     # rows of one of its CTAs
+Q8_TRUNK_PATHS = ("layer_major", "cluster")   # the C library's path numbers 0, 1
+# act_stream_cols' widths (camera, shadow), for the plain version of q8_trunk
+PLAIN_STREAM_COLS = {True: 3072, False: 2112}
+
+
+def q8_trunk_plan(kpad, group_rows):
+    """How the kernels run the int8 trunk for scale groups of ``group_rows``
+    rows of ``kpad`` samples, mirroring csrc/fused_render.cu's ``q8_path``:
+    ``(path, cluster CTAs, rows of a group's last CTA)``. "cluster" (one
+    launch, a thread-block cluster a group, CTA ``rank`` holding rows
+    ``128 rank ..``) when the group is whole 64-row slabs over at most 16
+    CTAs of 128 rows, else "layer_major" (a launch a layer); the CTA count
+    is the group's either way."""
+    if kpad <= 0 or kpad % 8 or kpad > MAX_KPAD or group_rows <= 0 or group_rows % kpad:
+        raise ValueError(f"no int8 call has groups of {group_rows} rows of {kpad} samples")
+    ctas = -(-group_rows // Q8_CTA_ROWS)
+    cluster = group_rows % 64 == 0 and ctas <= Q8_CLUSTER_MAX
+    return ("cluster" if cluster else "layer_major", ctas,
+            group_rows - Q8_CTA_ROWS * (ctas - 1))
 
 
 def _pad_call(rp, kpad, per_ray, per_sample):
@@ -721,21 +746,29 @@ def _q8_call(weights, q8, rayin, per_sample, target, per_ray=()):
             kpad, rt, rp)
 
 
-def _q8_forward(mode, weights, q8, rayin, z, deltam, mask, target, stats):
+def _path_arg(path):
+    """The C library's path argument: -1 (the shape's), or a forced one of
+    :data:`Q8_TRUNK_PATHS` (tests and measurements)."""
+    return -1 if path is None else Q8_TRUNK_PATHS.index(path)
+
+
+def _q8_forward(mode, weights, q8, rayin, z, deltam, mask, target, stats, path=None):
     r, k = z.shape
     per_sample = (z, deltam) if mask is None else (z, deltam, mask)
     (rayin_p,), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target)
     dev = rayin.device
     lib = _build.load_library()
-    ws = torch.empty((lib.eonerf_q8_fwd_workspace_bytes(_MODES[mode], rp, kpad),),
+    ws = torch.empty((lib.eonerf_q8_fwd_workspace_bytes(_MODES[mode], rp, kpad, rt * kpad,
+                                                        _path_arg(path)),),
                      dtype=torch.uint8, device=dev)
     amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
     shape = {"camera": (rp, ACC_COLS), "shadow": (rp,), "coarse": (rp, kpad)}[mode]
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     launch("eonerf_q8_fwd", f"{mode} int8 forward kernel launch", dev, _MODES[mode], rayin_p,
            ps[0], ps[1], ps[2] if mask is not None else None, weights.mats, weights.biases, q8.w8,
-           q8.scales, ws, amax, out, rp, kpad, rt * kpad)
-    _keep(stats, amax=amax)
+           q8.scales, ws, amax, out, rp, kpad, rt * kpad, after_stream=(_path_arg(path),))
+    cols = act_stream_cols(mode == "camera")
+    _keep(stats, amax=amax, acts=ws[:rp * kpad * cols * 2].view(torch.bfloat16).view(-1, cols))
     return out[:r, :k] if mode == "coarse" else out[:r]
 
 
@@ -744,7 +777,10 @@ def camera_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, t
     """:func:`camera_forward` with the trunk in int8, scale groups of about
     ``tile_target`` rows. CPU tensors: the plain version. CUDA tensors: the
     int8 trunk kernels, then the heads and compositing from the activation
-    stream (raises if they cannot run). ``stats`` receives the group amax."""
+    stream (raises if they cannot run). ``stats`` receives the group amax
+    and, from the kernels, the activation stream they wrote (``acts``, rows
+    of 3072 (camera) or 2112 bf16: the PE and h7 hold data, see
+    :func:`q8_trunk`)."""
     if rayin.device.type == "cpu":
         return camera_forward_reference(weights, rayin, z, deltam, q8, tile_target, stats)
     out = _q8_forward("camera", weights, q8, rayin, z, deltam, None, tile_target, stats)
@@ -783,15 +819,81 @@ def coarse_forward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, t
 coarse_forward_q8.launches = 0
 
 
-def _q8_workspace(camera, full, rp, kpad, group_rows, dev):
+def q8_stream_cols(write_all):
+    """Column ranges of the activation stream that the int8 trunk writes:
+    the PE, and h7 (the forwards) or h0..h7 (``write_all``: the backwards'
+    recompute)."""
+    return [(5 * 256, 5 * 256 + PE_PAD)] + [(_act_col(i), _act_col(i) + 256)
+                                             for i in (range(8) if write_all else (7,))]
+
+
+def q8_stream_written(stream, write_all):
+    """The columns of an int8 activation stream that hold data, side by
+    side (PE first)."""
+    return torch.cat([stream[:, a:b] for a, b in q8_stream_cols(write_all)], dim=1)
+
+
+def q8_trunk(weights: KernelWeights, q8: Q8Weights, rayin, z, tile_target=2048, camera=True,
+             write_all=False, path=None):
+    """The int8 trunk alone, as the int8 forwards (``write_all`` False) and
+    backwards (True: the recompute) run it, in scale groups of about
+    ``tile_target`` rows, the call padded to whole groups: returns (the
+    activation stream (rows, act_stream_cols(camera)), the group amax (G,
+    8)); the columns :func:`q8_stream_cols` names hold data. For tests and
+    measurements. CPU tensors: the plain version (``trunk_q8`` in the
+    weights' dtype, the stream zero elsewhere). CUDA tensors: the kernels
+    on ``path`` (None: the one :func:`q8_trunk_plan` names; "cluster" or
+    "layer_major" forces one, and a launch the card refuses raises)."""
+    if rayin.device.type == "cpu":
+        rayin_p, _, (z_p,), gr = _inputs(rayin, (z,), q8, tile_target)
+        dtype = weights.dtype
+        pe = _pe(rayin_p, z_p, dtype).reshape(-1, PE_PAD)
+        acts, _, amax = _trunk_of(pe, kernel_views(weights), dtype, q8, gr)
+        stream = torch.zeros((pe.shape[0], PLAIN_STREAM_COLS[bool(camera)]), dtype=dtype)
+        for (a, b), x in zip(q8_stream_cols(write_all), [pe] + (acts if write_all else acts[-1:])):
+            stream[:, a:b] = x
+        return stream, amax
+    (rayin_p,), (z_p,), kpad, rt, rp = _q8_call(weights, q8, rayin, (z,), tile_target)
+    dev = rayin.device
+    lib = _build.load_library()
+    cols = act_stream_cols(camera)
+    stream = torch.empty((rp * kpad, cols), dtype=torch.bfloat16, device=dev)
+    amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.eonerf_q8_trunk_workspace_bytes(rp, kpad, rt * kpad, _path_arg(path)),),
+                     dtype=torch.uint8, device=dev)
+    launch("eonerf_q8_trunk", "int8 trunk kernel launch", dev, _path_arg(path), rayin_p, z_p,
+           stream, cols, int(write_all), q8.w8, q8.scales, weights.biases, ws, amax, rp, kpad,
+           rt * kpad)
+    q8_trunk.launches += 1
+    return stream, amax
+
+
+q8_trunk.launches = 0
+
+# the int8 trunk's CUDA kernels, in the order the library counts them
+Q8_TRUNK_KERNELS = ("q8_trunk_cluster_kernel", "q8_pe_kernel", "q8_layer_kernel")
+
+
+def q8_trunk_kernel_launches():
+    """Launches of the int8 trunk's CUDA kernels that the library has made
+    so far, by kernel name: counted in csrc/fused_render.cu's ``q8_trunk``
+    where it launches each, whichever wrapper called it."""
+    counts = (ctypes.c_longlong * len(Q8_TRUNK_KERNELS))()
+    _build.load_library().eonerf_q8_trunk_launches(counts)
+    return dict(zip(Q8_TRUNK_KERNELS, counts))
+
+
+def _q8_workspace(camera, full, rp, kpad, group_rows, dev, path=-1):
     """The int8 backward kernels' scratch (it starts with the bf16
-    backward's), sized by the library."""
+    backward's), sized by the library for the trunk's path (the C
+    library's number, -1 the shape's)."""
     nbytes = _build.load_library().eonerf_q8_bwd_workspace_bytes(int(camera), int(full), rp, kpad,
-                                                                 group_rows)
+                                                                 group_rows, path)
     return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
 
 
-def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, stats):
+def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, stats,
+                 path=None):
     r, k = z.shape
     dev = rayin.device
     if camera:
@@ -801,14 +903,14 @@ def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target,
         check_f32("ggeo", gin, (r,), dev)
         per_sample, gin = (z, deltam, mask), gin.reshape(-1, 1)
     (rayin_p, gin_p), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target, (gin,))
-    ws = _q8_workspace(camera, full, rp, kpad, rt * kpad, dev)
+    ws = _q8_workspace(camera, full, rp, kpad, rt * kpad, dev, _path_arg(path))
     amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
     gamax = torch.zeros_like(amax)
     d_mats, d_biases, d_rayin = _zero_grads(rp, dev)
     launch("eonerf_q8_bwd", f"{'camera' if camera else 'shadow'} int8 backward kernel launch",
            dev, int(camera), int(full), rayin_p, ps[0], ps[1], None if camera else ps[2], gin_p,
            weights.mats, weights.biases, q8.w8, q8.w8t, q8.scales, ws, amax, gamax, d_mats,
-           d_biases, d_rayin, rp, kpad, rt * kpad)
+           d_biases, d_rayin, rp, kpad, rt * kpad, after_stream=(_path_arg(path),))
     _keep(stats, amax=amax, **({"gamax": gamax} if full else {}))
     return d_mats, d_biases, d_rayin[:r]
 

@@ -15,8 +15,9 @@ takes warm-up steps past the shadow and beta gates, then traces ``--steps``
 steps with ``torch.profiler``. Prints one JSON object: device milliseconds
 per step for each group of kernels (the fused forwards with or without the
 saved stream, the coarse pass, the three passes and the reduction of each
-backward (its first pass the recompute, or the heads from the stream), the int8 trunk's
-layers and its backward chain, Adam, the rest), the
+backward (its first pass the recompute, or the heads from the stream), the int8 trunk (one
+cluster launch, or the layer-major PE and layer kernels past 16 CTAs a
+group) and its backward chain, Adam, the rest), the
 step's host-clock milliseconds, and the device's idle share (1 - device
 kernel time / step time). Exits 1 without a CUDA device, and 2 when the
 trace holds no device time.
@@ -39,7 +40,8 @@ import torch
 # tier's, or the saved backward's); SAVE, the forward that writes the
 # stream; dgrad_kernel<CAMERA, POINT, TRUNK>, wgrad_kernel<CAMERA>)
 GROUPS = (
-    ("q8_trunk", "q8_layer_kernel"),
+    ("q8_trunk", "q8_trunk_cluster_kernel"),
+    ("q8_trunk_layer_major", "q8_layer_kernel"),
     ("q8_pe", "q8_pe_kernel"),
     ("q8_bwd_gamax", "q8_gamax_kernel"),
     ("q8_bwd_dgrad", "q8_dgrad_kernel"),

@@ -573,6 +573,102 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev, weights, q8):
                              z, deltam)
 
 
+# ---- the int8 trunk as one cluster launch ----
+
+# (rays, samples, group target) of every group shape the port's calls make,
+# and one past 16 CTAs: 192 rows (2 CTAs, the last of 64 rows), 1024 (the
+# backwards), 1152 (K=143), 1536 (coarse), 2048 (camera, shadow) and 2112
+# (KPAD 264: the layer-major path)
+TRUNK_GROUPS = [(37, 17, 256), (40, 127, 1024), (40, 143, 2048), (50, 95, 2048),
+                (40, 127, 2048), (20, 260, 2048)]
+
+
+def _trunk_launches(fn):
+    """The int8 trunk's CUDA kernels ``fn`` launches, by the library's own
+    launch counts: how many of each."""
+    before = fr.q8_trunk_kernel_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in fr.q8_trunk_kernel_launches().items()}
+
+
+@pytest.mark.parametrize("r,k,tile", TRUNK_GROUPS)
+def test_q8_cluster_trunk_matches_layer_major(dev, weights, q8, r, k, tile):
+    """Both paths of the int8 trunk give the same bits (exact int32
+    products, the same roundings, an order-free amax): the stream's written
+    columns and the group amax of the trunk alone, forward and write_all,
+    and the int8 camera forward's and backward's outputs; the shape's own
+    path is the one the plan names, and the only one launched."""
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=k)
+    dcam = _camera_deltam(deltam, mask)
+    gacc = torch.randn((r, fr.ACC_COLS), generator=torch.Generator(device=dev).manual_seed(k),
+                       device=dev)
+    kpad, rt, _ = fr.q8_plan(r, k, tile)
+    path, ctas, _ = fr.q8_trunk_plan(kpad, rt * kpad)
+    assert path == ("cluster" if rt * kpad <= 2048 else "layer_major")
+    assert _build.load_library().eonerf_q8_trunk_path(kpad, rt * kpad) == \
+        fr.Q8_TRUNK_PATHS.index(path)
+    launched = _trunk_launches(lambda: fr.camera_forward_q8(weights, q8, rayin, z, dcam, tile))
+    assert launched == ({"q8_trunk_cluster_kernel": 1, "q8_pe_kernel": 0, "q8_layer_kernel": 0}
+                        if path == "cluster" else
+                        {"q8_trunk_cluster_kernel": 0, "q8_pe_kernel": 1, "q8_layer_kernel": 8}
+                        ), launched
+    paths = ("layer_major", "cluster") if path == "cluster" else ("layer_major",)
+    for write_all, camera in ((False, True), (True, True), (True, False)):
+        got = [fr.q8_trunk(weights, q8, rayin, z, tile, camera, write_all, p) for p in paths]
+        for stream, amax in got:
+            assert torch.equal(amax, got[0][1])
+            assert torch.equal(fr.q8_stream_written(stream, write_all),
+                               fr.q8_stream_written(got[0][0], write_all))
+        assert float(got[0][1].min()) > 0
+    fwd, bwd = [], []
+    for p in paths:
+        sk = {}
+        fwd.append((fr._q8_forward("camera", weights, q8, rayin, z, dcam, None, tile, sk, p),
+                    sk["amax"], fr.q8_stream_written(sk["acts"], False)))
+        sk = {}
+        bwd.append((*fr._q8_backward(True, False, weights, q8, rayin, z, dcam, None, gacc, tile,
+                                     sk, p), sk["amax"]))
+    for a, b in ((fwd[0], fwd[-1]), (bwd[0], bwd[-1])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"q8 trunk r={r} k={k} tile={tile}: {path}, {ctas} CTAs a group, same bits")
+
+
+def test_q8_trunk_paths_match_the_python_plan(dev):
+    lib = _build.load_library()
+    for kpad in range(8, fr.MAX_KPAD + 1, 8):
+        for rt in (8, 16, 24, 32):
+            want = fr.Q8_TRUNK_PATHS.index(fr.q8_trunk_plan(kpad, rt * kpad)[0])
+            assert lib.eonerf_q8_trunk_path(kpad, rt * kpad) == want, (kpad, rt)
+    assert lib.eonerf_q8_trunk_path(12, 96) == -1
+    assert fr.PLAIN_STREAM_COLS == {c: fr.act_stream_cols(c) for c in (True, False)}
+
+
+def test_q8_forced_cluster_launch_raises(dev, weights, q8):
+    """A cluster past the card's 16 CTAs is refused, and the refusal raises:
+    nothing runs the other path in its place."""
+    rayin, z, deltam, mask = _inputs(dev, 20, 260, seed=1)
+    before = fr.q8_trunk.launches
+    with pytest.raises(RuntimeError, match="int8 trunk kernel launch"):
+        fr.q8_trunk(weights, q8, rayin, z, 2048, path="cluster")
+    sk = {}
+    with pytest.raises(RuntimeError, match="int8 forward kernel launch"):
+        fr._q8_forward("shadow", weights, q8, rayin, z, deltam, mask, 2048, sk, "cluster")
+    assert fr.q8_trunk.launches == before and not sk
+    torch.cuda.synchronize()     # the refusal left no error behind
+
+
+def test_q8_cluster_occupancy(dev):
+    """Clusters of the trunk kernel the card holds at once, at the cluster
+    sizes of the main path's groups: one CTA an SM, so at most 132 / C."""
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c in (16, 12, 9, 8, 2):
+        n = lib.eonerf_q8_trunk_active_clusters(c)
+        print(f"q8 trunk clusters of {c} CTAs: {n} active ({n * c} of {sms} SMs)")
+        assert 0 < n and n * c <= sms
+
+
 # ---- the saved-activations pair (bwd_acts="saved") ----
 
 SAVED_REL_L2 = 1e-6    # the JAX package's saved-vs-recompute pin
@@ -981,7 +1077,7 @@ def test_wgrad_pass_on_the_kernels_own_streams(dev, weights, q8, monkeypatch, ca
     seen = []
     _capture(monkeypatch, fr, "_workspace", lambda c, r, kp, d, saved=False: (c, r, kp), seen)
     _capture(monkeypatch, ff, "point_workspace", lambda c, r, d: (c, r, 1), seen)
-    _capture(monkeypatch, fr, "_q8_workspace", lambda c, f, r, kp, gr, d: (c, r, kp), seen)
+    _capture(monkeypatch, fr, "_q8_workspace", lambda c, f, r, kp, gr, d, p: (c, r, kp), seen)
     acts = None
     if case.endswith("_saved"):
         camera = case.startswith("camera")
