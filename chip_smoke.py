@@ -48,10 +48,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  activations and against the recompute kernel (rel-L2 1e-6;
                  the same bits expected), with the stream's MiB; then, for
                  the saved camera (K=127) and shadow backwards, their four
-                 launches timed one by one beside the wgrad pass's library
-                 yardstick and each launch's bound
-                 (bench/backward_passes.py). A second shape of a kernel
-                 goes into its summary row under other_shapes.
+                 launches timed one by one beside the wgrad and dgrad
+                 passes' library yardsticks, each launch's bound and its
+                 share of it, and (camera) the dgrad kernel's phases (clock
+                 cycles a tile, from an instrumented copy of csrc/ built
+                 beside the two libraries) (bench/backward_passes.py). A
+                 second shape of a kernel goes into its summary row under
+                 other_shapes.
 3. render      - a full-width EONerfField (20 images, seeded init, bf16)
                  behind make_render_field renders a 512x512 orthographic
                  nadir sweep with shadows in 4096-ray chunks. All 13
@@ -163,6 +166,7 @@ nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Exits non-zero without printing results when no CUDA device is present.
 """
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -381,7 +385,11 @@ def main():
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    built = _build.build_all()     # one nvcc a source, started together
+    phase_src = bp.phase_source()   # the dgrad kernel's instrumented copy (bench/backward_passes.py)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:   # one nvcc a source, all together
+        phase_build = pool.submit(_build.build, phase_src)
+        built = _build.build_all()
+        phase_lib, _ = phase_build.result()
     _build.load_library()
     _build.load_variants_library()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -389,7 +397,7 @@ def main():
                     "ptxas": [ln.strip() for ln in log.splitlines()
                               if "registers" in ln or "spill" in ln]}
              for stem, (path, log) in built.items()},
-          "card": card})
+          "dgrad_phases_library": phase_lib.name, "card": card})
 
     # ---- 2. kernels against their plain versions at main-path shapes ----
     field = EONerfField(20, compute_dtype=torch.bfloat16, device=dev,
@@ -953,7 +961,7 @@ def main():
         "shadow": (fr.shadow_forward, fr.shadow_forward_save, fr.shadow_forward_reference,
                    fr.shadow_backward, fr.shadow_backward_saved, fr.shadow_backward_reference)}
     saved_cols = fr.act_stream_cols(False)    # the PE and h0..h7 of a sample row
-    pass_rows = {}
+    pass_rows, dgrad_cycles = {}, {}
     for op, args, gin, n_valid, macs in saved_cases:
         cam = op == "camera"
         fwd, fwd_save, fwd_ref, bwd, bwd_saved, bwd_ref = saved_ops[op]
@@ -1036,8 +1044,12 @@ def main():
             # stream slices) and each launch's bound
             pass_rows[op] = bp.backward_pass_ms(kw, *args[:3], gin, stream,
                                                 None if cam else args[3], 10)
+            if cam:   # the camera dgrad kernel's phases, from the instrumented copy
+                dgrad_cycles.update(bp.dgrad_phases(built=phase_src))
             emit({"phase": "kernels", "name": f"{op}_bwd_saved_passes", "rays": nb,
-                  "samples": k, **pass_rows[op], "card": card})
+                  "samples": k, **pass_rows[op],
+                  **({"dgrad_phases": dgrad_cycles[op]} if op in dgrad_cycles else {}),
+                  "card": card})
         del stream
 
     # ---- 3. the main path: a 512x512 nadir sweep with shadows ----
@@ -1274,11 +1286,14 @@ def main():
     before_s = [p.detach().clone() for p in ts.field.parameters()]
     for fn in saved_counted.values():
         fn.launches = 0
+    dgrad_before = fr.dgrad_kernel_launches()   # the library's own count, every backward's
     ts.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
     launches_s = {n: fn.launches for n, fn in saved_counted.items()}
+    launches_s["dgrad_kernel"] = fr.dgrad_kernel_launches() - dgrad_before
     expect_s = {"camera_fwd_save": TRAIN_STEPS, "shadow_fwd_save": shadow_steps,
                 "camera_bwd_saved": TRAIN_STEPS, "shadow_bwd_saved": shadow_steps,
-                "camera_fwd": 0, "shadow_fwd": 0, "camera_bwd": 0, "shadow_bwd": 0}
+                "camera_fwd": 0, "shadow_fwd": 0, "camera_bwd": 0, "shadow_bwd": 0,
+                "dgrad_kernel": TRAIN_STEPS + shadow_steps}
     saved_res = branch_result(ts, before_s, losses_s, launches_s, expect_s, {"save_ok": save_ok})
     step_ms_s = timed_run(ts, TRAIN_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS
     # one batch, shadows and beta on: the whole-step gradient of the saved
@@ -1738,8 +1753,10 @@ def main():
     before_dd = [p.detach().clone() for p in td.field.parameters()]
     for fn in saved_counted.values():
         fn.launches = 0
+    dgrad_before = fr.dgrad_kernel_launches()
     td.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
     launches_dd = {n: fn.launches for n, fn in saved_counted.items()}
+    launches_dd["dgrad_kernel"] = fr.dgrad_kernel_launches() - dgrad_before
     for name in ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved"):
         kernel_rows[name]["launches"] = launches_dd[name]
         kernel_rows[name]["launches_by_path"]["train_default"] = launches_dd[name]

@@ -4,7 +4,8 @@ commit's, unpacked with `git archive` into a git-ignored directory), on the
 same inputs, one case for each production instantiation of the shared
 products in csrc/tile_common.cuh and one for each int8 forward (the int8
 trunk's launch). Prints whether every output is the same
-bits, the largest absolute difference of each case where it is not, then
+bits, the differing outputs of each case where it is not (largest absolute
+difference and rel-L2 of each), then
 each build's kernel times in turns (other, this, this, other), so a change
 to the kernels or to csrc/tile_common.cuh is compared on one card.
 
@@ -117,22 +118,29 @@ def _outputs(name, fn):
 
 
 def _compare(got, ref):
-    """True where every output is the same bits, else the largest absolute
-    difference over the outputs (NaN where their NaNs differ)."""
+    """True where every output is the same bits, else {output index: (its
+    largest absolute difference, its rel-L2 difference)} for the outputs
+    that differ (NaN where their NaNs differ). A backward's outputs are (the
+    matrix gradients, the bias gradients, d_rayin or d_pos[, d_emb]), then
+    any stats."""
     if all(torch.equal(a, b) for a, b in zip(got, ref)):
         return True
-    worst = 0.0
-    for a, b in zip(got, ref):
-        a, b = a.float(), b.float()
+    diff = {}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if torch.equal(a, b):
+            continue
+        a, b = a.double(), b.double()
         if not torch.equal(torch.isnan(a), torch.isnan(b)):
-            return float("nan")
-        worst = max(worst, float(torch.nan_to_num(a - b).abs().max()))
-    return worst
+            diff[i] = (float("nan"), float("nan"))
+            continue
+        d = torch.nan_to_num(a - b)
+        diff[i] = (float(d.abs().max()), float(d.norm() / torch.nan_to_num(b).norm()))
+    return diff
 
 
 def main(other, device=None, reps=20):
-    """Returns ({case: True where every output is the same bits, else the
-    largest absolute difference}, [(build, {case: ms})] in turns)."""
+    """Returns ({case: True where every output is the same bits, else
+    :func:`_compare`'s differences}, [(build, {case: ms})] in turns)."""
     dev = resolve_device(device)
     this = _build.SOURCE
     calls = cases(dev)
@@ -146,7 +154,7 @@ def main(other, device=None, reps=20):
         _use(this)
         same = {name: _compare(_outputs(name, fn), ref[name]) for name, fn in calls.items()}
         print("same bits:", {name: s is True for name, s in same.items()}, flush=True)
-        print("largest abs difference where not:",
+        print("where not, {output: (largest abs difference, rel-L2)}:",
               {name: s for name, s in same.items() if s is not True}, flush=True)
         turns = []
         for label, src in (("other", other), ("this", this), ("this", this), ("other", other)):

@@ -78,11 +78,12 @@
 //      cotangents;
 //   2. dgrad_kernel: per 128-sample tile, the cotangent chain from the heads
 //      down to the PE in bf16 tiles in shared memory (each g @ W^T a
-//      wgmma product, tile_common.cuh dgemm, f32 accumulation, bf16
-//      rounding at its output, as the JAX package's _mm_t), ReLU masks read
-//      back from the activation
-//      stream; it writes every layer's pre-activation cotangent to a
-//      cotangent stream, its block's f32 bias-gradient sums, and d_rayin;
+//      wgmma product, f32 accumulation, bf16 rounding at its output, as the
+//      JAX package's _mm_t), ReLU masks read back from the activation
+//      stream under the products and applied in their epilogue; it writes
+//      every layer's pre-activation cotangent to a cotangent stream, each
+//      unit's f32 bias-gradient sums, and d_rayin (a persistent grid; its
+//      design is described above the kernel);
 //   3. wgrad_kernel: every weight gradient as inputs^T @ cotangents over all
 //      samples (tile_common.cuh wgemm: both streams' rows staged as they lie
 //      by cp.async, the transposes in wgmma, f32), split over the sample
@@ -129,6 +130,7 @@
 
 #include <algorithm>
 #include <numeric>
+#include <type_traits>
 
 #include "tile_common.cuh"   // the tile machinery, shared with kernel_variants.cu
 
@@ -514,50 +516,451 @@ int launch_point(const float* pos, const float* emb, const void* wm, const float
 // backward: the cotangent chain (dgrad) and the weight gradients (wgrad)
 // ---------------------------------------------------------------------------
 
-// The cotangent of a layer's pre-activation, in tile cols [0, n): multiply
-// by the ReLU mask (activation > 0, read from the activation stream at
-// column acol; rows past the block's samples become 0), store it to the
-// cotangent stream at column gcol, and add its f32 column sums (the bias
-// gradient) into bsum. MASK = false skips the mask (a linear layer).
-template <bool MASK>
-__device__ void cotangent_out(bf16* tile, int n, const bf16* __restrict__ acts, long long as,
-                              int acol, bf16* __restrict__ gp, long long gs, int gcol,
-                              float* bsum, long long g0, int nrows) {
-  __syncthreads();
-  const int nv = n / 8;
-  for (int v = threadIdx.x; v < MT * nv; v += THREADS) {
-    const int r = v / nv, c = (v % nv) * 8;
-    uint4 t8 = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) {
-      t8 = *reinterpret_cast<const uint4*>(tile + r * LDA + c);
-      if (MASK) {
-        const uint4 a8 = *reinterpret_cast<const uint4*>(acts + (g0 + r) * as + acol + c);
-        const bf16* ae = reinterpret_cast<const bf16*>(&a8);
-        bf16* te = reinterpret_cast<bf16*>(&t8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (!(bf(ae[j]) > 0.f)) te[j] = __float2bfloat16_rn(0.f);
+// The dgrad pass (dgrad_kernel below): what bounds it and what its design
+// does about that. Per 128-row tile it reads the ReLU masks of every layer
+// from the activation stream (2688 bf16 columns a camera row) and writes
+// every layer's pre-activation cotangent to the cotangent stream (2976),
+// 11.4 KB a row against 0.68 M multiply-adds: at 60 operations a byte it is
+// bound by bytes (the camera's training batch, 1024 x 128 rows: 1.48 GB,
+// 0.45 ms at 3.35 TB/s; its products alone 0.18 ms at 989 TFLOP/s). The
+// kernel this replaces (one block a unit, on dgemm) spent 38 % of a tile in
+// reading the masks synchronously behind a barrier, 29 % in its products
+// and the rest in serial steps (PERF.md, its phase table). Here:
+// - a layer's mask is staged by cp.async (L2 evict-first) into the columns
+//   of the output tile that the product will overwrite, spread over the
+//   pass's first chunks, so it lands under the products; the epilogue
+//   applies it to the rounded accumulators (a zero stays a zero);
+// - a finished cotangent tile goes to the stream (16-byte evict-first
+//   stores) after the first barrier of the product that reads it;
+// - its bias gradient is formed in the epilogue that makes it, from the
+//   registers: each thread's two rows, a three-step exchange over the
+//   warp's rows, then the eight warps in order through shared memory (a
+//   fixed tree: deterministic, but not the row order of the kernel this
+//   replaces, so the bias gradients differ from it in the last bits);
+// - the weight ring runs on from one product to the next and from one tile
+//   to the next (ChainRing), four stages deep, each warpgroup's products of
+//   one chunk still running across the next chunk's barrier;
+// - a persistent grid: one block an SM loops over the units of whole rays
+//   (the old blocks, each with its own row of bias partial sums, reduced in
+//   the same order), the next tile's head cotangents copied in under the
+//   current tile's first product; the head layers, the PE backward and the
+//   per-ray sums spread over the block's threads.
+// Landmarks of its phases (DG_*): empty here; bench/backward_passes.py
+// builds a copy that defines them (the phase order of its PHASES).
+#ifndef DG_MARK
+#define DG_MARK(next)
+#define DG_BEGIN()
+#define DG_TILE()
+#define DG_PRO()
+#define DG_MM()
+#define DG_NEXT_CALL()
+#define DG_END(dst)
+#endif
+// (PH_MASK names the parent kernel's synchronous mask reads, which the
+// bench's copy of that kernel marks; this one has none.)
+enum DgPhase { PH_HEADS_IN, PH_HEAD_LOOPS, PH_MASK, PH_STORES, PH_COLSUMS, PH_PE_BWD, PH_RAY_SUMS,
+               PH_OTHER, PH_EPILOGUE, PH_BARRIER };
+
+// One product of the cotangent chain: the cotangent at a layer's output
+// (k_dim columns of a tile) times Wp, the layer's packed (out, in) matrix at
+// element w, gives the one at its input (n_dim columns).
+struct DJob {
+  long long w;
+  int k_dim, n_dim;
+};
+
+// A tile's chain, in order: the camera heads' products (transient layers 3,
+// 2, 1, 0, the albedo hidden layer's, the bottleneck's), then with TRUNK the
+// trunk's layers 7..0; the shadow's chain is the trunk's alone.
+template <bool CAMERA, bool TRUNK>
+struct DChain {
+  static constexpr int HEADS = CAMERA ? 6 : 0;
+  static constexpr int JOBS = HEADS + (TRUNK ? 8 : 0);
+  __device__ static DJob job(int j) {
+    switch (j < HEADS ? j : 6) {
+      case 0: return {M_TR1 + 2LL * HALF * HALF, HALF, HALF};
+      case 1: return {M_TR1 + (long long)HALF * HALF, HALF, HALF};
+      case 2: return {M_TR1, HALF, HALF};
+      case 3: return {M_TR0, HALF, CAT};
+      case 4: return {M_ALB0, HALF, W};
+      case 5: return {M_BOTT, W, W};
+      default: {
+        const int i = 7 - (j - HEADS);
+        return {trunk_offset(i), W, i == 0 ? PE : (i == 5 ? CAT : W)};
       }
-      *reinterpret_cast<uint4*>(gp + (g0 + r) * gs + gcol + c) = t8;
     }
-    *reinterpret_cast<uint4*>(tile + r * LDA + c) = t8;
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < nrows; ++r) s += bf(tile[r * LDA + c]);
-    bsum[c] += s;
+  // weight chunks of a product: 128-column passes of KC-deep slices
+  __device__ static int chunks(const DJob& jb) { return (jb.n_dim + NC - 1) / NC * (jb.k_dim / KC); }
+};
+
+// The chain's weight ring: tile_common.cuh's 32-deep, 128-column chunks
+// and one block barrier a chunk, run as one sequence over the block's whole
+// chain (after a product's last chunks the ring goes on with the next
+// product's first, and after a tile's last product with the next tile's
+// first, so no product starts by waiting for its weights). DSTAGES chunks:
+// a warpgroup leaves WG_INFLIGHT chunks' products in flight across the
+// next barrier (so they run under it), and LOOKAHEAD chunks are copied
+// ahead of the products; the stage a barrier frees is the one
+// WG_INFLIGHT + 1 chunks back.
+constexpr int DSTAGES = 4;
+constexpr int WG_INFLIGHT = 1;
+constexpr int LOOKAHEAD = DSTAGES - 1 - WG_INFLIGHT;
+constexpr int DWST = DSTAGES * NC * KC;   // bf16 elements (32,768 bytes)
+
+template <class Chain>
+struct ChainRing {
+  uint32_t ring;      // shared address of the DSTAGES stages
+  const bf16* wm;
+  int q, iq;          // chunks consumed (chunk q sits in stage q % DSTAGES), chunks issued
+  long long left;     // chunks the block has still to issue
+  // the next chunk to issue: product ij of the chain (its matrix w, its
+  // n_dim and k slices nk), pass column n0 and k slice ik
+  int ij, n_dim, nk, n0, ik;
+  const bf16* w;
+
+  __device__ void start(int j) {
+    const DJob jb = Chain::job(j);
+    ij = j;
+    w = wm + jb.w;
+    n_dim = jb.n_dim;
+    nk = jb.k_dim / KC;
+    n0 = ik = 0;
+  }
+
+  __device__ void issue() {
+    if (left > 0) {
+      stage_wp(ring + (iq % DSTAGES) * STAGE_BYTES, w, n_dim, n0, ik * KC);
+      if (++ik == nk) {
+        ik = 0;
+        n0 += NC;
+        if (n0 >= n_dim) start(ij + 1 == Chain::JOBS ? 0 : ij + 1);
+      }
+      --left;
+    }
+    cp_async_commit();
+    ++iq;
+  }
+
+  // The next chunk, landed for every thread (one block barrier); after the
+  // barrier `after` runs (its cp.async copies join the new group), then the
+  // chunk LOOKAHEAD ahead is issued into the stage the barrier freed.
+  template <typename After>
+  __device__ uint32_t next(After after) {
+    cp_async_wait<LOOKAHEAD - 1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+    __syncthreads();
+    after();
+    issue();
+    return ring + (q++ % DSTAGES) * STAGE_BYTES;
+  }
+};
+
+// The tile a chain works on, and what the products' epilogues owe the
+// block: the streams, the tile's rows, and the warps' column sums of the
+// last 128-column pass of a cotangent (colpart, 8 warps x 128) still to be
+// added to the bias sums (fold_dst, fold_n columns).
+struct ChainTile {
+  const bf16* acts;   // activation stream (as columns)
+  long long as;
+  bf16* gp;           // cotangent stream (gs columns)
+  long long gs;
+  long long g0;       // the tile's first stream row
+  int nrows;          // its rows
+  float* colpart;
+  float* fold_dst;
+  int fold_n;
+  uint64_t policy;    // L2 evict-first: the streams pass through once
+
+  // the pending column sums into the bias sums: warps 0..7 in order (the
+  // caller has passed a block barrier since the epilogue that wrote them)
+  __device__ void fold() {
+    for (int c = threadIdx.x; c < fold_n; c += THREADS) {
+      float s = colpart[c];
+#pragma unroll
+      for (int w = 1; w < THREADS / 32; ++w) s += colpart[w * NC + c];
+      fold_dst[c] += s;
+    }
+    fold_n = 0;
+  }
+};
+
+// A 128-column pass of a layer's ReLU mask (activation stream columns
+// col.. of the tile's rows) into columns n0.. of the tile `dst` that the
+// pass's results will overwrite: part `part` of `parts` of eight 16-byte
+// cp.async copies a thread, L2 evict-first (the stream passes through
+// once; read normally it evicts the weights every tile re-reads), rows
+// past nrows zero-filled (a zero mask). The caller commits them (a chain
+// product: in the weight ring's groups) and waits for them.
+__device__ __forceinline__ void stage_mask(const ChainTile& ct, bf16* dst, int n0, int col,
+                                           int part = 0, int parts = 1) {
+  constexpr int N = MT * (NC / 8) / THREADS;
+  for (int i = part * N / parts; i < (part + 1) * N / parts; ++i) {
+    const int v = threadIdx.x + i * THREADS, r = v / (NC / 8), u = v % (NC / 8);
+    const bool in = r < ct.nrows;
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+                 ::"r"(smem_addr(dst + r * LDA + n0 + u * 8)),
+                 "l"(ct.acts + (ct.g0 + (in ? r : 0)) * ct.as + col + u * 8), "r"(in ? 16 : 0),
+                 "l"(ct.policy)
+                 : "memory");
   }
 }
 
-// Second pass of the backward: per block of whole rays (as the forward),
-// per 128-sample tile, the cotangent chain from the head cotangents `hg`
-// down to the PE, in bf16 tiles in shared memory, with the ReLU masks read
-// back from the activation stream. Writes every layer's pre-activation
-// cotangent to `gpre`, the block's f32 bias-gradient sums to `bias_part`
-// (one row per block, reduced in a fixed order later) and the per-ray
-// d_rayin = [d_o, d_d, d_emb] into `dout`.
-// POINT: rows are points (R = N, KPAD = 1, rpb = MT: 128 points a block,
+// v0, v1 (a bf16 pair's columns) kept where the staged activation pair m
+// is > 0
+__device__ __forceinline__ void apply_mask(float& v0, float& v1, __nv_bfloat162 m) {
+  const float2 a = __bfloat1622float2(m);
+  if (!(a.x > 0.f)) v0 = 0.f;
+  if (!(a.y > 0.f)) v1 = 0.f;
+}
+
+// The column sums of one 128-column pass over the warp's 16 rows into
+// colpart[warp][column]: x[k] is this thread's two rows' sum of column
+// 64 h + 8 j + 2 t + e, k = 2 (8 h + j) + e; three halving exchanges over
+// the eight lanes of a column group (lane bits 4, 3, 2) leave each lane the
+// sums of four columns, k = 4 g + 0..3. A fixed tree: deterministic.
+__device__ __forceinline__ void warp_colsums(const float (&x)[32], float* colpart) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float y[16], z[8], w[4];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    y[k] = (b4 ? x[k + 16] : x[k]) + __shfl_xor_sync(0xffffffffu, b4 ? x[k] : x[k + 16], 16);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    z[k] = (b3 ? y[k + 8] : y[k]) + __shfl_xor_sync(0xffffffffu, b3 ? y[k] : y[k + 8], 8);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = (b2 ? z[k + 4] : z[k]) + __shfl_xor_sync(0xffffffffu, b2 ? z[k] : z[k + 4], 4);
+  float* dst = colpart + (threadIdx.x >> 5) * NC + 2 * t;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int idx = 4 * g + k;
+    dst[64 * (idx >> 4) + 8 * ((idx >> 1) & 7) + (idx & 1)] = w[k];
+  }
+}
+
+// What a chain product's epilogue does with its rounded accumulators
+// round(acc) (then the mask where mcol >= 0, on the columns below W):
+// EP_MASK   the cotangent at a ReLU layer's pre-activation;
+// EP_PLAIN  nothing more (the transient input's [g_bott | g_emb]);
+// EP_ADD    round(out + round(acc)), rows past nrows zeroed (the bottleneck's
+//           cotangent: the albedo head's part added to the transient's);
+// EP_SIG    round(round(acc) + round(g_sig w_sig)) (g_h7: the sigma head's
+//           part added to the bottleneck's);
+// EP_PE     round(out + round(acc)) (layer 0's PE part added to layer 5's).
+enum ChainEp { EP_MASK, EP_PLAIN, EP_ADD, EP_SIG, EP_PE };
+
+// One chain product on a 128-row tile (tile_common.cuh dgemm's products:
+// Wp's (k, n) chunks MN-major from the ring, each warpgroup 64 rows, one
+// m64n64k16 a 64-column half and k step): out[r, oc0 + n] from A's first
+// k_dim columns (A and out may be one tile if their columns are disjoint).
+// After its first barrier: A's rows (the finished cotangent this product
+// reads, k_dim columns, rows below nrows) to the cotangent stream at column
+// gcol_a (< 0: none), 16 bytes a thread, evict-first, which drain under the
+// products. After each of the product's barriers the pending column
+// sums are folded (each pass's after the next pass's first barrier);
+// each masked pass's mask is staged into out's pass columns after its
+// first barrier and lands under its chunks. After the product's first
+// barrier, `first` (a prefetch). bsum_out (null: none): the bias sums of
+// the cotangent this product gives, its column sums formed in the epilogue
+// from the registers (warp_colsums) and folded after the next barrier.
+// wsig and hsv: EP_SIG's w_sig and the tile's head cotangents.
+template <int EP, class Ring, typename First>
+__device__ void chain_mm(Ring& rg, ChainTile& ct, const DJob jb, const bf16* A, int gcol_a,
+                         bf16* out, int oc0, int mcol, float* bsum_out,
+                         const bf16* __restrict__ wsig, const float* hsv, First first) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16, ra = row0 + g, rb = ra + 8;
+  const int nk = jb.k_dim / KC, nrows = ct.nrows;
+  const int upr = jb.k_dim / 8, units = gcol_a >= 0 ? nrows * upr : 0;   // A's 16-byte units
+  // mask parts: issued at chunk kk, they land by chunk kk + LOOKAHEAD
+  const int parts = min(4, nk - LOOKAHEAD);
+  float hsa = 0.f, hsb = 0.f;
+  if (EP == EP_SIG) {
+    hsa = bf_round(hsv[ra * HG]);
+    hsb = bf_round(hsv[rb * HG]);
+  }
+  DG_PRO();
+  bool first_chunk = true;
+  for (int n0 = 0; n0 < jb.n_dim; n0 += NC) {
+    const int nh = min(NC, jb.n_dim - n0) / 64;   // 64-column halves of this pass
+    const bool mpass = mcol >= 0 && n0 < W;
+    float acc[2][32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    uint32_t a[2][KC / 16][4];   // A's fragments, two chunks' (one may be in flight)
+    int kk = 0;                  // the pass's chunk pair
+    // one chunk, kk + P: its barrier and hook, A's fragments into a[P], the products
+    auto chunk = [&](auto par) {
+      constexpr int P = decltype(par)::value;
+      const int kk_ = kk + P;
+      const uint32_t st = rg.next([&] {
+        ct.fold();
+        // out's pass columns are free: the last product that read them is done
+        if (mpass && kk_ < parts) stage_mask(ct, out, n0, mcol + n0, kk_, parts);
+        if (first_chunk) {   // A's rows to the stream, four loads in flight a round
+          DG_MARK(PH_STORES);
+          for (int v0 = tid; v0 < units; v0 += 4 * THREADS) {
+            uint4 x[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int v = v0 + i * THREADS, r = v / upr, c = (v - r * upr) * 8;
+              if (v < units) x[i] = *reinterpret_cast<const uint4*>(A + r * LDA + c);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int v = v0 + i * THREADS, r = v / upr, c = (v - r * upr) * 8;
+              if (v < units)
+                __stcs(reinterpret_cast<uint4*>(ct.gp + (ct.g0 + r) * ct.gs + gcol_a + c), x[i]);
+            }
+          }
+          first();
+        }
+      });
+      first_chunk = false;
+      if (kk_ == 0) DG_MM();
+#pragma unroll
+      for (int s = 0; s < KC / 16; ++s) load_a<LDA>(a[P][s], A, row0, kk_ * KC + 16 * s);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+      // MN-major B: (k, n) rows of 128 bytes, 8-row groups 1024 apart, the
+      // second 64-column half KC * 128 further. Both halves always: a
+      // condition around a wgmma makes ptxas serialize the products
+      // (C7520); a half past n_dim reads a stale stage and is not written.
+#pragma unroll
+      for (int s = 0; s < KC / 16; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma<64, 1>(acc[h], a[P][s], gmma_desc(st + h * (KC * 128) + 2048 * s, KC * 128, 1024, 1));
+      wgmma_commit();
+      wgmma_wait<WG_INFLIGHT>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+    };
+    for (kk = 0; kk < nk; kk += 2) {   // nk is even (4 or 8)
+      chunk(std::integral_constant<int, 0>{});
+      chunk(std::integral_constant<int, 1>{});
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    DG_MARK(PH_EPILOGUE);
+    float xs[32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (h >= nh) continue;
+        const int col = n0 + h * 64 + j * 8 + 2 * t;
+        float v0 = bf_round(acc[h][4 * j]), v1 = bf_round(acc[h][4 * j + 1]);
+        float v2 = bf_round(acc[h][4 * j + 2]), v3 = bf_round(acc[h][4 * j + 3]);
+        __nv_bfloat162* pa = reinterpret_cast<__nv_bfloat162*>(out + ra * LDA + oc0 + col);
+        __nv_bfloat162* pb = reinterpret_cast<__nv_bfloat162*>(out + rb * LDA + oc0 + col);
+        if (EP == EP_ADD || EP == EP_PE) {
+          const float2 e0 = __bfloat1622float2(*pa), e1 = __bfloat1622float2(*pb);
+          v0 = bf_round(v0 + e0.x); v1 = bf_round(v1 + e0.y);
+          v2 = bf_round(v2 + e1.x); v3 = bf_round(v3 + e1.y);
+        }
+        if (EP == EP_SIG) {
+          const float s0 = bf(wsig[col]), s1 = bf(wsig[col + 1]);
+          v0 = bf_round(v0 + bf_round(hsa * s0));
+          v1 = bf_round(v1 + bf_round(hsa * s1));
+          v2 = bf_round(v2 + bf_round(hsb * s0));
+          v3 = bf_round(v3 + bf_round(hsb * s1));
+        }
+        if (mpass) {   // the staged mask sits where the result goes
+          apply_mask(v0, v1, *pa);
+          apply_mask(v2, v3, *pb);
+        }
+        if (EP == EP_ADD) {   // rows past the tile's: zeros (a mask has them zero-filled)
+          if (ra >= nrows) v0 = v1 = 0.f;
+          if (rb >= nrows) v2 = v3 = 0.f;
+        }
+        // every v is a bf16 value now: stored exactly, summed as stored
+        *pa = __floats2bfloat162_rn(v0, v1);
+        *pb = __floats2bfloat162_rn(v2, v3);
+        xs[2 * (8 * h + j)] = v0 + v2;
+        xs[2 * (8 * h + j) + 1] = v1 + v3;
+      }
+    if (bsum_out != nullptr && n0 < W) {   // not layer 5's PE part; folded after the next barrier
+      DG_MARK(PH_COLSUMS);
+      warp_colsums(xs, ct.colpart);
+      ct.fold_dst = bsum_out + n0;
+      ct.fold_n = NC;
+    }
+    DG_MARK(PH_BARRIER);
+  }
+  DG_NEXT_CALL();
+}
+
+// A head layer's cotangent computed per element into a tile (n_dim
+// columns), in the products' accumulator layout so that each warp writes
+// only its own 16 rows: val(r, c) rounded to bf16, masked where mcol >= 0
+// (the mask staged into the tile first, as chain_mm stages it), rows past
+// the tile's zero; with bsum_out, its column sums as chain_mm forms them.
+// The tile must be free (the caller passed a block barrier since its last
+// readers).
+template <typename Val>
+__device__ void head_tile(ChainTile& ct, bf16* out, int n_dim, int mcol, float* bsum_out,
+                          Val val) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ra = (threadIdx.x >> 5) * 16 + g, rb = ra + 8;
+  if (mcol >= 0) {
+    for (int n0 = 0; n0 < n_dim; n0 += NC) stage_mask(ct, out, n0, mcol + n0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int n0 = 0; n0 < n_dim; n0 += NC) {
+    if (n0 > 0 && bsum_out != nullptr) {   // the last pass's column sums out of colpart
+      __syncthreads();
+      ct.fold();
+      __syncthreads();
+    }
+    float xs[32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + h * 64 + j * 8 + 2 * t;
+        __nv_bfloat162* pa = reinterpret_cast<__nv_bfloat162*>(out + ra * LDA + col);
+        __nv_bfloat162* pb = reinterpret_cast<__nv_bfloat162*>(out + rb * LDA + col);
+        float v0 = val(ra, col), v1 = val(ra, col + 1), v2 = val(rb, col), v3 = val(rb, col + 1);
+        if (mcol >= 0) {   // rows past the tile's: the zero-filled mask zeroes them
+          apply_mask(v0, v1, *pa);
+          apply_mask(v2, v3, *pb);
+        }
+        const __nv_bfloat162 ya = __floats2bfloat162_rn(v0, v1), yb = __floats2bfloat162_rn(v2, v3);
+        *pa = ya;
+        *pb = yb;
+        const float2 fa = __bfloat1622float2(ya), fb = __bfloat1622float2(yb);
+        xs[2 * (8 * h + j)] = fa.x + fb.x;
+        xs[2 * (8 * h + j) + 1] = fa.y + fb.y;
+      }
+    if (bsum_out != nullptr) {
+      warp_colsums(xs, ct.colpart);
+      ct.fold_dst = bsum_out + n0;
+      ct.fold_n = NC;
+    }
+  }
+}
+
+// Second pass of the backward: the cotangent chain from the head
+// cotangents `hg` down to the PE, per 128-sample tile, in bf16 tiles in
+// shared memory, the ReLU masks read back from the activation stream.
+// Writes every layer's pre-activation cotangent to `gpre`, each unit's f32
+// bias-gradient sums to `bias_part` (one row a unit, reduced in a fixed
+// order later) and the per-ray d_rayin = [d_o, d_d, d_emb] into `dout`.
+// Units: `rpb` whole rays (the forward's blocks, rays_per_block), walked by
+// a persistent grid (unit blockIdx.x, then + gridDim.x, ...). Every output
+// but the bias gradients is the bits of the one-block-a-unit kernel this
+// replaces (the products, masks and per-ray sums in its order); the bias
+// gradients sum each tile's columns in a fixed tree (warp_colsums).
+// POINT: rows are points (R = N, KPAD = 1, rpb = MT: 128 points a unit,
 // one tile), `rayin` holds the points (N, 3) and z is not read; each point's
 // d_pos goes to `dout` (N, 3) and, with CAMERA, its d_emb to `demb` (N, 4).
 // TRUNK = false (the int8_full backward, whose trunk chain runs layer by
@@ -572,6 +975,7 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
              float* __restrict__ bias_part, float* __restrict__ dout, float* __restrict__ demb,
              int R, int KPAD, int rpb, bf16* __restrict__ gh) {
   extern __shared__ __align__(1024) unsigned char smem[];
+  using Chain = DChain<CAMERA, TRUNK>;
   constexpr int NB = CAMERA ? B_END : B_BOTT;
   constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;
   constexpr long long GS = CAMERA ? GP_CAM : GP_SH;
@@ -580,88 +984,126 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
-  float* bsum = reinterpret_cast<float*>(wst + WST);  // B_END floats
-  float* hs = bsum + B_END + 2;      // MT x 8: bf16-rounded head cotangents
-  float* rowacc = hs + MT * 8;       // MT x 10: per-sample [d_o, d_d, d_emb]
-  float* rayacc = rowacc + MT * 10;  // rpb x 10
+  float* bsum = reinterpret_cast<float*>(wst + DWST);  // B_END floats
+  float* hgs = bsum + B_END + 2;       // 2 x MT x HG: this tile's head cotangents, the next's
+  float* rowacc = hgs + 2 * MT * HG;   // MT x 10: per-sample [d_o, d_d, d_emb]
+  float* colpart = rowacc + MT * 10;   // 8 warps x 128: column sums of a warp's rows
+  float* rayacc = colpart + 8 * NC;    // rpb x 10 (rays; points use rowacc)
   const int tid = threadIdx.x;
-  const int ray0 = blockIdx.x * rpb;
-  const int nray = min(rpb, R - ray0);
-  const int S = nray * KPAD;
-  for (int e = tid; e < NB; e += THREADS) bsum[e] = 0.f;
-  for (int e = tid; e < rpb * 10; e += THREADS) rayacc[e] = 0.f;
+  const int nunits = (R + rpb - 1) / rpb;
+  DG_BEGIN();
 
-  for (int s0 = 0; s0 < S; s0 += MT) {
+  // the block's tiles: its units' rays, 128 sample rows at a time
+  auto unit_rows = [&](int u) { return min(rpb, R - u * rpb) * KPAD; };
+  long long ntiles = 0;
+  for (int u = blockIdx.x; u < nunits; u += gridDim.x) ntiles += (unit_rows(u) + MT - 1) / MT;
+  int per_tile = 0;
+  for (int j = 0; j < Chain::JOBS; ++j) per_tile += Chain::chunks(Chain::job(j));
+  // a tile's head cotangents (rows g0.. of hg, nr of them; zeros past them)
+  // into buf: one 16-byte copy a thread
+  auto load_hg = [&](float* buf, long long g0n, int nr) {
+    const int r = tid >> 1, half = tid & 1;
+    cp_async16_zfill(smem_addr(buf + r * HG + 4 * half),
+                     hg + (g0n + min(r, nr - 1)) * HG + 4 * half, r < nr ? 16 : 0);
+  };
+
+  for (int e = tid; e < NB; e += THREADS) bsum[e] = 0.f;
+  for (int e = tid; !POINT && e < rpb * 10; e += THREADS) rayacc[e] = 0.f;
+  ChainRing<Chain> rg{smem_addr(wst), wm, 0, 0, ntiles * per_tile};
+  if (Chain::JOBS > 0) rg.start(0);
+  ChainTile ct{acts, AS, gpre, GS, 0, 0, colpart, nullptr, 0, 0};
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(ct.policy));
+  int u = blockIdx.x, s0 = 0;   // the tile: unit u's rows s0..
+  if (ntiles > 0) load_hg(hgs, (long long)u * rpb * KPAD, min(MT, unit_rows(u)));
+#pragma unroll
+  for (int q = 0; q < LOOKAHEAD; ++q) rg.issue();   // the first tile's head cotangents join
+  cp_async_wait<0>();
+
+  for (long long ti = 0; ti < ntiles; ++ti) {
+    const int ray0 = u * rpb, nray = min(rpb, R - ray0), S = nray * KPAD;
     const int nrows = min(MT, S - s0);
     const long long g0 = (long long)ray0 * KPAD + s0;
-    __syncthreads();
-    for (int e = tid; e < MT * 8; e += THREADS) {
-      const int r = e / 8, c = e % 8;
-      hs[e] = (r < nrows && c < NH) ? bf_round(hg[(g0 + r) * HG + c]) : 0.f;
+    ct.g0 = g0;
+    ct.nrows = nrows;
+    int nu = u, ns = s0 + MT;   // the next tile
+    if (ns >= S) { nu += gridDim.x; ns = 0; }
+    float* hgt = hgs + (ti & 1) * MT * HG;
+    float* hgn = hgs + ((ti + 1) & 1) * MT * HG;
+    // the next tile's head cotangents, under this tile's first product
+    auto prefetch = [&] {
+      if (ti + 1 < ntiles) load_hg(hgn, (long long)nu * rpb * KPAD + ns, min(MT, unit_rows(nu) - ns));
+    };
+    if constexpr (Chain::JOBS == 0) {   // no product to hide it under
+      load_hg(hgt, g0, nrows);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    DG_TILE();
     if (tid < NH) {   // the head biases' gradients sum the f32 cotangents
       float s = 0.f;
-      for (int r = 0; r < nrows; ++r) s += hg[(g0 + r) * HG + tid];
+      for (int r = 0; r < nrows; ++r) s += hgt[r * HG + tid];
       const int b = tid == 0 ? B_SIG : (tid < 4 ? B_ALB1 + tid - 1 : (tid == 4 ? B_TS : B_TB));
       bsum[b] += s;
     }
-    __syncthreads();
     // the heads' bf16 cotangents into the stream: [sigma | albedo | t_s | t_beta], 8 wide each
     constexpr int ncol = CAMERA ? 32 : 8;
     for (int e = tid; e < nrows * ncol; e += THREADS) {
       const int r = e / ncol, c = e % ncol, grp = c / 8, j = c % 8;
+      const float* hs = hgt + r * HG;
       float v = 0.f;
-      if (grp == 0) v = j == 0 ? hs[r * 8] : 0.f;
-      else if (grp == 1) v = j < 3 ? hs[r * 8 + 1 + j] : 0.f;
-      else v = j == 0 ? hs[r * 8 + 2 + grp] : 0.f;
+      if (grp == 0) v = j == 0 ? bf_round(hs[0]) : 0.f;
+      else if (grp == 1) v = j < 3 ? bf_round(hs[1 + j]) : 0.f;
+      else v = j == 0 ? bf_round(hs[2 + grp]) : 0.f;
       gpre[(g0 + r) * GS + GSIG + c] = __float2bfloat16_rn(v);
     }
+    // each cotangent tile goes to the stream, a share a chunk, under the
+    // product that reads it (chain_mm's gcol_a)
     bf16 *C, *O;   // C: the tile holding the current cotangent
     if (CAMERA) {
       bf16 *X = bufX, *Y = bufY;
-      // transient output layer: g_t = round(g_ts w_ts) + round(g_tb w_tb)
-      for (int e = tid; e < MT * HALF; e += THREADS) {
-        const int r = e / HALF, n = e % HALF;
-        const float a = bf_round(hs[r * 8 + 4] * bf(wm[M_TS + n]));
-        const float b = bf_round(hs[r * 8 + 5] * bf(wm[M_TB + n]));
-        X[r * LDA + n] = __float2bfloat16_rn(a + b);
-      }
-      for (int i = 3; i >= 0; --i) {
-        cotangent_out<true>(X, HALF, acts, AS, A_T0 + i * HALF, gpre, GS, G_TR0 + i * HALF,
-                            bsum + B_TR + i * HALF, g0, nrows);
-        dgemm<false>(X, 0, HALF, wm + (i == 0 ? M_TR0 : M_TR1 + (i - 1) * HALF * HALF),
-                     i == 0 ? CAT : HALF, Y, 0, wst);
+      DG_MARK(PH_HEAD_LOOPS);
+      // transient output layer: g_t3 = round(round(g_ts w_ts) + round(g_tb w_tb)), masked
+      head_tile(ct, X, HALF, A_T0 + 3 * HALF, bsum + B_TR + 3 * HALF, [&](int r, int c) {
+        const float a = bf_round(bf_round(hgt[r * HG + 4]) * bf(wm[M_TS + c]));
+        const float b = bf_round(bf_round(hgt[r * HG + 5]) * bf(wm[M_TB + c]));
+        return a + b;
+      });
+      for (int i = 3; i >= 1; --i) {   // transient layers 3..1: the cotangents at t2..t0
+        chain_mm<EP_MASK>(rg, ct, Chain::job(3 - i), X, G_TR0 + i * HALF, Y, 0,
+                          A_T0 + (i - 1) * HALF, bsum + B_TR + (i - 1) * HALF, nullptr, nullptr,
+                          [&, i] {
+                            if (i == 3) prefetch();
+                          });
         bf16* tmp = X; X = Y; Y = tmp;
       }
+      // transient layer 0: Y = [g_bott from the transient head | g_emb | 0]
+      chain_mm<EP_PLAIN>(rg, ct, Chain::job(3), X, G_TR0, Y, 0, -1, nullptr, nullptr, nullptr,
+                         [] {});
       __syncthreads();
-      // X = [g_bott from the transient head | g_emb | 0]
       if (tid < MT)
         for (int j = 0; j < 4; ++j)
-          rowacc[tid * 10 + 6 + j] = tid < nrows ? bf(X[tid * LDA + W + j]) : 0.f;
-      // albedo output layer, then the albedo hidden layer's mask
-      for (int e = tid; e < MT * HALF; e += THREADS) {
-        const int r = e / HALF, n = e % HALF;
-        const float s = hs[r * 8 + 1] * bf(wm[M_ALB1 + n]) +
-                        hs[r * 8 + 2] * bf(wm[M_ALB1 + HALF + n]) +
-                        hs[r * 8 + 3] * bf(wm[M_ALB1 + 2 * HALF + n]);
-        Y[r * LDA + n] = __float2bfloat16_rn(s);
-      }
-      cotangent_out<true>(Y, HALF, acts, AS, A_AH, gpre, GS, G_AH, bsum + B_ALB0, g0, nrows);
-      dgemm<true>(Y, 0, HALF, wm + M_ALB0, W, X, 0, wst);     // g_bott += g_ah W_alb0^T
-      cotangent_out<false>(X, W, acts, AS, 0, gpre, GS, G_BOTT, bsum + B_BOTT, g0, nrows);
-      dgemm<false>(X, 0, W, wm + M_BOTT, W, Y, 0, wst);       // g_h = g_bott W_bott^T
-      __syncthreads();
-      for (int e = tid; e < MT * W; e += THREADS) {           // + round(g_sig w_sig)
-        const int r = e / W, n = e % W;
-        Y[r * LDA + n] = __float2bfloat16_rn(bf(Y[r * LDA + n]) +
-                                             bf_round(hs[r * 8] * bf(wm[M_SIG + n])));
-      }
-      C = Y; O = X;
+          rowacc[tid * 10 + 6 + j] = tid < nrows ? bf(Y[tid * LDA + W + j]) : 0.f;
+      DG_MARK(PH_HEAD_LOOPS);
+      // albedo output layer into the albedo hidden layer's cotangent, masked
+      head_tile(ct, X, HALF, A_AH, bsum + B_ALB0, [&](int r, int c) {
+        const float* hs = hgt + r * HG;
+        const float h1 = bf_round(hs[1]), h2 = bf_round(hs[2]), h3 = bf_round(hs[3]);
+        return h1 * bf(wm[M_ALB1 + c]) + h2 * bf(wm[M_ALB1 + HALF + c]) +
+               h3 * bf(wm[M_ALB1 + 2 * HALF + c]);
+      });
+      // g_bott += g_ah W_alb0^T, into Y's first 256 columns
+      chain_mm<EP_ADD>(rg, ct, Chain::job(4), X, G_AH, Y, 0, -1, bsum + B_BOTT, nullptr, nullptr,
+                       [] {});
+      // g_h7 = g_bott W_bott^T + round(g_sig w_sig), masked by h7 when the trunk follows
+      chain_mm<EP_SIG>(rg, ct, Chain::job(5), Y, G_BOTT, X, 0, TRUNK ? act_h(7) : -1,
+                       TRUNK ? bsum + B_T + 7 * W : nullptr, wm + M_SIG, hgt, [] {});
+      C = X; O = Y;
     } else {
-      for (int e = tid; e < MT * W; e += THREADS) {           // g_h = round(g_sig w_sig)
-        const int r = e / W, n = e % W;
-        bufY[r * LDA + n] = __float2bfloat16_rn(hs[r * 8] * bf(wm[M_SIG + n]));
-      }
+      DG_MARK(PH_HEAD_LOOPS);
+      // g_h7 = round(g_sig w_sig), masked by h7 when the trunk follows
+      head_tile(ct, bufY, W, TRUNK ? act_h(7) : -1, TRUNK ? bsum + B_T + 7 * W : nullptr,
+                [&](int r, int c) { return bf_round(hgt[r * HG]) * bf(wm[M_SIG + c]); });
       C = bufY; O = bufX;
     }
     if (!TRUNK) {
@@ -670,27 +1112,34 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     }
     // trunk: layer 5's PE part lands in cols 256..319 of the tile that layer
     // 0's cotangent sits in, and layer 0 adds its own PE part to it in bf16
-    for (int i = 7; TRUNK && i >= 0; --i) {
-      cotangent_out<true>(C, W, acts, AS, act_h(i), gpre, GS, i * W, bsum + B_T + i * W, g0,
-                          nrows);
-      if (i == 0) {
-        dgemm<true>(C, 0, W, wm + M_T0, PE, C, W, wst);
-      } else {
-        dgemm<false>(C, 0, W, wm + trunk_offset(i), i == 5 ? CAT : W, O, 0, wst);
-        bf16* tmp = C; C = O; O = tmp;
-      }
+    for (int i = 7; TRUNK && i >= 1; --i) {
+      chain_mm<EP_MASK>(rg, ct, Chain::job(Chain::HEADS + 7 - i), C, i * W, O, 0, act_h(i - 1),
+                        bsum + B_T + (i - 1) * W, nullptr, nullptr, [&, i] {
+                          if (!CAMERA && i == 7) prefetch();
+                        });
+      bf16* tmp = C; C = O; O = tmp;
     }
+    if (TRUNK)
+      chain_mm<EP_PE>(rg, ct, Chain::job(Chain::HEADS + 7), C, 0, C, W, -1, nullptr, nullptr,
+                      nullptr, [] {});
     __syncthreads();
+    DG_MARK(PH_PE_BWD);
     // d_xb = g_pe * pe'(xb), routed through B's transpose to d_o and d_d
-    // (d_pos for points)
-    if (tid < MT) {
-      float a6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (TRUNK && tid < nrows) {
-        const int s = s0 + tid;
+    // (d_pos for points): each lane's g_pe pe'(xb) by two threads a row
+    // (lanes 0..31, 32..62) into the free tile O (f32, rows DXS apart), then
+    // scaled and summed per row in lane order (the one-thread-a-row
+    // arithmetic, so the same bits)
+    // (the lanes unrolled: each lane's coordinate and scale are constants)
+    constexpr int DXS = 65;   // odd: a warp's 32 rows on 32 banks
+    float* dx = reinterpret_cast<float*>(O);
+    if (TRUNK) {
+      const int r = tid & (MT - 1);
+      if (r < nrows) {
+        const int s = s0 + r;
         const long long ray = ray0 + s / KPAD;
         const float* ri = rayin + ray * (POINT ? 3 : RAYIN);
         const float zs = POINT ? 0.f : z[ray * KPAD + s % KPAD];
-        for (int c = 0; c < 63; ++c) {
+        auto lane = [&](int c) {
           int j;
           float sc;
           pe_lane(c, j, sc);
@@ -700,7 +1149,30 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
           const float der = c < 3 ? 1.f
                           : sinf(c < 33 ? __fadd_rn(xb, HALF_PI)
                                         : __fadd_rn(__fadd_rn(xb, HALF_PI), HALF_PI));
-          const float dxs = bf(C[tid * LDA + W + c]) * der * sc;
+          dx[r * DXS + c] = bf(C[r * LDA + W + c]) * der;
+        };
+        if (tid < MT) {
+#pragma unroll
+          for (int c = 0; c < 32; ++c) lane(c);
+        } else {
+#pragma unroll
+          for (int c = 32; c < 63; ++c) lane(c);
+        }
+      }
+      __syncthreads();
+    }
+    DG_MARK(PH_OTHER);
+    if (tid < MT) {
+      float a6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (TRUNK && tid < nrows) {
+        const int s = s0 + tid;
+        const float zs = POINT ? 0.f : z[(ray0 + s / KPAD) * (long long)KPAD + s % KPAD];
+#pragma unroll
+        for (int c = 0; c < 63; ++c) {
+          int j;
+          float sc;
+          pe_lane(c, j, sc);
+          const float dxs = dx[tid * DXS + c] * sc;
           a6[j] += dxs;
           a6[3 + j] += dxs * zs;
         }
@@ -710,25 +1182,40 @@ dgrad_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
         for (int j = 6; j < 10; ++j) rowacc[tid * 10 + j] = 0.f;
     }
     __syncthreads();
-    for (int lr = tid; lr < nray; lr += THREADS) {   // per-ray sums in sample order
+    DG_MARK(PH_RAY_SUMS);
+    for (int e = tid; !POINT && e < nray * 10; e += THREADS) {   // per-ray sums in sample order
+      const int lr = e / 10, c = e % 10;
       const int lo = max(lr * KPAD, s0), hi = min((lr + 1) * KPAD, s0 + nrows);
-      for (int s = lo; s < hi; ++s)
-        for (int c = 0; c < 10; ++c) rayacc[lr * 10 + c] += rowacc[(s - s0) * 10 + c];
+      float a = rayacc[e];
+      for (int s = lo; s < hi; ++s) a += rowacc[(s - s0) * 10 + c];
+      rayacc[e] = a;
     }
+    if (s0 + MT >= S) {   // the unit's last tile: its rays' d_rayin and its bias partials
+      __syncthreads();
+      DG_MARK(PH_OTHER);
+      for (int e = tid; e < nray * 10; e += THREADS) {
+        const int lr = e / 10, c = e % 10;
+        const long long row = ray0 + lr;
+        if (!POINT) {
+          if (CAMERA || c < 6) dout[row * RAYIN + c] = rayacc[e];
+        } else if (c < 3) {   // a point is its one sample: 0 + the row's value, as a ray's sum
+          dout[row * 3 + c] = 0.f + rowacc[e];
+        } else if (CAMERA && c >= 6) {
+          demb[row * 4 + c - 6] = 0.f + rowacc[e];
+        }
+      }
+      for (int e = tid; e < NB; e += THREADS) {
+        bias_part[(long long)u * NB + e] = bsum[e];
+        bsum[e] = 0.f;
+      }
+      __syncthreads();
+      for (int e = tid; !POINT && e < rpb * 10; e += THREADS) rayacc[e] = 0.f;
+    }
+    u = nu;
+    s0 = ns;
   }
   __syncthreads();
-  for (int e = tid; e < nray * 10; e += THREADS) {
-    const int lr = e / 10, c = e % 10;
-    const long long row = ray0 + lr;
-    if (!POINT) {
-      if (CAMERA || c < 6) dout[row * RAYIN + c] = rayacc[e];
-    } else if (c < 3) {
-      dout[row * 3 + c] = rayacc[e];
-    } else if (CAMERA && c >= 6) {
-      demb[row * 4 + c - 6] = rayacc[e];
-    }
-  }
-  for (int e = tid; e < NB; e += THREADS) bias_part[(long long)blockIdx.x * NB + e] = bsum[e];
+  DG_END(bias_part + (long long)blockIdx.x * NB);
 }
 
 // One weight matrix's gradient: dW (in x out) = A^T G over the samples, A
@@ -852,7 +1339,8 @@ struct BwdLayout {
 
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
-// S stream rows (samples or points) in nblocks dgrad blocks. Without
+// S stream rows (samples or points) in nblocks dgrad units (one row of bias
+// partial sums each; dgrad_kernel's persistent blocks walk them). Without
 // `with_acts` (the saved backward) the activation stream is the caller's and
 // the workspace starts at the cotangent stream.
 BwdLayout bwd_layout(bool camera, long long S, int nblocks, bool with_acts = true) {
@@ -894,10 +1382,26 @@ Scratch carve(const BwdLayout& L, void* ws) {
           reinterpret_cast<float*>(base + L.wpart)};
 }
 
+// dgrad_kernel's shared memory: the two tiles, the ring, then the f32 bias
+// sums, head cotangents (two tiles' worth), per-sample d_rayin, the warps'
+// column sums and (rays; KPAD 1 is points) the per-ray sums
 size_t dgrad_smem(int KPAD) {
-  return (size_t)(2 * MT * LDA + WST) * sizeof(bf16) +
-         (size_t)(B_END + 2 + MT * 8 + MT * 10 + rays_per_block(KPAD) * 10) * sizeof(float);
+  return (size_t)(2 * MT * LDA + DWST) * sizeof(bf16) +
+         (size_t)(B_END + 2 + 2 * MT * HG + MT * 10 + 8 * NC +
+                  (KPAD == 1 ? 0 : rays_per_block(KPAD) * 10)) * sizeof(float);
 }
+
+// dgrad_kernel's persistent grid for `units` units (blocks of whole rays,
+// or 128 points): one block an SM (its shared memory fills one), at most
+// one a unit. 0 on a CUDA error (its code in *err).
+int dgrad_grid(int units, cudaError_t* err) {
+  int dev = 0, sms = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return *err == cudaSuccess ? std::min(units, sms) : 0;
+}
+
+long long dgrad_launch_count = 0;   // dgrad_kernel launches made (every instantiation)
 
 // Passes 2-4 of a backward, once its first pass has filled the activation
 // stream and the head cotangents: dgrad, wgrad and the fixed-order reduction.
@@ -912,15 +1416,16 @@ int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const 
                int KPAD, cudaStream_t stream, bf16* gh = nullptr, int pass = -1) {
   if (pass < 0 || pass == 1) {
     const size_t smem = dgrad_smem(KPAD);
-    const cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT, !HEADS_ONLY>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CAMERA, POINT, !HEADS_ONLY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int grid = e == cudaSuccess ? dgrad_grid(L.nblocks, &e) : 0;
     if (e != cudaSuccess) return (int)e;
-    dgrad_kernel<CAMERA, POINT, !HEADS_ONLY><<<L.nblocks, THREADS, smem, stream>>>(
+    dgrad_kernel<CAMERA, POINT, !HEADS_ONLY><<<grid, THREADS, smem, stream>>>(
         rayin, z, wm, sc.acts, sc.hg, sc.gpre, sc.bpart, dout, demb, R, KPAD,
         rays_per_block(KPAD), gh);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
+    ++dgrad_launch_count;
   }
   if (pass < 0 || pass == 2) {
     const int err = launch_wgrad<CAMERA>(sc.acts, sc.gpre, sc.wpart, L.S, L.splits, L.chunk,
@@ -2255,6 +2760,22 @@ void eonerf_bwd_stream_layout(int camera, int R, int KPAD, int saved, long long*
   out[4] = L.splits;
   out[5] = L.chunk;
   out[6] = L.nblocks;
+}
+
+// dgrad_kernel launches made so far (every instantiation, whichever entry
+// launched it), into out[0].
+void eonerf_dgrad_launches(long long* out) { out[0] = dgrad_launch_count; }
+
+// dgrad_kernel's plan for R rays of KPAD samples (or R points, KPAD 1):
+// out = [rays a unit, units (rows of bias partial sums), blocks of the
+// persistent grid (0 on a CUDA error), dynamic shared memory bytes].
+void eonerf_dgrad_plan(int R, int KPAD, long long* out) {
+  const int rpb = rays_per_block(KPAD), units = (R + rpb - 1) / rpb;
+  cudaError_t e;
+  out[0] = rpb;
+  out[1] = units;
+  out[2] = dgrad_grid(units, &e);
+  out[3] = (long long)dgrad_smem(KPAD);
 }
 
 // Bytes of the per-split partial sums of eonerf_wgrad over S rows.

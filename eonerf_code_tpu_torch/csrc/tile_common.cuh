@@ -483,7 +483,9 @@ __device__ __forceinline__ float pe_value(int c, float xb) {
 }
 
 // The TPU kernels' cotangent product: the JAX package's ops/pallas/
-// fused_field.py `_mm_t` (:207), g @ W^T, every trunk and head dgrad product.
+// fused_field.py `_mm_t` (:207), g @ W^T, here for the bench's slab chains
+// (kernel_variants.cu); fused_render.cu's dgrad_kernel runs the same
+// products on this chunk layout in its own chain_mm.
 // out[r, oc0 + n] = round(sum_k A[r, a_col0 + k] * Wp[k, n]) for n < n_dim,
 // Wp a packed (out, in) matrix read as (k = out) x (n = in): f32
 // accumulation, bf16 rounding at the output. ADD: out = round(out +

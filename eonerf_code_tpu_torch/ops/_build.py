@@ -134,6 +134,8 @@ def load_library():
                             ("eonerf_wgrad_partial_bytes", [i, ll], ll),
                             ("eonerf_wgrad", [i, i, p, p, ll, p, p, p], i),
                             ("eonerf_q8_trunk_path", [i, ll], i),
+                            ("eonerf_dgrad_launches", [p], None),
+                            ("eonerf_dgrad_plan", [i, i, p], None),
                             ("eonerf_q8_trunk_active_clusters", [i], i),
                             ("eonerf_q8_trunk_launches", [p], None),
                             ("eonerf_q8_trunk_workspace_bytes", [i, i, ll, i], ll),

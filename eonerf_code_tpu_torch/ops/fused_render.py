@@ -51,6 +51,7 @@ launches in its ``launches`` attribute.
 """
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -498,6 +499,61 @@ def _workspace(camera, r, kpad, dev, saved=False):
     size = lib.eonerf_saved_bwd_workspace_bytes if saved else lib.eonerf_bwd_workspace_bytes
     return torch.empty((size(int(camera), r, kpad),), dtype=torch.uint8, device=dev)
 
+
+
+def rays_per_unit(kpad):
+    """Rays in one unit of the kernels' work (rays_per_block of
+    csrc/fused_render.cu): as many whole rays as fill 128-row tiles exactly
+    (KPAD 96: 4 rays in 3 tiles; 144: 8 in 9), unless that is more than
+    1280 samples; then as many as one tile holds, at least one. Points
+    (kpad 1): 128."""
+    fill = 128 // math.gcd(128, kpad)
+    if fill * kpad <= 1280:
+        return fill
+    return 1 if kpad >= 128 else 128 // kpad
+
+
+def dgrad_plan(r, kpad, sms):
+    """How the dgrad kernel (the second launch of every bf16 backward)
+    covers r rays of kpad samples (or r points, kpad 1) on a card of ``sms``
+    SMs, as the library plans it (C entry ``eonerf_dgrad_plan``): (rays a
+    unit, units, blocks). Each unit has its row of bias partial sums in the
+    workspace (reduced in unit order); the persistent grid's block b walks
+    units b, b + blocks, ..., a unit's samples in 128-row tiles."""
+    rpb = rays_per_unit(kpad)
+    units = -(-r // rpb)
+    return rpb, units, min(units, sms)
+
+
+def dgrad_block_tiles(r, kpad, sms):
+    """[(unit, first sample row of the unit, rows)] of the tiles each block
+    of the dgrad kernel's grid works on, in its order (:func:`dgrad_plan`)."""
+    rpb, units, blocks = dgrad_plan(r, kpad, sms)
+    out = []
+    for b in range(blocks):
+        tiles = []
+        for u in range(b, units, blocks):
+            rows = min(rpb, r - u * rpb) * kpad
+            tiles += [(u, s0, min(128, rows - s0)) for s0 in range(0, rows, 128)]
+        out.append(tiles)
+    return out
+
+
+def dgrad_kernel_launches():
+    """Launches of the dgrad kernel that the library has made so far, every
+    instantiation (camera, shadow, field, density, heads-only): counted in
+    csrc/fused_render.cu where it launches it, whichever wrapper called."""
+    count = (ctypes.c_longlong * 1)()
+    _build.load_library().eonerf_dgrad_launches(count)
+    return int(count[0])
+
+
+def dgrad_library_plan(r, kpad):
+    """The library's own dgrad plan on the current card: (rays a unit,
+    units, blocks, shared memory bytes)."""
+    out = (ctypes.c_longlong * 4)()
+    _build.load_library().eonerf_dgrad_plan(r, kpad, out)
+    return tuple(int(v) for v in out)
 
 def camera_backward(weights: KernelWeights, rayin, z, deltam, gacc, q8=None, full=False,
                     tile_target=1024, stats=None):

@@ -1166,3 +1166,124 @@ def test_slab_wgrad_is_exact_on_integer_streams(dev, weights, n, with_h0):
     for i in range(8):
         a = (acts[:, vr.W * (i - 1):vr.W * i] if i else inp0).double()
         assert torch.equal(dw[i].double(), a.t() @ gp[:, vr.W * i:vr.W * (i + 1)].double()), i
+
+
+# ---------------------------------------------------------------------------
+# the dgrad kernel (the cotangent chain of every bf16 backward) on its
+# persistent grid: units of whole rays (or 128 points) walked by one block
+# an SM, masks, stores and bias sums under the products
+# ---------------------------------------------------------------------------
+
+# (camera, rays, samples): units that outnumber the card's SMs, so blocks
+# take several, and a ragged last unit or tile: KPAD 8 (16 rays a unit; the
+# last 13), 64 (2 rays; the last 1), 96 (4 rays in 3 tiles; the last 1),
+# 127 -> 128 (a ray a unit), 143 -> 144 (8 rays in 9 tiles; the last 5), and
+# the shadow at 63 -> 64 (the last unit 1 ray)
+DGRAD_GRID_CASES = [(True, 4093, 8), (True, 1001, 64), (True, 701, 96), (True, 1021, 127),
+                    (True, 2045, 143), (False, 2047, 63)]
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("camera,r,k", DGRAD_GRID_CASES)
+def test_dgrad_persistent_grid_matches_plain_versions(dev, weights, camera, r, k):
+    """The saved backward at shapes whose units outnumber the SMs, against
+    the plain backward on the same stream's activations (the masks pinned,
+    GRAD_REL_L2 a tensor): one dgrad launch a call by the library's own
+    count, and the same bits from a second call."""
+    assert fr.dgrad_plan(r, fr.kpad_of(k), _sms(dev))[1] > _sms(dev)
+    cam, gacc, sh, ggeo = _saved_case(dev, r, k, seed=r + k)
+    args, g = (cam, gacc) if camera else (sh, ggeo)
+    fwd_save = fr.camera_forward_save if camera else fr.shadow_forward_save
+    bwd_saved = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+    bwd_ref = fr.camera_backward_reference if camera else fr.shadow_backward_reference
+    stream = fwd_save(weights, *args)[1]
+    before = fr.dgrad_kernel_launches()
+    got = bwd_saved(weights, *args, g, stream)
+    torch.cuda.synchronize()
+    assert fr.dgrad_kernel_launches() == before + 1
+    _check_grads(got, bwd_ref(weights, *args, g, acts=fr.stream_trunk_acts(stream, camera, r, k)))
+    again = bwd_saved(weights, *args, g, stream)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("field,n", [(True, 128 * 300 + 77), (False, 128 * 700 + 5)])
+def test_dgrad_persistent_grid_on_points(dev, weights, field, n):
+    """The per-point backwards with more 128-point units than SMs and a
+    ragged last unit, at the per-point gates, the same bits twice."""
+    pos, emb, g, gd = _points(dev, n, seed=n)
+    kern, plain, args = ((ff.field_backward, ff.field_backward_reference, (pos, emb, g)) if field
+                         else (ff.density_backward, ff.density_backward_reference, (pos, gd)))
+    before = fr.dgrad_kernel_launches()
+    got = kern(weights, *args)
+    torch.cuda.synchronize()
+    assert fr.dgrad_kernel_launches() == before + 1
+    _check_point_grads(got, plain(weights, *args), plain(_f32(weights), *args))
+    again = kern(weights, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("camera", [True, False])
+def test_dgrad_heads_only_matches_plain_versions(dev, weights, q8, camera):
+    """int8_full's heads-only dgrad (the camera's six head products; the
+    shadow's none, g_h7 straight from the sigma head) at ragged sizes: the
+    heads' gradients at GRAD_REL_L2, the int8 trunk chain's at
+    Q8_FULL_REL_L2, the same bits twice."""
+    r, k = (1021, 127) if camera else (1023, 63)
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=r)
+    gen = torch.Generator(device=dev).manual_seed(r)
+    args = ((rayin, z, _camera_deltam(deltam, mask),
+             torch.randn((r, fr.ACC_COLS), generator=gen, device=dev)) if camera
+            else (rayin, z, deltam, mask, torch.randn((r,), generator=gen, device=dev)))
+    kern = fr.camera_backward_q8_full if camera else fr.shadow_backward_q8_full
+    plain = fr.camera_backward_reference if camera else fr.shadow_backward_reference
+    got = kern(weights, q8, *args, 1024)
+    errs = _q8_grad_errors(got, plain(weights, *args, q8, True, 1024))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert max(errs[16:-1]) < GRAD_REL_L2 and max(errs[:16] + errs[-1:]) < Q8_FULL_REL_L2, errs
+    again = kern(weights, q8, *args, 1024)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("r,kpad", [(1024, 128), (1021, 144), (4093, 8), (701, 96), (5, 24),
+                                    (128 * 300 + 77, 1)])
+def test_dgrad_plan_matches_the_library(dev, r, kpad):
+    """fused_render.dgrad_plan (the CPU tests' mirror) is the library's
+    plan on this card, and the kernel's shared memory fits a block."""
+    rpb, units, blocks, smem = fr.dgrad_library_plan(r, kpad)
+    assert (rpb, units, blocks) == fr.dgrad_plan(r, kpad, _sms(dev))
+    assert smem <= 232448
+
+
+def test_dgrad_library_yardstick_computes_the_chain(dev, weights):
+    """bench/backward_passes.dgrad_library on a saved camera backward's own
+    streams: the cotangents it writes agree with the kernel's (each a bf16
+    product summed in cuBLAS's order: 1e-2 rel-L2 a layer, the masks
+    pinned) and its column sums with the kernel's bias gradients."""
+    r, k = 256, 127
+    cam, gacc, _, _ = _saved_case(dev, r, k, seed=5)
+    stream = fr.camera_forward_save(weights, *cam)[1]
+    kpad = fr.kpad_of(k)
+    ws = fr._workspace(True, r, kpad, dev, saved=True)
+    grads = fr._zero_grads(r, dev)
+    ff.launch("eonerf_camera_bwd_saved", "saved camera backward", dev, cam[0],
+              fr._padded(cam[1], kpad), fr._padded(cam[2], kpad), gacc, weights.mats,
+              weights.biases, stream, ws, *grads, r, kpad)
+    acts, gpre = bpass.workspace_streams(ws, True, r, kpad, stream)
+    kernel_gpre = gpre.clone()
+    sums, g_pe, g_emb = bpass.dgrad_library(True, weights.mats, acts, gpre)()
+    torch.cuda.synchronize()
+    assert g_pe.shape == (r * kpad, 64) and g_emb.shape == (r * kpad, 4)
+    layers = slice(0, 2944)   # the trunk's, bottleneck's, albedo hidden's and t0..t3's columns
+    assert _rel_l2(gpre[:, layers].float(), kernel_gpre[:, layers].float()) < GRAD_REL_L2
+    # bias offsets of t3, t2, t1, t0, the albedo hidden layer, the bottleneck, h7..h0
+    b_t, b_bott, b_alb0, b_tr = 0, 2049, 2305, 2436
+    offs = [b_tr + 128 * i for i in (3, 2, 1, 0)] + [b_alb0, b_bott] + [b_t + 256 * i
+                                                                         for i in range(7, -1, -1)]
+    for s, o in zip(sums, offs):
+        assert _rel_l2(s, grads[1][o:o + s.numel()]) < GRAD_REL_L2
