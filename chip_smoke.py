@@ -39,7 +39,18 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  cluster's CTAs, the clusters the card holds at once, the
                  trunk's CUDA-event time against its bound and beside the
                  layer-major path's on the same inputs, both paths' stream
-                 columns and group amax the same bits. Then the saved-activations pair at
+                 columns and group amax the same bits. Then int8_full's
+                 trunk backward alone at the training shapes (camera K=127,
+                 shadow K=63): the cotangent chain (q8_chain_cluster_kernel)
+                 and the weight gradient (q8_wgrad_kernel) each timed alone
+                 on a workspace the whole call filled, held against the
+                 plain trunk backward on that call's own inputs, whose two
+                 halves (fused_field.trunk_chain_q8, trunk_wgrad_q8) are
+                 timed as each kernel's plain version (the PE cotangent,
+                 the cotangent amax and the weight gradients the same bits,
+                 the bias sums within 1e-6), beside their bounds and their
+                 library yardsticks (bench/q8_backward.py). Then the
+                 saved-activations pair at
                  the training shapes (camera K=127 and K=143, shadow K=63):
                  the forward that writes the activation stream against its
                  plain version (outputs, and h0..h7 of the stream) and bit
@@ -128,7 +139,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  timed, as phase 6: launches, losses, moved parameters, and
                  against the bf16 kernels the whole-step weight-gradient
                  cosine (above 0.95) and the camera op's origin-gradient
-                 cosine (above 0.9).
+                 cosine (above 0.9); at int8_full the library's own counts
+                 show the trunk backward's kernels: the cluster chain and
+                 the weight gradient once a backward, the layer-major pair
+                 never.
 12. data       - generate_scene writes the hermetic scene (20 train views of
                  256x256, 2 test views) under logs/, and SatelliteDataset
                  builds its train pool: (1,310,720, 11) finite rays in the
@@ -270,6 +284,12 @@ Q8_GAMAX_REL = 2e-2
 # the plain version in float32; every other tensor at BWD_REL_L2.
 Q8_FULL_REL_L2 = 5e-2
 Q8_FULL_F32_RATIO = 1.25
+# int8_full's trunk backward alone against the plain trunk backward on the
+# kernels' own inputs: the products are exact and every rounding the
+# plain version's, so the PE cotangent, the cotangent amax and the weight
+# gradients must be the same bits; the bias sums run in another order (a
+# CTA's column sums in a fixed tree): f32 sums of 131,072 rows, held at 1e-6
+Q8_CHAIN_BIAS_REL_L2 = 1e-6
 # int8 against bf16, the JAX package's own bounds
 # (tests/test_trunk_quant.py): the camera op's channels within rel-L2 0.05,
 # render_rays' depth and rgb within 0.1, the step's weight-gradient cosine
@@ -943,6 +963,86 @@ def main():
                 and amax_rel.get("gamax", 0.0) <= Q8_GAMAX_REL):
             raise AssertionError(f"{name} at K={args[1].shape[1]}: kernel disagrees with its "
                                  f"plain version (rel-L2 {rel}, amax {amax_rel})")
+
+    # int8_full's trunk backward alone at the training shapes: the cotangent
+    # chain and the weight gradient, each timed alone on a workspace the
+    # whole call filled, against the plain trunk backward on that call's own
+    # inputs (its stream's PE and h0..h7, their masks, its g_h7)
+    from eonerf_code_tpu_torch.bench import q8_backward as qb
+
+    def q8_bwd_alone(camera, args, g, n_valid):
+        call = fr.Q8BackwardCall(camera, True, kw, q8w, *args[:3], None if camera else args[3],
+                                 g, 1024)
+        call.run()
+        torch.cuda.synchronize()
+        rows, gr = call.rp * call.kpad, call.group_rows
+        lay = call.layout()
+        stream = call.act_stream()
+        gh7 = call.ws[lay["gh"]:lay["gh"] + rows * 512].view(torch.bfloat16).view(rows, 256)
+        gpe = call.ws[lay["gpe"]:lay["gpe"] + rows * 128].view(torch.bfloat16).view(rows, 64)
+        pe = stream[:, fr._act_col(5) - 64:fr._act_col(5)]
+        hs = [stream[:, fr._act_col(i):fr._act_col(i) + 256] for i in range(8)]
+        masks = [(h > 0).to(torch.bfloat16) for h in hs]
+
+        gp = [None] * 36
+
+        def plain_chain():
+            return ff.trunk_chain_q8(masks, gh7, q8w, torch.bfloat16, gp, gr)
+        g_pe, gamax_p, g8s, col_ss = plain_chain()
+
+        def plain_wgrad():
+            ff.trunk_wgrad_q8(pe, hs, g8s, col_ss, gp, gr)
+        plain_wgrad()
+        torch.cuda.synchronize()
+        w_plain = torch.cat([gp[i].t().reshape(-1) for i in range(8)])
+        b_plain = torch.cat([gp[8 + i].reshape(-1) for i in range(8)])
+        errs = {"gpe_max_abs": float((gpe.float() - g_pe.float()).abs().max()),
+                "weights_max_abs": float((call.grads[0][:ff.TRUNK_MAT_ELEMENTS]
+                                          - w_plain).abs().max()),
+                "gamax_equal": bool(torch.equal(call.gamax, gamax_p)),
+                "bias_rel_l2": rel_l2(call.grads[1][:ff.TRUNK_BIAS_ELEMENTS], b_plain)}
+        plain_ms = {"chain": time_ms(torch, plain_chain, 3),
+                    "wgrad": time_ms(torch, plain_wgrad, 3)}
+        ms = {"chain": time_ms(torch, lambda: call.run(1), 10),
+              "wgrad": time_ms(torch, lambda: call.run(2), 10)}
+        call.run()
+        lib_ms = {"chain": time_ms(torch, qb.chain_library(call, q8w), 10),
+                  "wgrad": time_ms(torch, qb.wgrad_library(call), 10)}
+        bnd = qb.bounds(rows, rows // gr)
+        ok = (errs["gpe_max_abs"] == 0.0 and errs["weights_max_abs"] == 0.0
+              and errs["gamax_equal"] and errs["bias_rel_l2"] <= Q8_CHAIN_BIAS_REL_L2)
+        # the plain halves: fused_field.trunk_chain_q8 (masks, bias sums,
+        # quantization, g8 w8^T) and trunk_wgrad_q8 (each group's inp8^T g8,
+        # scaled, in group order); the weight gradient's library yardstick
+        # is the products alone, not the same function
+        library_is = {"chain": "the chain as torch calls, torch._int_mm for g8 w8^T",
+                      "wgrad": "the products alone, one torch._int_mm a layer over all rows: "
+                               "not the same function (no per-group scales)"}
+        for kname, pname, err in (("q8_chain_cluster", "chain", errs["gpe_max_abs"]),
+                                  ("q8_wgrad", "wgrad", errs["weights_max_abs"])):
+            record(kname, args[1].shape[1], {
+                "name": kname, "route": "cuda",
+                "source": "eonerf_code_tpu_torch/csrc/fused_render.cu",
+                "replaces": tpu_kernel_site("_trunk_bwd_q8", "fused_field.py"), "launches": None,
+                "max_abs_err": err, "ms": ms[pname], "plain_ms": plain_ms[pname],
+                "bound_ms": bnd[pname][0], "bound_by": bnd[pname][1],
+                "library_ms": lib_ms[pname], "library_is": library_is[pname]})
+        emit({"phase": "kernels", "name": "q8_trunk_bwd_alone", "camera": camera,
+              "rays": args[0].shape[0], "samples": args[1].shape[1], "rows": rows,
+              "groups": rows // gr, "valid_samples": n_valid, "errors": errs,
+              "tolerance": {"gpe_max_abs": 0.0, "weights_max_abs": 0.0,
+                            "bias_rel_l2": Q8_CHAIN_BIAS_REL_L2},
+              "ms": ms, "bound_ms": {k: v[0] for k, v in bnd.items()},
+              "plain_ms": plain_ms,
+              "library_ms": lib_ms, "card": card})
+        if not ok:
+            raise AssertionError(f"int8_full trunk backward alone (camera {camera}) disagrees "
+                                 f"with its plain version: {errs}")
+        del call
+
+    q8_bwd_alone(True, b_in, gacc, int(mask[:nb].sum()))
+    q8_bwd_alone(False, b_sc, ggeo, int(sc_mask[:nb].sum()))
+    torch.cuda.empty_cache()
 
     # the saved-activations pair (bwd_acts="saved", the JAX package's default)
     # at the training shapes: the forward that writes the activation stream
@@ -1663,13 +1763,23 @@ def main():
         before_q = [p.detach().clone() for p in tq.field.parameters()]
         for fn in q8_train_counted.values():
             fn.launches = 0
+        bwd_before = fr.q8_bwd_kernel_launches()   # the library's own counts
         tq.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
+        torch.cuda.synchronize()
         launches_tq = {n: fn.launches for n, fn in q8_train_counted.items()}
+        launches_tq.update({k: n - bwd_before[k] for k, n in fr.q8_bwd_kernel_launches().items()})
         sfx = "_full" if full else ""
         expect_tq = {n: 0 for n in q8_train_counted}
         expect_tq.update({"camera_fwd_q8": TRAIN_STEPS, "shadow_fwd_q8": shadow_steps,
                           f"camera_bwd_q8{sfx}": TRAIN_STEPS,
                           f"shadow_bwd_q8{sfx}": shadow_steps})
+        expect_tq.update({k: 0 for k in fr.Q8_BWD_KERNELS})
+        if full:   # the cluster chain and the weight gradient once a backward
+            backwards = TRAIN_STEPS + shadow_steps
+            expect_tq.update({"q8_chain_cluster_kernel": backwards,
+                              "q8_wgrad_kernel": backwards, "q8_reduce_kernel": backwards})
+            kernel_rows["q8_chain_cluster"]["launches"] = launches_tq["q8_chain_cluster_kernel"]
+            kernel_rows["q8_wgrad"]["launches"] = launches_tq["q8_wgrad_kernel"]
         for n in (f"camera_bwd_q8{sfx}", f"shadow_bwd_q8{sfx}"):
             kernel_rows[n]["launches"] = launches_tq[n]
         res = branch_result(tq, before_q, losses_q, launches_tq, expect_tq, {})
@@ -1882,8 +1992,8 @@ def main():
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",
         "field_fwd", "field_bwd", "density_bwd", "camera_fwd_q8", "shadow_fwd_q8",
         "coarse_fwd_q8", "camera_bwd_q8", "shadow_bwd_q8", "camera_bwd_q8_full",
-        "shadow_bwd_q8_full", "camera_fwd_save", "camera_bwd_saved", "shadow_fwd_save",
-        "shadow_bwd_saved")] + [kernel_rows[("composite_" if v in vr.COMPOSITES else "variant_")
+        "shadow_bwd_q8_full", "q8_chain_cluster", "q8_wgrad", "camera_fwd_save",
+        "camera_bwd_saved", "shadow_fwd_save", "shadow_bwd_saved")] + [kernel_rows[("composite_" if v in vr.COMPOSITES else "variant_")
                                             + v] for v in variant_rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,11 +35,9 @@ another tree's (a parent commit's csrc/, unpacked with `git archive`):
     python -m eonerf_code_tpu_torch.bench.backward_passes attribution
 """
 
-import concurrent.futures
 import ctypes
 import json
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -47,6 +45,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from eonerf_code_tpu_torch.bench.csrc_copies import build_all, in_turns, source_copy, using
 from eonerf_code_tpu_torch.bench.kernel_variants import bench_weights, resolve_device
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
@@ -303,26 +302,14 @@ PARENT_SUBS = [
 
 def phase_source(source=None):
     """An instrumented copy of the csrc/ that holds ``source`` (by default
-    this tree's fused_render.cu), under _build/dgrad_phases/: the copy's
+    this tree's fused_render.cu), under _build/copies/: the copy's
     fused_render.cu. A source with its own landmarks (DG_MARK) gets the
     prelude that defines them; one without (a parent's) gets PARENT_SUBS
     too."""
     src = Path(source or _build.SOURCE)
-    text = src.read_text()
-    tag = "this" if "DG_MARK(" in text else "parent"
-    dst = _build.BUILD_DIR / "dgrad_phases" / tag
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(src.parent, dst)
-    files = {"fused_render.cu": text, "tile_common.cuh": (dst / "tile_common.cuh").read_text()}
-    if tag == "parent":
-        for name, pattern, repl in PARENT_SUBS:
-            files[name], n = re.subn(pattern, lambda _, repl=repl: repl, files[name], flags=re.S)
-            if n != 1:
-                raise RuntimeError(f"{name} matches {pattern!r} {n} times, not once")
-    files["fused_render.cu"] = PHASE_PRELUDE + files["fused_render.cu"]
-    for name, body in files.items():
-        (dst / name).write_text(body)
-    return dst / "fused_render.cu"
+    tag = "this" if "DG_MARK(" in src.read_text() else "parent"
+    return source_copy(f"dgrad_phases_{tag}", PARENT_SUBS if tag == "parent" else (),
+                       PHASE_PRELUDE, src, re.S)
 
 
 def dgrad_tiles(r, kpad):
@@ -345,38 +332,30 @@ def dgrad_phases(source=None, reps=3, device=None, built=None, ops=("camera",)):
     _build.build(src)
     kw, _ = bench_weights(dev)
     cam, gacc, sh, ggeo = training_batch(dev)
-    default = _build.SOURCE
     out = {}
-    try:
-        for name, args, g in (("camera", cam, gacc), ("shadow", sh, ggeo)):
-            if name not in ops:
-                continue
-            camera = name == "camera"
-            _build.SOURCE = default
-            _build.load_library.cache_clear()
-            acts = (fr.camera_forward_save if camera else fr.shadow_forward_save)(kw, *args)[1]
-            _build.SOURCE = src
-            _build.load_library.cache_clear()
-            bwd = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+    for name, args, g in (("camera", cam, gacc), ("shadow", sh, ggeo)):
+        if name not in ops:
+            continue
+        camera = name == "camera"
+        acts = (fr.camera_forward_save if camera else fr.shadow_forward_save)(kw, *args)[1]
+        bwd = fr.camera_backward_saved if camera else fr.shadow_backward_saved
+        with using(src):
             for _ in range(reps):
                 dbias = bwd(kw, *args, g, acts)[1]
-            tiles = dgrad_tiles(args[0].shape[0], fr.kpad_of(args[1].shape[1]))
-            cyc = (dbias[:_NPH].double() / tiles).tolist()
-            calls = CHAIN_CALLS[camera]
-            named = {}
-            for i, p in enumerate(PHASES):
-                if i >= _PRO0:
-                    kind, c = p.rsplit("_", 1)
-                    if int(c) >= len(calls):
-                        continue
-                    p = f"{kind}_{calls[int(c)]}"
-                if cyc[i] > 0:
-                    named[p] = cyc[i]
-            named["total"] = sum(cyc)
-            out[name] = named
-    finally:
-        _build.SOURCE = default
-        _build.load_library.cache_clear()
+        tiles = dgrad_tiles(args[0].shape[0], fr.kpad_of(args[1].shape[1]))
+        cyc = (dbias[:_NPH].double() / tiles).tolist()
+        calls = CHAIN_CALLS[camera]
+        named = {}
+        for i, p in enumerate(PHASES):
+            if i >= _PRO0:
+                kind, c = p.rsplit("_", 1)
+                if int(c) >= len(calls):
+                    continue
+                p = f"{kind}_{calls[int(c)]}"
+            if cyc[i] > 0:
+                named[p] = cyc[i]
+        named["total"] = sum(cyc)
+        out[name] = named
     return out
 
 def stream_layout(camera, r, kpad, saved):
@@ -471,11 +450,11 @@ def pass_bounds(camera, r, kpad, lay):
 
 # Cost attribution: copies of csrc/ with one of the dgrad kernel's costs
 # taken out (their outputs are wrong; only their times mean something),
-# made by bench/q8_trunk.py's source_copy
+# made by bench/csrc_copies.py's source_copy
 DGRAD_ATTRIBUTION = {
     "no_masks": [   # no mask copies (the epilogue applies whatever the tile holds)
-        (r"    asm volatile\(\"cp\.async\.cg\.shared\.global\.L2::cache_hint",
-         "    if (r < 0) asm volatile(\"cp.async.cg.shared.global.L2::cache_hint")],
+        (r"\n    asm volatile\(\"cp\.async\.cg\.shared\.global\.L2::cache_hint",
+         "\n    if (r < 0) asm volatile(\"cp.async.cg.shared.global.L2::cache_hint")],
     "no_overlap": [   # every chunk's products waited for before the next barrier
         (r"constexpr int WG_INFLIGHT = 1;", "constexpr int WG_INFLIGHT = 0;")],
     "no_stores": [  # no cotangent rows to the stream
@@ -497,12 +476,10 @@ def dgrad_attribution(reps=10, device=None):
     build and this tree's as it is ("as_is"), in turns (the copies in
     order, then in reverse), on the streams and head cotangents of this
     tree's first pass."""
-    from eonerf_code_tpu_torch.bench.q8_trunk import source_copy
     dev = resolve_device(device)
-    builds = {"as_is": source_copy("dgrad_as_is", [])}
+    builds = {"as_is": source_copy("dgrad_as_is")}
     builds.update({tag: source_copy(f"dgrad_{tag}", subs) for tag, subs in DGRAD_ATTRIBUTION.items()})
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:   # every nvcc started together
-        list(pool.map(_build.build, builds.values()))
+    build_all(builds.values())
     kw, _ = bench_weights(dev)
     cam, gacc, sh, ggeo = training_batch(dev)
     runs = []
@@ -512,17 +489,8 @@ def dgrad_attribution(reps=10, device=None):
         run, _ = _pass_runner(kw, *args[:3], g, acts, mask)
         run(0)   # the head cotangents dgrad reads
         runs.append(run)
-    default = _build.SOURCE
-    times = {tag: [] for tag in builds}
-    try:
-        for tag in list(builds) + list(builds)[::-1]:
-            _build.SOURCE = builds[tag]
-            _build.load_library.cache_clear()
-            times[tag].append(tuple(_event_ms(lambda run=run: run(1), reps) for run in runs))
-    finally:
-        _build.SOURCE = default
-        _build.load_library.cache_clear()
-    return times
+    return in_turns(builds, lambda _: tuple(_event_ms(lambda run=run: run(1), reps)
+                                            for run in runs))
 
 def _event_ms(fn, iters):
     fn()   # warm-up

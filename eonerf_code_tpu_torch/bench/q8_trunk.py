@@ -32,15 +32,13 @@ of each group's first CTA spends between the kernel's landmarks (PHASES),
 from another such copy.
 """
 
-import concurrent.futures
 import json
-import re
-import shutil
 import subprocess
 import sys
 
 import torch
 
+from eonerf_code_tpu_torch.bench.csrc_copies import build_all, in_turns, source_copy, using
 from eonerf_code_tpu_torch.bench.kernel_variants import (
     bench_rays,
     bench_weights,
@@ -122,27 +120,9 @@ def main(reps=10, device=None):
     return results
 
 
-def source_copy(tag, subs):
-    """csrc/ copied under _build/q8_copies/<tag> with each (pattern,
-    replacement) of `subs` made exactly once in fused_render.cu (a regular
-    expression, its replacement literal text): the copy's
-    fused_render.cu."""
-    dst = _build.BUILD_DIR / "q8_copies" / tag
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(_build.PACKAGE_DIR / "csrc", dst)
-    src = dst / "fused_render.cu"
-    text = src.read_text()
-    for pattern, repl in subs:
-        text, n = re.subn(pattern, lambda _, repl=repl: repl, text)   # repl taken literally
-        if n != 1:
-            raise RuntimeError(f"fused_render.cu matches {pattern!r} {n} times, not once")
-    src.write_text(text)
-    return src
-
-
 def ring_copy(stages):
-    return source_copy(f"ring{stages}", [(r"constexpr int QSTAGES = \d+;",
-                                          f"constexpr int QSTAGES = {stages};")])
+    return source_copy(f"q8_trunk_ring{stages}", [(r"constexpr int QSTAGES = \d+;",
+                                                   f"constexpr int QSTAGES = {stages};")])
 
 
 # Cost attribution: copies of the cluster kernel with one cost taken out
@@ -158,11 +138,12 @@ ATTRIBUTION = {
         (r"if \(write_all \|\| layer == 7\) \{\n      // the bf16 rows",
          "if (false) {\n      // the bf16 rows")],
     "no_quantize": [  # the next layer's int8 tile left as it is
-        (r"    if \(active\) \{\n      int8_t\* q0", "    if (false) {\n      int8_t* q0")],
+        (r"    if \(active\) \{\n      int8_t\* q0 = h8", "    if (false) {\n      int8_t* q0 = h8")],
     "no_products": [  # no wgmma
-        (r"        wgmma_s8_m64n128\(acc", "        if (kc < 0) wgmma_s8_m64n128(acc")],
+        (r"        wgmma_s8_m64n128\(acc, a\[s\]", "        if (kc < 0) wgmma_s8_m64n128(acc, a[s]")],
     "no_weights": [   # no weight copies into the ring
-        (r"      cp_async16\(dst \+ qunit", "      if (q < 0) cp_async16(dst + qunit")],
+        (r"      cp_async16\(dst \+ qunit\(n, u\), src \+ \(long long\)n \* k_dim",
+         "      if (q < 0) cp_async16(dst + qunit(n, u), src + (long long)n * k_dim")],
     "no_pe": [        # the PE lanes without their sin
         (r"v = pe_value\(c, __fadd_rn\(__fmul_rn\(os", "v = (__fadd_rn(__fmul_rn(os")],
     "no_dequant": [   # the accumulators left as they are (layers other than 5)
@@ -213,16 +194,13 @@ def phases(reps=3):
     and their total}} from the instrumented copy (the last of `reps`
     runs)."""
     dev = resolve_device(None)
-    src = source_copy("phases", PHASE_SUBS)
+    src = source_copy("q8_trunk_phases", PHASE_SUBS)
     _build.build(src)
-    default = _build.SOURCE
     kw, _ = bench_weights(dev)
     q8 = ff.quantize_kernel_trunk(kw.mats.float())
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    try:
-        _build.SOURCE = src
-        _build.load_library.cache_clear()
+    with using(src):
         for name, (r, k, target, camera, write_all) in SHAPES.items():
             rayin, z, _ = bench_rays(r, k, gen, dev)
             for _ in range(reps):
@@ -232,9 +210,6 @@ def phases(reps=3):
                          for i, p in enumerate(PHASES + ("total",))}
             print(json.dumps({"phases": name, "cycles": out[name],
                               "device": torch.cuda.get_device_name(dev)}), flush=True)
-    finally:
-        _build.SOURCE = default
-        _build.load_library.cache_clear()
     return out
 
 
@@ -248,33 +223,25 @@ def timed_copies(builds, reps):
     q8 = ff.quantize_kernel_trunk(kw.mats.float())
     gen = torch.Generator(device=dev).manual_seed(3)
     inputs = {name: bench_rays(r, k, gen, dev)[:2] for name, (r, k, *_) in SHAPES.items()}
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:   # every nvcc started together
-        logs = dict(zip(builds, pool.map(lambda src: _build.build(src)[1], builds.values())))
-    default = _build.SOURCE
-    tags = list(builds)
-    times = {c: [] for c in tags}
+    logs = dict(zip(builds, build_all(builds.values())))
     same, first = {}, {}
-    try:
-        for c in tags + tags[::-1]:
-            _build.SOURCE = builds[c]
-            _build.load_library.cache_clear()
-            turn = {}
-            for name, (r, k, target, camera, write_all) in SHAPES.items():
-                def fn():
-                    return fr.q8_trunk(kw, q8, *inputs[name], target, camera, write_all)
-                stream, amax = fn()
-                out = (fr.q8_stream_written(stream, write_all), amax)
-                del stream
-                first.setdefault(name, out)
-                same[c] = same.get(c, True) and all(torch.equal(a, b)
-                                                    for a, b in zip(out, first[name]))
-                del out
-                turn[name] = time_ms(fn, reps, dev)
-            times[c].append(turn)
-    finally:
-        _build.SOURCE = default
-        _build.load_library.cache_clear()
-    for c in tags:
+
+    def turn(c):
+        out = {}
+        for name, (r, k, target, camera, write_all) in SHAPES.items():
+            def fn():
+                return fr.q8_trunk(kw, q8, *inputs[name], target, camera, write_all)
+            stream, amax = fn()
+            got = (fr.q8_stream_written(stream, write_all), amax)
+            del stream
+            first.setdefault(name, got)
+            same[c] = same.get(c, True) and all(torch.equal(a, b)
+                                                for a, b in zip(got, first[name]))
+            del got
+            out[name] = time_ms(fn, reps, dev)
+        return out
+    times = in_turns(builds, turn)
+    for c in builds:
         lines = logs[c].splitlines()
         at = [i for i, ln in enumerate(lines) if "q8_trunk_cluster" in ln and "Compiling" in ln]
         ptxas = [ln.strip() for i in at[:1] for ln in lines[i + 2:i + 4]]
@@ -289,7 +256,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["phases"]:
         phases()
     elif sys.argv[1:2] == ["attribution"]:
-        timed_copies({"as_is": source_copy("as_is", []),
-                      **{tag: source_copy(tag, subs) for tag, subs in ATTRIBUTION.items()}}, 10)
+        timed_copies({"as_is": source_copy("q8_trunk_as_is"),
+                      **{tag: source_copy(f"q8_trunk_{tag}", subs)
+                         for tag, subs in ATTRIBUTION.items()}}, 10)
     else:
         main(*(int(a) for a in sys.argv[1:2]))

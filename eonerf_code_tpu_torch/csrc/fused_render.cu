@@ -1518,18 +1518,33 @@ int launch_point_bwd(const float* pos, const float* emb, const float* gin, const
 // layer-major path also pays the f32 activation traffic, 2 KB per sample
 // and layer (read, written) at 3.35 TB/s.
 //
-// int8_full backward, layer by layer from 7 to 0: q8_gamax_kernel takes the
-// group amax of g = g_h * mask * s_w (and the bias gradient's per-tile sums
-// of the unquantized g_h * mask), q8_dgrad_kernel quantizes g once per group
-// into the int8 cotangent stream and forms (g8 w8^T) s_g rounded to bf16;
-// then q8_wgrad_kernel forms each group's exact int32 inp8^T g8, scaled by
-// that group's s_in s_g / s_w into per-group f32 partials, which
-// q8_reduce_kernel sums in group order (the TPU's sequential grid order).
+// int8_full backward (`_trunk_bwd_q8`): the cotangent chain from layer 7
+// to 0 quantizes g = g_h * mask * s_w once per group and layer into the int8
+// cotangent stream and forms (g8 w8^T) s_g rounded to bf16 (the next
+// layer's g_h), with the bias gradient's column sums of the unquantized
+// g_h * mask; then q8_wgrad_kernel forms each group's exact int32
+// inp8^T g8, scales it by that group's s_in s_g / s_w and adds the groups
+// in group order (the TPU's sequential grid order). Where the trunk runs
+// as one cluster launch, so does the chain (q8_chain_cluster_kernel, in the
+// section after the forward's cluster kernel); past that the chain runs
+// layer by layer, q8_gamax_kernel (the group amax and the bias sums) then
+// q8_dgrad_kernel, 16 launches.
+//
+// The int8 cotangent stream is K-major for the weight gradient, whose
+// contraction runs over rows: for group G, layer L, feature c, the group's
+// rows in order, G8R = group rows rounded up to 256 bytes apart,
+//   g8t[((G * 8 + L) * 256 + c) * G8R + row in group]
+// (bytes past the group's rows are never written; the weight gradient
+// multiplies them by zeros).
 
 constexpr int LDQ = CAT + 16;     // int8 tile row stride (bytes): conflict-free fragment loads
-constexpr int LDK = 32 + 16;      // int8 transposed k-chunk row stride (bytes)
-constexpr int G8S = 8 * W;        // int8 cotangent stream: g8 of layers 0..7 per row
 constexpr int QB = 8 * W;         // trunk biases: the per-tile bias sums' row
+
+// the int8 cotangent stream's row run: a group's rows rounded up to the
+// weight gradient's 256-row chunks
+__host__ __device__ __forceinline__ long long q8_g8_rows(long long group_rows) {
+  return (group_rows + 255) / 256 * 256;
+}
 
 // The PE of every row (ray r = row / KPAD, sample row % KPAD), rounded to
 // bf16, into the stream at A_PE; its group amax into quantization point 0.
@@ -1728,7 +1743,7 @@ constexpr int LDG = W + 16;   // int8 cotangent tile row stride (bytes)
 size_t q8_dgrad_smem() { return (size_t)(MT + NC) * LDG + (size_t)MT * 2 * sizeof(float); }
 
 // int8_full, layer `layer`: g8 = round(g_h * mask * s_w * inv_g) per group,
-// kept in the int8 cotangent stream (columns layer * 256..) for the wgrad,
+// kept in the int8 cotangent stream (K-major, see above) for the wgrad,
 // and dgrad g_in = (g8 w8^T) s_g rounded to bf16: into gh_next (the
 // cotangent of the layer's input activation), or for the PE into gpe
 // (layer 5: its PE part; layer 0: added to it in bf16).
@@ -1759,12 +1774,15 @@ q8_dgrad_kernel(int layer, const bf16* __restrict__ gh, bf16* __restrict__ gh_ne
     if (r < nrows) {
       const long long row = row0 + r;
       const float inv = i_g[r];
+      const long long grp = row / group_rows, gr8 = q8_g8_rows(group_rows);
+      int8_t* g8c = g8s + ((grp * 8 + layer) * W + c) * gr8 + (row - grp * group_rows);
       for (int j = 0; j < 4; ++j) {
         const float gv =
             bf(acts[row * as + act_h(layer) + c + j]) > 0.f ? bf(gh[row * W + c + j]) : 0.f;
-        packed |= q8_byte(__fmul_rn(gv, swl[c + j]), inv) << (8 * j);
+        const uint32_t b = q8_byte(__fmul_rn(gv, swl[c + j]), inv);
+        packed |= b << (8 * j);
+        g8c[j * gr8] = (int8_t)b;   // the K-major stream, a byte a feature
       }
-      *reinterpret_cast<uint32_t*>(g8s + row * G8S + layer * W + c) = packed;
     }
     *reinterpret_cast<uint32_t*>(qa + r * LDG + c) = packed;
   }
@@ -1821,102 +1839,15 @@ q8_dgrad_kernel(int layer, const bf16* __restrict__ gh, bf16* __restrict__ gh_ne
   }
 }
 
-// int8_full weight gradients: blockIdx.x walks the trunk's 128 x 128 tiles
-// (layer-major), blockIdx.y the groups. A block forms its group's exact
-// int32 inp8^T g8 (inp8: the stream's bf16 activation, or the PE, quantized
-// with the group's scale; its amax is the bf16 rounding of the recompute's
-// f32 amax), scales it by s_in * (s_g / s_w) per column and writes it to the
-// group's own slice of qwpart, in the packed (out, in) layout.
-__global__ void __launch_bounds__(THREADS)
-q8_wgrad_kernel(const bf16* __restrict__ acts, long long as, const int8_t* __restrict__ g8s,
-                const float* __restrict__ sw, const float* __restrict__ amax,
-                const float* __restrict__ gamax, float* __restrict__ qwpart, long long rows,
-                long long group_rows) {
-  __shared__ __align__(16) int8_t sa[WG_TILE * LDK];
-  __shared__ __align__(16) int8_t sb[WG_TILE * LDK];
-  int t = blockIdx.x, layer = 0, mt = 0, nt = 0;
-  for (; layer < 8; ++layer) {
-    const int in = layer == 0 ? PE : (layer == 5 ? CAT : W);
-    const int tiles = ((in + WG_TILE - 1) / WG_TILE) * (W / WG_TILE);
-    if (t < tiles) { mt = t / (W / WG_TILE); nt = t % (W / WG_TILE); break; }
-    t -= tiles;
-  }
-  const int in = layer == 0 ? PE : (layer == 5 ? CAT : W);
-  const int m0 = mt * WG_TILE, n0 = nt * WG_TILE;
-  const bool pe_src = layer == 0 || m0 >= W;
-  const int acol = pe_src ? A_PE + (m0 >= W ? m0 - W : m0) : act_h(layer - 1) + m0;
-  const int mvalid = min(WG_TILE, in - m0);
-  const long long grp = blockIdx.y;
-  const long long rbeg = grp * group_rows, rend = min(rows, rbeg + group_rows);
-  const float inv_in = q8_inv(bf_round(amax[grp * Q8P + (pe_src ? 0 : layer)]));
-  const float s_in = __fdiv_rn(1.f, inv_in);
-  const float s_g = __fdiv_rn(1.f, q8_inv(gamax[grp * Q8P + layer]));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  int acc[WG_TILE / 8][4];
-#pragma unroll
-  for (int j = 0; j < WG_TILE / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-  for (long long k0 = rbeg; k0 < rend; k0 += 32) {
-    __syncthreads();
-    // stage the chunk's 32 rows transposed: (feature, row) int8
-    for (int v = threadIdx.x; v < 32 * (WG_TILE / 8); v += THREADS) {
-      const int kk = v / (WG_TILE / 8), cv = (v % (WG_TILE / 8)) * 8;
-      const long long row = k0 + kk;
-      uint4 a8 = make_uint4(0u, 0u, 0u, 0u);
-      uint2 b8 = make_uint2(0u, 0u);
-      if (row < rend) {
-        if (cv < mvalid) a8 = *reinterpret_cast<const uint4*>(acts + row * as + acol + cv);
-        b8 = *reinterpret_cast<const uint2*>(g8s + row * G8S + layer * W + n0 + cv);
-      }
-      const bf16* ae = reinterpret_cast<const bf16*>(&a8);
-      const int8_t* be = reinterpret_cast<const int8_t*>(&b8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sa[(cv + j) * LDK + kk] = (int8_t)__float2int_rn(__fmul_rn(bf(ae[j]), inv_in));
-        sb[(cv + j) * LDK + kk] = be[j];
-      }
-    }
-    __syncthreads();
-    const int8_t* ap = sa + (warp * 16 + g) * LDK + 4 * tq;
-    const uint32_t a0 = ld_s8x4(ap), a1 = ld_s8x4(ap + 8 * LDK);
-    const uint32_t a2 = ld_s8x4(ap + 16), a3 = ld_s8x4(ap + 8 * LDK + 16);
-#pragma unroll
-    for (int j = 0; j < WG_TILE / 8; ++j) {
-      const int8_t* bp = sb + (j * 8 + g) * LDK + 4 * tq;
-      mma_s8(acc[j], a0, a1, a2, a3, ld_s8x4(bp), ld_s8x4(bp + 16));
-    }
-  }
-  float* dst = qwpart + grp * M_SIG + trunk_offset(layer);
-#pragma unroll
-  for (int j = 0; j < WG_TILE / 8; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ml = warp * 16 + g + (q >= 2 ? 8 : 0), n = n0 + j * 8 + 2 * tq + (q & 1);
-      if (ml >= mvalid) continue;
-      const float scale = __fmul_rn(s_in, __fdiv_rn(s_g, sw[layer * W + n]));
-      dst[(long long)n * in + m0 + ml] = __fmul_rn(__int2float_rn(acc[j][q]), scale);
-    }
-  }
-}
-
-// int8_full: the trunk's weight gradients as the sum of the per-group
-// partials in group order, and its bias gradients as the sum of the per-tile
-// column sums in tile order (fixed orders: the same bits from run to run).
-__global__ void q8_reduce_kernel(const float* __restrict__ qwpart, int n_groups,
-                                 const float* __restrict__ qbpart, int ntiles,
-                                 float* __restrict__ dmats, float* __restrict__ dbias) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < M_SIG + QB;
-       e += stride) {
+// int8_full: the trunk's bias gradients as the sum of the per-tile (or per
+// CTA) column sums in tile order (a fixed order: the same bits from run to
+// run).
+__global__ void q8_reduce_kernel(const float* __restrict__ qbpart, int ntiles,
+                                 float* __restrict__ dbias) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < QB; e += gridDim.x * blockDim.x) {
     float s = 0.f;
-    if (e < M_SIG) {
-      for (int g = 0; g < n_groups; ++g) s += qwpart[(long long)g * M_SIG + e];
-      dmats[e] = s;
-    } else {
-      const long long eb = e - M_SIG;
-      for (int t = 0; t < ntiles; ++t) s += qbpart[(long long)t * QB + eb];
-      dbias[B_T + eb] = s;
-    }
+    for (int t = 0; t < ntiles; ++t) s += qbpart[(long long)t * QB + e];
+    dbias[B_T + e] = s;
   }
 }
 
@@ -2418,11 +2349,11 @@ cudaError_t q8_cluster_attributes() {
 }
 
 cudaLaunchConfig_t q8_cluster_config(long long groups, int C, cudaStream_t stream,
-                                     cudaLaunchAttribute* attr) {
+                                     cudaLaunchAttribute* attr, size_t smem = q8_cluster_smem()) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(groups * C));
   cfg.blockDim = dim3(Q8_THREADS);
-  cfg.dynamicSmemBytes = q8_cluster_smem();
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
@@ -2481,6 +2412,613 @@ int q8_trunk(int path, const float* rayin, const float* z, bf16* acts, long long
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// int8_full's trunk backward: the cotangent chain as one cluster launch, and
+// the weight gradient on an int8 wgmma ring
+// ---------------------------------------------------------------------------
+//
+// q8_chain_cluster_kernel replaces the chain's 16 launches (q8_gamax_kernel
+// then q8_dgrad_kernel, a layer each) wherever the trunk itself is one
+// cluster launch (q8_path): a cluster a scale group, CTA `rank` its rows
+// 128 rank .., the forward's geometry. A CTA walks layers 7 to 0 in one
+// launch, and the cotangent g_h never leaves the chip: it waits in the
+// products' accumulator registers (a warpgroup's 64 rows x 128 columns)
+// from one layer to the next. A layer:
+//   1. g = g_h where the layer's activation (staged, see 4) is > 0; the
+//      bias gradient's column sums of g from the registers (a fixed tree:
+//      the warp's rows by halving exchanges, then the CTA's warps of a
+//      column in order) into the CTA's row of bias partial sums; the max of
+//      |g s_w|;
+//   2. the group amax across the cluster through distributed shared memory
+//      (cluster_max_post / cluster_max_get, a slot array per layer, one
+//      cluster barrier);
+//   3. g8 = round(g s_w / s_g) into the CTA's int8 tile, once;
+//   4. (g8 w8^T) s_g: wgmma m64n128k32 .s32.s8.s8 (and m64n32k32 for the PE
+//      columns of layers 5 and 0), A (g8, K = the layer's 256 outputs,
+//      contiguous) by ldmatrix from the tile, B (w8^T's rows, K contiguous
+//      as they lie) from a 4-stage cp.async ring of 64-deep chunks (the
+//      chain's 32 chunks in one schedule, so a layer's first weights fly
+//      during the previous layer's exchange and quantization). Under the
+//      products the tile goes to the int8 cotangent stream K-major (a
+//      16-byte store a feature's 16 rows, from the tile transposed in shared
+//      memory as it was quantized). The next layer's activation (its mask)
+//      is staged by cp.async with an L2 evict-first hint (the stream passes
+//      through once; read normally it evicts the weights every CTA
+//      re-reads) as soon as 2.'s barrier has ended this layer's mask reads,
+//      so that it flies under the exchange, the quantization and the
+//      products (the masks are the chain's largest single cost, by
+//      bench/q8_backward.py attribution);
+//   5. the epilogue rounds acc s_g to bf16 in the registers: the next
+//      layer's g_h (layer 5's PE columns wait as bf16 pairs until layer 0
+//      adds its own to them, the layer-major order, into gpe).
+// The quantities, roundings and maxima are the layer-major kernels', so the
+// outputs are their bits, except the bias sums (another fixed order).
+//
+// Bound on an H100 SXM: bytes. A row reads g_h7 (512 B) and 8 layers'
+// activations as masks (4 KB) and writes 2 KB of g8 and 128 B of gpe; the
+// int8 products (0.49 M multiply-adds a row at 1,979 TOP/s) take about a
+// quarter of that time.
+
+constexpr int QC_STAGES = 4;                  // 64-deep chunks of w8^T in the chain's ring
+constexpr int QC_STAGE_BYTES = CAT * QKC;     // a chunk: up to 320 input rows x 64 bytes
+constexpr int QC_CHUNKS = 8 * NKH;            // layers 7..0, NKH chunks each
+constexpr int LDM = 2 * W + 16;               // staged activation row stride (bytes)
+constexpr int LDT = MT + 16;                  // transposed g8 tile row stride (bytes)
+static_assert(QC_STAGES >= 2 && QC_STAGES <= NKH,
+              "the next layer's mask is waited for with a chunk of the same layer");
+static_assert(QC_STAGE_BYTES % 1024 == 0, "every chunk starts on a swizzle atom");
+
+// Shared memory: the ring, the int8 tile, the staged activations, the int8
+// tile transposed (a feature's rows, for the stream), the warps' column
+// sums, the layer's s_w, the CTAs' maxima (a slot array a layer) and the
+// warps'.
+constexpr size_t Q8_CHAIN_SMEM = (size_t)QC_STAGES * QC_STAGE_BYTES + (size_t)MT * (LDH + LDM) +
+                                 (size_t)W * LDT +
+                                 (size_t)(Q8_THREADS / 32) * NC * sizeof(float) +
+                                 W * sizeof(float) +
+                                 (Q8P * Q8_CLUSTER_MAX + Q8_THREADS / 32) * sizeof(unsigned);
+static_assert(Q8_CHAIN_SMEM <= 232448, "fits an H100 block's shared memory");
+
+// Landmarks of the chain's and the weight gradient's phases (QC_*, QW_*):
+// empty here; bench/q8_backward.py builds a copy that defines them (the
+// phase orders of its CHAIN_PHASES and WGRAD_PHASES).
+#ifndef QC_MARK
+#define QC_MARK(next)
+#define QC_BEGIN()
+#define QC_END(dst)
+#define QW_MARK(next)
+#define QW_BEGIN()
+#define QW_END(dst)
+#endif
+
+// The column sums of 64 columns over the warp's 16 rows: x[k] is this
+// thread's two rows' sum of column 8 j + 2 t + e, k = 2 j + e; three
+// halving exchanges over the eight lanes of a column group (lane bits 4,
+// 3, 2) leave lane g the sums of columns 8 g + 2 t + e, into dst. A fixed
+// tree: deterministic.
+__device__ __forceinline__ void warp_colsums64(const float (&x)[16], float* dst) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float y[8], z[4], w[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    y[k] = (b4 ? x[k + 8] : x[k]) + __shfl_xor_sync(0xffffffffu, b4 ? x[k] : x[k + 8], 16);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    z[k] = (b3 ? y[k + 4] : y[k]) + __shfl_xor_sync(0xffffffffu, b3 ? y[k] : y[k + 4], 8);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    w[k] = (b2 ? z[k + 2] : z[k]) + __shfl_xor_sync(0xffffffffu, b2 ? z[k] : z[k + 2], 4);
+  *reinterpret_cast<float2*>(dst + 8 * g + 2 * t) = make_float2(w[0], w[1]);
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+__global__ void __launch_bounds__(Q8_THREADS, 1)
+q8_chain_cluster_kernel(const bf16* __restrict__ gh7, bf16* __restrict__ gpe,
+                        const bf16* __restrict__ acts, long long as,
+                        const int8_t* __restrict__ w8t, const float* __restrict__ sw,
+                        float* __restrict__ gamax, int8_t* __restrict__ g8t,
+                        float* __restrict__ qbpart, long long group_rows) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring = smem_addr(smem);
+  int8_t* g8 = reinterpret_cast<int8_t*>(smem + QC_STAGES * QC_STAGE_BYTES);   // MT x LDH
+  unsigned char* mk = reinterpret_cast<unsigned char*>(g8 + MT * LDH);         // MT x LDM bf16 rows
+  int8_t* g8tr = reinterpret_cast<int8_t*>(mk + MT * LDM);                     // W x LDT: g8 transposed
+  float* colpart = reinterpret_cast<float*>(g8tr + W * LDT);  // a warp's column sums (16 x 128)
+  float* ssw = colpart + (Q8_THREADS / 32) * NC;               // the layer's s_w
+  unsigned* slots = reinterpret_cast<unsigned*>(ssw + W);      // Q8P x 16: the CTAs' maxima
+  unsigned* wmax = slots + Q8P * Q8_CLUSTER_MAX;               // a warp's max
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned C = cl.num_blocks(), rank = cl.block_rank();
+  const long long grp = blockIdx.x / C;
+  const long long row0 = grp * group_rows + (long long)rank * MT;
+  const int nrows = (int)min((long long)MT, group_rows - (long long)rank * MT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // warpgroup wg: rows 64 (wg & 1) .., columns c0 .. (column half ch)
+  const int wg = warp >> 2, ch = wg >> 1, c0 = ch * (W / 2);
+  const int wrow = (wg & 1) * 64 + (warp & 3) * 16;   // the warp's first tile row
+  const bool active = (wg & 1) * 64 < nrows;        // a 64-row CTA: the second row half idles
+  const long long gr8 = q8_g8_rows(group_rows);
+  int8_t* g8c = g8t + grp * 8 * W * gr8 + (long long)rank * MT;   // the CTA's rows of the run
+  float* bsum = qbpart + (grp * C + rank) * QB;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  QC_BEGIN();
+
+  // layer `layer`'s activation rows into the staging tile (rows past nrows
+  // zero-filled: a zero mask)
+  auto stage_mask = [&](int layer) {
+#pragma unroll
+    for (int i = 0; i < MT * (2 * W / 16) / Q8_THREADS; ++i) {
+      const int v = tid + i * Q8_THREADS, r = v >> 5, u = v & 31;
+      const bool in = r < nrows;
+      asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+                   ::"r"(smem_addr(mk + r * LDM + u * 16)),
+                   "l"(acts + (row0 + (in ? r : 0)) * as + act_h(layer) + u * 8),
+                   "r"(in ? 16 : 0), "l"(policy)
+                   : "memory");
+    }
+  };
+  // chunk q: layer 7 - q / NKH, its w8^T rows (n_dim inputs) at output depth
+  // 64 (q % NKH) ..
+  auto stage = [&](int s, int q) {
+    const int layer = 7 - q / NKH, kc = q % NKH;
+    const int n_dim = layer == 0 ? PE : (layer == 5 ? CAT : W);
+    const int8_t* src = w8t + trunk_offset(layer) + kc * QKC;
+    const uint32_t dst = ring + s * QC_STAGE_BYTES;
+    for (int v = tid; v < n_dim * (QKC / 16); v += Q8_THREADS) {
+      const int n = v >> 2, u = v & 3;
+      cp_async16(dst + qunit(n, u), src + (long long)n * W + u * 16);
+    }
+  };
+  // every CTA of the cluster must be running before any writes into its
+  // shared memory: arrive now, wait before the first exchange
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (tid < W) ssw[tid] = __ldg(sw + 7 * W + tid);
+  stage_mask(7);
+  cp_async_commit();
+  ring_prologue<QC_STAGES>(QC_CHUNKS, stage);
+
+  // g_h7, the heads' cotangent at the trunk's output: acc[4 j + i] is row
+  // wrow + g + 8 (i / 2), column c0 + 8 j + 2 t + i % 2 (f32 bits), the
+  // accumulator layout the products leave
+  int acc[W / 4];
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            gh7 + (row0 + wrow + g + 8 * hh) * W + c0 + 8 * j + 2 * t));
+        acc[4 * j + 2 * hh] = __float_as_int(v.x);
+        acc[4 * j + 2 * hh + 1] = __float_as_int(v.y);
+      }
+  }
+  int accp[16];      // the PE columns' products: 32 columns, 32 ch ..
+  uint32_t pek[8];   // layer 5's PE cotangent, bf16 pairs: rows g + 8 hh, columns 8 jj + 2 t
+  cp_async_wait<QC_STAGES - 1>();   // h7's rows have landed
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  int q = 0;
+  for (int layer = 7; layer >= 0; --layer) {
+    QC_MARK(1);
+    // 1. the mask, the column sums, the max
+    unsigned m = 0u;
+    if (active) {
+      const unsigned char* mrow = mk + (wrow + g) * LDM + 2 * (c0 + 2 * t);
+#pragma unroll
+      for (int j = 0; j < W / 16; ++j) {
+        const float2 s = *reinterpret_cast<const float2*>(ssw + c0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v0 = __int_as_float(acc[4 * j + 2 * hh]);
+          float v1 = __int_as_float(acc[4 * j + 2 * hh + 1]);
+          apply_mask(v0, v1,
+                     *reinterpret_cast<const __nv_bfloat162*>(mrow + 8 * hh * LDM + 16 * j));
+          acc[4 * j + 2 * hh] = __float_as_int(v0);
+          acc[4 * j + 2 * hh + 1] = __float_as_int(v1);
+          m = max(m, max(__float_as_uint(fabsf(__fmul_rn(v0, s.x))),
+                         __float_as_uint(fabsf(__fmul_rn(v1, s.y)))));
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x[16];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            x[2 * jj + e] = __int_as_float(acc[4 * (8 * hf + jj) + e]) +
+                            __int_as_float(acc[4 * (8 * hf + jj) + 2 + e]);
+        warp_colsums64(x, colpart + warp * NC + 64 * hf);
+      }
+    }
+    QC_MARK(2);
+    // 2. the group amax: posted, the CTA's column sums folded meanwhile (a
+    // column's eight warps in order; a 64-row CTA's first four)
+    unsigned* lslots = slots + layer * Q8_CLUSTER_MAX;
+    cluster_max_post(m, wmax, lslots, cl, rank, C);
+    // past the post's barrier every thread has read this layer's mask: the
+    // next layer's is staged now, in flight under the exchange, the
+    // quantization and the products, in the ring's copy group of this
+    // layer's last chunk (whose wait it shares)
+    if (layer > 0) stage_mask(layer - 1);
+    if (tid < W) {
+      const float* p = colpart + 8 * (tid >> 7) * NC + (tid & (NC - 1));
+      float s = p[0];
+      for (int w = 1; w < (nrows > 64 ? 8 : 4); ++w) s += p[w * NC];
+      bsum[layer * W + tid] = s;
+    }
+    const float gm = cluster_max_get(lslots, C);
+    if (rank == 0 && tid == 0) gamax[grp * Q8P + layer] = gm;
+    const float inv = q8_inv(gm), s_g = __fdiv_rn(1.f, inv);
+    QC_MARK(3);
+    // 3. g8 into the tile, and transposed (a byte a store: a warp's lanes
+    // write four bytes of eight words, no two in one bank) into g8tr
+    if (active) {
+      int8_t* q0 = g8 + (wrow + g) * LDH + c0 + 2 * t;
+      int8_t* t0 = g8tr + (c0 + 2 * t) * LDT + wrow + g;
+#pragma unroll
+      for (int j = 0; j < W / 16; ++j) {
+        const float2 s = *reinterpret_cast<const float2*>(ssw + c0 + 8 * j + 2 * t);
+        const uint32_t b0 = q8_rbits(__fmul_rn(__int_as_float(acc[4 * j]), s.x), inv);
+        const uint32_t b1 = q8_rbits(__fmul_rn(__int_as_float(acc[4 * j + 1]), s.y), inv);
+        const uint32_t b2 = q8_rbits(__fmul_rn(__int_as_float(acc[4 * j + 2]), s.x), inv);
+        const uint32_t b3 = q8_rbits(__fmul_rn(__int_as_float(acc[4 * j + 3]), s.y), inv);
+        *reinterpret_cast<uint16_t*>(q0 + 8 * j) = (uint16_t)__byte_perm(b0, b1, 0x40);
+        *reinterpret_cast<uint16_t*>(q0 + 8 * LDH + 8 * j) = (uint16_t)__byte_perm(b2, b3, 0x40);
+        int8_t* tj = t0 + 8 * j * LDT;
+        tj[0] = (int8_t)b0;
+        tj[LDT] = (int8_t)b1;
+        tj[8] = (int8_t)b2;
+        tj[LDT + 8] = (int8_t)b3;
+      }
+    }
+    // 4. the products (H: the 256 h columns; P: the 64 PE ones), the tile
+    // to the stream and the next mask under them
+    auto products = [&](auto h_part, auto p_part) {
+      constexpr bool H = decltype(h_part)::value, P = decltype(p_part)::value;
+      if constexpr (H) {
+#pragma unroll
+        for (int i = 0; i < W / 4; ++i) acc[i] = Q8_BIAS_BITS;
+      }
+      if constexpr (P) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) accp[i] = Q8_BIAS_BITS;
+      }
+      for (int kc = 0; kc < NKH; ++kc) {
+        QC_MARK(4);
+        const uint32_t st = ring_next<QC_STAGES, QC_STAGE_BYTES>(q++, QC_CHUNKS, ring, stage);
+        QC_MARK(5);
+        // the next layer's s_w (this layer's readers are past the barrier)
+        if (kc == 0 && layer > 0 && tid < W) ssw[tid] = __ldg(sw + (layer - 1) * W + tid);
+        if (active) {
+          uint32_t a[2][4];
+          load_a8<LDH>(a[0], g8, wrow, kc * QKC);
+          load_a8<LDH>(a[1], g8, wrow, kc * QKC + 32);
+          if constexpr (H) fence_iregs(acc);
+          if constexpr (P) fence_iregs(accp);
+          wgmma_fence();
+          if constexpr (H) {
+            wgmma_s8_m64n128(acc, a[0], qdesc(st + c0 * QKC));
+            wgmma_s8_m64n128(acc, a[1], qdesc(st + c0 * QKC + 32));
+          }
+          if constexpr (P) {
+            const uint32_t pb = st + ((H ? W : 0) + 32 * ch) * QKC;
+            wgmma_s8_m64n32(accp, a[0], qdesc(pb));
+            wgmma_s8_m64n32(accp, a[1], qdesc(pb + 32));
+          }
+          wgmma_commit();
+        }
+        {   // a quarter of the transposed tile to the K-major stream: 16 bytes
+            // a thread, a warp four features' 128 rows
+          QC_MARK(6);
+          const int e = tid + Q8_THREADS * kc, c = e >> 3, k = e & 7;
+          if (16 * k < nrows)
+            *reinterpret_cast<uint4*>(g8c + ((long long)layer * W + c) * gr8 + 16 * k) =
+                *reinterpret_cast<const uint4*>(g8tr + c * LDT + 16 * k);
+          QC_MARK(5);
+        }
+        if (active) {
+          wgmma_wait<0>();   // the next barrier hands this stage to a copy
+          if constexpr (H) fence_iregs(acc);
+          if constexpr (P) fence_iregs(accp);
+        }
+      }
+    };
+    if (layer == 0) products(std::false_type(), std::true_type());
+    else if (layer == 5) products(std::true_type(), std::true_type());
+    else products(std::true_type(), std::false_type());
+    QC_MARK(7);
+    // 5. the epilogue: round(acc s_g), the input's cotangent
+    if (active) {
+      if (layer > 0) {
+#pragma unroll
+        for (int i = 0; i < W / 4; ++i)
+          acc[i] = __float_as_int(bf_round(__fmul_rn(q8_acc(acc[i]), s_g)));
+      }
+      if (layer == 5 || layer == 0) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const __nv_bfloat162 v =
+                __floats2bfloat162_rn(__fmul_rn(q8_acc(accp[4 * jj + 2 * hh]), s_g),
+                                      __fmul_rn(q8_acc(accp[4 * jj + 2 * hh + 1]), s_g));
+            if (layer == 5) {
+              pek[2 * jj + hh] = bf162_bits(v);
+            } else {   // layer 0's PE part added to layer 5's, rounded
+              const float2 o = __bfloat1622float2(bits_bf162(pek[2 * jj + hh]));
+              const float2 a = __bfloat1622float2(v);
+              *reinterpret_cast<__nv_bfloat162*>(gpe + (row0 + wrow + g + 8 * hh) * PE +
+                                                 32 * ch + 8 * jj + 2 * t) =
+                  __floats2bfloat162_rn(o.x + a.x, o.y + a.y);
+            }
+          }
+      }
+    }
+  }
+  QC_END(bsum);
+}
+
+// q8_wgrad_kernel: the trunk's weight gradients. A block owns a 64 x 64
+// tile (input features x output features) of one layer's matrix and walks
+// every group in group order. A group's rows run through a cp.async ring
+// in chunks (QwGeom: 256 rows): the activations' rows as they lie
+// in the stream (bf16) and the group's g8 (K-major, as the chain writes
+// it). Every thread quantizes 4 x 4 blocks of the rows with the group's
+// input scale (that of the bf16 rounding of the recompute's amax) and
+// transposes them by prmt into a swizzled K-major int8 tile (two,
+// alternating); warpgroup 0 runs
+// wgmma m64n64k32 .s32.s8.s8 with both operands from shared memory (int8
+// operands must be K-major: wgmma's transpose bits are for 16-bit types
+// only), each chunk's product running on while the next is quantized. At a
+// group's end the exact int32 sum is scaled, __fmul_rn(acc, s_in (s_g /
+// s_w)), and added to the running f32 sum with __fadd_rn (0 + x is exact):
+// the per-group partials' sum in group order, bit for bit, with no
+// partials written or read back.
+//
+// Bound on an H100 SXM: bytes. A row's inputs (the PE and h0..h6, 1,856 B
+// in bf16) and its 2 KB of g8 read once; 120 tiles re-read them from L2
+// (each input column by 4 tiles, each g8 column by 4 or 5).
+
+constexpr int QW_T = 64;       // a tile's input and output features
+
+// The chunk geometry: 256 rows a chunk, two 4 x 4 blocks a thread of 512,
+// a 4-stage ring. K-major operands (a 64-row tile, KR bytes a row) lie in
+// blocks of 128-byte rows in wgmma's 128-byte swizzle.
+struct QwGeom {
+  static constexpr int KR = 256;
+  static constexpr int THREADS = 512;
+  static constexpr int BPT = KR * 4 / THREADS;   // 4 x 4 blocks a thread a chunk
+  static constexpr int STAGES = 4;
+  static constexpr int AHEAD = STAGES - 1;       // chunks issued ahead of the one whose product runs
+  static constexpr int ROWB = 128;
+  static constexpr int A_BYTES = KR * QW_T * 2;            // the chunk's activations, bf16
+  static constexpr int STAGE_BYTES = A_BYTES + QW_T * KR;  // and its g8
+  static constexpr int A8_BYTES = QW_T * KR;               // a quantized chunk
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 2 * A8_BYTES;
+  static_assert(STAGE_BYTES % 1024 == 0, "every stage starts on a swizzle atom");
+  static_assert(SMEM <= 232448, "fits an H100 SM's shared memory");
+  // byte of a K-major tile's row n (of 64), at byte k (a 16-byte unit's
+  // swizzled place, then k % 16)
+  __device__ static uint32_t at(int n, int k) {
+    const int u = (k % ROWB) >> 4;
+    return (k / ROWB) * (QW_T * ROWB) + (k & 15) + n * 128 + ((u ^ (n & 7)) << 4);
+  }
+  // the descriptor of a K-major tile at `base` for the 32-deep step at
+  // byte k: 8-row groups one swizzle atom apart
+  __device__ static uint64_t desc(uint32_t base, int k) {
+    return gmma_desc(base + (k / ROWB) * (QW_T * ROWB) + k % ROWB, 16, 1024, 1);
+  }
+};
+constexpr size_t Q8_WGRAD_SMEM = QwGeom::SMEM;
+
+__host__ __device__ __forceinline__ int q8_in_of(int layer) {
+  return layer == 0 ? PE : (layer == 5 ? CAT : W);
+}
+
+// Tile t of q8_wgrad_kernel: layers in order, then input blocks, then
+// output blocks (64 x 64 each).
+__host__ __device__ __forceinline__ void q8_wgrad_tile(int t, int& layer, int& m0, int& n0) {
+  for (layer = 0; layer < 8; ++layer) {
+    const int tiles = q8_in_of(layer) / QW_T * (W / QW_T);
+    if (t < tiles) {
+      m0 = t / (W / QW_T) * QW_T;
+      n0 = t % (W / QW_T) * QW_T;
+      return;
+    }
+    t -= tiles;
+  }
+  m0 = n0 = 0;
+}
+
+int q8_wgrad_tiles() {
+  int n = 0;
+  for (int layer = 0; layer < 8; ++layer) n += q8_in_of(layer) / QW_T * (W / QW_T);
+  return n;
+}
+
+__device__ __forceinline__ void wgmma_s8_ss_m64n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(QwGeom::THREADS, 1)
+q8_wgrad_kernel(const bf16* __restrict__ acts, long long as, const int8_t* __restrict__ g8t,
+                const float* __restrict__ sw, const float* __restrict__ amax,
+                const float* __restrict__ gamax, float* __restrict__ out, long long group_rows,
+                int n_groups) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring = smem_addr(smem);
+  using G = QwGeom;
+  unsigned char* a8s = smem + G::STAGES * G::STAGE_BYTES;   // two quantized chunks, K-major
+  int layer, m0, n0;
+  q8_wgrad_tile(blockIdx.x, layer, m0, n0);
+  const int in = q8_in_of(layer);
+  const bool pe_src = layer == 0 || m0 >= W;
+  const int acol = pe_src ? A_PE + (m0 >= W ? m0 - W : m0) : act_h(layer - 1) + m0;
+  const int qpt = pe_src ? 0 : layer;   // the input's quantization point
+  const long long gr8 = q8_g8_rows(group_rows);
+  const int nch = (int)(gr8 / G::KR);
+  const int total = n_groups * nch;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  QW_BEGIN();
+
+  // chunk qi: group qi / nch, its rows KR (qi % nch) ..: the
+  // activations' KR rows x 128 bytes (a row's 16-byte units XOR-swizzled
+  // by row / 4, so the quantizing reads below are conflict-free; rows past
+  // the group zero-filled), then g8's 64 features x KR bytes (wgmma's
+  // K-major swizzle)
+  auto stage = [&](int s, int qi) {
+    const long long grp = qi / nch;
+    const int k0 = (qi % nch) * G::KR;
+    const uint32_t dst = ring + s * G::STAGE_BYTES;
+#pragma unroll
+    for (int i = 0; i < G::KR * (QW_T * 2 / 16) / G::THREADS; ++i) {
+      const int v = tid + i * G::THREADS, r = v >> 3, u = v & 7;
+      const bool inr = k0 + r < group_rows;
+      cp_async16_zfill(dst + r * (QW_T * 2) + ((u ^ ((r >> 2) & 7)) << 4),
+                       acts + (grp * group_rows + k0 + (inr ? r : 0)) * as + acol + u * 8,
+                       inr ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < QW_T * (G::KR / 16) / G::THREADS; ++i) {
+      const int v = tid + i * G::THREADS, n = v / (G::KR / 16), u = v % (G::KR / 16);
+      cp_async16(dst + G::A_BYTES + G::at(n, 16 * u),
+                 g8t + ((grp * 8 + layer) * W + n0 + n) * gr8 + k0 + u * 16);
+    }
+  };
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < G::AHEAD; ++q) {
+    if (q < total) stage(q, q);
+    cp_async_commit();
+  }
+
+  // warpgroup 0's 64 x 64 tile: acc[4 j + i] is input feature m0 + 16 warp +
+  // g + 8 (i / 2), output feature n0 + 8 j + 2 t + i % 2
+  int acc[32];
+  float tot[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0;
+    tot[i] = 0.f;
+  }
+  float inv_in = 0.f;
+  // chunk qi's rows, quantized, into the tile qi & 1 (read by its product)
+  auto quantize = [&](int qi) {
+    const long long grp = qi / nch;
+    if (qi % nch == 0) inv_in = q8_inv(bf_round(__ldg(amax + grp * Q8P + qpt)));
+    const unsigned char* raw = smem + (qi % G::STAGES) * G::STAGE_BYTES;
+    unsigned char* a8 = a8s + (qi & 1) * G::A8_BYTES;
+    // the thread's blocks b: rows 4 sb .., features 4 fb .. (a warp: 16 row
+    // blocks, two feature blocks); its stores rotate by fb's parity so that
+    // a warp's hit every bank once
+#pragma unroll
+    for (int bi = 0; bi < G::BPT; ++bi) {
+      const int b = tid + G::THREADS * bi;
+      const int sb = (b & 15) | (b >> 8) << 4, fb = (b >> 4) & 15, p = fb & 1;
+      uint32_t y[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            raw + (4 * sb + r) * (QW_T * 2) + (((fb >> 1) ^ (sb & 7)) << 4) + 8 * p);
+        y[r][0] = q8_rbits(__uint_as_float(v.x << 16), inv_in);
+        y[r][1] = q8_rbits(__uint_as_float(v.x & 0xffff0000u), inv_in);
+        y[r][2] = q8_rbits(__uint_as_float(v.y << 16), inv_in);
+        y[r][3] = q8_rbits(__uint_as_float(v.y & 0xffff0000u), inv_in);
+      }
+      uint32_t tr[4];   // feature 4 fb + i: rows 4 sb .. 4 sb + 3
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tr[i] = __byte_perm(__byte_perm(y[0][i], y[1][i], 0x40),
+                            __byte_perm(y[2][i], y[3][i], 0x40), 0x5410);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(a8 + G::at(4 * fb + (j ^ p), 4 * sb)) = p ? tr[j ^ 1] : tr[j];
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+  };
+  cp_async_wait<G::AHEAD - 1>();   // chunk 0
+  __syncthreads();
+  quantize(0);
+  // One barrier a chunk: after it chunk qi is quantized, chunk qi + 1 has
+  // landed, and warpgroup 0 is done with chunk qi - 1's product, whose
+  // stage takes chunk qi + AHEAD and whose tile chunk qi + 1's
+  // quantizing; chunk qi's product then runs under that quantizing.
+  for (int qi = 0; qi < total; ++qi) {
+    QW_MARK(0);
+    cp_async_wait<G::AHEAD - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+    __syncthreads();
+    if (qi + G::AHEAD < total) stage((qi + G::AHEAD) % G::STAGES, qi + G::AHEAD);
+    cp_async_commit();
+    QW_MARK(2);
+    const long long grp = qi / nch;
+    if (warp < 4) {
+      const uint32_t st = ring + (qi % G::STAGES) * G::STAGE_BYTES;
+      const uint32_t sa = smem_addr(a8s + (qi & 1) * G::A8_BYTES);
+      fence_iregs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < G::KR; k += 32)
+        wgmma_s8_ss_m64n64(acc, G::desc(sa, k), G::desc(st + G::A_BYTES, k));
+      wgmma_commit();
+    }
+    QW_MARK(1);
+    const float inv_q = inv_in;   // chunk qi's group's (the next chunk may start a group)
+    if (qi + 1 < total) quantize(qi + 1);
+    if (warp < 4) {
+      QW_MARK(2);
+      wgmma_wait<0>();
+      fence_iregs(acc);
+      if (qi % nch == nch - 1) {   // the group's end: scale, add in group order
+        QW_MARK(3);
+        const float s_in = __fdiv_rn(1.f, inv_q);
+        const float s_g = __fdiv_rn(1.f, q8_inv(__ldg(gamax + grp * Q8P + layer)));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + 8 * j + 2 * t + e;
+            const float sc = __fmul_rn(s_in, __fdiv_rn(s_g, __ldg(sw + layer * W + n)));
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int i = 4 * j + 2 * hh + e;
+              tot[i] = __fadd_rn(tot[i], __fmul_rn(__int2float_rn(acc[i]), sc));
+              acc[i] = 0;
+            }
+          }
+      }
+    }
+  }
+  if (warp < 4) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      out[trunk_offset(layer) + (long long)(n0 + 8 * (i >> 2) + 2 * t + (i & 1)) * in + m0 +
+          16 * warp + g + 8 * ((i >> 1) & 1)] = tot[i];
+  }
+  QW_END(out + trunk_offset(layer) + (long long)n0 * in + m0);
+}
+
 size_t q8_fwd_bytes(bool camera_layout, long long rows, int path) {
   return align256((size_t)rows * (camera_layout ? ACT_CAM : ACT_SH) * sizeof(bf16)) +
          q8_hf_bytes(path, rows);
@@ -2488,24 +3026,107 @@ size_t q8_fwd_bytes(bool camera_layout, long long rows, int path) {
 
 // Scratch of an int8 backward past the bf16 backward's own (BwdLayout):
 // the f32 activations (layer-major path only), and for int8_full the bf16
-// cotangents (ping-pong), the PE cotangent, the int8 cotangent stream and
-// the int8 passes' partials.
+// cotangents (g_h7; the layer-major chain ping-pongs two), the PE
+// cotangent, the int8 cotangent stream (K-major, a run of q8_g8_rows rows
+// a group, feature and layer) and the bias partial sums (a row a CTA of
+// the cluster chain, a row a 128-row tile of the layer-major one).
 struct Q8Layout {
-  size_t hf, gh, gpe, g8, qbpart, qwpart, total;
+  size_t hf, gh, gpe, g8, qbpart, total;
 };
 
+long long q8_bias_rows(int path, long long rows, long long group_rows) {
+  return path == Q8_CLUSTER ? rows / group_rows * q8_cluster_size(group_rows)
+                            : (rows + MT - 1) / MT;
+}
+
 Q8Layout q8_bwd_layout(bool camera, bool full, int R, int KPAD, long long group_rows, int path) {
-  const long long rows = (long long)R * KPAD;
-  const long long tiles = (rows + MT - 1) / MT, groups = rows / group_rows;
+  const long long rows = (long long)R * KPAD, groups = rows / group_rows;
   Q8Layout Q;
   Q.hf = ray_bwd_layout(camera, R, KPAD).total;
   Q.gh = align256(Q.hf + q8_hf_bytes(path, rows));
-  Q.gpe = align256(Q.gh + (full ? (size_t)2 * rows * W * sizeof(bf16) : 0));
+  Q.gpe = align256(Q.gh + (full ? (size_t)(path == Q8_CLUSTER ? 1 : 2) * rows * W * sizeof(bf16)
+                                : 0));
   Q.g8 = align256(Q.gpe + (full ? (size_t)rows * PE * sizeof(bf16) : 0));
-  Q.qbpart = align256(Q.g8 + (full ? (size_t)rows * G8S : 0));
-  Q.qwpart = align256(Q.qbpart + (full ? (size_t)tiles * QB * sizeof(float) : 0));
-  Q.total = align256(Q.qwpart + (full ? (size_t)groups * M_SIG * sizeof(float) : 0));
+  Q.qbpart = align256(Q.g8 + (full ? (size_t)groups * 8 * W * q8_g8_rows(group_rows) : 0));
+  Q.total = align256(Q.qbpart + (full ? (size_t)q8_bias_rows(path, rows, group_rows) * QB *
+                                            sizeof(float)
+                                      : 0));
   return Q;
+}
+
+// Launches of int8_full's trunk-backward kernels made so far, by kernel:
+// q8_chain_cluster_kernel, q8_wgrad_kernel, q8_gamax_kernel,
+// q8_dgrad_kernel, q8_reduce_kernel (read by eonerf_q8_bwd_launches).
+long long q8_bwd_launch_counts[5];
+
+cudaError_t q8_chain_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(q8_chain_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Q8_CHAIN_SMEM);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(q8_chain_cluster_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// The cotangent chain from g_h7 (gh) down to the PE (gpe) on `path`: one
+// cluster launch, or 8 x (q8_gamax_kernel, q8_dgrad_kernel) ping-ponging
+// the bf16 cotangent through gh (2 x rows x 256). No retry on the other
+// path: a refused launch returns its error.
+int q8_chain(int path, bf16* gh, bf16* gpe, const bf16* acts, long long as, const int8_t* w8t,
+             const float* sw, float* gamax, int8_t* g8s, float* qbpart, long long rows,
+             long long group_rows, cudaStream_t stream) {
+  if (path == Q8_CLUSTER) {
+    if (group_rows % 64 != 0) return (int)cudaErrorInvalidValue;
+    const int C = q8_cluster_size(group_rows);
+    if (C > Q8_CLUSTER_MAX) return (int)cudaErrorInvalidClusterSize;
+    cudaError_t e = q8_chain_attributes();
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        q8_cluster_config(rows / group_rows, C, stream, attr, Q8_CHAIN_SMEM);
+    e = cudaLaunchKernelEx(&cfg, q8_chain_cluster_kernel, (const bf16*)gh, gpe, acts, as, w8t, sw,
+                           gamax, g8s, qbpart, group_rows);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ++q8_bwd_launch_counts[0];
+    return (int)e;
+  }
+  const int tiles = (int)((rows + MT - 1) / MT);
+  const size_t smem = q8_dgrad_smem();
+  cudaError_t e = cudaFuncSetAttribute(q8_dgrad_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int layer = 7; layer >= 0; --layer) {
+    const bf16* cur = gh + (long long)((7 - layer) % 2) * rows * W;
+    bf16* nxt = gh + (long long)((8 - layer) % 2) * rows * W;
+    q8_gamax_kernel<<<tiles, THREADS, 0, stream>>>(layer, cur, acts, as, sw, gamax, qbpart, rows,
+                                                   group_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ++q8_bwd_launch_counts[2];
+    q8_dgrad_kernel<<<tiles, THREADS, smem, stream>>>(layer, cur, nxt, gpe, acts, as, w8t, sw,
+                                                      gamax, g8s, rows, group_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ++q8_bwd_launch_counts[3];
+  }
+  return 0;
+}
+
+// The trunk's weight gradients into dmats: every group, in group order, in
+// one launch.
+int q8_wgrad(const bf16* acts, long long as, const int8_t* g8s, const float* sw,
+             const float* amax, const float* gamax, float* dmats, long long group_rows, int groups,
+             cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(q8_wgrad_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Q8_WGRAD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  q8_wgrad_kernel<<<q8_wgrad_tiles(), QwGeom::THREADS, Q8_WGRAD_SMEM, stream>>>(
+      acts, as, g8s, sw, amax, gamax, dmats, group_rows, groups);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++q8_bwd_launch_counts[1];
+  return (int)e;
 }
 
 int q8_fwd(int mode, const float* rayin, const float* z, const float* deltam, const float* mask,
@@ -2533,12 +3154,18 @@ int q8_fwd(int mode, const float* rayin, const float* z, const float* deltam, co
                                      acts);
 }
 
+// pass (measurement; int8_full only): < 0 every launch; 0 the recompute and
+// the heads' passes; 1 the cotangent chain; 2 the weight gradient; 3 the
+// bias reduction; 4 the per-ray PE gradients. Each alone on a workspace
+// that the passes before it filled.
 template <bool CAMERA>
 int q8_bwd(bool full, const float* rayin, const float* z, const float* deltam, const float* mask,
            const float* gin, const void* wm_, const float* wb, const void* w8_, const void* w8t_,
            const float* sw, void* ws, float* amax, float* gamax, float* dmats, float* dbias,
-           float* drayin, int R, int KPAD, long long group_rows, cudaStream_t stream, int path) {
-  if (!q8_shape_ok(R, KPAD, group_rows)) return (int)cudaErrorInvalidValue;
+           float* drayin, int R, int KPAD, long long group_rows, cudaStream_t stream, int path,
+           int pass = -1) {
+  if (!q8_shape_ok(R, KPAD, group_rows) || pass > 4 || (pass >= 0 && !full))
+    return (int)cudaErrorInvalidValue;
   path = q8_path(group_rows, path);
   const bf16* wm = static_cast<const bf16*>(wm_);
   const int8_t* w8 = static_cast<const int8_t*>(w8_);
@@ -2550,53 +3177,49 @@ int q8_bwd(bool full, const float* rayin, const float* z, const float* deltam, c
   const Q8Layout Q = q8_bwd_layout(CAMERA, full, R, KPAD, group_rows, path);
   unsigned char* base = static_cast<unsigned char*>(ws);
   float* hf = reinterpret_cast<float*>(base + Q.hf);
-  // the recompute: the int8 trunk in the backward's groups, every activation
-  // to the stream, then the heads from the stream and the compositing backward
-  int err = q8_trunk(path, rayin, z, sc.acts, AS, true, w8, sw, wb, hf, amax, rows, KPAD,
-                     group_rows, stream);
-  if (err != 0) return err;
-  err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R, KPAD,
-                                                  stream, gin, sc.acts, sc.hg);
-  if (err != 0) return err;
-  // int8: straight through, the bf16 dgrad and wgrad against the unquantized
-  // weights on the int8 recompute's stream
-  if (!full)
-    return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
-                                     stream);
   bf16* gh = reinterpret_cast<bf16*>(base + Q.gh);
+  int err = 0;
+  if (pass < 0 || pass == 0) {
+    // the recompute: the int8 trunk in the backward's groups, every
+    // activation to the stream, then the heads from the stream and the
+    // compositing backward
+    err = q8_trunk(path, rayin, z, sc.acts, AS, true, w8, sw, wb, hf, amax, rows, KPAD, group_rows,
+                   stream);
+    if (err != 0) return err;
+    err = launch<CAMERA ? CAM : SHADOW, true, true>(rayin, z, deltam, mask, wm, wb, nullptr, R,
+                                                    KPAD, stream, gin, sc.acts, sc.hg);
+    if (err != 0) return err;
+    // int8: straight through, the bf16 dgrad and wgrad against the
+    // unquantized weights on the int8 recompute's stream
+    if (!full)
+      return bwd_passes<CAMERA, false>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R,
+                                       KPAD, stream);
+    err = bwd_passes<CAMERA, false, true>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R,
+                                          KPAD, stream, gh);
+    if (err != 0 || pass == 0) return err;
+  }
   bf16* gpe = reinterpret_cast<bf16*>(base + Q.gpe);
   int8_t* g8s = reinterpret_cast<int8_t*>(base + Q.g8);
   float* qbpart = reinterpret_cast<float*>(base + Q.qbpart);
-  float* qwpart = reinterpret_cast<float*>(base + Q.qwpart);
-  err = bwd_passes<CAMERA, false, true>(L, sc, rayin, z, wm, dmats, dbias, drayin, nullptr, R, KPAD,
-                                        stream, gh);
-  if (err != 0) return err;
-  const int tiles = (int)((rows + MT - 1) / MT);
-  const size_t smem = q8_dgrad_smem();
-  cudaError_t e = cudaFuncSetAttribute(q8_dgrad_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  for (int layer = 7; layer >= 0; --layer) {
-    const bf16* cur = gh + (long long)((7 - layer) % 2) * rows * W;
-    bf16* nxt = gh + (long long)((8 - layer) % 2) * rows * W;
-    q8_gamax_kernel<<<tiles, THREADS, 0, stream>>>(layer, cur, sc.acts, AS, sw, gamax, qbpart,
-                                                   rows, group_rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    q8_dgrad_kernel<<<tiles, THREADS, smem, stream>>>(layer, cur, nxt, gpe, sc.acts, AS, w8t, sw,
-                                                      gamax, g8s, rows, group_rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
   const int groups = (int)(rows / group_rows);
-  q8_wgrad_kernel<<<dim3(n_trunk_wgrad_tiles(), groups), THREADS, 0, stream>>>(
-      sc.acts, AS, g8s, sw, amax, gamax, qwpart, rows, group_rows);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  q8_reduce_kernel<<<1024, THREADS, 0, stream>>>(qwpart, groups, qbpart, tiles, dmats, dbias);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  q8_ray_grads_kernel<<<R, RG_THREADS, 0, stream>>>(rayin, z, gpe, drayin, KPAD);
+  if (pass < 0 || pass == 1) {
+    err = q8_chain(path, gh, gpe, sc.acts, AS, w8t, sw, gamax, g8s, qbpart, rows, group_rows,
+                   stream);
+    if (err != 0) return err;
+  }
+  if (pass < 0 || pass == 2) {
+    err = q8_wgrad(sc.acts, AS, g8s, sw, amax, gamax, dmats, group_rows, groups, stream);
+    if (err != 0) return err;
+  }
+  if (pass < 0 || pass == 3) {
+    q8_reduce_kernel<<<QB / THREADS, THREADS, 0, stream>>>(
+        qbpart, (int)q8_bias_rows(path, rows, group_rows), dbias);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    ++q8_bwd_launch_counts[4];
+  }
+  if (pass < 0 || pass == 4)
+    q8_ray_grads_kernel<<<R, RG_THREADS, 0, stream>>>(rayin, z, gpe, drayin, KPAD);
   return (int)cudaGetLastError();
 }
 
@@ -2917,6 +3540,75 @@ int eonerf_q8_bwd(int camera, int full, const float* rayin, const float* z, cons
                         gamax, dmats, dbias, drayin, R, KPAD, group_rows, st, path);
   return q8_bwd<false>(full != 0, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax,
                        gamax, dmats, dbias, drayin, R, KPAD, group_rows, st, path);
+}
+
+// Measurement: one pass of an int8_full backward alone (pass as q8_bwd's:
+// 0 the recompute and heads, 1 the chain, 2 the weight gradient, 3 the
+// bias reduction, 4 the per-ray gradients), on a workspace the passes
+// before it filled; arguments as eonerf_q8_bwd's.
+int eonerf_q8_bwd_pass(int camera, int pass, const float* rayin, const float* z,
+                       const float* deltam, const float* mask, const float* gin, const void* wm,
+                       const float* wb, const void* w8, const void* w8t, const float* sw,
+                       void* ws, float* amax, float* gamax, float* dmats, float* dbias,
+                       float* drayin, int R, int KPAD, long long group_rows,
+                       void* stream, int path) {
+  if (pass < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (camera)
+    return q8_bwd<true>(true, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax, gamax,
+                        dmats, dbias, drayin, R, KPAD, group_rows, st, path, pass);
+  return q8_bwd<false>(true, rayin, z, deltam, mask, gin, wm, wb, w8, w8t, sw, ws, amax, gamax,
+                       dmats, dbias, drayin, R, KPAD, group_rows, st, path, pass);
+}
+
+// Where an int8_full backward keeps its int8 scratch in its workspace:
+// out = [g_h7's byte offset (rows x 256 bf16), the PE cotangent's (rows x
+// 64 bf16), the int8 cotangent stream's, the bias partials' (rows of 2048
+// f32), their row count, the stream's run of rows (q8_g8_rows), total].
+void eonerf_q8_bwd_layout(int camera, int R, int KPAD, long long group_rows, int path,
+                          long long* out) {
+  const int p = q8_path(group_rows, path);
+  const Q8Layout Q = q8_bwd_layout(camera != 0, true, R, KPAD, group_rows, p);
+  out[0] = (long long)Q.gh;
+  out[1] = (long long)Q.gpe;
+  out[2] = (long long)Q.g8;
+  out[3] = (long long)Q.qbpart;
+  out[4] = q8_bias_rows(p, (long long)R * KPAD, group_rows);
+  out[5] = q8_g8_rows(group_rows);
+  out[6] = (long long)Q.total;
+}
+
+// The int8_full backward's plan for groups of group_rows rows of KPAD
+// samples: out = [the chain's path (1 the cluster kernel, 0 the
+// layer-major pair, -1 a shape no call takes), CTAs a group, the cluster
+// kernel's dynamic shared memory bytes, q8_wgrad_kernel's tiles, its
+// dynamic shared memory bytes, the int8 stream's run of rows].
+void eonerf_q8_bwd_plan(int KPAD, long long group_rows, long long* out) {
+  out[0] = eonerf_q8_trunk_path(KPAD, group_rows);
+  out[1] = q8_cluster_size(group_rows);
+  out[2] = (long long)Q8_CHAIN_SMEM;
+  out[3] = q8_wgrad_tiles();
+  out[4] = (long long)Q8_WGRAD_SMEM;
+  out[5] = q8_g8_rows(group_rows);
+}
+
+// Clusters of C CTAs of q8_chain_cluster_kernel that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+int eonerf_q8_chain_active_clusters(int C) {
+  cudaError_t e = q8_chain_attributes();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = q8_cluster_config(1, C, nullptr, attr, Q8_CHAIN_SMEM);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, q8_chain_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches of int8_full's trunk-backward kernels made so far, into out[5]:
+// q8_chain_cluster_kernel, q8_wgrad_kernel, q8_gamax_kernel,
+// q8_dgrad_kernel, q8_reduce_kernel.
+void eonerf_q8_bwd_launches(long long* out) {
+  for (int i = 0; i < 5; ++i) out[i] = q8_bwd_launch_counts[i];
 }
 
 const char* eonerf_error_string(int code) {

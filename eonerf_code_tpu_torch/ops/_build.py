@@ -140,7 +140,12 @@ def load_library():
                             ("eonerf_q8_trunk_launches", [p], None),
                             ("eonerf_q8_trunk_workspace_bytes", [i, i, ll, i], ll),
                             ("eonerf_q8_trunk", [i, p, p, p, ll, i, p, p, p, p, p, i, i, ll, p],
-                             i)):
+                             i),
+                            ("eonerf_q8_bwd_pass", [i, i] + [p] * 16 + [i, i, ll, p, i], i),
+                            ("eonerf_q8_bwd_layout", [i, i, i, ll, i, p], None),
+                            ("eonerf_q8_bwd_plan", [i, ll, p], None),
+                            ("eonerf_q8_chain_active_clusters", [i], i),
+                            ("eonerf_q8_bwd_launches", [p], None)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]

@@ -468,6 +468,47 @@ def _wgrad_q8(a8, g8, s_in, col_s, group_rows):
     return total
 
 
+def trunk_chain_q8(masks, g_h, q8: Q8Weights, dtype, g, group_rows):
+    """The int8_full trunk backward's cotangent chain from g_h (compute
+    dtype): per layer the masked cotangent gf's bias gradient (entries 8-15
+    of ``g``, float32), one quantization of the weight-scale-folded gf * s_w
+    per group, g8, and dgrad, (g8 w8^T) s_g rounded to ``dtype``. Returns
+    (d_pe in ``dtype``, the cotangent amax per group and layer (G, 8), each
+    layer's g8 (rows, 256; integer values in float32), each layer's column
+    scale s_g / s_w (G, 256))."""
+    w8s, sws = q8_views(q8)
+    g_pe, gamax, g8s, col_ss = None, [None] * 8, [None] * 8, [None] * 8
+    for i in range(7, -1, -1):
+        gf = (g_h * masks[i]).float()
+        g[8 + i] = colsum(gf)
+        g8s[i], s_g, gamax[i] = q8_act(gf * sws[i], group_rows)
+        col_ss[i] = s_g / sws[i]
+        g_in = ((g8s[i] @ w8s[i].t()) * _rows(s_g, group_rows)).to(dtype)
+        if i == 5:
+            g_h, g_pe = g_in[:, :256], g_in[:, 256:]
+        elif i == 0:
+            g_pe = g_pe + g_in
+        else:
+            g_h = g_in
+    return g_pe, torch.stack(gamax, dim=1), g8s, col_ss
+
+
+def trunk_wgrad_q8(pe, acts, g8s, col_ss, g, group_rows):
+    """The int8_full trunk's weight gradients (entries 0-7 of ``g``) from
+    :func:`trunk_chain_q8`'s g8 and column scales: per layer and group
+    (inp8^T g8) s_in s_g / s_w, summed in group order, inp8 the quantized
+    compute-dtype activation (or the PE)."""
+    pe8, pe_s, _ = q8_act(pe.float(), group_rows)
+    for i in range(8):
+        if i == 0:
+            g[0] = _wgrad_q8(pe8, g8s[0], pe_s, col_ss[0], group_rows)
+            continue
+        h8, s_h, _ = q8_act(acts[i - 1].float(), group_rows)
+        g[i] = _wgrad_q8(h8, g8s[i], s_h, col_ss[i], group_rows)
+        if i == 5:
+            g[5] = torch.cat([g[5], _wgrad_q8(pe8, g8s[5], pe_s, col_ss[5], group_rows)], dim=0)
+
+
 def trunk_backward_q8(pe, acts, masks, g_h, q8: Q8Weights, dtype, g, group_rows):
     """The int8_full trunk backward from g_h (compute dtype): per layer one
     quantization of the weight-scale-folded cotangent gf * s_w per group
@@ -475,30 +516,11 @@ def trunk_backward_q8(pe, acts, masks, g_h, q8: Q8Weights, dtype, g, group_rows)
     (inp8^T g8) s_in s_g / s_w per group, inp8 the quantized compute-dtype
     activation (or the PE). Bias gradients sum the unquantized float32
     cotangent. Fills entries 0-15 of ``g``; returns (d_pe in ``dtype``, the
-    cotangent amax per group and layer (G, 8))."""
-    w8s, sws = q8_views(q8)
-    pe8, pe_s, _ = q8_act(pe.float(), group_rows)
-    g_pe, gamax = None, [None] * 8
-    for i in range(7, -1, -1):
-        gf = (g_h * masks[i]).float()
-        g[8 + i] = colsum(gf)
-        g8, s_g, gamax[i] = q8_act(gf * sws[i], group_rows)
-        col_s = s_g / sws[i]
-        if i == 0:
-            g[0] = _wgrad_q8(pe8, g8, pe_s, col_s, group_rows)
-        else:
-            h8, s_h, _ = q8_act(acts[i - 1].float(), group_rows)
-            g[i] = _wgrad_q8(h8, g8, s_h, col_s, group_rows)
-            if i == 5:
-                g[5] = torch.cat([g[5], _wgrad_q8(pe8, g8, pe_s, col_s, group_rows)], dim=0)
-        g_in = ((g8 @ w8s[i].t()) * _rows(s_g, group_rows)).to(dtype)
-        if i == 5:
-            g_h, g_pe = g_in[:, :256], g_in[:, 256:]
-        elif i == 0:
-            g_pe = g_pe + g_in
-        else:
-            g_h = g_in
-    return g_pe, torch.stack(gamax, dim=1)
+    cotangent amax per group and layer (G, 8)): :func:`trunk_chain_q8`, then
+    :func:`trunk_wgrad_q8`."""
+    g_pe, gamax, g8s, col_ss = trunk_chain_q8(masks, g_h, q8, dtype, g, group_rows)
+    trunk_wgrad_q8(pe, acts, g8s, col_ss, g, group_rows)
+    return g_pe, gamax
 
 
 def heads(h, emb64, w, dtype):

@@ -939,6 +939,89 @@ def q8_trunk_kernel_launches():
     return dict(zip(Q8_TRUNK_KERNELS, counts))
 
 
+# ---- int8_full's trunk backward: the cotangent chain and the weight gradient ----
+
+Q8_WGRAD_TILE = 64   # q8_wgrad_kernel's tiles: 64 input x 64 output features
+_TRUNK_IN = (64, 256, 256, 256, 256, 320, 256, 256)   # the trunk's padded input widths
+# the C library's int8_full trunk-backward kernels, in the order it counts them
+Q8_BWD_KERNELS = ("q8_chain_cluster_kernel", "q8_wgrad_kernel", "q8_gamax_kernel",
+                  "q8_dgrad_kernel", "q8_reduce_kernel")
+# q8_chain_cluster_kernel's shared memory (csrc/fused_render.cu: QC_STAGES
+# chunks of 320 x 64 bytes, the int8 tile MT x LDH, the staged activations
+# MT x LDM, the int8 tile transposed W x LDT, 16 warps' column sums of 128
+# f32, the layer's s_w, 8 x 16 + 16 maxima)
+Q8_CHAIN_CARVE = {"ring": 4 * 320 * 64, "g8_tile": 128 * (256 + 16),
+                  "mask_tile": 128 * (512 + 16), "g8_transposed": 256 * (128 + 16),
+                  "column_sums": 16 * 128 * 4, "s_w": 256 * 4, "maxima": (8 * 16 + 16) * 4}
+# q8_wgrad_kernel's: 4 stages of (256 rows x 64 bf16 inputs, 64 g8 features
+# x 256 rows), then two quantized chunks
+Q8_WGRAD_CARVE = {"ring": 4 * (256 * 64 * 2 + 64 * 256), "a8_tiles": 2 * 64 * 256}
+SMEM_LIMIT = 232448   # an H100 block's shared memory
+
+
+def q8_g8_rows(group_rows):
+    """The int8 cotangent stream's run of rows a group: its rows rounded up
+    to the weight gradient's 256-row chunks (csrc/fused_render.cu's
+    ``q8_g8_rows``)."""
+    return -(-group_rows // 256) * 256
+
+
+def q8_wgrad_tiles():
+    """q8_wgrad_kernel's tiles in block order: (layer, first input feature,
+    first output feature), 64 x 64 each; every trunk weight in exactly one."""
+    return [(layer, m0, n0) for layer, n_in in enumerate(_TRUNK_IN)
+            for m0 in range(0, n_in, Q8_WGRAD_TILE) for n0 in range(0, 256, Q8_WGRAD_TILE)]
+
+
+def q8_bwd_plan(kpad, group_rows):
+    """How the kernels run int8_full's trunk backward for groups of
+    ``group_rows`` rows of ``kpad`` samples, mirroring csrc/fused_render.cu
+    (``eonerf_q8_bwd_plan``): the chain's path, which is the trunk's
+    (:func:`q8_trunk_plan`: "cluster", q8_chain_cluster_kernel, a cluster a
+    group; "layer_major", q8_gamax_kernel + q8_dgrad_kernel a layer), its
+    CTAs a group and a group's last CTA's rows, the cluster kernel's shared
+    memory carve, q8_wgrad_kernel's tiles and carve, and the int8 stream's
+    run of rows a group."""
+    path, ctas, last = q8_trunk_plan(kpad, group_rows)
+    return {"path": path, "ctas": ctas, "last_cta_rows": last,
+            "chain_smem": dict(Q8_CHAIN_CARVE, total=sum(Q8_CHAIN_CARVE.values())),
+            "wgrad_tiles": q8_wgrad_tiles(),
+            "wgrad_smem": dict(Q8_WGRAD_CARVE, total=sum(Q8_WGRAD_CARVE.values())),
+            "g8_rows": q8_g8_rows(group_rows)}
+
+
+def q8_g8_stream(g8s, group_rows):
+    """The kernels' int8 cotangent stream from the plain version's 8 layers'
+    g8 (rows x 256 each, integer values): (groups * 8 * 256 * run,) int8,
+    K-major for the weight gradient, whose contraction runs over rows: byte
+    ((group * 8 + layer) * 256 + feature) * run + row in group, run =
+    :func:`q8_g8_rows`; the bytes past a group's rows zero (the kernels
+    leave them unwritten)."""
+    rows = g8s[0].shape[0]
+    n_g, run = rows // group_rows, q8_g8_rows(group_rows)
+    out = torch.zeros((n_g, 8, 256, run), dtype=torch.int8, device=g8s[0].device)
+    for layer, x in enumerate(g8s):
+        out[:, layer, :, :group_rows] = x.to(torch.int8).view(n_g, group_rows, 256).transpose(1, 2)
+    return out.reshape(-1)
+
+
+def q8_g8_layers(stream, rows, group_rows):
+    """The inverse of :func:`q8_g8_stream`: the 8 layers' g8 (rows x 256,
+    int8) of a stream."""
+    n_g, run = rows // group_rows, q8_g8_rows(group_rows)
+    s = stream[:n_g * 8 * 256 * run].view(n_g, 8, 256, run)[..., :group_rows]
+    return [s[:, layer].transpose(1, 2).reshape(rows, 256) for layer in range(8)]
+
+
+def q8_bwd_kernel_launches():
+    """Launches of int8_full's trunk-backward CUDA kernels that the library
+    has made so far, by kernel name: counted in csrc/fused_render.cu where
+    it launches each, whichever wrapper called it."""
+    counts = (ctypes.c_longlong * len(Q8_BWD_KERNELS))()
+    _build.load_library().eonerf_q8_bwd_launches(counts)
+    return dict(zip(Q8_BWD_KERNELS, counts))
+
+
 def _q8_workspace(camera, full, rp, kpad, group_rows, dev, path=-1):
     """The int8 backward kernels' scratch (it starts with the bf16
     backward's), sized by the library for the trunk's path (the C
@@ -948,27 +1031,74 @@ def _q8_workspace(camera, full, rp, kpad, group_rows, dev, path=-1):
     return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
 
 
+class Q8BackwardCall:
+    """One int8 backward call's checked, padded arguments and buffers (the
+    workspace, the group amax, the gradients): ``run()`` launches the whole
+    backward, ``run(pass_)`` one pass of an int8_full one alone (the C
+    library's ``eonerf_q8_bwd_pass``: 0 the recompute and the heads, 1 the
+    cotangent chain, 2 the weight gradient, 3 the bias reduction, 4 the
+    per-ray gradients) on the buffers the passes before it filled. For the
+    wrappers, tests and measurements."""
+
+    def __init__(self, camera, full, weights, q8, rayin, z, deltam, mask, gin, target, path=None):
+        r, k = z.shape
+        dev = rayin.device
+        if camera:
+            check_f32("gacc", gin, (r, ACC_COLS), dev)
+            per_sample = (z, deltam)
+        else:
+            check_f32("ggeo", gin, (r,), dev)
+            per_sample, gin = (z, deltam, mask), gin.reshape(-1, 1)
+        (rayin_p, gin_p), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target,
+                                                      (gin,))
+        self.camera, self.full, self.r, self.rp, self.kpad = camera, full, r, rp, kpad
+        self.group_rows, self.path = rt * kpad, _path_arg(path)
+        self.ws = _q8_workspace(camera, full, rp, kpad, rt * kpad, dev, self.path)
+        self.amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
+        self.gamax = torch.zeros_like(self.amax)
+        self.grads = _zero_grads(rp, dev)
+        self._inputs = (rayin_p, ps[0], ps[1], None if camera else ps[2], gin_p, weights.mats,
+                        weights.biases, q8.w8, q8.w8t, q8.scales, self.ws, self.amax, self.gamax,
+                        *self.grads)
+
+    def run(self, pass_=-1):
+        dev = self.ws.device
+        what = f"{'camera' if self.camera else 'shadow'} int8 backward kernel launch"
+        if pass_ < 0:
+            launch("eonerf_q8_bwd", what, dev, int(self.camera), int(self.full), *self._inputs,
+                   self.rp, self.kpad, self.group_rows, after_stream=(self.path,))
+            return
+        launch("eonerf_q8_bwd_pass", f"{what} (pass {pass_})", dev, int(self.camera), pass_,
+               *self._inputs, self.rp, self.kpad, self.group_rows, after_stream=(self.path,))
+
+    def layout(self):
+        """The C library's eonerf_q8_bwd_layout: {"gh", "gpe", "g8",
+        "qbpart" (byte offsets), "bias_rows", "g8_rows", "total"}."""
+        out = (ctypes.c_longlong * 7)()
+        _build.load_library().eonerf_q8_bwd_layout(int(self.camera), self.rp, self.kpad,
+                                                   self.group_rows, self.path, out)
+        return dict(zip(("gh", "gpe", "g8", "qbpart", "bias_rows", "g8_rows", "total"), out))
+
+    def g8_stream(self):
+        """The int8 cotangent stream the chain wrote (a view of the
+        workspace), in :func:`q8_g8_stream`'s layout."""
+        lay = self.layout()
+        n = self.rp * self.kpad // self.group_rows * 8 * 256 * lay["g8_rows"]
+        return self.ws[lay["g8"]:lay["g8"] + n].view(torch.int8)
+
+    def act_stream(self):
+        """The recompute's activation stream (a view of the workspace)."""
+        cols = act_stream_cols(self.camera)
+        return self.ws[:self.rp * self.kpad * cols * 2].view(torch.bfloat16).view(-1, cols)
+
+
 def _q8_backward(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, stats,
                  path=None):
-    r, k = z.shape
-    dev = rayin.device
-    if camera:
-        check_f32("gacc", gin, (r, ACC_COLS), dev)
-        per_sample = (z, deltam)
-    else:
-        check_f32("ggeo", gin, (r,), dev)
-        per_sample, gin = (z, deltam, mask), gin.reshape(-1, 1)
-    (rayin_p, gin_p), ps, kpad, rt, rp = _q8_call(weights, q8, rayin, per_sample, target, (gin,))
-    ws = _q8_workspace(camera, full, rp, kpad, rt * kpad, dev, _path_arg(path))
-    amax = torch.zeros((rp // rt, Q8_POINTS), dtype=torch.float32, device=dev)
-    gamax = torch.zeros_like(amax)
-    d_mats, d_biases, d_rayin = _zero_grads(rp, dev)
-    launch("eonerf_q8_bwd", f"{'camera' if camera else 'shadow'} int8 backward kernel launch",
-           dev, int(camera), int(full), rayin_p, ps[0], ps[1], None if camera else ps[2], gin_p,
-           weights.mats, weights.biases, q8.w8, q8.w8t, q8.scales, ws, amax, gamax, d_mats,
-           d_biases, d_rayin, rp, kpad, rt * kpad, after_stream=(_path_arg(path),))
-    _keep(stats, amax=amax, **({"gamax": gamax} if full else {}))
-    return d_mats, d_biases, d_rayin[:r]
+    call = Q8BackwardCall(camera, full, weights, q8, rayin, z, deltam, mask, gin, target, path)
+    call.run()
+    _keep(stats, amax=call.amax, **({"gamax": call.gamax} if full else {}))
+    d_mats, d_biases, d_rayin = call.grads
+    return d_mats, d_biases, d_rayin[:call.r]
 
 
 def camera_backward_q8(weights: KernelWeights, q8: Q8Weights, rayin, z, deltam, gacc,

@@ -17,7 +17,8 @@ per step for each group of kernels (the fused forwards with or without the
 saved stream, the coarse pass, the three passes and the reduction of each
 backward (its first pass the recompute, or the heads from the stream), the int8 trunk (one
 cluster launch, or the layer-major PE and layer kernels past 16 CTAs a
-group) and its backward chain, Adam, the rest), the
+group) and, for int8_full, its backward chain (one cluster launch, or
+the layer-major pair), weight gradient and reduction, Adam, the rest), the
 step's host-clock milliseconds, and the device's idle share (1 - device
 kernel time / step time). Exits 1 without a CUDA device, and 2 when the
 trace holds no device time.
@@ -43,6 +44,7 @@ GROUPS = (
     ("q8_trunk", "q8_trunk_cluster_kernel"),
     ("q8_trunk_layer_major", "q8_layer_kernel"),
     ("q8_pe", "q8_pe_kernel"),
+    ("q8_bwd_chain", "q8_chain_cluster_kernel"),
     ("q8_bwd_gamax", "q8_gamax_kernel"),
     ("q8_bwd_dgrad", "q8_dgrad_kernel"),
     ("q8_bwd_wgrad", "q8_wgrad_kernel"),

@@ -6,6 +6,8 @@ so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -667,6 +669,172 @@ def test_q8_cluster_occupancy(dev):
         n = lib.eonerf_q8_trunk_active_clusters(c)
         print(f"q8 trunk clusters of {c} CTAs: {n} active ({n * c} of {sms} SMs)")
         assert 0 < n and n * c <= sms
+
+
+# ---- int8_full's trunk backward: the cotangent chain as one cluster launch,
+# the weight gradient on an int8 wgmma ring ----
+
+# the bias gradients are the one output whose summation order the cluster
+# chain changes (a CTA's column sums in a fixed tree, not in row order; at
+# 192-row groups its CTAs also straddle the layer-major kernels' 128-row
+# tiles); against the layer-major pair on NVIDIA H100 80GB HBM3, 700 W:
+# 3.0e-9 (37 x 17) to 3.4e-8 (1024 x 63) rel-L2, f32 sums in two fixed
+# orders; held at 1e-6
+Q8_CHAIN_BIAS_REL_L2 = 1e-6
+
+
+def _bwd_launches(fn):
+    """int8_full's trunk-backward CUDA kernels ``fn`` launches, by the
+    library's own launch counts."""
+    before = fr.q8_bwd_kernel_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in fr.q8_bwd_kernel_launches().items()}
+
+
+def _full_call(dev, weights, q8, r, k, tile, camera, path):
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=k + int(camera))
+    gen = torch.Generator(device=dev).manual_seed(k)
+    if camera:
+        return fr.Q8BackwardCall(True, True, weights, q8, rayin, z, _camera_deltam(deltam, mask),
+                                 None, torch.randn((r, fr.ACC_COLS), generator=gen, device=dev),
+                                 tile, path)
+    return fr.Q8BackwardCall(False, True, weights, q8, rayin, z, deltam, mask,
+                             torch.randn((r,), generator=gen, device=dev), tile, path)
+
+
+@pytest.mark.parametrize("camera", [True, False])
+@pytest.mark.parametrize("r,k,tile", [(37, 17, 256), (1024, 127, 1024), (1024, 63, 1024)])
+def test_q8_chain_cluster_matches_layer_major(dev, weights, q8, r, k, tile, camera):
+    """The cluster chain against the kept layer-major pair, both forced: the
+    weight gradients, d_rayin, the cotangent amax and the int8 stream bit
+    for bit, the heads' bias gradients too, the trunk's within
+    Q8_CHAIN_BIAS_REL_L2; each path launched its own kernels alone, and a
+    second cluster call repeats the first's bits."""
+    got = {}
+    for path in ("cluster", "layer_major", "cluster"):
+        call = _full_call(dev, weights, q8, r, k, tile, camera, path)
+        launched = _bwd_launches(call.run)
+        chain = {"q8_chain_cluster_kernel": 1, "q8_gamax_kernel": 0, "q8_dgrad_kernel": 0}
+        if path == "layer_major":
+            chain = {"q8_chain_cluster_kernel": 0, "q8_gamax_kernel": 8, "q8_dgrad_kernel": 8}
+        assert launched == {**chain, "q8_wgrad_kernel": 1, "q8_reduce_kernel": 1}, launched
+        rows, gr = call.rp * call.kpad, call.group_rows
+        g8 = torch.stack(fr.q8_g8_layers(call.g8_stream(), rows, gr))
+        if path in got:
+            assert all(torch.equal(a, b) for a, b in zip(got[path], (*call.grads, call.gamax, g8)))
+        got[path] = (*call.grads, call.gamax, g8)
+    a, b = got["cluster"], got["layer_major"]
+    assert float(a[3].min()) > 0
+    for i in (0, 2, 3, 4):     # d_mats, d_rayin, gamax, g8
+        assert torch.equal(a[i], b[i]), i
+    n_trunk_b = ff.TRUNK_BIAS_ELEMENTS
+    assert torch.equal(a[1][n_trunk_b:], b[1][n_trunk_b:])
+    err = _rel_l2(a[1][:n_trunk_b], b[1][:n_trunk_b])
+    print(f"q8 chain r={r} k={k} camera={camera}: trunk bias rel-L2 {err:.3e}, the rest same bits")
+    assert err < Q8_CHAIN_BIAS_REL_L2
+
+
+def _plain_wgrad(call, q8):
+    """The trunk's weight gradients by the plain formulation
+    (fused_field.trunk_wgrad_q8: each group's exact integer product, scaled,
+    summed in group order) on the call's own streams and scales, in the
+    packed (out, in) layout."""
+    rows, gr = call.rp * call.kpad, call.group_rows
+    acts = call.act_stream()
+    g8 = [x.float() for x in fr.q8_g8_layers(call.g8_stream(), rows, gr)]
+    _, sws = ff.q8_views(q8)
+    inv = torch.full_like(call.gamax, 127.0) / torch.clamp(call.gamax, min=1e-12)
+    s_g = torch.ones_like(inv) / inv
+    pe = acts[:, fr._act_col(5) - 64:fr._act_col(5)]
+    hs = [acts[:, fr._act_col(i):fr._act_col(i) + 256] for i in range(7)]
+    g = [None] * 36
+    ff.trunk_wgrad_q8(pe, hs, g8, [s_g[:, i:i + 1] / sws[i] for i in range(8)], g, gr)
+    return torch.cat([g[i].t().reshape(-1) for i in range(8)])
+
+
+@pytest.mark.parametrize("camera", [True, False])
+@pytest.mark.parametrize("r,k,tile", [(37, 17, 256), (1024, 127, 1024), (1024, 63, 1024)])
+def test_q8_wgrad_keeps_the_group_order_bits(dev, weights, q8, r, k, tile, camera):
+    """q8_wgrad_kernel's in-kernel sum over the groups gives the bits of the
+    plain formulation, each group's integer product scaled and summed in
+    group order, on the call's own streams."""
+    call = _full_call(dev, weights, q8, r, k, tile, camera, None)
+    call.run()
+    torch.cuda.synchronize()
+    summed = call.grads[0][:ff.TRUNK_MAT_ELEMENTS].clone()
+    assert float(summed.abs().max()) > 0
+    assert torch.equal(_plain_wgrad(call, q8), summed)
+
+
+def test_q8_forced_cluster_chain_raises(dev, weights, q8):
+    """A cluster chain past the card's 16 CTAs (KPAD 264: 2112-row groups)
+    is refused, and the refusal raises: nothing runs the layer-major pair in
+    its place."""
+    forced = _full_call(dev, weights, q8, 20, 260, 2048, True, "cluster")
+    before = fr.q8_bwd_kernel_launches()
+    with pytest.raises(RuntimeError, match="int8 backward kernel launch"):
+        forced.run(1)    # the chain alone: refused before it reads the workspace
+    assert fr.q8_bwd_kernel_launches() == before
+    torch.cuda.synchronize()     # the refusal left no error behind
+
+
+def test_q8_bwd_plan_matches_the_library(dev):
+    """The Python plan (path, CTAs, both kernels' shared memory, the weight
+    gradient's tiles, the stream's run) is the C library's, on every KPAD
+    and group size the port makes; the chain's clusters fit the card."""
+    lib = _build.load_library()
+    out = (ctypes.c_longlong * 6)()
+    for kpad in range(8, fr.MAX_KPAD + 1, 8):
+        for rt in (8, 16, 24, 32):
+            plan = fr.q8_bwd_plan(kpad, rt * kpad)
+            lib.eonerf_q8_bwd_plan(kpad, rt * kpad, out)
+            assert list(out) == [fr.Q8_TRUNK_PATHS.index(plan["path"]), plan["ctas"],
+                                 plan["chain_smem"]["total"], len(plan["wgrad_tiles"]),
+                                 plan["wgrad_smem"]["total"], plan["g8_rows"]], (kpad, rt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c in (16, 9, 8, 2):
+        n = lib.eonerf_q8_chain_active_clusters(c)
+        print(f"q8 chain clusters of {c} CTAs: {n} active ({n * c} of {sms} SMs)")
+        assert 0 < n and n * c <= sms
+
+
+def test_q8_full_main_path_launches_the_new_kernels(dev, weights):
+    """fused_camera / fused_shadow with trunk_quant="full" at the training
+    shapes (1024 rays, K = 127 and 63, 1024-row groups) launch the cluster
+    chain and the weight gradient once a backward, the layer-major pair
+    never."""
+    mats = weights.mats.float().requires_grad_()
+    kw = ff.KernelWeights(mats, weights.biases.clone())
+    cam = _inputs(dev, 1024, 127, seed=5)
+    sh = _inputs(dev, 1024, 63, seed=6)
+
+    def step():
+        acc = fr.fused_camera(kw, cam[0], cam[1], _camera_deltam(cam[2], cam[3]), torch.bfloat16,
+                              "full")
+        geo = fr.fused_shadow(kw, *sh, torch.bfloat16, "full")
+        (acc.sum() + geo.sum()).backward()
+    assert _bwd_launches(step) == {"q8_chain_cluster_kernel": 2, "q8_wgrad_kernel": 2,
+                                   "q8_gamax_kernel": 0, "q8_dgrad_kernel": 0,
+                                   "q8_reduce_kernel": 2}
+    assert bool(torch.isfinite(mats.grad).all()) and float(mats.grad.abs().max()) > 0
+
+
+def test_q8_backward_bench_yardstick(dev, weights, q8):
+    """bench/q8_backward.py's chain yardstick (the chain as torch calls with
+    torch._int_mm) on the kernel's own g_h7 and stream gives the kernel's
+    PE cotangent bit for bit, and its bias sums within
+    Q8_CHAIN_BIAS_REL_L2: it computes the same function."""
+    from eonerf_code_tpu_torch.bench import q8_backward as qb
+    call = _full_call(dev, weights, q8, 1024, 127, 1024, True, None)
+    call.run()
+    g_pe, sums = qb.chain_library(call, q8)()
+    lay = call.layout()
+    rows = call.rp * call.kpad
+    gpe = call.ws[lay["gpe"]:lay["gpe"] + rows * 128].view(torch.bfloat16).view(rows, 64)
+    assert torch.equal(g_pe, gpe)
+    bias = torch.cat(sums[::-1])
+    assert _rel_l2(call.grads[1][:ff.TRUNK_BIAS_ELEMENTS], bias) < Q8_CHAIN_BIAS_REL_L2
 
 
 # ---- the saved-activations pair (bwd_acts="saved") ----
