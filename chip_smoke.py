@@ -29,7 +29,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  backward at a training batch's (1024 x 127) and the density
                  backward at the batch's shadow samples (1024 x 63), random
                  cotangents: errors, kernel / plain / bound times, in-cube
-                 samples and TFLOP/s reached. Then the int8 trunk tier's
+                 samples and TFLOP/s reached; for the streamed camera, shadow
+                 and coarse forwards the rows they computed (the samples
+                 with deltam != 0) against the padded samples, and a
+                 table of the clock cycles a tile spends in each phase
+                 (stream_fwd_phases, from an instrumented copy of csrc/
+                 built beside the libraries; bench/stream_fwd.py). Then the
+                 int8 trunk tier's
                  launches at the same shapes (forwards in scale groups of the
                  2048-row target, backwards of the 1024-row one, int8 and
                  int8_full), each against its plain version, with the group
@@ -70,7 +76,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  behind make_render_field renders a 512x512 orthographic
                  nadir sweep with shadows in 4096-ray chunks. All 13
                  outputs must have their shapes and be finite, each kernel
-                 must have launched once per chunk, and a 1024-ray subset
+                 must have launched once per chunk (the streamed forward's
+                 launches by the library's own count), and a 1024-ray subset
                  must agree with the per-sample (non-kernel) path.
 4. dsm         - the rendered depth is rasterised to a DSM on the card, and
                  device_dsm_mae must recover a known shift and z-bias
@@ -379,6 +386,7 @@ def main():
         return 1
 
     from eonerf_code_tpu_torch.bench import backward_passes as bp
+    from eonerf_code_tpu_torch.bench import stream_fwd as sf
     from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
     from eonerf_code_tpu_torch.eval.device import device_dsm_mae
     from eonerf_code_tpu_torch.models.eonerf import EONerfField
@@ -406,10 +414,13 @@ def main():
     # ---- 1. build ----
     t0 = time.perf_counter()
     phase_src = bp.phase_source()   # the dgrad kernel's instrumented copy (bench/backward_passes.py)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:   # one nvcc a source, all together
+    fwd_phase_src = sf.phase_source()   # the streamed forwards' (bench/stream_fwd.py)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc a source, all together
         phase_build = pool.submit(_build.build, phase_src)
+        fwd_phase_build = pool.submit(_build.build, fwd_phase_src)
         built = _build.build_all()
         phase_lib, _ = phase_build.result()
+        fwd_phase_lib, _ = fwd_phase_build.result()
     _build.load_library()
     _build.load_variants_library()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -417,7 +428,8 @@ def main():
                     "ptxas": [ln.strip() for ln in log.splitlines()
                               if "registers" in ln or "spill" in ln]}
              for stem, (path, log) in built.items()},
-          "dgrad_phases_library": phase_lib.name, "card": card})
+          "dgrad_phases_library": phase_lib.name, "fwd_phases_library": fwd_phase_lib.name,
+          "card": card})
 
     # ---- 2. kernels against their plain versions at main-path shapes ----
     field = EONerfField(20, compute_dtype=torch.bfloat16, device=dev,
@@ -469,6 +481,12 @@ def main():
     camera_bytes = ff.MAT_ELEMENTS * 2 + ff.BIAS_ELEMENTS * 4 + N_CHUNK * 8 * 4
     kernel_rows = {}
 
+    def stream_launches_since(before):
+        """stream_fwd_kernel launches by op since the library's counts
+        `before` (fused_render.stream_fwd_kernel_launches)."""
+        now = fr.stream_fwd_kernel_launches()
+        return {f"{m}_fwd": now[m] - before[m] for m in now}
+
     def record(name, k, row):
         """The first shape of a kernel is its summary row; another shape
         that the main path gives it goes beside it, under other_shapes."""
@@ -479,6 +497,14 @@ def main():
                                   if key in row}})
         else:
             kernel_rows[name] = row
+
+    def rows_computed(k, n_valid):
+        """The streamed forwards' rows (the samples with deltam != 0: in the
+        cube) against the padded samples of the call (the rows of the
+        design before it)."""
+        padded = N_CHUNK * fr.kpad_of(k)
+        return {"rows_computed": n_valid, "padded_samples": padded,
+                "computed_share": n_valid / padded}
 
     # (name, kernel, plain version, K, in-cube samples, MACs per sample,
     # bytes, TPU kernel)
@@ -499,6 +525,8 @@ def main():
          rayin.numel() * 4 + 2 * h_mid.numel() * 4 + camera_bytes, "_camera_fwd_kernel"),
     ]
     for name, kern, plain, k, n_valid, macs, nbytes, tpu_fn in cases:
+        dm_case = deltam if k == z_mid.shape[1] else (sc_dm if k == sc_z.shape[1] else h_dm)
+        n_rows = int((dm_case != 0).sum())
         got = kern()
         ref = plain()
         torch.cuda.synchronize()
@@ -522,7 +550,8 @@ def main():
                "library_ms": None}
         record(name, k, row)
         emit({"phase": "kernels", "name": name, "rays": N_CHUNK, "samples": k,
-              "kpad": fr.kpad_of(k), "valid_samples": n_valid, "macs_per_sample": macs,
+              "kpad": fr.kpad_of(k), "valid_samples": n_valid, **rows_computed(k, n_rows),
+              "macs_per_sample": macs,
               "max_abs_err": max_err, "mean_abs_err": mean_err,
               "tolerance": KERNEL_TOL, "finite": finite, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": row["bound_ms"], "gflop": flops / 1e9,
@@ -531,6 +560,12 @@ def main():
                 and mean_err <= KERNEL_TOL["mean_abs"]):
             raise AssertionError(f"{name} at K={k}: kernel disagrees with its plain version "
                                  f"(max {max_err}, mean {mean_err}, finite {finite})")
+
+    # where a streamed forward's tile goes: clock cycles a tile of each phase
+    # (bench/stream_fwd.py, the instrumented copy built beside the libraries)
+    for case, res in sf.phases(built=fwd_phase_src).items():
+        emit({"phase": "kernels", "name": "stream_fwd_phases", "case": case, **res,
+              "phases": list(sf.PHASES), "card": card})
 
     # backward kernels at the training shapes: the first N_TRAIN rays of the
     # same inputs (uniform K=127 and hierarchical K=143), a random per-ray
@@ -646,7 +681,9 @@ def main():
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
         record(name, k, row)
         emit({"phase": "kernels", "name": name, "rows": n_rows, "samples": k,
-              "work_samples": n_work, "max_abs_err": float(err.max()), "errors": errs,
+              "work_samples": n_work,
+              **(rows_computed(k, int((c_dm != 0).sum())) if name == "coarse_fwd" else {}),
+              "max_abs_err": float(err.max()), "errors": errs,
               "reference_scale": {"max|sigma|" if name == "density_fwd" else "mean|w|": scale},
               "tolerance": tol, "finite": finite,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
@@ -1157,12 +1194,14 @@ def main():
     n_chunks = -(-n_rays // N_CHUNK)
     fr.camera_forward.launches = 0
     fr.shadow_forward.launches = 0
+    stream_before = fr.stream_fwd_kernel_launches()   # the library's own counts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sat.render_image(rf, rays_all, cfg, shadows=True, chunk=N_CHUNK,
                            generator=torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    stream_launches = stream_launches_since(stream_before)
     launches = {"camera_fwd": fr.camera_forward.launches,
                 "shadow_fwd": fr.shadow_forward.launches}
     widths = {"rgb": 3, "albedo_rgb": 3, "ambient_rgb": 3, "shadowless_rgb": 3,
@@ -1171,7 +1210,7 @@ def main():
            if tuple(out[k].shape) != (n_rays, widths.get(k, 1))
            or not bool(torch.isfinite(out[k]).all())]
     for name, n in launches.items():
-        kernel_rows[name]["launches"] = n
+        kernel_rows[name]["launches"] = stream_launches[name]
     # the same 1024 rays through the kernels and through the per-sample path
     few = sat.SatRays(*(x[:1024] for x in rays_all))
     with torch.no_grad():
@@ -1186,13 +1225,15 @@ def main():
           "rays_per_s": n_rays / seconds, "ms_per_chunk": seconds * 1e3 / n_chunks,
           "kernel_ms_per_chunk": kernel_ms,
           "kernel_share": kernel_ms * n_chunks / (seconds * 1e3),
-          "launches": launches, "bad_keys": bad,
+          "launches": launches, "stream_fwd_kernel_launches": stream_launches, "bad_keys": bad,
           "depth_range": [float(out["depth"].min()), float(out["depth"].max())],
           "vs_per_sample_path": path_err, "tolerance": PATH_TOL, "card": card})
     if bad:
         raise AssertionError(f"render outputs with wrong shape or non-finite values: {bad}")
-    if any(n != n_chunks for n in launches.values()):
-        raise AssertionError(f"kernel launches {launches} != {n_chunks} chunks")
+    if any(n != n_chunks for n in launches.values()) or stream_launches != {
+            "camera_fwd": n_chunks, "shadow_fwd": n_chunks, "coarse_fwd": 0}:
+        raise AssertionError(f"kernel launches {launches}, streamed kernel {stream_launches} "
+                             f"!= {n_chunks} chunks")
     if any(path_err[k] > PATH_TOL[k] for k in PATH_TOL):
         raise AssertionError(f"kernel path vs per-sample path: {path_err}")
 
@@ -1225,14 +1266,16 @@ def main():
                     "shadow_fwd": fr.shadow_forward}
     for fn in hier_counted.values():
         fn.launches = 0
+    stream_before = fr.stream_fwd_kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_h = sat.render_image(rf, rays_all, cfg_h, shadows=True, chunk=N_CHUNK,
                              generator=torch.Generator(device=dev).manual_seed(4))
     torch.cuda.synchronize()
     seconds_h = time.perf_counter() - t0
+    stream_launches_h = stream_launches_since(stream_before)
     launches_h = {n: fn.launches for n, fn in hier_counted.items()}
-    kernel_rows["coarse_fwd"]["launches"] = launches_h["coarse_fwd"]
+    kernel_rows["coarse_fwd"]["launches"] = stream_launches_h["coarse_fwd"]
     bad_h = [k for k in sat.OUTPUT_KEYS
              if tuple(out_h[k].shape) != (n_rays, widths.get(k, 1))
              or not bool(torch.isfinite(out_h[k]).all())]
@@ -1245,14 +1288,17 @@ def main():
           "samples": {"coarse": cfg_h.n_samples, "fine": cfg_h.n_importance,
                       "shadow": cfg_h.sc_n_samples},
           "seconds": seconds_h, "rays_per_s": n_rays / seconds_h,
-          "ms_per_chunk": seconds_h * 1e3 / n_chunks, "launches": launches_h, "bad_keys": bad_h,
+          "ms_per_chunk": seconds_h * 1e3 / n_chunks, "launches": launches_h,
+          "stream_fwd_kernel_launches": stream_launches_h, "bad_keys": bad_h,
           "pts_per_ray_mean": float(out_h["pts_per_ray"].mean()),
           "depth_range": [float(out_h["depth"].min()), float(out_h["depth"].max())],
           "vs_per_sample_path": path_err_h, "tolerance": PATH_TOL, "card": card})
     if bad_h:
         raise AssertionError(f"hierarchical render outputs wrong or non-finite: {bad_h}")
-    if any(n != n_chunks for n in launches_h.values()):
-        raise AssertionError(f"kernel launches {launches_h} != {n_chunks} chunks")
+    if any(n != n_chunks for n in launches_h.values()) or any(
+            n != n_chunks for n in stream_launches_h.values()):
+        raise AssertionError(f"kernel launches {launches_h}, streamed kernel "
+                             f"{stream_launches_h} != {n_chunks} chunks")
     if any(path_err_h[k] > PATH_TOL[k] for k in PATH_TOL):
         raise AssertionError(f"hierarchical kernel path vs per-sample path: {path_err_h}")
 

@@ -26,6 +26,7 @@ from eonerf_code_tpu_torch.bench.kernel_variants import (
     resolve_device,
     time_ms,
 )
+from eonerf_code_tpu_torch.bench.stream_fwd import render_chunk
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
@@ -43,7 +44,10 @@ def cases(device):
     entropy probe (131,072 points), its backward (1024 x 63 points), the
     field forward and backward; and the int8 tier's forwards at the render
     shapes (camera 4096 x 127 and 143, shadow 4096 x 63, coarse 4096 x 95),
-    each a launch of the int8 trunk (and the heads on gemm). The int8 calls
+    each a launch of the int8 trunk (and the heads on gemm); and the
+    forwards on a render chunk with its real cube masks
+    (bench/stream_fwd.py render_chunk: camera K=127 and 143, shadow, coarse),
+    where deltam is zero outside the cube. The int8 calls
     take ``stats`` (:func:`_outputs` compares their group amax and, for the
     forwards, the stream columns the trunk wrote)."""
     kw, _ = bench_weights(device)
@@ -72,7 +76,12 @@ def cases(device):
             saved["acts"] = fr.camera_forward_save(kw, *batch)[1]
         return saved["acts"]
 
-    return {"camera_fwd": lambda: fr.camera_forward(kw, *render),
+    # a render chunk with its real cube masks (a quarter of the shadow
+    # samples in the cube; the streamed forwards skip the rest)
+    kw_r, chunk = render_chunk(device)
+    cube = {f"{name}_fwd_cube": (lambda op=op, args=args: op(kw_r, *args))
+            for name, (op, args) in chunk.items()}
+    return {**cube, "camera_fwd": lambda: fr.camera_forward(kw, *render),
             "camera_fwd_k143": lambda: fr.camera_forward(kw, *render143),
             "shadow_fwd": lambda: fr.shadow_forward(kw, *render_sh),
             "coarse_fwd": lambda: fr.coarse_forward(kw, *coarse),

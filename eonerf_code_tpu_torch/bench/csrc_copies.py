@@ -67,6 +67,44 @@ def phase_prelude(origin, phases):
     return "\n".join(out) + "\n"
 
 
+def summed_phase_prelude(origin, prefix, nph):
+    """C macros defining, in a copy, the phase landmarks P_BEGIN(),
+    P_TILE(), P_MARK(next), P_CALL(base), P_NEXT_CALL() and P_END() (P =
+    ``prefix``) for landmarks that sit in device functions as well as in
+    the kernel: thread 0 of a block keeps its phase sums in a static shared
+    array, P_END() adds them, and the block, to a device array (nph + 1
+    unsigned 64-bit counters, summed over every block of every launch), and
+    the extern "C" function ``eonerf_phase_sums(out, reset)`` copies them
+    out (reset != 0: then zeroes them). P_CALL(base) marks phase base + 4 c,
+    c the calls since the tile's P_TILE() (a layer product's four phases
+    each call). ``origin`` names the bench in the copy's first line."""
+    p, arr, tot = prefix, f"{prefix.lower()}_ph", f"{prefix.lower()}_sums"
+    return "\n".join([
+        f"// phase instrumentation ({origin}; this copy only)",
+        f"__shared__ long long {arr}[{nph} + 3];   // sums, last clock, phase, call",
+        f"__device__ unsigned long long {tot}[{nph} + 1];   // over the blocks; then blocks",
+        f"#define {p}_MARK(next) do {{ if (threadIdx.x == 0) {{ const long long t_ = clock64(); \\",
+        f"    {arr}[{arr}[{nph} + 1]] += t_ - {arr}[{nph}]; {arr}[{nph}] = t_; "
+        f"{arr}[{nph} + 1] = (next); }} }} while (0)",
+        f"#define {p}_BEGIN() do {{ if (threadIdx.x == 0) {{ for (int k_ = 0; k_ < {nph}; ++k_) \\",
+        f"    {arr}[k_] = 0; {arr}[{nph}] = clock64(); {arr}[{nph} + 1] = 0; {arr}[{nph} + 2] = 0; "
+        "} } while (0)",
+        f"#define {p}_TILE() do {{ if (threadIdx.x == 0) {arr}[{nph} + 2] = 0; }} while (0)",
+        f"#define {p}_CALL(base) {p}_MARK((base) + 4 * {arr}[{nph} + 2])",
+        f"#define {p}_NEXT_CALL() do {{ if (threadIdx.x == 0) ++{arr}[{nph} + 2]; }} while (0)",
+        f"#define {p}_END() do {{ {p}_MARK(0); if (threadIdx.x == 0) {{ \\",
+        f"    for (int k_ = 0; k_ < {nph}; ++k_) atomicAdd(&{tot}[k_], "
+        f"(unsigned long long){arr}[k_]); \\",
+        f"    atomicAdd(&{tot}[{nph}], 1ull); }} }} while (0)",
+        'extern "C" int eonerf_phase_sums(unsigned long long* out, int reset) {',
+        "  cudaError_t e = cudaDeviceSynchronize();",
+        f"  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, {tot}, sizeof({tot}));",
+        f"  static const unsigned long long zero[{nph} + 1] = {{}};",
+        f"  if (e == cudaSuccess && reset) e = cudaMemcpyToSymbol({tot}, zero, sizeof({tot}));",
+        "  return (int)e;",
+        "}", ""])
+
+
 def build_all(sources):
     """Build every source, each nvcc started together: the build logs."""
     with concurrent.futures.ThreadPoolExecutor(8) as pool:

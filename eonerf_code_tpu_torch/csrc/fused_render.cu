@@ -513,6 +513,672 @@ int launch_point(const float* pos, const float* emb, const void* wm, const float
 }
 
 // ---------------------------------------------------------------------------
+// the streamed forwards: the plain camera, shadow and coarse forwards
+// ---------------------------------------------------------------------------
+//
+// stream_fwd_kernel<MODE> is the plain (no stream) camera, shadow and
+// coarse forward: the counterpart of `_camera_fwd_kernel`,
+// `_shadow_fwd_kernel` and `_coarse_fwd_kernel` (the JAX package's
+// ops/pallas/fused_render.py) in place of fused_fwd_kernel<MODE, false>,
+// which stays for the save forwards, the backwards' first pass and the int8
+// heads. It gives fused_fwd_kernel's bits: each row's products, epilogues
+// and narrow heads in the same operations, the per-ray sums in sample order
+// by the same statements.
+//
+// What bounds it: the products of the samples that need them (the camera's
+// 0.68 M multiply-adds a sample at 989 TFLOP/s). What held the design
+// before it far from that (PERF.md, its phase table): a block owned one
+// ray's 128-row tile at a time and re-staged every weight matrix for every
+// tile through a 3-stage ring of 32-deep chunks that drained at each of a
+// tile's 13 products (a block barrier and two chunks' L2 round trips with
+// nothing under them), with a block barrier and a full wgmma wait a chunk;
+// the 1- and 3-wide heads ran one thread a row and the composite one thread
+// a ray while the SM waited; and every sample ran the trunk, though a
+// sample with deltam = 0 (outside the cube, or padding) adds nothing. Here:
+// - only the samples with deltam != 0 are rows: fs_count_kernel counts
+//   them a ray, fs_scan_kernel turns the counts into each ray's first row
+//   and cuts the rows into one contiguous range of whole rays a block,
+//   about the same rows each (no host synchronisation). A ray's rows may
+//   straddle tiles; its sums run after the block's last tile, from the
+//   rows' results in the workspace. Skipping the others is exact: a row's
+//   products depend on that row alone, and in the per-ray sums such a
+//   sample adds exact zeros (its weight is T (1 - e^0) = 0; the shadow's
+//   sum adds sigma * 0).
+// - the weights are one continuous stream: fs_count_kernel's other blocks
+//   write the tile's whole weight sequence (the trunk, then the camera's
+//   heads) once a call into the workspace as the exact image of 16 KB ring
+//   stages (each 128-row half of a chunk the 64-byte-swizzled K-major layout
+//   of tile_common.cuh's stage_wt), and one producer warp streams it by
+//   bulk copies (the TMA, L2 evict-last; four a chunk) into a 7-stage ring with full and
+//   empty mbarriers, through a tile's products and on into the next
+//   tile's: nothing drains, and no block barrier is left in the products.
+// - a persistent grid, one block an SM: two consumer warpgroups, each
+//   owning 64 rows of the 128-row tile, multiply as one (wgmma m64n128k16,
+//   A from registers by ldmatrix, B from the ring), a chunk at a time:
+//   ptxas serializes wgmma whose A registers a later chunk reloads while a
+//   group is in flight (C7512), so nothing is left in flight. A warp reads
+//   and writes only its own 16 rows, so a layer's output overwrites its
+//   input in place (one 128 x 328 tile) and the warpgroups synchronise
+//   only through the ring.
+// - every bias and the narrow heads' weights sit in shared memory: the
+//   epilogues' bias loads (L1 misses beside 218 KB of shared memory) were
+//   a tenth of the kernel.
+// - the camera's albedo hidden layer and transient layer 0 both read the
+//   bottleneck: they run as one 256-wide product over [bottleneck |
+//   embedding] (the albedo rows zero past the bottleneck's 256 columns:
+//   exact zeros added), so the heads need no second tile.
+// - the 1- and 3-wide heads run on a warp's own rows, a lane a row (lanes
+//   0-15 the sigma and the three albedo dots, 16-31 t_s and t_beta), each
+//   lane's dots interleaved (dot_rows; each the fmaf chain of dot_row).
+// Landmarks of its phases (FS_*): empty here; bench/stream_fwd.py builds a
+// copy that defines them (the phase order of its PHASES).
+#ifndef FS_MARK
+#define FS_MARK(next)
+#define FS_BEGIN()
+#define FS_END()
+#endif
+enum FsPhase { FSP_OTHER, FSP_META, FSP_PE, FSP_WAIT, FSP_PRODUCTS, FSP_EPILOGUE, FSP_HEADS,
+               FSP_RESULTS, FSP_COMPOSITE };
+
+constexpr int FS_WARPS = 8;                      // consumer warps: two warpgroups
+constexpr int FS_THREADS = FS_WARPS * 32 + 32;   // and the producer warp
+constexpr int FS_STAGES = 7;                     // chunks in the weight ring
+// bulk copies a chunk: each copy's latency grows with its bytes, and four
+// at once land a chunk sooner than one (PERF.md, PR 14)
+constexpr int FS_COPIES = 4;
+constexpr int FS_CHUNK = 2 * STAGE_BYTES;        // bytes a chunk: two 128-row, 32-deep halves
+constexpr int FS_RES = 8;     // a camera row's results: sigma, albedo x3, t_s, t_beta, z, deltam
+constexpr int FS_MAX_BLOCKS = 1024;
+constexpr int FS_LAYERS_CAM = 13, FS_LAYERS_DENSITY = 8;
+constexpr int FS_IN = 12;     // a row's inputs staged by its warp: o(3), d(3), z, deltam, emb(4)
+constexpr int FS_HW = W + 3 * HALF + 2 * HALF;   // the narrow heads' weights: sigma, albedo, t_s, t_beta
+// shared memory: the ring, the tile, the barriers, the warps' row inputs,
+// the narrow heads' weights, every bias
+constexpr size_t FS_OFF_TILE = (size_t)FS_STAGES * FS_CHUNK;
+constexpr size_t FS_OFF_BARS = FS_OFF_TILE + (size_t)MT * LDA * sizeof(bf16);
+constexpr size_t FS_OFF_IN = FS_OFF_BARS + 2 * FS_STAGES * sizeof(uint64_t);
+constexpr size_t FS_OFF_HW = FS_OFF_IN + (size_t)FS_WARPS * 16 * FS_IN * sizeof(float);
+constexpr size_t FS_OFF_BIAS = FS_OFF_HW + (size_t)FS_HW * sizeof(bf16);
+constexpr size_t FS_SMEM = FS_OFF_BIAS + (size_t)B_END * sizeof(float);
+static_assert(FS_SMEM <= 232448, "the ring, the tile and the rest fit an SM");
+static_assert(FS_OFF_IN % 16 == 0 && FS_OFF_HW % 16 == 0 && FS_OFF_BIAS % 16 == 0,
+              "16-byte aligned parts");
+
+// Layer i of the weight stream: the trunk's eight, then the camera's
+// bottleneck, [albedo hidden | transient 0] and transient 1..3. wide: 256
+// outputs, a chunk 32 deep over both 128-row halves; else 128 outputs, a
+// chunk 64 deep as two 32-deep halves. k_dim: its input columns.
+struct FsLayer {
+  bool wide;
+  int k_dim;
+};
+
+__host__ __device__ constexpr FsLayer fs_layer(int i) {
+  if (i < 8) return {true, i == 0 ? PE : (i == 5 ? CAT : W)};
+  if (i == 8) return {true, W};
+  if (i == 9) return {true, CAT};
+  return {false, HALF};
+}
+
+__host__ __device__ constexpr int fs_chunks(int i) {
+  return fs_layer(i).k_dim / (fs_layer(i).wide ? KC : 2 * KC);
+}
+
+// chunks of a tile's weight sequence (camera: 84; shadow, coarse: 60)
+__host__ __device__ constexpr int fs_stream_chunks(bool camera) {
+  int n = 0;
+  for (int i = 0; i < (camera ? FS_LAYERS_CAM : FS_LAYERS_DENSITY); ++i) n += fs_chunks(i);
+  return n;
+}
+
+// Eight weights of layer i, output row n, inputs k..k+7, from the packed
+// matrices (the albedo hidden layer's rows zero past its 256 inputs).
+__device__ inline uint4 fs_weights8(const bf16* __restrict__ wm, int i, int n, int k) {
+  long long off;
+  if (i < 8) off = trunk_offset(i) + (long long)n * fs_layer(i).k_dim + k;
+  else if (i == 8) off = M_BOTT + (long long)n * W + k;
+  else if (i == 9) {
+    if (n >= HALF) off = M_TR0 + (long long)(n - HALF) * CAT + k;
+    else if (k < W) off = M_ALB0 + (long long)n * W + k;
+    else return make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    off = M_TR1 + (long long)(i - 10) * HALF * HALF + (long long)n * HALF + k;
+  }
+  return *reinterpret_cast<const uint4*>(wm + off);
+}
+
+// The plan's first launch. Blocks below nb_rays: a warp a ray, counting its
+// samples with deltam != 0 into cnt. The others: the weight stream, one
+// 16-byte unit a thread, unit u of chunk q at stream[q * 1024 + u] as the
+// ring stage's image: half h = u / 512 holds 128 (n, k) rows of 64 bytes,
+// unit (u % 4) of row n stored at (u % 4) ^ ((n >> 1) & 3) (stage_wt's
+// layout); a wide layer's half h is output rows 128 h.., a narrow one's its
+// chunk's k slice 32 h...
+__global__ void __launch_bounds__(256)
+fs_count_kernel(const float* __restrict__ deltam, int R, int KPAD, int* __restrict__ cnt,
+                int nb_rays, const bf16* __restrict__ wm, int nlayers, uint4* __restrict__ stream) {
+  if ((int)blockIdx.x < nb_rays) {
+    const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+    if (r >= R) return;
+    int n = 0;
+    for (int k0 = 0; k0 < KPAD; k0 += 32) {
+      const int k = k0 + lane;
+      n += __popc(__ballot_sync(0xffffffffu, k < KPAD && deltam[(long long)r * KPAD + k] != 0.f));
+    }
+    if (lane == 0) cnt[r] = n;
+    return;
+  }
+  const int v = (blockIdx.x - nb_rays) * 256 + threadIdx.x;
+  int q = v / (FS_CHUNK / 16), i = 0, c0 = 0;
+  while (i < nlayers && q >= c0 + fs_chunks(i)) c0 += fs_chunks(i++);
+  if (i >= nlayers) return;
+  const FsLayer L = fs_layer(i);
+  const int u = v % (FS_CHUNK / 16), h = u >> 9, o = (u & 511) * 16, nl = o >> 6;
+  const int kk = ((o & 63) >> 4) ^ ((nl >> 1) & 3), kc = q - c0;
+  stream[v] = L.wide ? fs_weights8(wm, i, h * HALF + nl, kc * KC + kk * 8)
+                     : fs_weights8(wm, i, nl, kc * 2 * KC + h * KC + kk * 8);
+}
+
+// The plan's second launch, one block: prefix[r] = the rows (samples with
+// deltam != 0) of the rays before r, prefix[R] = all of them; then
+// ray_start[b] (b = 0..G) = the first ray whose first row is at or past b
+// ceil(rows / G) (at least 1; R if none): block b of the forward owns rays
+// ray_start[b] .. ray_start[b + 1] - 1, whole rays and about the same rows
+// each, and ray_start[G] = R.
+__global__ void __launch_bounds__(1024)
+fs_scan_kernel(const int* __restrict__ cnt, int R, int G, int* __restrict__ prefix,
+               int* __restrict__ ray_start) {
+  __shared__ int wsum[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, T = blockDim.x;
+  const int m = (R + T - 1) / T, lo = min(R, t * m), hi = min(R, lo + m);
+  int s = 0;
+  for (int r = lo; r < hi; ++r) s += cnt[r];
+  int x = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  for (int b = t; b <= G; b += T) ray_start[b] = R;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < T / 32 ? wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    wsum[lane] = w;
+  }
+  __syncthreads();
+  const int total = wsum[T / 32 - 1];
+  const int target = max(1, (total + G - 1) / G);
+  int run = x - s + (warp > 0 ? wsum[warp - 1] : 0);   // rows before ray lo
+  int before = lo > 0 ? run - cnt[lo - 1] : 0;          // rows before ray lo - 1
+  for (int r = lo; r < hi; ++r) {
+    prefix[r] = run;
+    // the blocks b (1 <= b < G) whose first row b * target falls in
+    // (rows before r - 1, rows before r]: ray r is their first
+    if (r == 0) ray_start[0] = 0;
+    else
+      for (int b = before / target + 1; b <= min(G - 1, run / target); ++b) ray_start[b] = r;
+    before = run;
+    run += cnt[r];
+  }
+  if (t == 0) prefix[R] = total;
+}
+
+// The weight ring as a consumer warpgroup sees it: chunk q sits in stage
+// q % FS_STAGES, its bytes landed when the full barrier's phase of parity
+// (q / FS_STAGES) & 1 completes; each consumer thread arrives on the empty
+// barrier once its warpgroup's products have read the stage.
+struct FsRing {
+  uint32_t ring, full, empty;
+  int q;   // chunks acquired
+
+  __device__ uint32_t acquire() {
+    const int s = q % FS_STAGES;
+    FS_MARK(FSP_WAIT);
+    mbar_wait(full + 8 * s, (uint32_t)((q / FS_STAGES) & 1));
+    FS_MARK(FSP_PRODUCTS);
+    ++q;
+    return ring + s * FS_CHUNK;
+  }
+  __device__ void release(int qq) { mbar_arrive(empty + 8 * (qq % FS_STAGES)); }
+};
+
+// One wide layer on this warp's 16 rows (row0..) of the tile: columns 0..255
+// become act(A W^T + bias), A the tile's columns acol .. acol + k_dim - 1
+// (the output may overwrite them: every A fragment is in registers before
+// the epilogue). bias(c): output column c's bias. The products and
+// epilogue are gemm's (tile_common.cuh) on each 128-column half.
+template <bool RELU, typename Bias>
+__device__ __forceinline__ void fs_wide(FsRing& rg, bf16* tile, int row0, int acol, int k_dim,
+                                        Bias bias) {
+  float acc[2][64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  // a chunk at a time, its products waited for before the next: ptxas
+  // serializes these wgmma whatever is left in flight (C7512), and a
+  // second chunk's A fragments in flight only cost registers
+  for (int kc = 0; kc < k_dim / KC; ++kc) {
+    const uint32_t st = rg.acquire();
+    uint32_t a[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) load_a<LDA>(a[s], tile, row0, acol + kc * KC + 16 * s);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma<128, 0>(acc[h], a[s], gmma_desc(st + h * STAGE_BYTES + 32 * s, 16, 512, 2));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    rg.release(rg.q - 1);
+  }
+  FS_MARK(FSP_EPILOGUE);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* orow = tile + (row0 + g) * LDA + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float b[16][2];   // the half's biases, all loads in flight before the stores
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      b[j][0] = bias(h * NC + j * 8 + 2 * t);
+      b[j][1] = bias(h * NC + j * 8 + 2 * t + 1);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float b0 = b[j][0], b1 = b[j][1];
+      float v0 = acc[h][4 * j] + b0, v1 = acc[h][4 * j + 1] + b1;
+      float v2 = acc[h][4 * j + 2] + b0, v3 = acc[h][4 * j + 3] + b1;
+      if (RELU) {
+        v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+        v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+      }
+      bf16* op = orow + h * NC + j * 8;
+      *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * LDA) = __floats2bfloat162_rn(v2, v3);
+    }
+  }
+  __syncwarp();
+  FS_MARK(FSP_OTHER);
+}
+
+// One narrow layer (a transient layer, 128 -> 128, ReLU) in place on the
+// tile's columns 128..255 of this warp's rows; bias(c) as fs_wide's.
+template <typename Bias>
+__device__ __forceinline__ void fs_narrow(FsRing& rg, bf16* tile, int row0, Bias bias) {
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < HALF / (2 * KC); ++kc) {
+    const uint32_t st = rg.acquire();
+    uint32_t a[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) load_a<LDA>(a[s], tile, row0, HALF + kc * 2 * KC + 16 * s);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma<128, 0>(acc, a[s], gmma_desc(st + (s >> 1) * STAGE_BYTES + 32 * (s & 1), 16, 512, 2));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    rg.release(rg.q - 1);
+  }
+  FS_MARK(FSP_EPILOGUE);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* orow = tile + (row0 + g) * LDA + HALF + 2 * t;
+  float b[16][2];   // all bias loads in flight before the stores
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    b[j][0] = bias(j * 8 + 2 * t);
+    b[j][1] = bias(j * 8 + 2 * t + 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float b0 = b[j][0], b1 = b[j][1];
+    const float v0 = fmaxf(acc[4 * j] + b0, 0.f), v1 = fmaxf(acc[4 * j + 1] + b1, 0.f);
+    const float v2 = fmaxf(acc[4 * j + 2] + b0, 0.f), v3 = fmaxf(acc[4 * j + 3] + b1, 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 8 * LDA) = __floats2bfloat162_rn(v2, v3);
+  }
+  __syncwarp();
+  FS_MARK(FSP_OTHER);
+}
+
+// the consumer warps' own barrier (the producer warp never joins it)
+__device__ __forceinline__ void fs_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FS_WARPS * 32) : "memory");
+}
+
+// The plain forward over the rows of the samples with deltam != 0 (the
+// plan's prefix and ray_start). CAM: acc (R, 8); SHADOW: geo (R,);
+// COARSE: the weights (R, KPAD). meta and res: the workspace's rows (ray,
+// sample) and results, written and read by this kernel; stream: the
+// weight sequence (fs_count_kernel).
+template <int MODE>
+__global__ void __launch_bounds__(FS_THREADS, 1)
+stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
+                  const float* __restrict__ deltam, const float* __restrict__ mask,
+                  const bf16* __restrict__ wm, const float* __restrict__ wb,
+                  const uint4* __restrict__ stream, const int* __restrict__ prefix,
+                  const int* __restrict__ ray_start, int2* meta, float* res,
+                  float* __restrict__ out, int R, int KPAD) {
+  constexpr bool CAMERA = MODE == CAM;
+  constexpr int CHUNKS = fs_stream_chunks(CAMERA);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* tile = reinterpret_cast<bf16*>(smem + FS_OFF_TILE);
+  float* rin = reinterpret_cast<float*>(smem + FS_OFF_IN) + (threadIdx.x >> 5) * 16 * FS_IN;
+  bf16* hw = reinterpret_cast<bf16*>(smem + FS_OFF_HW);
+  float* bs = reinterpret_cast<float*>(smem + FS_OFF_BIAS);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full = smem_addr(smem + FS_OFF_BARS);
+  const uint32_t empty = full + 8 * FS_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  FS_BEGIN();
+  if (tid == 0) {
+    for (int s = 0; s < FS_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, FS_WARPS * 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int ray_lo = ray_start[blockIdx.x], ray_hi = ray_start[blockIdx.x + 1];
+  const long long row_lo = prefix[ray_lo], row_hi = prefix[ray_hi];
+  const int ntiles = (int)((row_hi - row_lo + MT - 1) / MT);
+
+  if (warp == FS_WARPS) {   // the producer: the weight sequence once a tile, without a break
+    if (lane == 0) {
+      const uint64_t policy = l2_evict_last();
+      const long long total = (long long)ntiles * CHUNKS;
+      for (long long q = 0; q < total; ++q) {
+        const int s = (int)(q % FS_STAGES);
+        if (q >= FS_STAGES) mbar_wait(empty + 8 * s, (uint32_t)((q / FS_STAGES - 1) & 1));
+        mbar_expect_tx(full + 8 * s, FS_CHUNK);
+        for (int c = 0; c < FS_COPIES; ++c)
+          bulk_g2s(ring + s * FS_CHUNK + c * (FS_CHUNK / FS_COPIES),
+                   stream + (q % CHUNKS) * (FS_CHUNK / 16) + c * (FS_CHUNK / 16 / FS_COPIES),
+                   FS_CHUNK / FS_COPIES, full + 8 * s, policy);
+      }
+    }
+    return;
+  }
+
+  // the narrow heads' weights: [sigma | albedo | t_s | t_beta]
+  for (int e = tid; e < FS_HW; e += FS_WARPS * 32)
+    hw[e] = wm[e < W ? M_SIG + e : (e < W + 3 * HALF ? M_ALB1 + e - W : M_TS + e - W - 3 * HALF)];
+  for (int e = tid; e < B_END; e += FS_WARPS * 32) bs[e] = wb[e];
+  // each row's (ray, sample): a warp a ray, in sample order
+  FS_MARK(FSP_META);
+  for (int r = ray_lo + warp; r < ray_hi; r += FS_WARPS) {
+    long long base = prefix[r];
+    for (int k0 = 0; k0 < KPAD; k0 += 32) {
+      const int k = k0 + lane;
+      const bool nz = k < KPAD && deltam[(long long)r * KPAD + k] != 0.f;
+      const unsigned bal = __ballot_sync(0xffffffffu, nz);
+      if (nz) meta[base + __popc(bal & ((1u << lane) - 1u))] = make_int2(r, k);
+      base += __popc(bal);
+    }
+  }
+  fs_consumers_sync();
+  FS_MARK(FSP_OTHER);
+
+  FsRing rg{ring, full, empty, 0};
+  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;   // this warp's 16 tile rows
+  int pj[2];       // the lane's two PE columns (lane, 32 + lane): coordinate, scale
+  float psc[2];
+  pe_lane(lane, pj[0], psc[0]);
+  pe_lane(32 + lane, pj[1], psc[1]);
+  const bf16* trow = tile + (row0 + (lane & 15)) * LDA;   // lane's row for the narrow heads
+  for (int t = 0; t < ntiles; ++t) {
+    const long long g0 = row_lo + (long long)t * MT;   // the tile's first row
+    const int nr = (int)min((long long)MT, row_hi - g0);
+    const bool own = row0 + (lane & 15) < nr;          // lane's row exists
+    // the warp's rows' inputs into its staging (lanes 0..15, a row each)
+    if (lane < 16) {
+      float v[FS_IN];
+#pragma unroll
+      for (int c = 0; c < FS_IN; ++c) v[c] = 0.f;
+      if (own) {
+        const int2 m = meta[g0 + row0 + lane];
+        const float* ri = rayin + (long long)m.x * RAYIN;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) v[c] = ri[c];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[8 + c] = ri[6 + c];
+        v[6] = z[(long long)m.x * KPAD + m.y];
+        v[7] = deltam[(long long)m.x * KPAD + m.y];
+      }
+#pragma unroll
+      for (int c = 0; c < FS_IN; ++c) rin[lane * FS_IN + c] = v[c];
+    }
+    __syncwarp();
+    // positional encoding into columns 256..319 of the warp's rows; rows
+    // past the tile's get zeros
+    FS_MARK(FSP_PE);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = i >> 1, c = (i & 1) * 32 + lane;
+      float v = 0.f;
+      if (row0 + r < nr && c < 63) {
+        const float* ri = rin + r * FS_IN;
+        v = pe_value(c, ray_xb(ri, pj[i & 1], psc[i & 1], ri[6]));
+      }
+      tile[(row0 + r) * LDA + W + c] = __float2bfloat16_rn(v);
+    }
+    __syncwarp();
+    FS_MARK(FSP_OTHER);
+    for (int i = 0; i < 8; ++i) {
+      const float* bi = bs + B_T + i * W;
+      fs_wide<true>(rg, tile, row0, i == 0 ? W : 0, fs_layer(i).k_dim,
+                    [&](int c) { return bi[c]; });
+    }
+    FS_MARK(FSP_HEADS);
+    float sig = 0.f;
+    if (lane < 16) sig = softplus(dot_row(trow, hw, W) + bs[B_SIG]);
+    __syncwarp();
+    if constexpr (CAMERA) {
+      FS_MARK(FSP_OTHER);
+      fs_wide<false>(rg, tile, row0, 0, W, [&](int c) { return bs[B_BOTT + c]; });
+      // the embedding into columns 256..259 (260..319 zero), over the PE
+      // (layer 5 was its last reader)
+      FS_MARK(FSP_HEADS);
+#pragma unroll 4
+      for (int i = 0; i < 32; ++i) {
+        const int r = i >> 1, c = (i & 1) * 32 + lane;
+        const float v = row0 + r < nr && c < 4 ? rin[r * FS_IN + 8 + c] : 0.f;
+        tile[(row0 + r) * LDA + W + c] = __float2bfloat16_rn(v);
+      }
+      __syncwarp();
+      FS_MARK(FSP_OTHER);
+      // [albedo hidden | transient 0] over [bottleneck | embedding]
+      fs_wide<true>(rg, tile, row0, 0, CAT, [&](int c) {
+        return bs[c < HALF ? B_ALB0 + c : B_TR + c - HALF];
+      });
+      for (int i = 1; i < 4; ++i) {
+        const float* bi = bs + B_TR + i * HALF;
+        fs_narrow(rg, tile, row0, [&](int c) { return bi[c]; });
+      }
+      FS_MARK(FSP_HEADS);
+      float h[3];
+      if (lane < 16) {   // albedo
+        dot_rows<3>(h, trow, hw + W, HALF, HALF);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) h[c] = sigmoid(h[c] + bs[B_ALB1 + c]);
+      } else {           // t_s and t_beta, then z (deltam beside it)
+        float d[2];
+        dot_rows<2>(d, trow + HALF, hw + W + 3 * HALF, HALF, HALF);
+        h[0] = sigmoid(d[0] + bs[B_TS]);
+        h[1] = softplus(d[1] + bs[B_TB]);
+        h[2] = rin[(lane & 15) * FS_IN + 6];
+      }
+      FS_MARK(FSP_RESULTS);
+      if (own) {
+        float* rp = res + (g0 + row0 + (lane & 15)) * FS_RES;
+        *reinterpret_cast<float4*>(rp + (lane & 16) / 4) =
+            lane < 16 ? make_float4(sig, h[0], h[1], h[2])
+                      : make_float4(h[0], h[1], h[2], rin[(lane & 15) * FS_IN + 7]);
+      }
+    } else {
+      FS_MARK(FSP_RESULTS);
+      if (own && lane < 16) res[g0 + row0 + lane] = sig;
+    }
+    __syncwarp();
+    FS_MARK(FSP_OTHER);
+  }
+
+  // the per-ray sums, a thread a ray, in sample order over the ray's rows
+  // (the statements of fused_fwd_kernel's, which also visits the samples
+  // with deltam = 0, whose terms are exact zeros)
+  fs_consumers_sync();
+  FS_MARK(FSP_COMPOSITE);
+  for (int r = ray_lo + tid; r < ray_hi; r += FS_WARPS * 32) {
+    const long long ray = r;
+    const float* dr = deltam + ray * KPAD;
+    long long row = prefix[r];
+    if constexpr (CAMERA) {
+      const long long end = prefix[r + 1];
+      float excl = 0.f, a[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (; row < end; ++row) {
+        const float* rs = res + row * FS_RES;   // [sigma, albedo, t_s, t_beta, z, deltam]
+        const float sd = rs[0] * rs[7];
+        const float wgt = expf(-excl) * (1.f - expf(-sd));
+        a[0] += wgt * rs[6];
+        for (int c = 1; c < 6; ++c) a[c] += wgt * rs[c];
+        a[6] += wgt;
+        excl += sd;
+      }
+      for (int c = 0; c < 7; ++c) out[ray * ACC + c] = a[c];
+      out[ray * ACC + 7] = 0.f;
+    } else if (MODE == COARSE) {
+      float excl = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < KPAD; ++k) {
+        float w = 0.f;
+        if (dr[k] != 0.f) {
+          const float sd = res[row++] * dr[k];
+          w = expf(-excl) * (1.f - expf(-sd));
+          excl += sd;
+        }
+        out[ray * KPAD + k] = w;
+      }
+    } else {
+      // a sample counts when at least two valid samples remain from it on
+      const float* mr = mask + ray * KPAD;
+      float remaining = 0.f, ev = 0.f;
+      for (int k = 0; k < KPAD; ++k) remaining += mr[k];
+#pragma unroll 4
+      for (int k = 0; k < KPAD; ++k) {
+        if (dr[k] != 0.f) {
+          if (remaining >= 2.f) ev += res[row] * dr[k];
+          ++row;
+        }
+        remaining -= mr[k];
+      }
+      out[ray] = expf(-ev);
+    }
+  }
+  FS_END();
+}
+
+// The workspace of a streamed forward of R rays of KPAD samples (camera !=
+// 0: the camera's), in bytes, and its carve: the weight stream, the rows'
+// results and (ray, sample), the counts, the prefix and the blocks' first
+// rays, each 256-byte aligned. bench/stream_fwd.py and fused_render.py's
+// stream_fwd_workspace_bytes restate it.
+struct FsLayout {
+  size_t stream, res, meta, cnt, prefix, ray_start, total;
+};
+
+FsLayout fs_layout(bool camera, int R, int KPAD) {
+  auto up = [](size_t b) { return (b + 255) / 256 * 256; };
+  const size_t rows = (size_t)R * KPAD;
+  FsLayout L;
+  L.stream = 0;
+  L.res = L.stream + up((size_t)fs_stream_chunks(camera) * FS_CHUNK);
+  L.meta = L.res + up(rows * (camera ? FS_RES : 1) * sizeof(float));
+  L.cnt = L.meta + up(rows * sizeof(int2));
+  L.prefix = L.cnt + up((size_t)R * sizeof(int));
+  L.ray_start = L.prefix + up((size_t)(R + 1) * sizeof(int));
+  L.total = L.ray_start + up((size_t)(FS_MAX_BLOCKS + 1) * sizeof(int));
+  return L;
+}
+
+// the streamed forward's grid: one block an SM, at most FS_MAX_BLOCKS; 0 on
+// a CUDA error (its code in *err)
+int fs_grid(cudaError_t* err) {
+  int dev = 0, sms = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return *err == cudaSuccess ? std::min(sms, FS_MAX_BLOCKS) : 0;
+}
+
+long long fs_launch_count[3] = {0, 0, 0};   // stream_fwd_kernel launches, by mode
+
+// The plan's two launches (fs_count_kernel with the weight stream, then
+// fs_scan_kernel) into the workspace `ws` (fs_layout), for the grid of G
+// blocks.
+int launch_plan(bool camera, const float* deltam, const bf16* wm, int R, int KPAD, int G,
+                unsigned char* ws, cudaStream_t stream) {
+  const FsLayout L = fs_layout(camera, R, KPAD);
+  int* cnt = reinterpret_cast<int*>(ws + L.cnt);
+  const int nb_rays = (R + 7) / 8;
+  const int nb_stream = fs_stream_chunks(camera) * (FS_CHUNK / 16) / 256;
+  fs_count_kernel<<<nb_rays + nb_stream, 256, 0, stream>>>(
+      deltam, R, KPAD, cnt, nb_rays, wm, camera ? FS_LAYERS_CAM : FS_LAYERS_DENSITY,
+      reinterpret_cast<uint4*>(ws + L.stream));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fs_scan_kernel<<<1, 1024, 0, stream>>>(cnt, R, G, reinterpret_cast<int*>(ws + L.prefix),
+                                         reinterpret_cast<int*>(ws + L.ray_start));
+  return (int)cudaGetLastError();
+}
+
+bool fs_shape_ok(int R, int KPAD) {
+  return R > 0 && KPAD > 0 && KPAD % 8 == 0 && KPAD <= MAX_KPAD &&
+         (long long)R * KPAD < (1LL << 31);
+}
+
+template <int MODE>
+int launch_stream(const float* rayin, const float* z, const float* deltam, const float* mask,
+                  const void* wm_, const float* wb, float* out, int R, int KPAD, void* ws,
+                  cudaStream_t stream) {
+  if (!fs_shape_ok(R, KPAD) || ws == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr bool CAMERA = MODE == CAM;
+  const bf16* wm = static_cast<const bf16*>(wm_);
+  const FsLayout L = fs_layout(CAMERA, R, KPAD);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  cudaError_t e = cudaSuccess;
+  const int G = fs_grid(&e);
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch_plan(CAMERA, deltam, wm, R, KPAD, G, base, stream);
+  if (err != 0) return err;
+  e = cudaFuncSetAttribute(stream_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)FS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  stream_fwd_kernel<MODE><<<G, FS_THREADS, FS_SMEM, stream>>>(
+      rayin, z, deltam, mask, wm, wb, reinterpret_cast<const uint4*>(base + L.stream),
+      reinterpret_cast<const int*>(base + L.prefix), reinterpret_cast<const int*>(base + L.ray_start),
+      reinterpret_cast<int2*>(base + L.meta), reinterpret_cast<float*>(base + L.res), out, R,
+      KPAD);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++fs_launch_count[MODE];
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // backward: the cotangent chain (dgrad) and the weight gradients (wgrad)
 // ---------------------------------------------------------------------------
 
@@ -3236,24 +3902,68 @@ void eonerf_weight_layout(long long* sizes) {
   sizes[3] = B_BOTT;
 }
 
+// The plain forwards (stream_fwd_kernel and its plan's two launches). ws:
+// eonerf_stream_fwd_workspace_bytes of scratch, after the stream (a build
+// of an older tree, whose forwards take none, ignores it).
 int eonerf_camera_fwd(const float* rayin, const float* z, const float* deltam, const void* wm,
-                      const float* wb, float* acc, int R, int KPAD, void* stream) {
-  return launch<CAM, false>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD,
-                             static_cast<cudaStream_t>(stream));
+                      const float* wb, float* acc, int R, int KPAD, void* stream, void* ws) {
+  return launch_stream<CAM>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD, ws,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int eonerf_shadow_fwd(const float* rayin, const float* z, const float* deltam, const float* mask,
-                      const void* wm, const float* wb, float* geo, int R, int KPAD, void* stream) {
-  return launch<SHADOW, false>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD,
-                              static_cast<cudaStream_t>(stream));
+                      const void* wm, const float* wb, float* geo, int R, int KPAD, void* stream,
+                      void* ws) {
+  return launch_stream<SHADOW>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD, ws,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The coarse (density-only) pass's per-sample compositing weights, written
 // as (R, KPAD) into w.
 int eonerf_coarse_fwd(const float* rayin, const float* z, const float* deltam, const void* wm,
-                      const float* wb, float* w, int R, int KPAD, void* stream) {
-  return launch<COARSE, false>(rayin, z, deltam, nullptr, wm, wb, w, R, KPAD,
+                      const float* wb, float* w, int R, int KPAD, void* stream, void* ws) {
+  return launch_stream<COARSE>(rayin, z, deltam, nullptr, wm, wb, w, R, KPAD, ws,
                                static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch of a plain forward (camera != 0: the camera's), and its
+// carve (fs_layout): offsets of the weight stream, the rows' results, their
+// (ray, sample), the counts, the prefix, the blocks' first rays, then the
+// total.
+long long eonerf_stream_fwd_workspace_bytes(int camera, int R, int KPAD) {
+  return (long long)fs_layout(camera != 0, R, KPAD).total;
+}
+
+void eonerf_stream_fwd_layout(int camera, int R, int KPAD, long long* out) {
+  const FsLayout L = fs_layout(camera != 0, R, KPAD);
+  const size_t v[7] = {L.stream, L.res, L.meta, L.cnt, L.prefix, L.ray_start, L.total};
+  for (int i = 0; i < 7; ++i) out[i] = (long long)v[i];
+}
+
+// The plain forwards' grid on the current card (blocks), or minus a CUDA
+// error code.
+int eonerf_stream_fwd_grid() {
+  cudaError_t e;
+  const int G = fs_grid(&e);
+  return e == cudaSuccess ? G : -(int)e;
+}
+
+// Measurement and tests: the plan alone (the counts, the prefix, the
+// blocks' first rays and the weight stream into ws), for the grid of the
+// current card.
+int eonerf_stream_fwd_plan(int camera, const float* deltam, const void* wm, int R, int KPAD,
+                           void* ws, void* stream) {
+  if (!fs_shape_ok(R, KPAD) || ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  const int G = fs_grid(&e);
+  if (e != cudaSuccess) return (int)e;
+  return launch_plan(camera != 0, deltam, static_cast<const bf16*>(wm), R, KPAD, G,
+                     static_cast<unsigned char*>(ws), static_cast<cudaStream_t>(stream));
+}
+
+// stream_fwd_kernel launches made so far: camera, shadow, coarse.
+void eonerf_stream_fwd_launches(long long* out) {
+  for (int m = 0; m < 3; ++m) out[m] = fs_launch_count[m];
 }
 
 // Per-point density: pos (N, 3) -> sigma (N,).

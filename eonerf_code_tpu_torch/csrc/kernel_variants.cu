@@ -810,6 +810,52 @@ int launch_composite(const float* pos, const float* sd, const void* wm, const fl
   return (int)cudaGetLastError();
 }
 
+// The L2 read rate that the streamed forwards' weight ring sees
+// (bench/stream_fwd.py, step 1 of its design): every block reads the same
+// `bytes` of src (L2-resident after the first pass) `reps` times in 16 KB
+// chunks. mode 1: by bulk copies (the TMA) into an 8-stage shared ring, one
+// thread issuing, each stage re-armed once its last copy has landed, as the
+// forward's producer warp streams its weights; mode 0: by 16-byte
+// ld.global.cg loads of all the block's threads. out[block]: a word of what
+// was read, so nothing is optimized away.
+constexpr int L2_CHUNK = 16384, L2_STAGES = 8;
+
+__global__ void __launch_bounds__(THREADS, 1)
+l2_read_kernel(int mode, const uint4* __restrict__ src, long long bytes, int reps,
+               unsigned* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (mode == 0) {
+    unsigned x = 0u;
+    const long long n = bytes / 16;
+    for (int r = 0; r < reps; ++r)
+      for (long long v = threadIdx.x; v < n; v += THREADS) {
+        const uint4 u = __ldcg(src + v);
+        x ^= u.x ^ u.y ^ u.z ^ u.w;
+      }
+    if (threadIdx.x == 0 || x == 0x9e3779b9u) out[blockIdx.x] = x;
+    return;
+  }
+  const uint32_t ring = smem_addr(smem), bars = ring + L2_STAGES * L2_CHUNK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L2_STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const uint64_t policy = l2_evict_last();
+  const long long nch = bytes / L2_CHUNK, total = nch * reps;
+  for (long long q = 0; q < total; ++q) {
+    const int s = (int)(q % L2_STAGES);
+    if (q >= L2_STAGES) mbar_wait(bars + 8 * s, (uint32_t)((q / L2_STAGES - 1) & 1));
+    mbar_expect_tx(bars + 8 * s, L2_CHUNK);
+    bulk_g2s(ring + s * L2_CHUNK, reinterpret_cast<const char*>(src) + (q % nch) * L2_CHUNK,
+             L2_CHUNK, bars + 8 * s, policy);
+  }
+  for (long long q = total > L2_STAGES ? total - L2_STAGES : 0; q < total; ++q)
+    mbar_wait(bars + 8 * (int)(q % L2_STAGES), (uint32_t)((q / L2_STAGES) & 1));
+  out[blockIdx.x] = *reinterpret_cast<const unsigned*>(smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -912,6 +958,21 @@ int kv_composite(int epi, const float* pos, const float* sd, const void* wm, con
     case 2: return launch_composite<EPI_ACCMM>(pos, sd, wm, wb, out, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The L2 read rate (l2_read_kernel): `blocks` blocks each read the first
+// `bytes` (a multiple of 16,384) of src `reps` times; mode 1 by bulk
+// copies, 0 by loads. out: `blocks` words.
+int kv_l2_read(int mode, const void* src, long long bytes, int reps, int blocks, void* out,
+               void* stream) {
+  if (bytes <= 0 || bytes % L2_CHUNK != 0 || reps <= 0 || blocks <= 0 || mode < 0 || mode > 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mode == 1 ? L2_STAGES * L2_CHUNK + 8 * L2_STAGES : 0;
+  cudaError_t e = set_smem(l2_read_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  l2_read_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      mode, static_cast<const uint4*>(src), bytes, reps, static_cast<unsigned*>(out));
+  return (int)cudaGetLastError();
 }
 
 const char* kv_error_string(int code) {

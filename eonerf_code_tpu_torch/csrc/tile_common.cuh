@@ -222,6 +222,60 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// mbarriers and bulk copies (the TMA's copies without a tensor map): the
+// streamed forwards' weight ring (fused_render.cu) and the L2 read-rate
+// bench (kernel_variants.cu). bar and dst are shared-memory addresses.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the inits visible to the async proxy (the bulk copies' completions)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// this thread's arrival, and `bytes` more that copies must land before the
+// phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; a phase that never
+// completes (a lost arrival or copy) traps after about 2^28 tries, seconds,
+// so a fault ends the launch with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (++tries == (1u << 28)) __trap();
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the TMA, completing on the mbarrier `bar`; L2 policy `policy`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, int bytes, uint32_t bar,
+                                         uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// an L2 policy that keeps lines resident (the weights every tile re-reads)
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
 // Shared-memory matrix descriptor of a swizzled operand: start address,
 // leading and stride byte offsets, layout (1: 128-byte swizzle, 2: 64-byte).
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -247,6 +301,26 @@ __device__ __forceinline__ float dot_row(const bf16* a, const bf16* __restrict__
     s = fmaf(av.y, wv.y, s);
   }
   return s;
+}
+
+// dot_row of one tile row with N weight rows (w, w + ws, ...) at once: each
+// sum the same fmaf chain as dot_row's (the same bits), the N chains
+// interleaved so their latencies overlap.
+template <int N>
+__device__ __forceinline__ void dot_rows(float (&s)[N], const bf16* a, const bf16* w, int ws,
+                                         int k_dim) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) s[n] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < k_dim; k += 2) {
+    const float2 av = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + k));
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + n * ws + k));
+      s[n] = fmaf(av.x, wv.x, s[n]);
+      s[n] = fmaf(av.y, wv.y, s[n]);
+    }
+  }
 }
 
 // The weight ring, STAGES chunks of NC x KC bf16 (8 KB each) at `wst`,

@@ -82,11 +82,13 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eonerf_weight_layout.argtypes = [p]
     lib.eonerf_weight_layout.restype = None
-    lib.eonerf_camera_fwd.argtypes = [p, p, p, p, p, p, i, i, p]
+    # the plain forwards end with their workspace, which a build of an older
+    # tree (bench/ab_libraries.py) ignores
+    lib.eonerf_camera_fwd.argtypes = [p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_camera_fwd.restype = i
-    lib.eonerf_shadow_fwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
+    lib.eonerf_shadow_fwd.argtypes = [p, p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_shadow_fwd.restype = i
-    lib.eonerf_coarse_fwd.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.eonerf_coarse_fwd.argtypes = [p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_coarse_fwd.restype = i
     lib.eonerf_density_fwd.argtypes = [p, p, p, p, i, p]
     lib.eonerf_density_fwd.restype = i
@@ -145,7 +147,12 @@ def load_library():
                             ("eonerf_q8_bwd_layout", [i, i, i, ll, i, p], None),
                             ("eonerf_q8_bwd_plan", [i, ll, p], None),
                             ("eonerf_q8_chain_active_clusters", [i], i),
-                            ("eonerf_q8_bwd_launches", [p], None)):
+                            ("eonerf_q8_bwd_launches", [p], None),
+                            ("eonerf_stream_fwd_workspace_bytes", [i, i, i], ll),
+                            ("eonerf_stream_fwd_layout", [i, i, i, p], None),
+                            ("eonerf_stream_fwd_grid", [], i),
+                            ("eonerf_stream_fwd_plan", [i, p, p, i, i, p, p], i),
+                            ("eonerf_stream_fwd_launches", [p], None)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]
@@ -171,8 +178,9 @@ def load_variants_library():
     lib.kv_slab_bwd_pass.argtypes = [i] + [p] * 7 + [ll, ll, p]
     lib.kv_trunk_variant.argtypes = [i, p, p, p, p, ll, p]
     lib.kv_composite.argtypes = [i, p, p, p, p, p, ll, p]
+    lib.kv_l2_read.argtypes = [i, p, ll, i, i, p, p]
     for name in ("kv_bf16_chain", "kv_q_chain", "kv_i8_dyn", "kv_slab_bwd", "kv_slab_bwd_pass",
-                 "kv_trunk_variant", "kv_composite"):
+                 "kv_trunk_variant", "kv_composite", "kv_l2_read"):
         getattr(lib, name).restype = i
     lib.kv_error_string.argtypes = [i]
     lib.kv_error_string.restype = ctypes.c_char_p

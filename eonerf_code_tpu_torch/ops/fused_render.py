@@ -64,6 +64,7 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     Q8_POINTS,
     TRUNK_MAT_ELEMENTS,
     KernelWeights,
+    _MAT_SHAPES,
     Q8Weights,
     check_f32,
     check_weights,
@@ -91,6 +92,9 @@ from eonerf_code_tpu_torch.ops.volrend import exclusive_cumsum
 RAYIN_COLS = 16   # [o(3), d(3), emb(4), pad(6)]
 ACC_COLS = 8      # [depth, albedo r g b, t_s, t_beta, opacity, pad]
 MAX_KPAD = 1024   # the kernels keep every sample of a ray's results in shared memory
+# 16 KB weight chunks a 128-row tile of the streamed forwards reads (camera:
+# trunk and heads; shadow and coarse: the trunk)
+STREAM_CHUNKS = {True: 84, False: 60}
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +429,9 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_targe
                    stats=None):
     """Per-ray camera accumulators (R, 8) for rays (R, 16), z and deltam
     (R, K). CPU tensors: the plain version. CUDA tensors: the hand-written
-    bf16 kernel (raises if it cannot be built or launched); with ``q8``
-    (Q8Weights) the int8 trunk's kernels, :func:`camera_forward_q8`."""
+    bf16 kernel, stream_fwd_kernel over the samples with deltam != 0
+    (:func:`stream_fwd_plan`; raises if it cannot be built or launched); with
+    ``q8`` (Q8Weights) the int8 trunk's kernels, :func:`camera_forward_q8`."""
     if q8 is not None:
         return camera_forward_q8(weights, q8, rayin, z, deltam, tile_target, stats)
     if rayin.device.type == "cpu":
@@ -436,7 +441,8 @@ def camera_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_targe
     if r == 0:
         return acc
     launch("eonerf_camera_fwd", "camera_forward kernel launch", rayin.device, rayin,
-           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, acc, r, kpad)
+           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, acc, r, kpad,
+           after_stream=(_stream_workspace(True, r, kpad, rayin.device).data_ptr(),))
     camera_forward.launches += 1
     return acc
 
@@ -460,7 +466,8 @@ def shadow_forward(weights: KernelWeights, rayin, z, deltam, mask, q8=None, tile
         return geo
     launch("eonerf_shadow_fwd", "shadow_forward kernel launch", rayin.device, rayin,
            _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad), weights.mats,
-           weights.biases, geo, r, kpad)
+           weights.biases, geo, r, kpad,
+           after_stream=(_stream_workspace(False, r, kpad, rayin.device).data_ptr(),))
     shadow_forward.launches += 1
     return geo
 
@@ -483,12 +490,115 @@ def coarse_forward(weights: KernelWeights, rayin, z, deltam, q8=None, tile_targe
     if r == 0:
         return out[:, :z.shape[1]]
     launch("eonerf_coarse_fwd", "coarse_forward kernel launch", rayin.device, rayin,
-           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, out, r, kpad)
+           _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, out, r, kpad,
+           after_stream=(_stream_workspace(False, r, kpad, rayin.device).data_ptr(),))
     coarse_forward.launches += 1
     return out[:, :z.shape[1]]
 
 
 coarse_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the plain forwards' plan (csrc/fused_render.cu stream_fwd_kernel)
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK_BYTES = 16384   # a weight chunk: two 128-row halves, 32 deep, bf16
+STREAM_MAX_BLOCKS = 1024
+TILE_ROWS = 128
+
+
+def stream_fwd_layout(camera, r, kpad):
+    """Byte offsets of a plain forward's workspace (the library's
+    fs_layout; C entry ``eonerf_stream_fwd_layout``): the weight stream,
+    each row's results (camera: 8 floats, else 1) and its (ray, sample), the
+    rays' counts, their prefix, the blocks' first rays, then ``total``; each
+    part rounded up to 256 bytes."""
+    rows = r * kpad
+    parts = (("stream", STREAM_CHUNKS[camera] * STREAM_CHUNK_BYTES),
+             ("res", rows * (8 if camera else 1) * 4), ("meta", rows * 8), ("cnt", r * 4),
+             ("prefix", (r + 1) * 4), ("ray_start", (STREAM_MAX_BLOCKS + 1) * 4))
+    out, off = {}, 0
+    for name, nbytes in parts:
+        out[name] = off
+        off += -(-nbytes // 256) * 256
+    out["total"] = off
+    return out
+
+
+def _stream_workspace(camera, r, kpad, dev):
+    return torch.empty((stream_fwd_layout(camera, r, kpad)["total"],), dtype=torch.uint8,
+                       device=dev)
+
+
+def stream_fwd_plan(deltam, blocks):
+    """How the plain forwards (the camera, shadow and coarse kernels) cover
+    rays of per-sample ``deltam`` (R, KPAD) on a grid of ``blocks`` (the
+    card's SMs, C entry ``eonerf_stream_fwd_grid``), as the library's plan
+    kernels do. Only the samples with deltam != 0 are rows: a ray's in
+    sample order, after the rows of the rays before it. Returns int64
+    tensors: ``counts`` (R,); ``prefix`` (R + 1,), a ray's first row (the
+    total last); ``ray_start`` (blocks + 1,): block b owns rays
+    ray_start[b] .. ray_start[b + 1] - 1, the first of them the first ray
+    whose first row is at or past b * ceil(rows / blocks) (R if none);
+    ``rows`` and ``tiles`` (blocks,): its rows and 128-row tiles (a ray may
+    straddle its tiles); ``meta`` (rows, 2): each row's (ray, sample)."""
+    nz = deltam != 0
+    r = deltam.shape[0]
+    counts = nz.sum(dim=1).long()
+    prefix = torch.cat([torch.zeros((1,), dtype=torch.long), counts.cumsum(0)])
+    total = int(prefix[-1])
+    target = max(1, -(-total // blocks))
+    ray_start = torch.searchsorted(prefix, torch.arange(blocks + 1) * target).clamp(max=r)
+    ray_start[-1] = r
+    rows = prefix[ray_start[1:]] - prefix[ray_start[:-1]]
+    return {"counts": counts, "prefix": prefix, "ray_start": ray_start, "rows": rows,
+            "tiles": -(-rows // TILE_ROWS), "meta": nz.nonzero()}
+
+
+def _stream_sources(mats, camera):
+    """(wide, (n_out, k_dim) matrix) of each layer of the weight stream, in
+    its order: the trunk's eight, then (camera) the bottleneck, [albedo
+    hidden | transient 0] (the albedo rows zero past their 256 inputs) and
+    transient 1..3; mats the packed (out, in) matrices."""
+    views, off = [], 0
+    for n_in, n_out in _MAT_SHAPES:
+        views.append(mats[off:off + n_in * n_out].view(n_out, n_in))
+        off += n_in * n_out
+    layers = [(True, v) for v in views[:8]]
+    if camera:
+        alb0 = F.pad(views[10], (0, views[12].shape[1] - views[10].shape[1]))
+        layers += [(True, views[9]), (True, torch.cat([alb0, views[12]])),
+                   *((False, v) for v in views[13:16])]
+    return layers
+
+
+def stream_fwd_weights(mats, camera):
+    """The weight stream the plain forwards' plan writes (STREAM_CHUNKS
+    chunks of 8192 bf16), as the ring stages hold it: chunk halves of 128
+    (n, k) rows, 32 deep, unit u (8 values) of row n at u ^ ((n >> 1) & 3);
+    a wide layer's chunk is a 32-deep k slice, its halves output rows 0..127
+    and 128..255; a narrow one's a 64-deep slice, its halves the two 32-deep
+    parts."""
+    n = torch.arange(128)
+    unit = torch.arange(4)[None, :] ^ ((n[:, None] >> 1) & 3)   # stored unit -> its k unit
+    chunks = []
+    for wide, m in _stream_sources(mats, camera):
+        k = m.shape[1]
+        if wide:   # (halves, rows, k slices, units, 8) -> (slice, half, rows, ...)
+            b = m.reshape(2, 128, k // 32, 4, 8).permute(2, 0, 1, 3, 4)
+        else:      # (rows, k slices, halves, units, 8) -> (slice, half, rows, ...)
+            b = m.reshape(128, k // 64, 2, 4, 8).permute(1, 2, 0, 3, 4)
+        chunks.append(b[:, :, n[:, None], unit, :].reshape(-1, 8192))
+    return torch.cat(chunks)
+
+
+def stream_fwd_kernel_launches():
+    """Launches of stream_fwd_kernel the library has made so far, by mode:
+    {"camera", "shadow", "coarse"} (C entry ``eonerf_stream_fwd_launches``)."""
+    count = (ctypes.c_longlong * 3)()
+    _build.load_library().eonerf_stream_fwd_launches(count)
+    return dict(zip(("camera", "shadow", "coarse"), (int(c) for c in count)))
 
 
 def _workspace(camera, r, kpad, dev, saved=False):

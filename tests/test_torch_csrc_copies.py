@@ -12,12 +12,18 @@ from eonerf_code_tpu_torch.bench import backward_passes as bp
 from eonerf_code_tpu_torch.bench import csrc_copies as cc
 from eonerf_code_tpu_torch.bench import q8_backward as qb
 from eonerf_code_tpu_torch.bench import q8_trunk as qt
+from eonerf_code_tpu_torch.bench import stream_fwd as sf
 from eonerf_code_tpu_torch.ops import _build
 
 COPIES = {**{f"q8_backward.{tag}": subs for tag, subs in qb.ATTRIBUTION.items()},
           **{f"q8_trunk.{tag}": subs for tag, subs in qt.ATTRIBUTION.items()},
           **{f"backward_passes.{tag}": subs for tag, subs in bp.DGRAD_ATTRIBUTION.items()},
-          "q8_trunk.phases": qt.PHASE_SUBS}
+          "q8_trunk.phases": qt.PHASE_SUBS,
+          # fused_fwd_kernel and gemm stay in this tree as in the design the
+          # streamed forwards replaced, so its phase copy applies to both
+          "stream_fwd.parent_phases": sf.PARENT_SUBS,
+          **{f"stream_fwd.{tag}": subs for tag, subs in sf.ATTRIBUTION.items()},
+          **{f"stream_fwd.{tag}": subs for tag, subs in sf.CONFIGS.items()}}
 
 
 @pytest.fixture
@@ -28,12 +34,15 @@ def build_dir(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(COPIES))
 def test_every_bench_copy_applies_to_this_tree(build_dir, name):
-    """Each attribution or phase copy's substitutions match this tree's
-    fused_render.cu once each (a copy that no longer applies raises before
-    anything is built), and change it."""
+    """Each attribution, phase or configuration copy's substitutions match
+    this tree's fused_render.cu (or the header they name) once each (a copy
+    that no longer applies raises before anything is built), and change
+    it."""
     copy = cc.source_copy(name.replace(".", "_"), COPIES[name])
     assert copy.parent.parent == build_dir / "copies"
-    assert copy.read_text() != _build.SOURCE.read_text()
+    src = _build.SOURCE.parent
+    assert any((copy.parent / f.name).read_text() != f.read_text()
+               for f in src.iterdir() if f.suffix in (".cu", ".cuh"))
 
 
 def test_source_copy_refuses_a_pattern_not_matched_once(build_dir):
@@ -83,3 +92,25 @@ def test_in_turns_runs_in_order_then_back_and_restores_the_source(tmp_path):
         with cc.using(builds["a"]):
             raise ValueError
     assert _build.SOURCE == default
+
+
+def test_stream_fwd_phase_copy_defines_each_landmark(build_dir):
+    """The streamed forwards' FS_* landmarks are empty in the production
+    source and defined by the copy's prelude, their phases bench/
+    stream_fwd.py's PHASES in the order of the source's FsPhase; the
+    earlier design's copy (PARENT_SUBS) gets the FW_* prelude and marks
+    within its PARENT_PHASES."""
+    text = _build.SOURCE.read_text()
+    for macro in ("MARK(next)", "BEGIN()", "END()"):
+        assert f"#define FS_{macro}\n" in text
+    enum = re.search(r"enum FsPhase \{([^}]*)\}", text).group(1)
+    assert [n.strip()[4:].lower() for n in enum.split(",")] == list(sf.PHASES)
+    copy = sf.phase_source()
+    prelude = cc.summed_phase_prelude("bench/stream_fwd.py", "FS", len(sf.PHASES))
+    assert copy.read_text() == prelude + text
+    for macro in ("MARK(next)", "BEGIN()", "END()", "CALL(base)", "NEXT_CALL()", "TILE()"):
+        assert f"#define FS_{macro} " in prelude
+    parent = cc.source_copy("fwd_phases_parent", sf.PARENT_SUBS,
+                            cc.summed_phase_prelude("x", "FW", len(sf.PARENT_PHASES)))
+    marks = [int(m) for m in re.findall(r"FW_(?:MARK|CALL)\((\d+)\)", parent.read_text())]
+    assert marks and max(marks) + 4 * 12 < len(sf.PARENT_PHASES)

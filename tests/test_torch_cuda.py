@@ -1455,3 +1455,137 @@ def test_dgrad_library_yardstick_computes_the_chain(dev, weights):
                                                                          for i in range(7, -1, -1)]
     for s, o in zip(sums, offs):
         assert _rel_l2(s, grads[1][o:o + s.numel()]) < GRAD_REL_L2
+
+
+# ---- the plain forwards' streamed kernel (stream_fwd_kernel) ----
+
+# ragged shapes of the main path's forwards: camera K=127 and 143, shadow
+# K=63, coarse K=95, rays that leave a block's last tile partial
+STREAM_CASES = [("camera", 1021, 127), ("camera", 1021, 143), ("shadow", 1023, 63),
+                ("coarse", 1021, 95)]
+
+
+def _stream_call(op, weights, rayin, z, deltam, mask):
+    """(kernel output, plain output) of one of the plain forwards, the
+    camera's and coarse deltam with the 1e10 last-valid sentinel."""
+    if op == "shadow":
+        args = (rayin, z, deltam, mask)
+        return fr.shadow_forward(weights, *args), fr.shadow_forward_reference(weights, *args)
+    args = (rayin, z, _camera_deltam(deltam, mask))
+    if op == "camera":
+        return fr.camera_forward(weights, *args), fr.camera_forward_reference(weights, *args)
+    return fr.coarse_forward(weights, *args), fr.coarse_forward_reference(weights, *args)
+
+
+@pytest.mark.parametrize("op,r,k", STREAM_CASES)
+def test_stream_forwards_match_plain_versions(dev, weights, op, r, k):
+    """The streamed forwards at ragged shapes with scattered zero deltam
+    (a fifth of the samples) and a ray with none in the cube, against the
+    plain versions at the kernel gate; that ray's camera sums are exact
+    zeros, its sun visibility exactly 1, its coarse weights exact zeros;
+    the same bits twice; one launch of the kernel a call, by the library's
+    counter."""
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=r + k)
+    before = fr.stream_fwd_kernel_launches()
+    got, ref = _stream_call(op, weights, rayin, z, deltam, mask)
+    _check(got, ref, COARSE_TOL if op == "coarse" else TOL)
+    after = fr.stream_fwd_kernel_launches()
+    assert after[op] == before[op] + 1 and sum(after.values()) == sum(before.values()) + 1
+    assert float(got[5].abs().max()) == 0.0 if op != "shadow" else float(got[5]) == 1.0
+    again, _ = _stream_call(op, weights, rayin, z, deltam, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("op", ["camera", "shadow", "coarse"])
+def test_stream_forward_ray_across_tiles(dev, weights, op):
+    """A call whose blocks own a ray of 400 in-cube samples (four tiles,
+    the ray's sums carried across three tile edges) beside short rays."""
+    rayin, z, deltam, mask = _inputs(dev, 40, 400, seed=3)
+    mask[0] = 1.0
+    deltam[0] = torch.diff(z[0], append=torch.full((1,), 2.0, device=dev))
+    plan = fr.stream_fwd_plan(fr._padded(deltam, 400).cpu(), _sms(dev))
+    b = int(torch.searchsorted(plan["ray_start"], torch.tensor(0), side="right")) - 1
+    assert int(plan["tiles"][b]) >= 4
+    got, ref = _stream_call(op, weights, rayin, z, deltam, mask)
+    _check(got, ref, COARSE_TOL if op == "coarse" else TOL)
+
+
+def test_stream_forwards_with_no_sample_in_the_cube(dev, weights):
+    """Every deltam zero: no row at all; camera sums exact zeros, sun
+    visibility exactly 1, coarse weights exact zeros."""
+    rayin, z, deltam, mask = _inputs(dev, 300, 63, seed=9)
+    zero = torch.zeros_like(deltam)
+    assert float(fr.camera_forward(weights, rayin, z, zero).abs().max()) == 0.0
+    assert bool((fr.shadow_forward(weights, rayin, z, zero, mask) == 1.0).all())
+    assert float(fr.coarse_forward(weights, rayin, z, zero).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("camera,r,k", [(True, 4096, 127), (True, 1021, 143), (False, 4096, 63),
+                                        (False, 7, 1000)])
+def test_stream_plan_matches_the_library(dev, weights, camera, r, k):
+    """fused_render.stream_fwd_plan and stream_fwd_layout (the CPU tests'
+    mirrors) are the library's: its counts, prefix and blocks' first rays
+    (C entry eonerf_stream_fwd_plan on this card's grid), its workspace
+    layout, and its weight stream the mirror's bit for bit."""
+    rayin, z, deltam, mask = _inputs(dev, r, k, seed=r)
+    kpad = fr.kpad_of(k)
+    dm = fr._padded(deltam, kpad)
+    lib = _build.load_library()
+    grid = lib.eonerf_stream_fwd_grid()
+    assert grid == min(_sms(dev), fr.STREAM_MAX_BLOCKS)
+    lay = fr.stream_fwd_layout(camera, r, kpad)
+    got = (ctypes.c_longlong * 7)()
+    lib.eonerf_stream_fwd_layout(int(camera), r, kpad, got)
+    assert list(got) == [lay[key] for key in ("stream", "res", "meta", "cnt", "prefix",
+                                              "ray_start", "total")]
+    ws = torch.zeros((lay["total"],), dtype=torch.uint8, device=dev)
+    ff.launch("eonerf_stream_fwd_plan", "stream plan", dev, int(camera), dm, weights.mats, r,
+              kpad, ws)
+    torch.cuda.synchronize()
+    ints = lambda key, n: ws[lay[key]:lay[key] + 4 * n].view(torch.int32).long().cpu()  # noqa: E731
+    plan = fr.stream_fwd_plan(dm.cpu(), grid)
+    assert torch.equal(ints("cnt", r), plan["counts"])
+    assert torch.equal(ints("prefix", r + 1), plan["prefix"])
+    assert torch.equal(ints("ray_start", grid + 1), plan["ray_start"])
+    nbytes = fr.STREAM_CHUNKS[camera] * fr.STREAM_CHUNK_BYTES
+    stream = ws[:nbytes].view(torch.int16).view(-1, 8192).cpu()
+    want = fr.stream_fwd_weights(weights.mats.cpu(), camera).view(torch.int16)
+    assert torch.equal(stream, want)
+
+
+def test_plain_forwards_are_the_save_forwards_bits(dev, weights):
+    """The streamed camera and shadow forwards give the bits of the save
+    forwards (fused_fwd_kernel's products, heads and sums) at the render's
+    and a training batch's shapes, with the cube's zero deltam."""
+    for r, k in ((1024, 127), (300, 143), (1024, 63)):
+        cam, _, sh, _ = _saved_case(dev, r, k, seed=k)
+        assert torch.equal(fr.camera_forward(weights, *cam),
+                           fr.camera_forward_save(weights, *cam)[0])
+        assert torch.equal(fr.shadow_forward(weights, *sh), fr.shadow_forward_save(weights, *sh)[0])
+
+
+def test_render_launches_the_stream_kernels(dev):
+    """render_rays on a kernel-backed field (no gradient: the plain
+    forwards) launches the streamed kernel once per op: camera and shadow,
+    and with hierarchical sampling the coarse pass too; finite outputs."""
+    from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
+    from eonerf_code_tpu_torch.render import satellite as sat
+    from eonerf_code_tpu_torch.render.nadir import nadir_rays_with_sun
+
+    field = EONerfField(3, compute_dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(4))
+    kf = KernelField(field)
+    rays_np, _, _ = nadir_rays_with_sun(24, 24, 35.0, 140.0, np.array([256.0, 256.0, 60.0]))
+    rays = satrays_from_tensor(torch.from_numpy(rays_np).to(dev),
+                               torch.zeros(rays_np.shape[0], dtype=torch.long, device=dev))
+    for cfg, coarse in ((sat.RenderConfig(n_samples=64, sc_n_samples=32), 0),
+                        (sat.RenderConfig(n_samples=48, n_importance=24, sc_n_samples=32), 1)):
+        before = fr.stream_fwd_kernel_launches()
+        with torch.no_grad():
+            out = sat.render_rays(kf, rays, cfg, True, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        after = fr.stream_fwd_kernel_launches()
+        assert {m: after[m] - before[m] for m in after} == {"camera": 1, "shadow": 1,
+                                                             "coarse": coarse}
+        assert all(bool(torch.isfinite(v).all()) for v in out.values())
