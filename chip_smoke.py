@@ -32,9 +32,14 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  samples and TFLOP/s reached; for the streamed camera, shadow
                  and coarse forwards the rows they computed (the samples
                  with deltam != 0) against the padded samples, and a
-                 table of the clock cycles a tile spends in each phase
+                 table of the clock cycles a tile spends in each phase,
+                 the point modes' field and density tiles with them
                  (stream_fwd_phases, from an instrumented copy of csrc/
-                 built beside the libraries; bench/stream_fwd.py). Then the
+                 built beside the libraries; bench/stream_fwd.py); the
+                 point forwards also at ragged point counts (1, 127, 129
+                 and a partial last tile: point_fwd_ragged), every point
+                 forward's call one launch of its mode by the library's
+                 counter (fused_field.point_fwd_kernel_launches). Then the
                  int8 trunk tier's
                  launches at the same shapes (forwards in scale groups of the
                  2048-row target, backwards of the 1024-row one, int8 and
@@ -111,7 +116,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  (96 + 48; the coarse kernel once per step; 20 steps, then
                  10 timed), a compact one to occupancy tightening (12
                  steps, grid updates at steps 0 and 8, each with the
-                 entropy probe through the density kernel). The tightening
+                 entropy probe through the density kernel, by the wrapper's
+                 count and the library's). The tightening
                  gates need a stable history that a few steps cannot build:
                  after the first grid update the phase seeds five copies of
                  its occupied fraction, as the JAX package's tests seed a
@@ -121,7 +127,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  diagnostics on, which take the per-sample branch: the
                  field kernel once per chunk, the density kernel three times
                  (shadow pass, downward and upward probe), the camera and
-                 shadow kernels never. Outputs finite, entropy in
+                 shadow kernels never, by the wrappers' counts and the
+                 library's (the point modes' launches). Outputs finite, entropy in
                  [0, log10(127)], the probes in [0, 1]; on a 1024-ray subset
                  depth and rgb against the fused branch, the diagnostics
                  against the per-sample module path; rays/s and chunk ms
@@ -131,8 +138,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  branch), batch 1024, 128 camera and 64 shadow samples, 20
                  steps on the pool, shadows and the beta loss from step 10:
                  the field kernel forward and backward once per step, the
-                 density kernel forward and backward once per shadow step.
-                 Losses finite, parameters moved, the whole-step gradient of
+                 density kernel forward and backward once per shadow step
+                 (the forwards by the library's count as well). Losses finite, parameters moved, the whole-step gradient of
                  one batch against the per-sample module path; then 10
                  timed steps.
 10. render_q8  - the phase-3 and phase-5 sweeps through
@@ -487,6 +494,23 @@ def main():
         now = fr.stream_fwd_kernel_launches()
         return {f"{m}_fwd": now[m] - before[m] for m in now}
 
+    def point_launches_since(before):
+        """Launches of stream_fwd_kernel's point modes by op since the
+        library's counts `before` (fused_field.point_fwd_kernel_launches)."""
+        now = ff.point_fwd_kernel_launches()
+        return {f"{m}_fwd": now[m] - before[m] for m in now}
+
+    def point_launch(name, fn):
+        """fn(), a call of the point forward `name`, which must launch its
+        point mode once by the library's counters, and no other streamed
+        forward in its place."""
+        before, before_rays = ff.point_fwd_kernel_launches(), fr.stream_fwd_kernel_launches()
+        out = fn()
+        got = {**point_launches_since(before), **stream_launches_since(before_rays)}
+        if got != {k: int(k == name) for k in got}:
+            raise AssertionError(f"{name}: the library counted {got}, not one launch of its mode")
+        return out
+
     def record(name, k, row):
         """The first shape of a kernel is its summary row; another shape
         that the main path gives it goes beside it, under other_shapes."""
@@ -563,7 +587,8 @@ def main():
 
     # where a streamed forward's tile goes: clock cycles a tile of each phase
     # (bench/stream_fwd.py, the instrumented copy built beside the libraries)
-    for case, res in sf.phases(built=fwd_phase_src).items():
+    for case, res in {**sf.phases(built=fwd_phase_src),
+                      **sf.phases(built=fwd_phase_src, cases=("field", "density"))}.items():
         emit({"phase": "kernels", "name": "stream_fwd_phases", "case": case, **res,
               "phases": list(sf.PHASES), "card": card})
 
@@ -652,7 +677,7 @@ def main():
                         ("_density_fwd_kernel", "fused_field.py")),
     }
     for name, (kern, plain, n_rows, k, n_work, nbytes, (tpu_fn, module)) in extra.items():
-        got = kern()
+        got = point_launch(name, kern) if name == "density_fwd" else kern()
         ref = plain()
         torch.cuda.synchronize()
         err = (got - ref).abs()
@@ -732,32 +757,39 @@ def main():
          lambda: ff.density_forward_reference(kw, sc_pos), sc_pos.shape[0], density_macs, 1,
          sc_pos.numel() * 4 + density_bytes + sc_pos.shape[0] * 4, "_density_fwd_kernel"),
     ]
+
+    def point_fwd_errors(name, got, ref, n_pts):
+        """(errors, ok, largest absolute error, tolerance) of a point
+        forward's output: softplus outputs (sigma, t_beta) relative to their
+        largest value, sigmoid outputs (albedo, t_s) as the forward kernels,
+        the field's two pad columns exact zeros."""
+        got, ref = got.reshape(n_pts, -1), ref.reshape(n_pts, -1)
+        soft = [0, 5] if name == "field_fwd" else [0]
+        errs = {}
+        for c in soft:
+            e, sc = (got[:, c] - ref[:, c]).abs(), float(ref[:, c].abs().max())
+            errs[f"col{c}_max_rel"] = float(e.max()) / sc
+            errs[f"col{c}_mean_rel"] = float(e.mean()) / sc
+        ok = all(errs[f"col{c}_max_rel"] <= DENSITY_TOL["max_rel"]
+                 and errs[f"col{c}_mean_rel"] <= DENSITY_TOL["mean_rel"] for c in soft)
+        if name == "field_fwd":
+            e = (got[:, 1:5] - ref[:, 1:5]).abs()
+            errs.update(sigmoid_max_abs=float(e.max()), sigmoid_mean_abs=float(e.mean()),
+                        pad_max_abs=float(got[:, 6:].abs().max()))
+            ok = ok and (errs["sigmoid_max_abs"] <= KERNEL_TOL["max_abs"]
+                         and errs["sigmoid_mean_abs"] <= KERNEL_TOL["mean_abs"]
+                         and errs["pad_max_abs"] == 0.0)
+        ok = ok and bool(torch.isfinite(got).all())
+        return (errs, ok, float((got - ref).abs().max()),
+                {"softplus_rel": DENSITY_TOL, "sigmoid_abs": KERNEL_TOL})
+
     for name, kern, plain, n_pts, macs, passes, nbytes, tpu_fn in point_cases:
-        got = kern()
+        got = point_launch(name, kern) if passes == 1 else kern()
         ref = plain()
         torch.cuda.synchronize()
         if passes == 1:
-            got, ref = got.reshape(n_pts, -1), ref.reshape(n_pts, -1)
             finite = bool(torch.isfinite(got).all())
-            # softplus outputs (sigma, t_beta) relative to their largest value,
-            # sigmoid outputs (albedo, t_s) as the forward kernels
-            soft = [0, 5] if name == "field_fwd" else [0]
-            errs = {}
-            for c in soft:
-                e, sc = (got[:, c] - ref[:, c]).abs(), float(ref[:, c].abs().max())
-                errs[f"col{c}_max_rel"] = float(e.max()) / sc
-                errs[f"col{c}_mean_rel"] = float(e.mean()) / sc
-            ok = all(errs[f"col{c}_max_rel"] <= DENSITY_TOL["max_rel"]
-                     and errs[f"col{c}_mean_rel"] <= DENSITY_TOL["mean_rel"] for c in soft)
-            if name == "field_fwd":
-                e = (got[:, 1:5] - ref[:, 1:5]).abs()
-                errs.update(sigmoid_max_abs=float(e.max()), sigmoid_mean_abs=float(e.mean()),
-                            pad_max_abs=float(got[:, 6:].abs().max()))
-                ok = ok and (errs["sigmoid_max_abs"] <= KERNEL_TOL["max_abs"]
-                             and errs["sigmoid_mean_abs"] <= KERNEL_TOL["mean_abs"]
-                             and errs["pad_max_abs"] == 0.0)
-            max_err = float((got - ref).abs().max())
-            tol = {"softplus_rel": DENSITY_TOL, "sigmoid_abs": KERNEL_TOL}
+            errs, ok, max_err, tol = point_fwd_errors(name, got, ref, n_pts)
         else:
             rel, max_err = grad_errors(ff, got, ref)
             finite = all(bool(torch.isfinite(t).all()) for t in got)
@@ -797,6 +829,24 @@ def main():
         if not (finite and ok):
             raise AssertionError(f"{name} at {n_pts} points: kernel disagrees with its plain "
                                  f"version ({errs}, finite {finite})")
+    # the point modes at ragged point counts: one point, one short of a
+    # tile, one past it, and a count whose last block ends in a partial
+    # tile (the chunk's points, each with its ray's embedding)
+    for n_pts in (1, 127, 129, 128 * 2016 + 77):
+        pts, embs = pos_f[:n_pts], emb_f[:n_pts]
+        for name, kern, plain in (
+                ("field_fwd", lambda: ff.field_forward(kw, pts, embs),
+                 lambda: ff.field_forward_reference(kw, pts, embs)),
+                ("density_fwd", lambda: ff.density_forward(kw, pts),
+                 lambda: ff.density_forward_reference(kw, pts))):
+            got = point_launch(name, kern)
+            errs, ok, max_err, tol = point_fwd_errors(name, got, plain(), n_pts)
+            emit({"phase": "kernels", "name": "point_fwd_ragged", "op": name, "points": n_pts,
+                  "blocks": _build.load_library().eonerf_point_fwd_blocks(n_pts), "errors": errs,
+                  "max_abs_err": max_err, "tolerance": tol, "card": card})
+            if not ok:
+                raise AssertionError(f"{name} at {n_pts} points: kernel disagrees with its "
+                                     f"plain version ({errs})")
     point_ms = {"field_fwd_chunk": kernel_rows["field_fwd"]["ms"],
                 "density_fwd_chunk": kernel_rows["density_fwd"]["other_shapes"][-1]["ms"],
                 "field_fwd_batch": time_ms(torch, lambda: ff.field_forward(kw, pos_b, emb_b), 10),
@@ -1496,11 +1546,14 @@ def main():
     before_w = [p.detach().clone() for p in tw.field.parameters()]
     for fn in auto_counted.values():
         fn.launches = 0
+    point_before = ff.point_fwd_kernel_launches()
     tw.run(max_steps=WIDE_STEPS, log_every=10 ** 9)
     launches_w = {n: fn.launches for n, fn in auto_counted.items()}
+    launches_w["density_fwd_library"] = point_launches_since(point_before)["density_fwd"]
     half = WIDE_STEPS - WIDE_STEPS // 2
     expect_w = {"coarse_fwd": WIDE_STEPS, "density_fwd": 0, "camera_fwd": WIDE_STEPS,
-                "shadow_fwd": half, "camera_bwd": WIDE_STEPS, "shadow_bwd": half}
+                "shadow_fwd": half, "camera_bwd": WIDE_STEPS, "shadow_bwd": half,
+                "density_fwd_library": 0}
     wide = branch_result(tw, before_w, losses_w, launches_w, expect_w,
                          {"grid_occupied": float(tw.occ_grid.binaries.float().mean())})
     step_ms_w = timed_run(tw, WIDE_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS   # no grid update
@@ -1519,6 +1572,7 @@ def main():
     before_c = [p.detach().clone() for p in tc.field.parameters()]
     for fn in auto_counted.values():
         fn.launches = 0
+    point_before = ff.point_fwd_kernel_launches()
     tc.run(max_steps=1, log_every=10 ** 9)
     # seed the stability gate's history with the first update's fraction
     tc._occ_frac_hist = tc._occ_frac_hist[-1:] * 5
@@ -1529,11 +1583,12 @@ def main():
     step_ms_c = timed_run(tc, COMPACT_UPDATE_EVERY) * 1e3 / n_tight
     tc.run(max_steps=COMPACT_STEPS, log_every=10 ** 9)
     launches_c = {n: fn.launches for n, fn in auto_counted.items()}
+    launches_c["density_fwd_library"] = point_launches_since(point_before)["density_fwd"]
     kernel_rows["density_fwd"]["launches"] = launches_c["density_fwd"]
     n_updates = -(-COMPACT_STEPS // COMPACT_UPDATE_EVERY)
     expect_c = {"coarse_fwd": 0, "density_fwd": n_updates, "camera_fwd": COMPACT_STEPS,
                 "shadow_fwd": COMPACT_STEPS, "camera_bwd": COMPACT_STEPS,
-                "shadow_bwd": COMPACT_STEPS}
+                "shadow_bwd": COMPACT_STEPS, "density_fwd_library": n_updates}
     t0 = time.perf_counter()
     tc._occ_update()
     torch.cuda.synchronize()
@@ -1562,6 +1617,7 @@ def main():
                      "camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward}
     for fn in point_counted.values():
         fn.launches = 0
+    point_before = ff.point_fwd_kernel_launches()   # the library's own counts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_d = sat.render_image(rf, rays_all, cfg_d, shadows=True, chunk=N_CHUNK,
@@ -1569,12 +1625,14 @@ def main():
     torch.cuda.synchronize()
     seconds_d = time.perf_counter() - t0
     launches_d = {n: fn.launches for n, fn in point_counted.items()}
+    launches_d.update({f"{n}_library": c for n, c in point_launches_since(point_before).items()})
     kernel_rows["field_fwd"]["launches"] = launches_d["field_fwd"]
     kernel_rows["density_fwd"]["launches_by_path"] = {
         "train_auto": kernel_rows["density_fwd"]["launches"],
         "render_diag": launches_d["density_fwd"]}
     expect_d = {"field_fwd": n_chunks, "density_fwd": 3 * n_chunks, "camera_fwd": 0,
-                "shadow_fwd": 0}
+                "shadow_fwd": 0, "field_fwd_library": n_chunks,
+                "density_fwd_library": 3 * n_chunks}
     bad_d = [k for k in sat.OUTPUT_KEYS
              if tuple(out_d[k].shape) != (n_rays, widths.get(k, 1))
              or not bool(torch.isfinite(out_d[k]).all())]
@@ -1657,11 +1715,14 @@ def main():
     before_t = [p.detach().clone() for p in field_t.parameters()]
     for fn in diag_counted.values():
         fn.launches = 0
+    point_before = ff.point_fwd_kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses_d = [float(v) for v in diag_steps(0, TRAIN_STEPS)]
     first_d = time.perf_counter() - t0
     launches_td = {n: fn.launches for n, fn in diag_counted.items()}
+    launches_td.update({f"{n}_library": c
+                        for n, c in point_launches_since(point_before).items()})
     for name in ("field_bwd", "density_bwd"):
         kernel_rows[name]["launches"] = launches_td[name]
     kernel_rows["density_fwd"]["launches_by_path"]["train_diag"] = launches_td["density_fwd"]
@@ -1669,7 +1730,8 @@ def main():
     shadow_steps = TRAIN_STEPS - TRAIN_STEPS // 2
     expect_td = {"field_fwd": TRAIN_STEPS, "field_bwd": TRAIN_STEPS, "density_fwd": shadow_steps,
                  "density_bwd": shadow_steps, "camera_fwd": 0, "camera_bwd": 0, "shadow_fwd": 0,
-                 "shadow_bwd": 0}
+                 "shadow_bwd": 0, "field_fwd_library": TRAIN_STEPS,
+                 "density_fwd_library": shadow_steps}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     diag_steps(TRAIN_STEPS, TRAIN_STEPS + TIMED_STEPS)

@@ -26,7 +26,7 @@ from eonerf_code_tpu_torch.bench.kernel_variants import (
     resolve_device,
     time_ms,
 )
-from eonerf_code_tpu_torch.bench.stream_fwd import render_chunk
+from eonerf_code_tpu_torch.bench.stream_fwd import POINT_CASES, render_chunk
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
@@ -47,7 +47,8 @@ def cases(device):
     each a launch of the int8 trunk (and the heads on gemm); and the
     forwards on a render chunk with its real cube masks
     (bench/stream_fwd.py render_chunk: camera K=127 and 143, shadow, coarse),
-    where deltam is zero outside the cube. The int8 calls
+    where deltam is zero outside the cube, and the field and density
+    forwards on its points (POINT_CASES, as ``<case>_chunk``). The int8 calls
     take ``stats`` (:func:`_outputs` compares their group amax and, for the
     forwards, the stream columns the trunk wrote)."""
     kw, _ = bench_weights(device)
@@ -77,10 +78,11 @@ def cases(device):
         return saved["acts"]
 
     # a render chunk with its real cube masks (a quarter of the shadow
-    # samples in the cube; the streamed forwards skip the rest)
+    # samples in the cube; the streamed forwards skip the rest), and the
+    # per-point forwards on its points
     kw_r, chunk = render_chunk(device)
-    cube = {f"{name}_fwd_cube": (lambda op=op, args=args: op(kw_r, *args))
-            for name, (op, args) in chunk.items()}
+    cube = {(f"{name}_chunk" if name in POINT_CASES else f"{name}_fwd_cube"):
+            (lambda op=op, args=args: op(kw_r, *args)) for name, (op, args) in chunk.items()}
     return {**cube, "camera_fwd": lambda: fr.camera_forward(kw, *render),
             "camera_fwd_k143": lambda: fr.camera_forward(kw, *render143),
             "shadow_fwd": lambda: fr.shadow_forward(kw, *render_sh),

@@ -2,10 +2,14 @@
 render chunk's shapes and with its real cube masks (4096 rays of the
 512x512 nadir sweep that chip_smoke.py renders: camera K=127 and, after
 sample_pdf, K=143; shadow K=63, about a quarter of its samples in the cube;
-coarse K=95).
+coarse K=95), and the per-point field and density forwards on the chunk's
+points (POINT_CASES: the field on its 520,192 camera-sample points, each
+with its ray's embedding, and on a training batch's 130,048; the density
+on its 258,048 shadow-sample points, on a batch's 64,512 and on the
+entropy probe's 131,072).
 
     python -m eonerf_code_tpu_torch.bench.stream_fwd l2
-    python -m eonerf_code_tpu_torch.bench.stream_fwd phases [OTHER/fused_render.cu]
+    python -m eonerf_code_tpu_torch.bench.stream_fwd phases [OTHER/fused_render.cu] [CASE ...]
     python -m eonerf_code_tpu_torch.bench.stream_fwd turns OTHER/fused_render.cu [reps]
     python -m eonerf_code_tpu_torch.bench.stream_fwd configs [NAME ...]
     python -m eonerf_code_tpu_torch.bench.stream_fwd attribution [NAME ...]
@@ -22,9 +26,13 @@ forward: this tree's stream_fwd_kernel (its FS_* landmarks, empty in the
 production source) or, given another tree's fused_render.cu that lacks
 them, that tree's fused_fwd_kernel<MODE, false> on tile_common.cuh's gemm
 (landmarks put in by PARENT_SUBS): per gemm call its ring prologue, its
-ring waits (barriers), its products and its epilogue. `turns` times this
-tree's forwards and the render sweeps against another tree's build in
-turns (other, this, this, other). `configs` builds copies of this tree
+ring waits (barriers), its products and its epilogue; for the point cases
+of a tree whose point forwards are point_kernel<FIELD, false> (one block
+a 128-point tile, launch_point), that kernel on gemm, phased by the same
+PARENT_SUBS. `turns` times this tree's forwards and the render sweeps
+(render_diag, with ray entropy and the nadir diagnostics, beside the
+others) against another tree's build in turns (other, this, this,
+other). `configs` builds copies of this tree
 with another configuration of the kernel (CONFIGS), holds their outputs
 to this tree's bit for bit and times them in turns with their phases;
 `attribution` does the same with copies that each take one cost out
@@ -55,6 +63,10 @@ from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 
 N_CHUNK = 4096
+N_BATCH = 1024                           # rays of a training batch
+N_PROBE_RAYS, N_PROBE_SAMPLES = 2048, 64   # the trainer's entropy probe
+POINT_CASES = ("field", "field_batch", "density", "density_probe", "density_batch")
+PHASE_CASES = ("camera", "camera_k143", "shadow")   # the ray cases phased by default
 CHUNK_BYTES = 16384
 # bf16 elements a 128-row tile of the earlier design staged through its
 # ring: the camera's trunk, bottleneck, albedo hidden, transient 0..3 (the
@@ -84,7 +96,9 @@ def render_chunk(device, seed=1):
     stratified camera samples (K=127) and hierarchical ones (96 + 48 after
     sample_pdf, K=143), shadow rays from plausible surface points (K=63) and
     the coarse pass's 96 stratified samples (K=95), every deltam with the
-    cube mask and the 1e10 last-valid sentinel."""
+    cube mask and the 1e10 last-valid sentinel; and POINT_CASES, the
+    per-point forwards on the chunk's points as chip_smoke.py builds them
+    (every point counts, in the cube or not)."""
     from eonerf_code_tpu_torch.models.fused import make_render_field
     from eonerf_code_tpu_torch.ops.fused_field import pack_params
     from eonerf_code_tpu_torch.ops.sampling import set_last_valid
@@ -119,7 +133,25 @@ def render_chunk(device, seed=1):
     c_mid, c_dm = camera(sat.RenderConfig(n_samples=96))
     rayin_c = torch.cat([sub.origins, sub.viewdirs, torch.zeros((N_CHUNK, 10), device=device)],
                         dim=1).contiguous()
-    return kw, {"camera": (fr.camera_forward, (rayin, z_mid, deltam)),
+
+    def points(o, d, z):
+        return (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+
+    pos_f = points(sub.origins, sub.viewdirs, z_mid)
+    emb_f = emb[:, None, :].expand(-1, z_mid.shape[1], -1).reshape(-1, 4).contiguous()
+    sc_pos = points(sc_o, -sub.sundirs, sc_z)
+    # the entropy probe: 64 uniform samples on [near, far] of 2048 rays
+    probe = sat.SatRays(*(x[:N_PROBE_RAYS] for x in sub))
+    tm = (torch.arange(N_PROBE_SAMPLES, device=device) + 0.5) / N_PROBE_SAMPLES
+    pos_p = points(probe.origins, probe.viewdirs,
+                   probe.t_near[:, None] + (probe.t_far - probe.t_near)[:, None] * tm)
+    n_fb, n_db = N_BATCH * z_mid.shape[1], N_BATCH * sc_z.shape[1]
+    point_calls = {"field": (ff.field_forward, (pos_f, emb_f)),
+                   "field_batch": (ff.field_forward, (pos_f[:n_fb], emb_f[:n_fb])),
+                   "density": (ff.density_forward, (sc_pos,)),
+                   "density_probe": (ff.density_forward, (pos_p,)),
+                   "density_batch": (ff.density_forward, (sc_pos[:n_db],))}
+    return kw, {**point_calls, "camera": (fr.camera_forward, (rayin, z_mid, deltam)),
                 "camera_k143": (fr.camera_forward, (rayin, h_mid, h_dm)),
                 "shadow": (fr.shadow_forward, (rayin_sc, sc_z.contiguous(),
                                                (sc_delta * sc_mask).contiguous(),
@@ -183,9 +215,21 @@ def _sub(pattern, repl, name="fused_render.cu"):
 
 
 # The landmarks of a tree without its own (fused_fwd_kernel<MODE, false> on
-# gemm, as in the tree before the streamed forwards): (file, pattern,
-# replacement) each made exactly once.
+# gemm, as in the tree before the streamed forwards, and point_kernel, the
+# per-point forwards before their point modes and the backwards' first pass
+# since): (file, pattern, replacement) each made exactly once. In
+# point_kernel the outputs' stores after FW_END are not phased.
 PARENT_SUBS = [
+    _sub("  const int nrows = N - p0 < MT ? (int)(N - p0) : MT;\n",
+         "  const int nrows = N - p0 < MT ? (int)(N - p0) : MT;\n  FW_BEGIN();\n  FW_TILE();\n"
+         "  FW_MARK(1);\n"),
+    _sub("    bufY[r * LDA + W + c] = pv;\n  }\n",
+         "    bufY[r * LDA + W + c] = pv;\n  }\n  FW_MARK(0);\n"),
+    _sub("  for (int r = threadIdx.x; r < nrows; r += THREADS)\n    res[r * RES] = softplus(",
+         "  FW_MARK(2);\n  for (int r = threadIdx.x; r < nrows; r += THREADS)\n"
+         "    res[r * RES] = softplus("),
+    _sub("  for (int e = threadIdx.x; e < nrows * NO; e += THREADS) {\n",
+         "  FW_END();\n  for (int e = threadIdx.x; e < nrows * NO; e += THREADS) {\n"),
     _sub("  const int S = nray * KPAD;\n\n  for (int s0 = 0; s0 < S; s0 += MT) {\n",
          "  const int S = nray * KPAD;\n  FW_BEGIN();\n\n  for (int s0 = 0; s0 < S; s0 += MT) {\n"
          "    FW_TILE();\n"),
@@ -230,14 +274,20 @@ PARENT_SUBS = [
 ]
 
 
-def phase_source(source=None):
+# the launch of the per-point forwards in a tree before their point modes
+POINT_PARENT = "launch_point<true, false>"
+
+
+def phase_source(source=None, points=False):
     """An instrumented copy of the csrc/ that holds ``source`` (by default
-    this tree's fused_render.cu): the copy's fused_render.cu. A source with
-    its own landmarks (FS_MARK) gets the prelude that defines them; one
-    without (the design before the streamed forwards) gets PARENT_SUBS and
-    the FW_ prelude."""
+    this tree's fused_render.cu) for the ray forwards or, with ``points``,
+    the point forwards: the copy's fused_render.cu. A source whose forwards
+    have their own landmarks (FS_MARK) gets the prelude that defines them;
+    one without (the design before the streamed forwards, or before their
+    point modes) gets PARENT_SUBS and the FW_ prelude."""
     src = Path(source or _build.SOURCE)
-    if "FS_MARK(" in src.read_text():
+    text = src.read_text()
+    if "FS_MARK(" in text and not (points and POINT_PARENT in text):
         return source_copy("fwd_phases_this", (),
                            summed_phase_prelude("bench/stream_fwd.py", "FS", len(PHASES)), src)
     return source_copy("fwd_phases_parent", PARENT_SUBS,
@@ -258,17 +308,20 @@ def stream_tiles(deltam, sms):
     return int(plan["tiles"].sum())
 
 
-def phases(source=None, reps=3, device=None, built=None, cases=("camera", "camera_k143", "shadow")):
+def phases(source=None, reps=3, device=None, built=None, cases=PHASE_CASES):
     """{case: {phase: clock cycles a tile, "total": ...}} of the forwards
     at the render chunk's shapes, from the instrumented copy of
     ``source``'s csrc/ (``built``: that copy's fused_render.cu, already
     built): thread 0 of each block, summed over the blocks of `reps`
     launches and divided by their tiles. Only phases that took time are
-    listed."""
+    listed. ``cases``: ray cases or POINT_CASES, not both."""
     dev = resolve_device(device)
-    src = Path(built or phase_source(source))
+    points = cases[0] in POINT_CASES
+    if any((c in POINT_CASES) != points for c in cases):
+        raise ValueError(f"phases takes ray cases or point cases, not both: {cases}")
+    src = Path(built or phase_source(source, points))
     _build.build(src)
-    parent = "FS_MARK(" not in src.read_text()
+    parent = "FW_MARK(" in src.read_text()
     names = PARENT_PHASES if parent else PHASES
     kw, calls = render_chunk(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -284,9 +337,12 @@ def phases(source=None, reps=3, device=None, built=None, cases=("camera", "camer
             for _ in range(reps):
                 op(kw, *args)
             _build.check(lib.eonerf_phase_sums(sums, 1), "phase sums")
-            kpad = fr.kpad_of(args[1].shape[1])
-            tiles = reps * (parent_tiles(args[0].shape[0], kpad) if parent
-                            else stream_tiles(fr._padded(args[2], kpad), sms))
+            if points:   # both designs: a 128-point tile each
+                tiles = reps * -(-args[0].shape[0] // 128)
+            else:
+                kpad = fr.kpad_of(args[1].shape[1])
+                tiles = reps * (parent_tiles(args[0].shape[0], kpad) if parent
+                                else stream_tiles(fr._padded(args[2], kpad), sms))
             cyc = {p: sums[i] / tiles for i, p in enumerate(names) if sums[i] > 0}
             cyc["total"] = sum(sums[i] for i in range(len(names))) / tiles
             out[name] = {"tiles_a_launch": tiles // reps, "blocks_a_launch": sums[len(names)] // reps,
@@ -381,8 +437,10 @@ def configs(names, reps=20, device=None, table=None):
 def sweeps(device):
     """{name: render} of chip_smoke.py's 512x512 nadir sweeps with shadows
     in 4096-ray chunks: render (128 camera, 64 shadow samples),
-    render_hier (96 + 48), and both through the int8 trunk (render_q8,
-    render_q8_hier); and the sweep's rays."""
+    render_hier (96 + 48), both through the int8 trunk (render_q8,
+    render_q8_hier) and render_diag (128 / 64 with ray entropy and the
+    nadir diagnostics, through the per-point forwards); and the sweep's
+    rays."""
     from eonerf_code_tpu_torch.config import TrainConfig
     from eonerf_code_tpu_torch.models.fused import make_render_field
     from eonerf_code_tpu_torch.render import satellite as sat
@@ -398,14 +456,21 @@ def sweeps(device):
         with torch.no_grad():
             sat.render_image(f, rays_all, cfg, shadows=True, chunk=N_CHUNK,
                              generator=torch.Generator(device=device).manual_seed(2))
-    return ({f"render{q}{h}": (lambda f=f, cfg=cfg: render(f, cfg))
-             for q, f in fields.items() for h, cfg in cfgs.items()}, rays_all.origins.shape[0])
+    out = {f"render{q}{h}": (lambda f=f, cfg=cfg: render(f, cfg))
+           for q, f in fields.items() for h, cfg in cfgs.items()}
+    # ray entropy and the nadir diagnostics: the per-point field forward
+    # once a chunk and the density forward three times
+    diag = sat.RenderConfig(n_samples=128, sc_n_samples=64, compute_entropy=True,
+                            nadir_diagnostics=True)
+    out["render_diag"] = lambda: render(fields[""], diag)
+    return out, rays_all.origins.shape[0]
 
 
 def turns(other, reps=20, device=None):
-    """{build: [{case: ms}, ...]} of the four forwards at the render chunk's
-    shapes (CUDA events, the mean of `reps` calls) and of the four render
-    sweeps (rays/s, the mean of 3), this tree's build and ``other``'s (a
+    """{build: [{case: ms}, ...]} of the four ray forwards at the render
+    chunk's shapes and the point forwards on its points (POINT_CASES; CUDA
+    events, the mean of `reps` calls) and of the five render sweeps
+    (rays/s, the mean of 3), this tree's build and ``other``'s (a
     fused_render.cu) timed in turns (other, this, this, other)."""
     dev = resolve_device(device)
     kw, calls = render_chunk(dev)
@@ -435,8 +500,14 @@ if __name__ == "__main__":
         print(json.dumps({"l2_read": res, "earlier_design_weight_gb_ms": parent, "card": name}),
               flush=True)
     elif cmd == "phases":
-        for case, res in phases(sys.argv[2] if len(sys.argv) > 2 else None).items():
-            print(json.dumps({"fwd_phases": case, **res, "card": name}), flush=True)
+        args = sys.argv[2:]
+        other = args.pop(0) if args and args[0].endswith(".cu") else None
+        groups = ([c for c in args if c not in POINT_CASES], [c for c in args if c in POINT_CASES])
+        if not args:
+            groups = (PHASE_CASES, POINT_CASES)
+        for cases in groups:
+            for case, res in (phases(other, cases=tuple(cases)) if cases else {}).items():
+                print(json.dumps({"fwd_phases": case, **res, "card": name}), flush=True)
     elif cmd == "attribution":
         for config, res in configs(sys.argv[2:] or list(ATTRIBUTION), table=ATTRIBUTION).items():
             print(json.dumps({"fwd_attribution": config, **res, "card": name}), flush=True)

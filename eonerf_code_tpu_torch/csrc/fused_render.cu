@@ -26,7 +26,9 @@
 // field: replaces `_field_fwd_kernel` of the same file (make_fused_field):
 //   the density kernel's points with the camera heads after the trunk, the
 //   4-wide embedding read per point, written as (N, 8) =
-//   [sigma, albedo r g b, t_s, t_beta, 0, 0]. Both are point_kernel.
+//   [sigma, albedo r g b, t_s, t_beta, 0, 0]. Both are point modes of the
+//   streamed forward (stream_fwd_kernel<PT_DENSITY>, <PT_FIELD>); its
+//   section below holds their design.
 // int8 trunk tier: replaces the int8 bodies of the camera, shadow and
 //   coarse kernels (`_trunk_fwd_q8`, `_trunk_bwd_q8`); see its section below.
 //
@@ -157,8 +159,9 @@ constexpr int G_SIG_SH = 8 * W;             // 2048
 constexpr int GP_SH = G_SIG_SH + 8;         // 2056 columns (shadow)
 constexpr int HG = 8;  // f32 head cotangents per sample: sigma, albedo x3, t_s, t_beta, 0, 0
 
-// What a launch of fused_fwd_kernel computes per ray after the trunk.
-enum Mode { CAM = 0, SHADOW = 1, COARSE = 2 };
+// What a launch of fused_fwd_kernel computes per ray after the trunk; the
+// point modes are stream_fwd_kernel's per-point field and density.
+enum Mode { CAM = 0, SHADOW = 1, COARSE = 2, PT_FIELD = 3, PT_DENSITY = 4 };
 
 // The camera heads of one 128-row tile whose trunk output h7 sits in P (Q is
 // free; both are overwritten): the bottleneck, the albedo head into
@@ -397,29 +400,27 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   }
 }
 
-// Per-point density and field: one block per 128 points, which fill the
-// tile's rows directly. PE from xyz into both tiles, the trunk and the sigma
-// head, then with FIELD the camera heads (the embedding read per point).
-// BWD = false: the forward; FIELD writes out (N, 8) = [sigma, albedo r g b,
-// t_s, t_beta, 0, 0], the density sigma (N,).
-// BWD = true: the first pass of the backward. The same recompute, which also
-// streams every activation to `acts` (FIELD: the camera's layout, else the
+// The first pass of the per-point density and field backwards: one block
+// per 128 points, which fill the tile's rows directly. The forward's
+// recompute (PE from xyz into both tiles, the trunk and the sigma head, then
+// with FIELD the camera heads, the embedding read per point), which streams
+// every activation to `acts` (FIELD: the camera's layout, else the
 // shadow's), then each point's head cotangents at the pre-activations, from
 // the output cotangent `gin` ((N, 8) in the forward's layout, or (N,)), into
 // `hg`. The softplus heads' derivative sigmoid(x) is 1 - exp(-softplus(x)).
-template <bool FIELD, bool BWD>
+// (The forwards themselves are stream_fwd_kernel's point modes.)
+template <bool FIELD>
 __global__ void __launch_bounds__(THREADS, 1)
 point_kernel(const float* __restrict__ pos, const float* __restrict__ emb,
-             const bf16* __restrict__ wm, const float* __restrict__ wb, float* __restrict__ out,
-             int N, const float* __restrict__ gin, bf16* __restrict__ acts,
-             float* __restrict__ hg) {
+             const bf16* __restrict__ wm, const float* __restrict__ wb, int N,
+             const float* __restrict__ gin, bf16* __restrict__ acts, float* __restrict__ hg) {
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
   bf16* wst = bufY + MT * LDA;
   float* res = reinterpret_cast<float*>(wst + WST);   // MT x RES
   constexpr long long AS = FIELD ? ACT_CAM : ACT_SH;
-  constexpr int NO = FIELD ? ACC : 1;                     // outputs per point
+  constexpr int NO = FIELD ? ACC : 1;                     // cotangents per point
   const long long p0 = (long long)blockIdx.x * MT;
   const int nrows = N - p0 < MT ? (int)(N - p0) : MT;
   for (int e = threadIdx.x; e < MT * PE; e += THREADS) {
@@ -435,31 +436,25 @@ point_kernel(const float* __restrict__ pos, const float* __restrict__ emb,
     bufX[r * LDA + W + c] = pv;
     bufY[r * LDA + W + c] = pv;
   }
-  if (BWD) {
-    __syncthreads();
-    tile_to_stream(bufX, W, PE, acts, AS, p0, nrows, A_PE);
-  }
-  bf16* P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, p0, nrows);   // P holds h7
+  __syncthreads();
+  tile_to_stream(bufX, W, PE, acts, AS, p0, nrows, A_PE);
+  bf16* P = trunk_tile<true>(bufX, bufY, wm, wb, wst, acts, AS, p0, nrows);   // P holds h7
   for (int r = threadIdx.x; r < nrows; r += THREADS)
     res[r * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
   if constexpr (FIELD) {
-    camera_heads<BWD>(P, P == bufX ? bufY : bufX, wm, wb, wst, res, nrows,
-                      [&](int r, int c) { return emb[(p0 + r) * 4 + c]; }, acts, p0);
+    camera_heads<true>(P, P == bufX ? bufY : bufX, wm, wb, wst, res, nrows,
+                       [&](int r, int c) { return emb[(p0 + r) * 4 + c]; }, acts, p0);
   }
   __syncthreads();
-  // outputs or head cotangents, neighbouring threads on neighbouring addresses
+  // head cotangents, neighbouring threads on neighbouring addresses
   for (int e = threadIdx.x; e < nrows * NO; e += THREADS) {
     const int r = e / NO, c = e % NO;
     const float* rs = res + r * RES;
-    if (!BWD) {
-      out[p0 * NO + e] = c < 6 ? rs[c] : 0.f;
-    } else {
-      const float g = gin[p0 * NO + e];
-      float v = 0.f;
-      if (c == 0 || c == 5) v = g * -expm1f(-rs[c]);       // sigma, t_beta (softplus)
-      else if (c < 5) v = g * rs[c] * (1.f - rs[c]);        // albedo, t_s (sigmoid)
-      hg[(p0 + r) * HG + c] = v;
-    }
+    const float g = gin[p0 * NO + e];
+    float v = 0.f;
+    if (c == 0 || c == 5) v = g * -expm1f(-rs[c]);       // sigma, t_beta (softplus)
+    else if (c < 5) v = g * rs[c] * (1.f - rs[c]);        // albedo, t_s (sigmoid)
+    hg[(p0 + r) * HG + c] = v;
   }
 }
 
@@ -497,23 +492,24 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   return (int)cudaGetLastError();
 }
 
-template <bool FIELD, bool BWD>
-int launch_point(const float* pos, const float* emb, const void* wm, const float* wb, float* out,
-                 int N, cudaStream_t stream, const float* gin = nullptr, bf16* acts = nullptr,
-                 float* hg = nullptr) {
+// point_kernel: the point backwards' first pass
+template <bool FIELD>
+int launch_point(const float* pos, const float* emb, const bf16* wm, const float* wb, int N,
+                 cudaStream_t stream, const float* gin, bf16* acts, float* hg) {
   if (N <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)(2 * MT * LDA + WST) * sizeof(bf16) + (size_t)MT * RES * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(point_kernel<FIELD, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(point_kernel<FIELD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  point_kernel<FIELD, BWD><<<(N + MT - 1) / MT, THREADS, smem, stream>>>(
-      pos, emb, static_cast<const bf16*>(wm), wb, out, N, gin, acts, hg);
+  point_kernel<FIELD><<<(N + MT - 1) / MT, THREADS, smem, stream>>>(pos, emb, wm, wb, N, gin,
+                                                                    acts, hg);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// the streamed forwards: the plain camera, shadow and coarse forwards
+// the streamed forwards: the plain camera, shadow and coarse forwards and
+// the per-point field and density forwards
 // ---------------------------------------------------------------------------
 //
 // stream_fwd_kernel<MODE> is the plain (no stream) camera, shadow and
@@ -524,6 +520,21 @@ int launch_point(const float* pos, const float* emb, const void* wm, const float
 // heads. It gives fused_fwd_kernel's bits: each row's products, epilogues
 // and narrow heads in the same operations, the per-ray sums in sample order
 // by the same statements.
+//
+// Its point modes, PT_FIELD and PT_DENSITY, are the per-point forwards: the
+// counterparts of `_field_fwd_kernel` and `_density_fwd_kernel` (the JAX
+// package's ops/pallas/fused_field.py). The field runs the camera's trunk
+// and heads on points, the density the shadow's trunk and sigma head, so
+// the machinery below carries over with no plan: every point is a row (the
+// JAX functions evaluate them all), in order; a block of the persistent
+// grid takes a contiguous range of whole tiles (pt_first_row); a row's
+// inputs are its xyz (and, for the field, its embedding), its PE
+// point_kernel's (x * 2^deg, the ray form with d = 0, z = 0, bit for bit);
+// its results go straight to `out` ((N, 8) = [sigma, albedo r g b, t_s,
+// t_beta, 0, 0], or sigma (N,)); there are no per-ray sums. The weight
+// stream is written by fs_count_kernel's stream blocks alone. The products,
+// epilogues and narrow heads are point_kernel's in the same operations, so
+// the outputs are the bits of the backwards' recompute.
 //
 // What bounds it: the products of the samples that need them (the camera's
 // 0.68 M multiply-adds a sample at 989 TFLOP/s). What held the design
@@ -591,6 +602,7 @@ constexpr int FS_RES = 8;     // a camera row's results: sigma, albedo x3, t_s, 
 constexpr int FS_MAX_BLOCKS = 1024;
 constexpr int FS_LAYERS_CAM = 13, FS_LAYERS_DENSITY = 8;
 constexpr int FS_IN = 12;     // a row's inputs staged by its warp: o(3), d(3), z, deltam, emb(4)
+                              // (points: xyz(3), 0 x 5, emb(4))
 constexpr int FS_HW = W + 3 * HALF + 2 * HALF;   // the narrow heads' weights: sigma, albedo, t_s, t_beta
 // shared memory: the ring, the tile, the barriers, the warps' row inputs,
 // the narrow heads' weights, every bias
@@ -624,7 +636,8 @@ __host__ __device__ constexpr int fs_chunks(int i) {
   return fs_layer(i).k_dim / (fs_layer(i).wide ? KC : 2 * KC);
 }
 
-// chunks of a tile's weight sequence (camera: 84; shadow, coarse: 60)
+// chunks of a tile's weight sequence (camera, field: 84; shadow, coarse,
+// density: 60)
 __host__ __device__ constexpr int fs_stream_chunks(bool camera) {
   int n = 0;
   for (int i = 0; i < (camera ? FS_LAYERS_CAM : FS_LAYERS_DENSITY); ++i) n += fs_chunks(i);
@@ -647,8 +660,9 @@ __device__ inline uint4 fs_weights8(const bf16* __restrict__ wm, int i, int n, i
   return *reinterpret_cast<const uint4*>(wm + off);
 }
 
-// The plan's first launch. Blocks below nb_rays: a warp a ray, counting its
-// samples with deltam != 0 into cnt. The others: the weight stream, one
+// The plan's first launch (the point modes': the stream alone, nb_rays =
+// 0). Blocks below nb_rays: a warp a ray, counting its samples with deltam
+// != 0 into cnt. The others: the weight stream, one
 // 16-byte unit a thread, unit u of chunk q at stream[q * 1024 + u] as the
 // ring stage's image: half h = u / 512 holds 128 (n, k) rows of 64 bytes,
 // unit (u % 4) of row n stored at (u % 4) ^ ((n >> 1) & 3) (stage_wt's
@@ -861,11 +875,24 @@ __device__ __forceinline__ void fs_consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(FS_WARPS * 32) : "memory");
 }
 
+// The first point of block b's tiles in the point modes: block b of G owns
+// the tiles b T / G .. (b + 1) T / G - 1 of the T = ceil(N / 128), whole
+// tiles in order (N for b = G).
+__host__ __device__ inline long long pt_first_row(int b, int N, int G) {
+  const long long tiles = ((long long)N + MT - 1) / MT;
+  const long long row = (long long)b * tiles / G * MT;
+  return row < N ? row : N;
+}
+
 // The plain forward over the rows of the samples with deltam != 0 (the
 // plan's prefix and ray_start). CAM: acc (R, 8); SHADOW: geo (R,);
 // COARSE: the weights (R, KPAD). meta and res: the workspace's rows (ray,
 // sample) and results, written and read by this kernel; stream: the
 // weight sequence (fs_count_kernel).
+// The point modes (PT_FIELD: out (R, 8); PT_DENSITY: sigma (R,)) over the
+// R points in order: rayin holds their xyz (R, 3), z the field's
+// embeddings (R, 4); deltam, mask, prefix, ray_start, meta, res and KPAD
+// are not read.
 template <int MODE>
 __global__ void __launch_bounds__(FS_THREADS, 1)
 stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
@@ -874,8 +901,10 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                   const uint4* __restrict__ stream, const int* __restrict__ prefix,
                   const int* __restrict__ ray_start, int2* meta, float* res,
                   float* __restrict__ out, int R, int KPAD) {
+  constexpr bool POINT = MODE == PT_FIELD || MODE == PT_DENSITY;
   constexpr bool CAMERA = MODE == CAM;
-  constexpr int CHUNKS = fs_stream_chunks(CAMERA);
+  constexpr bool HEADS = CAMERA || MODE == PT_FIELD;   // the camera heads after the trunk
+  constexpr int CHUNKS = fs_stream_chunks(HEADS);
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* tile = reinterpret_cast<bf16*>(smem + FS_OFF_TILE);
   float* rin = reinterpret_cast<float*>(smem + FS_OFF_IN) + (threadIdx.x >> 5) * 16 * FS_IN;
@@ -894,8 +923,11 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     mbar_init_fence();
   }
   __syncthreads();
-  const int ray_lo = ray_start[blockIdx.x], ray_hi = ray_start[blockIdx.x + 1];
-  const long long row_lo = prefix[ray_lo], row_hi = prefix[ray_hi];
+  // the block's rays (point modes: none) and rows
+  const int ray_lo = POINT ? 0 : ray_start[blockIdx.x];
+  const int ray_hi = POINT ? 0 : ray_start[blockIdx.x + 1];
+  const long long row_lo = POINT ? pt_first_row(blockIdx.x, R, gridDim.x) : prefix[ray_lo];
+  const long long row_hi = POINT ? pt_first_row(blockIdx.x + 1, R, gridDim.x) : prefix[ray_hi];
   const int ntiles = (int)((row_hi - row_lo + MT - 1) / MT);
 
   if (warp == FS_WARPS) {   // the producer: the weight sequence once a tile, without a break
@@ -919,7 +951,8 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   for (int e = tid; e < FS_HW; e += FS_WARPS * 32)
     hw[e] = wm[e < W ? M_SIG + e : (e < W + 3 * HALF ? M_ALB1 + e - W : M_TS + e - W - 3 * HALF)];
   for (int e = tid; e < B_END; e += FS_WARPS * 32) bs[e] = wb[e];
-  // each row's (ray, sample): a warp a ray, in sample order
+  // each row's (ray, sample): a warp a ray, in sample order (point modes:
+  // no rays)
   FS_MARK(FSP_META);
   for (int r = ray_lo + warp; r < ray_hi; r += FS_WARPS) {
     long long base = prefix[r];
@@ -950,7 +983,15 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       float v[FS_IN];
 #pragma unroll
       for (int c = 0; c < FS_IN; ++c) v[c] = 0.f;
-      if (own) {
+      if (own && POINT) {
+        const long long p = g0 + row0 + lane;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = rayin[p * 3 + c];
+        if (HEADS) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[8 + c] = z[p * 4 + c];
+        }
+      } else if (own) {
         const int2 m = meta[g0 + row0 + lane];
         const float* ri = rayin + (long long)m.x * RAYIN;
 #pragma unroll
@@ -973,7 +1014,8 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       float v = 0.f;
       if (row0 + r < nr && c < 63) {
         const float* ri = rin + r * FS_IN;
-        v = pe_value(c, ray_xb(ri, pj[i & 1], psc[i & 1], ri[6]));
+        if (POINT) v = pe_value(c, __fmul_rn(ri[pj[i & 1]], psc[i & 1]));
+        else v = pe_value(c, ray_xb(ri, pj[i & 1], psc[i & 1], ri[6]));
       }
       tile[(row0 + r) * LDA + W + c] = __float2bfloat16_rn(v);
     }
@@ -988,7 +1030,7 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     float sig = 0.f;
     if (lane < 16) sig = softplus(dot_row(trow, hw, W) + bs[B_SIG]);
     __syncwarp();
-    if constexpr (CAMERA) {
+    if constexpr (HEADS) {
       FS_MARK(FSP_OTHER);
       fs_wide<false>(rg, tile, row0, 0, W, [&](int c) { return bs[B_BOTT + c]; });
       // the embedding into columns 256..259 (260..319 zero), over the PE
@@ -1024,7 +1066,11 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
         h[2] = rin[(lane & 15) * FS_IN + 6];
       }
       FS_MARK(FSP_RESULTS);
-      if (own) {
+      if (own && POINT) {   // [sigma, albedo | t_s, t_beta, 0, 0]
+        float* op = out + (g0 + row0 + (lane & 15)) * ACC;
+        *reinterpret_cast<float4*>(op + (lane & 16) / 4) =
+            lane < 16 ? make_float4(sig, h[0], h[1], h[2]) : make_float4(h[0], h[1], 0.f, 0.f);
+      } else if (own) {
         float* rp = res + (g0 + row0 + (lane & 15)) * FS_RES;
         *reinterpret_cast<float4*>(rp + (lane & 16) / 4) =
             lane < 16 ? make_float4(sig, h[0], h[1], h[2])
@@ -1032,12 +1078,16 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       }
     } else {
       FS_MARK(FSP_RESULTS);
-      if (own && lane < 16) res[g0 + row0 + lane] = sig;
+      if (own && lane < 16) (POINT ? out : res)[g0 + row0 + lane] = sig;
     }
     __syncwarp();
     FS_MARK(FSP_OTHER);
   }
 
+  if (POINT) {   // no per-ray sums
+    FS_END();
+    return;
+  }
   // the per-ray sums, a thread a ray, in sample order over the ray's rows
   // (the statements of fused_fwd_kernel's, which also visits the samples
   // with deltam = 0, whose terms are exact zeros)
@@ -1125,7 +1175,7 @@ int fs_grid(cudaError_t* err) {
   return *err == cudaSuccess ? std::min(sms, FS_MAX_BLOCKS) : 0;
 }
 
-long long fs_launch_count[3] = {0, 0, 0};   // stream_fwd_kernel launches, by mode
+long long fs_launch_count[5] = {0, 0, 0, 0, 0};   // stream_fwd_kernel launches, by mode
 
 // The plan's two launches (fs_count_kernel with the weight stream, then
 // fs_scan_kernel) into the workspace `ws` (fs_layout), for the grid of G
@@ -1173,6 +1223,45 @@ int launch_stream(const float* rayin, const float* z, const float* deltam, const
       reinterpret_cast<const int*>(base + L.prefix), reinterpret_cast<const int*>(base + L.ray_start),
       reinterpret_cast<int2*>(base + L.meta), reinterpret_cast<float*>(base + L.res), out, R,
       KPAD);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++fs_launch_count[MODE];
+  return 0;
+}
+
+// The point modes' workspace: the weight stream alone (the field's is the
+// camera's, the density's the shadow's), 256-byte aligned.
+size_t pt_workspace_bytes(bool field) {
+  return ((size_t)fs_stream_chunks(field) * FS_CHUNK + 255) / 256 * 256;
+}
+
+// The point modes' grid for N points: one block an SM (at most
+// FS_MAX_BLOCKS), at most a tile each; 0 on a CUDA error (its code in *err).
+int pt_grid(int N, cudaError_t* err) {
+  return std::min(fs_grid(err), (int)(((long long)N + MT - 1) / MT));
+}
+
+// A per-point forward (MODE PT_FIELD or PT_DENSITY): the weight stream
+// into the workspace `ws` (fs_count_kernel's stream blocks), then the
+// persistent grid over the points.
+template <int MODE>
+int launch_point_fwd(const float* pos, const float* emb, const void* wm_, const float* wb,
+                     float* out, int N, void* ws, cudaStream_t stream) {
+  if (N <= 0 || ws == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr bool FIELD = MODE == PT_FIELD;
+  const bf16* wm = static_cast<const bf16*>(wm_);
+  uint4* weights = static_cast<uint4*>(ws);
+  cudaError_t e = cudaSuccess;
+  const int G = pt_grid(N, &e);
+  if (e != cudaSuccess) return (int)e;
+  const int nb_stream = fs_stream_chunks(FIELD) * (FS_CHUNK / 16) / 256;
+  fs_count_kernel<<<nb_stream, 256, 0, stream>>>(
+      nullptr, 0, 0, nullptr, 0, wm, FIELD ? FS_LAYERS_CAM : FS_LAYERS_DENSITY, weights);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(stream_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)FS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  stream_fwd_kernel<MODE><<<G, FS_THREADS, FS_SMEM, stream>>>(
+      pos, emb, nullptr, nullptr, wm, wb, weights, nullptr, nullptr, nullptr, nullptr, out, N, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   ++fs_launch_count[MODE];
   return 0;
@@ -2145,7 +2234,7 @@ int launch_point_bwd(const float* pos, const float* emb, const float* gin, const
   const bf16* wm = static_cast<const bf16*>(wm_);
   const BwdLayout L = ray_bwd_layout(FIELD, N, 1);
   const Scratch sc = carve(L, ws);
-  int err = launch_point<FIELD, true>(pos, emb, wm, wb, nullptr, N, stream, gin, sc.acts, sc.hg);
+  int err = launch_point<FIELD>(pos, emb, wm, wb, N, stream, gin, sc.acts, sc.hg);
   if (err != 0) return err;
   return bwd_passes<FIELD, true>(L, sc, pos, nullptr, wm, dmats, dbias, dpos, demb, N, 1, stream);
 }
@@ -3966,17 +4055,43 @@ void eonerf_stream_fwd_launches(long long* out) {
   for (int m = 0; m < 3; ++m) out[m] = fs_launch_count[m];
 }
 
+// The per-point forwards (stream_fwd_kernel's point modes, after the
+// weight stream's launch). ws: eonerf_point_fwd_workspace_bytes of scratch,
+// after the stream (a build of an older tree, whose point forwards take
+// none, ignores it).
 // Per-point density: pos (N, 3) -> sigma (N,).
 int eonerf_density_fwd(const float* pos, const void* wm, const float* wb, float* sigma, int N,
-                       void* stream) {
-  return launch_point<false, false>(pos, nullptr, wm, wb, sigma, N,
-                                    static_cast<cudaStream_t>(stream));
+                       void* stream, void* ws) {
+  return launch_point_fwd<PT_DENSITY>(pos, nullptr, wm, wb, sigma, N, ws,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // Per-point field: pos (N, 3), emb (N, 4) -> out (N, 8).
 int eonerf_field_fwd(const float* pos, const float* emb, const void* wm, const float* wb,
-                     float* out, int N, void* stream) {
-  return launch_point<true, false>(pos, emb, wm, wb, out, N, static_cast<cudaStream_t>(stream));
+                     float* out, int N, void* stream, void* ws) {
+  return launch_point_fwd<PT_FIELD>(pos, emb, wm, wb, out, N, ws,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch of a per-point forward (field != 0: the field's) of N
+// points: the weight stream.
+long long eonerf_point_fwd_workspace_bytes(int field, int N) {
+  (void)N;
+  return (long long)pt_workspace_bytes(field != 0);
+}
+
+// The per-point forwards' grid for N points on the current card (blocks),
+// or minus a CUDA error code.
+int eonerf_point_fwd_blocks(int N) {
+  cudaError_t e;
+  const int G = pt_grid(N, &e);
+  return e == cudaSuccess ? G : -(int)e;
+}
+
+// The per-point forwards' launches made so far: field, density.
+void eonerf_point_fwd_launches(long long* out) {
+  out[0] = fs_launch_count[PT_FIELD];
+  out[1] = fs_launch_count[PT_DENSITY];
 }
 
 // Bytes of scratch one backward call needs (camera != 0: the camera's).

@@ -82,17 +82,17 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eonerf_weight_layout.argtypes = [p]
     lib.eonerf_weight_layout.restype = None
-    # the plain forwards end with their workspace, which a build of an older
-    # tree (bench/ab_libraries.py) ignores
+    # the plain and per-point forwards end with their workspace, which a
+    # build of an older tree (bench/ab_libraries.py) ignores
     lib.eonerf_camera_fwd.argtypes = [p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_camera_fwd.restype = i
     lib.eonerf_shadow_fwd.argtypes = [p, p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_shadow_fwd.restype = i
     lib.eonerf_coarse_fwd.argtypes = [p, p, p, p, p, p, i, i, p, p]
     lib.eonerf_coarse_fwd.restype = i
-    lib.eonerf_density_fwd.argtypes = [p, p, p, p, i, p]
+    lib.eonerf_density_fwd.argtypes = [p, p, p, p, i, p, p]
     lib.eonerf_density_fwd.restype = i
-    lib.eonerf_field_fwd.argtypes = [p, p, p, p, p, i, p]
+    lib.eonerf_field_fwd.argtypes = [p, p, p, p, p, i, p, p]
     lib.eonerf_field_fwd.restype = i
     lib.eonerf_bwd_workspace_bytes.argtypes = [i, i, i]
     lib.eonerf_bwd_workspace_bytes.restype = ctypes.c_longlong
@@ -152,7 +152,10 @@ def load_library():
                             ("eonerf_stream_fwd_layout", [i, i, i, p], None),
                             ("eonerf_stream_fwd_grid", [], i),
                             ("eonerf_stream_fwd_plan", [i, p, p, i, i, p, p], i),
-                            ("eonerf_stream_fwd_launches", [p], None)):
+                            ("eonerf_stream_fwd_launches", [p], None),
+                            ("eonerf_point_fwd_workspace_bytes", [i, i], ll),
+                            ("eonerf_point_fwd_blocks", [i], i),
+                            ("eonerf_point_fwd_launches", [p], None)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]

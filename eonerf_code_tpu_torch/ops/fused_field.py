@@ -33,6 +33,7 @@ tensors on the CPU; for CUDA tensors it launches the hand-written kernel or
 raises, and counts its launches in its ``launches`` attribute.
 """
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -48,6 +49,14 @@ N_WEIGHTS = 36
 N_DENSITY_WEIGHTS = 18     # trunk (8 + 8) + sigma head (2)
 FIELD_COLS = 8             # per-point field output: [sigma, albedo r g b, t_s, t_beta, 0, 0]
 EMB_DIM = 4                # the transient embedding's width
+# The streamed forwards (csrc/fused_render.cu stream_fwd_kernel; the ray
+# forwards' plan is in ops/fused_render.py): the 16 KB weight chunks a
+# 128-row tile reads (camera and field: the trunk and the camera heads;
+# shadow, coarse and density: the trunk), and the grid's most blocks.
+STREAM_CHUNKS = {True: 84, False: 60}
+STREAM_CHUNK_BYTES = 16384   # a weight chunk: two 128-row halves, 32 deep, bf16
+STREAM_MAX_BLOCKS = 1024
+TILE_ROWS = 128
 
 
 class FieldWeights(NamedTuple):
@@ -715,13 +724,54 @@ def point_workspace(field, n, device):
 
 
 # ---------------------------------------------------------------------------
+# the per-point forwards' plan (csrc/fused_render.cu stream_fwd_kernel's
+# point modes)
+# ---------------------------------------------------------------------------
+
+def point_fwd_layout(field):
+    """Byte offsets of a per-point forward's workspace (the library's
+    pt_workspace_bytes; C entry ``eonerf_point_fwd_workspace_bytes``): the
+    weight stream (the field's the camera's STREAM_CHUNKS, the density's
+    the shadow's), then ``total``; each part rounded up to 256 bytes."""
+    nbytes = STREAM_CHUNKS[bool(field)] * STREAM_CHUNK_BYTES
+    return {"stream": 0, "total": -(-nbytes // 256) * 256}
+
+
+def point_fwd_plan(n, sms):
+    """How the per-point forwards cover n points on a card of ``sms`` SMs,
+    as the library launches them (pt_grid, pt_first_row; C entry
+    ``eonerf_point_fwd_blocks``): ``tiles``, the ceil(n / 128) tiles of 128
+    points in order; ``blocks``, min(sms, STREAM_MAX_BLOCKS, tiles), one a
+    block of the persistent grid; ``first_row`` (blocks + 1,) int64: block b
+    owns points first_row[b] .. first_row[b + 1] - 1, its tiles b tiles //
+    blocks .. (b + 1) tiles // blocks - 1 (n last)."""
+    tiles = -(-n // TILE_ROWS)
+    blocks = min(sms, STREAM_MAX_BLOCKS, tiles)
+    b = torch.arange(blocks + 1, dtype=torch.long)
+    first = (b * tiles // blocks * TILE_ROWS).clamp(max=n)
+    return {"tiles": tiles, "blocks": blocks, "first_row": first}
+
+
+def point_fwd_kernel_launches():
+    """Launches of stream_fwd_kernel's point modes the library has made so
+    far: {"field", "density"} (C entry ``eonerf_point_fwd_launches``)."""
+    count = (ctypes.c_longlong * 2)()
+    _build.load_library().eonerf_point_fwd_launches(count)
+    return {"field": int(count[0]), "density": int(count[1])}
+
+
+def _point_fwd_workspace(field, dev):
+    return torch.empty((point_fwd_layout(field)["total"],), dtype=torch.uint8, device=dev)
+
+
+# ---------------------------------------------------------------------------
 # the per-point kernels' wrappers
 # ---------------------------------------------------------------------------
 
 def density_forward(weights: KernelWeights, pos):
     """Per-point density (N,) for points (N, 3). CPU tensors: the plain
-    version. CUDA tensors: the hand-written bf16 kernel (raises if it cannot
-    be built or launched)."""
+    version. CUDA tensors: the hand-written bf16 kernel, the streamed
+    forward's density mode (raises if it cannot be built or launched)."""
     if pos.device.type == "cpu":
         return density_forward_reference(weights, pos)
     n = pos.shape[0]
@@ -731,8 +781,9 @@ def density_forward(weights: KernelWeights, pos):
     sigma = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return sigma
+    ws = _point_fwd_workspace(False, dev)
     launch("eonerf_density_fwd", "density_forward kernel launch", dev, pos, weights.mats,
-           weights.biases, sigma, n)
+           weights.biases, sigma, n, after_stream=(ws.data_ptr(),))
     density_forward.launches += 1
     return sigma
 
@@ -769,8 +820,8 @@ density_backward.launches = 0
 def field_forward(weights: KernelWeights, pos, emb):
     """Per-point field (N, 8) = [sigma, albedo r g b, t_s, t_beta, 0, 0] for
     points (N, 3) and their embeddings (N, 4). CPU tensors: the plain
-    version. CUDA tensors: the hand-written bf16 kernel (raises if it cannot
-    be built or launched)."""
+    version. CUDA tensors: the hand-written bf16 kernel, the streamed
+    forward's field mode (raises if it cannot be built or launched)."""
     if pos.device.type == "cpu":
         return field_forward_reference(weights, pos, emb)
     n = pos.shape[0]
@@ -781,8 +832,9 @@ def field_forward(weights: KernelWeights, pos, emb):
     out = torch.empty((n, FIELD_COLS), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    ws = _point_fwd_workspace(True, dev)
     launch("eonerf_field_fwd", "field_forward kernel launch", dev, pos, emb, weights.mats,
-           weights.biases, out, n)
+           weights.biases, out, n, after_stream=(ws.data_ptr(),))
     field_forward.launches += 1
     return out
 

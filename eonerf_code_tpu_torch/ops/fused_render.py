@@ -62,6 +62,10 @@ from eonerf_code_tpu_torch.ops.fused_field import (
     MAT_ELEMENTS,
     PE_PAD,
     Q8_POINTS,
+    STREAM_CHUNK_BYTES,
+    STREAM_CHUNKS,
+    STREAM_MAX_BLOCKS,
+    TILE_ROWS,
     TRUNK_MAT_ELEMENTS,
     KernelWeights,
     _MAT_SHAPES,
@@ -92,9 +96,6 @@ from eonerf_code_tpu_torch.ops.volrend import exclusive_cumsum
 RAYIN_COLS = 16   # [o(3), d(3), emb(4), pad(6)]
 ACC_COLS = 8      # [depth, albedo r g b, t_s, t_beta, opacity, pad]
 MAX_KPAD = 1024   # the kernels keep every sample of a ray's results in shared memory
-# 16 KB weight chunks a 128-row tile of the streamed forwards reads (camera:
-# trunk and heads; shadow and coarse: the trunk)
-STREAM_CHUNKS = {True: 84, False: 60}
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +504,6 @@ coarse_forward.launches = 0
 # the plain forwards' plan (csrc/fused_render.cu stream_fwd_kernel)
 # ---------------------------------------------------------------------------
 
-STREAM_CHUNK_BYTES = 16384   # a weight chunk: two 128-row halves, 32 deep, bf16
-STREAM_MAX_BLOCKS = 1024
-TILE_ROWS = 128
 
 
 def stream_fwd_layout(camera, r, kpad):

@@ -1589,3 +1589,72 @@ def test_render_launches_the_stream_kernels(dev):
         assert {m: after[m] - before[m] for m in after} == {"camera": 1, "shadow": 1,
                                                              "coarse": coarse}
         assert all(bool(torch.isfinite(v).all()) for v in out.values())
+
+
+# the per-point forwards (stream_fwd_kernel's point modes): one point, one
+# short of a tile, one past it (two blocks of one tile each), and counts
+# whose last block ends in a partial tile with more tiles than SMs
+POINT_FWD_CASES = [(field, n) for field in (True, False)
+                   for n in (1, 127, 129, 128 * 300 + 77, 128 * 2016 + 5)]
+
+
+@pytest.mark.parametrize("field,n", POINT_FWD_CASES)
+def test_point_forwards_match_plain_versions(dev, weights, field, n):
+    """The point modes at ragged point counts against the plain versions at
+    the forwards' tolerances; the same bits twice; one launch of the mode a
+    call by the library's counter, and no other streamed launch in its
+    place."""
+    pos, emb, _, _ = _points(dev, n, seed=n + int(field))
+    before, before_rays = ff.point_fwd_kernel_launches(), fr.stream_fwd_kernel_launches()
+    if field:
+        got = ff.field_forward(weights, pos, emb)
+        _check_field(got, ff.field_forward_reference(weights, pos, emb))
+        again = ff.field_forward(weights, pos, emb)
+    else:
+        got = ff.density_forward(weights, pos)
+        _check_sigma(got, ff.density_forward_reference(weights, pos))
+        again = ff.density_forward(weights, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    after = ff.point_fwd_kernel_launches()
+    assert {m: after[m] - before[m] for m in after} == {"field": 2 * field,
+                                                         "density": 2 * (not field)}
+    assert fr.stream_fwd_kernel_launches() == before_rays
+
+
+@pytest.mark.parametrize("field", [True, False])
+def test_point_fwd_plan_matches_the_library(dev, weights, field):
+    """ff.point_fwd_plan's grid and ff.point_fwd_layout (the CPU tests'
+    mirrors) are the library's (C entries eonerf_point_fwd_blocks and
+    eonerf_point_fwd_workspace_bytes), and the weight image a launch writes
+    into the workspace is fr.stream_fwd_weights(mats, field) bit for bit."""
+    lib = _build.load_library()
+    for n in (1, 127, 129, 128 * 131, 128 * 133 + 1, 520192):
+        assert lib.eonerf_point_fwd_blocks(n) == ff.point_fwd_plan(n, _sms(dev))["blocks"]
+        assert lib.eonerf_point_fwd_workspace_bytes(int(field), n) == ff.point_fwd_layout(
+            field)["total"]
+    n = 1000
+    pos, emb, _, _ = _points(dev, n, seed=5)
+    ws = torch.zeros((ff.point_fwd_layout(field)["total"],), dtype=torch.uint8, device=dev)
+    out = torch.empty((n, ff.FIELD_COLS) if field else (n,), device=dev)
+    if field:
+        ff.launch("eonerf_field_fwd", "field_forward", dev, pos, emb, weights.mats,
+                  weights.biases, out, n, after_stream=(ws.data_ptr(),))
+    else:
+        ff.launch("eonerf_density_fwd", "density_forward", dev, pos, weights.mats,
+                  weights.biases, out, n, after_stream=(ws.data_ptr(),))
+    torch.cuda.synchronize()
+    nbytes = ff.STREAM_CHUNKS[field] * ff.STREAM_CHUNK_BYTES
+    stream = ws[:nbytes].view(torch.int16).view(-1, 8192).cpu()
+    want = fr.stream_fwd_weights(weights.mats.cpu(), field).view(torch.int16)
+    assert torch.equal(stream, want)
+
+
+def test_point_forward_refuses_a_missing_workspace(dev, weights):
+    """The point forwards' C entries refuse a null workspace (an invalid
+    value, not a fault on the card)."""
+    pos, _, _, _ = _points(dev, 130, seed=1)
+    sigma = torch.empty((130,), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ff.launch("eonerf_density_fwd", "density_forward", dev, pos, weights.mats,
+                  weights.biases, sigma, 130, after_stream=(None,))
