@@ -63,7 +63,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  library yardsticks (bench/q8_backward.py). Then the
                  saved-activations pair at
                  the training shapes (camera K=127 and K=143, shadow K=63):
-                 the forward that writes the activation stream against its
+                 the forward that writes the activation stream (the
+                 streamed forward's save mode, one launch by the library's
+                 count of that mode) against its
                  plain version (outputs, and h0..h7 of the stream) and bit
                  for bit against the non-saving kernel, the backward from the
                  stream against the plain backward from the plain
@@ -105,8 +107,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  forward kernels, backward kernels, optimizer and the rest.
 6b. train_saved - phase 6's configuration with bwd_acts="saved" (the JAX
                  package's default): the save forwards and the saved
-                 backwards once per step that runs them, the plain forwards
-                 and the recompute backwards never, step_save_ok true, one
+                 backwards once per step that runs them (the save forwards
+                 also by the library's count of the save mode), the plain
+                 forwards and the recompute backwards never, step_save_ok
+                 true, one
                  batch's whole-step gradient against the recompute
                  backward's (rel-L2 1e-6), 10 timed steps beside phase 6's.
 7. train_auto  - Trainer with sampler="auto" and the occupancy grid at the
@@ -167,17 +171,21 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  sampler "auto" resolving to occupancy tightening, 8x256,
                  batch 1024, 128 samples), the shadow and beta gates cut from
                  epoch 2 to step 10: 20 steps (losses finite, parameters
-                 moved, the saved kernels once per step that runs them),
-                 then 10 timed.
+                 moved, the saved kernels once per step that runs them, the
+                 save forwards also by the library's count), then 10 timed.
 14. variants   - the kernel-variant bench through its entry points
-                 (bench.kernel_variants.main with all 20 variants and
+                 (bench.kernel_variants.main with all 20 variants and their
+                 baseline trunk_gemm, and
                  bench.composite.main with all 4) at the TPU scripts'
                  defaults: 1,040,384 points, 2048-row tiles, 10 timed calls
                  after one warm-up, so each variant's launch count is 11.
                  Then each variant's kernel against its plain version at the
                  gates below (and the compositing epilogue on the density
                  kernel's own sigma; mm_i8 and mm_i8_k512 also from a random
-                 int8 h0, timed too), one line each: ms, plain ms, bound ms
+                 int8 h0, timed too), one line each: ms beside the baseline
+                 of the variant's own design and their difference (nope,
+                 norelu, nocast, trunk_int2 and the epilogues against
+                 trunk_gemm, full against trunk), plain ms, bound ms
                  and its share, the rate and its share of the H100 SXM peak,
                  and for the slab chains the same chain as library calls
                  (torch.matmul, torch._int_mm, torch._scaled_mm; "none" and
@@ -588,6 +596,7 @@ def main():
     # where a streamed forward's tile goes: clock cycles a tile of each phase
     # (bench/stream_fwd.py, the instrumented copy built beside the libraries)
     for case, res in {**sf.phases(built=fwd_phase_src),
+                      **sf.phases(built=fwd_phase_src, cases=("camera_save", "shadow_save")),
                       **sf.phases(built=fwd_phase_src, cases=("field", "density"))}.items():
         emit({"phase": "kernels", "name": "stream_fwd_phases", "case": case, **res,
               "phases": list(sf.PHASES), "card": card})
@@ -1154,7 +1163,12 @@ def main():
         fwd, fwd_save, fwd_ref, bwd, bwd_saved, bwd_ref = saved_ops[op]
         k = args[1].shape[1]
         kpad = fr.kpad_of(k)
+        sv_before = fr.save_fwd_kernel_launches()
         out_s, stream = fwd_save(kw, *args)
+        sv_got = {m: c - sv_before[m] for m, c in fr.save_fwd_kernel_launches().items()}
+        if sv_got != {m: int(m == op) for m in sv_got}:
+            raise AssertionError(f"{op}_fwd_save: the library counted {sv_got} save-mode "
+                                 "launches, not one of its own")
         out_k = fwd(kw, *args)
         ref_out, ref_acts = fwd_ref(kw, *args, save=True)
         got_b = bwd_saved(kw, *args, gin, stream)
@@ -1480,16 +1494,26 @@ def main():
     save_ok = ts.render_field.step_save_ok(N_TRAIN, 127, 63)
     losses_s, _ = recording(ts)
     before_s = [p.detach().clone() for p in ts.field.parameters()]
+
+    def library_saved_launches(dgrad_before, save_before):
+        """The library's own counts since `dgrad_before` and `save_before`:
+        the dgrad kernel's (every backward's) and the save mode's by op."""
+        save_now = fr.save_fwd_kernel_launches()
+        return {"dgrad_kernel": fr.dgrad_kernel_launches() - dgrad_before,
+                **{f"{m}_fwd_save_kernel": save_now[m] - save_before[m] for m in save_now}}
+
     for fn in saved_counted.values():
         fn.launches = 0
-    dgrad_before = fr.dgrad_kernel_launches()   # the library's own count, every backward's
+    dgrad_before = fr.dgrad_kernel_launches()   # the library's own counts
+    save_before = fr.save_fwd_kernel_launches()
     ts.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
     launches_s = {n: fn.launches for n, fn in saved_counted.items()}
-    launches_s["dgrad_kernel"] = fr.dgrad_kernel_launches() - dgrad_before
+    launches_s.update(library_saved_launches(dgrad_before, save_before))
     expect_s = {"camera_fwd_save": TRAIN_STEPS, "shadow_fwd_save": shadow_steps,
                 "camera_bwd_saved": TRAIN_STEPS, "shadow_bwd_saved": shadow_steps,
                 "camera_fwd": 0, "shadow_fwd": 0, "camera_bwd": 0, "shadow_bwd": 0,
-                "dgrad_kernel": TRAIN_STEPS + shadow_steps}
+                "dgrad_kernel": TRAIN_STEPS + shadow_steps,
+                "camera_fwd_save_kernel": TRAIN_STEPS, "shadow_fwd_save_kernel": shadow_steps}
     saved_res = branch_result(ts, before_s, losses_s, launches_s, expect_s, {"save_ok": save_ok})
     step_ms_s = timed_run(ts, TRAIN_STEPS + TIMED_STEPS) * 1e3 / TIMED_STEPS
     # one batch, shadows and beta on: the whole-step gradient of the saved
@@ -1511,7 +1535,8 @@ def main():
         ms_per_step=step_ms_s, rays_per_s=N_TRAIN / (step_ms_s * 1e-3),
         recompute_ms_per_step=step_ms)
     for name in ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved"):
-        kernel_rows[name]["launches_by_path"] = {"train_saved": launches_s[name]}
+        kernel_rows[name]["launches_by_path"] = {
+            "train_saved": launches_s.get(f"{name}_kernel", launches_s[name])}
     emit({"phase": "train_saved", "batch": N_TRAIN, "pool_rays": N_POOL, **saved_res,
           "tolerance": SAVED_REL_L2, "card": card})
     del ts
@@ -1972,12 +1997,15 @@ def main():
     for fn in saved_counted.values():
         fn.launches = 0
     dgrad_before = fr.dgrad_kernel_launches()
+    save_before = fr.save_fwd_kernel_launches()
     td.run(max_steps=TRAIN_STEPS, log_every=10 ** 9)
     launches_dd = {n: fn.launches for n, fn in saved_counted.items()}
-    launches_dd["dgrad_kernel"] = fr.dgrad_kernel_launches() - dgrad_before
+    launches_dd.update(library_saved_launches(dgrad_before, save_before))
     for name in ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved"):
-        kernel_rows[name]["launches"] = launches_dd[name]
-        kernel_rows[name]["launches_by_path"]["train_default"] = launches_dd[name]
+        # the save forwards' launches by the library's count of the save mode
+        n_l = launches_dd.get(f"{name}_kernel", launches_dd[name])
+        kernel_rows[name]["launches"] = n_l
+        kernel_rows[name]["launches_by_path"]["train_default"] = n_l
     default_res = branch_result(td, before_dd, losses_dd, launches_dd, expect_s, {
         "steps_per_epoch": td.steps_per_epoch, "n_images": td.n_images,
         "alt_envelope": list(td.alt_envelope), "occ_tighten": td.cfg.occ_tighten,
@@ -2070,7 +2098,14 @@ def main():
         bound, bound_by = vr.bound_ms(v, n_v)
         ms = bench_ms[v]
         top, unit = vr.peak(v)
-        emit({"phase": "variants", "name": v, "n": n_v, "tile": VARIANT_TILE, "ms": ms,
+        # beside the baseline of its own design: their difference is the
+        # one cost the variant takes out or adds
+        base_v = vr.BASELINE_OF.get(v)
+        baseline = {} if base_v is None else {
+            "baseline": base_v, "baseline_ms": bench_ms[base_v],
+            "minus_baseline_ms": ms - bench_ms[base_v]}
+        emit({"phase": "variants", "name": v, **baseline, "n": n_v, "tile": VARIANT_TILE,
+              "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
               "share_of_bound": bound / ms, "rate": vr.flops(v, n_v) / (ms * 1e-3) / 1e12,
               "unit": unit, "share_of_peak": vr.flops(v, n_v) / (ms * 1e-3) / top,
@@ -2084,7 +2119,8 @@ def main():
             "name": ("composite_" if v in vr.COMPOSITES else "variant_") + v, "route": "cuda",
             "source": "eonerf_code_tpu_torch/csrc/"
                       + ("kernel_variants.cu" if own else "fused_render.cu"),
-            "replaces": tpu_kernel_site(f"kernel_{v}", script), "launches": launches_v[v],
+            "replaces": tpu_kernel_site(f"kernel_{vr.TPU_BODY.get(v, v)}", script),
+            "launches": launches_v[v],
             "max_abs_err": res["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
         variant_rows.append(v)

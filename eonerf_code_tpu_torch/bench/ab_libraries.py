@@ -4,8 +4,9 @@ commit's, unpacked with `git archive` into a git-ignored directory), on the
 same inputs, one case for each production instantiation of the shared
 products in csrc/tile_common.cuh and one for each int8 forward (the int8
 trunk's launch). Prints whether every output is the same
-bits, the differing outputs of each case where it is not (largest absolute
-difference and rel-L2 of each), then
+bits (a save forward's: its per-ray output and its whole activation
+stream, every row's columns 0..2111), the differing outputs of each case
+where it is not (largest absolute difference and rel-L2 of each), then
 each build's kernel times in turns (other, this, this, other), so a change
 to the kernels or to csrc/tile_common.cuh is compared on one card.
 
@@ -26,7 +27,12 @@ from eonerf_code_tpu_torch.bench.kernel_variants import (
     resolve_device,
     time_ms,
 )
-from eonerf_code_tpu_torch.bench.stream_fwd import POINT_CASES, render_chunk
+from eonerf_code_tpu_torch.bench.stream_fwd import (
+    POINT_CASES,
+    SAVE_CASES,
+    compared,
+    render_chunk,
+)
 from eonerf_code_tpu_torch.ops import _build
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
@@ -37,9 +43,10 @@ def cases(device):
     production instantiation of the shared products (gemm, dgemm): the
     camera forward at a render chunk (4096 x 127) and at the hierarchical
     K = 143, the shadow forward (4096 x 63) and the coarse one (4096 x 95);
-    at a training batch (1024 rays) the save forward, the camera and shadow
-    backwards, the saved camera backward (on the stream of the save forward
-    that runs first), the int8 tier's camera backward (its bf16 dgrad) and
+    at a training batch (1024 rays) the save forwards (camera K=127 and
+    143, shadow K=63), the camera and shadow backwards, the saved camera and
+    shadow backwards (on the stream of the save forward that runs first),
+    the int8 tier's camera backward (its bf16 dgrad) and
     the int8_full one (the heads-only dgrad); the density forward at the
     entropy probe (131,072 points), its backward (1024 x 63 points), the
     field forward and backward; and the int8 tier's forwards at the render
@@ -47,8 +54,9 @@ def cases(device):
     each a launch of the int8 trunk (and the heads on gemm); and the
     forwards on a render chunk with its real cube masks
     (bench/stream_fwd.py render_chunk: camera K=127 and 143, shadow, coarse),
-    where deltam is zero outside the cube, and the field and density
-    forwards on its points (POINT_CASES, as ``<case>_chunk``). The int8 calls
+    where deltam is zero outside the cube, the save forwards on a training
+    batch of its rays (SAVE_CASES, as ``<case>_cube``), and the field and
+    density forwards on its points (POINT_CASES, as ``<case>_chunk``). The int8 calls
     take ``stats`` (:func:`_outputs` compares their group amax and, for the
     forwards, the stream columns the trunk wrote)."""
     kw, _ = bench_weights(device)
@@ -70,26 +78,36 @@ def cases(device):
     emb = torch.randn((131072, ff.EMB_DIM), generator=gen, device=device)
     g = torch.randn((16384, ff.FIELD_COLS), generator=gen, device=device)
     g_sigma = torch.randn((1024 * 63,), generator=gen, device=device)
+    batch143 = rays(1024, 143)
     saved = {}
 
-    def stream():   # the first build to run it makes the stream both builds read
-        if "acts" not in saved:
-            saved["acts"] = fr.camera_forward_save(kw, *batch)[1]
-        return saved["acts"]
+    def stream(camera=True):   # the first build to run it makes the stream both builds read
+        if camera not in saved:
+            saved[camera] = (fr.camera_forward_save(kw, *batch) if camera
+                             else fr.shadow_forward_save(kw, *batch_sh))[1]
+        return saved[camera]
 
     # a render chunk with its real cube masks (a quarter of the shadow
     # samples in the cube; the streamed forwards skip the rest), and the
     # per-point forwards on its points
     kw_r, chunk = render_chunk(device)
-    cube = {(f"{name}_chunk" if name in POINT_CASES else f"{name}_fwd_cube"):
-            (lambda op=op, args=args: op(kw_r, *args)) for name, (op, args) in chunk.items()}
+    def cube_name(name):
+        if name in POINT_CASES:
+            return f"{name}_chunk"
+        return f"{name}_cube" if name in SAVE_CASES else f"{name}_fwd_cube"
+    cube = {cube_name(name): (lambda op=op, args=args: op(kw_r, *args))
+            for name, (op, args) in chunk.items()}
     return {**cube, "camera_fwd": lambda: fr.camera_forward(kw, *render),
             "camera_fwd_k143": lambda: fr.camera_forward(kw, *render143),
             "shadow_fwd": lambda: fr.shadow_forward(kw, *render_sh),
             "coarse_fwd": lambda: fr.coarse_forward(kw, *coarse),
             "camera_fwd_save": lambda: fr.camera_forward_save(kw, *batch),
+            "camera_fwd_save_k143": lambda: fr.camera_forward_save(kw, *batch143),
+            "shadow_fwd_save": lambda: fr.shadow_forward_save(kw, *batch_sh),
             "camera_bwd": lambda: fr.camera_backward(kw, *batch, gacc),
             "camera_bwd_saved": lambda: fr.camera_backward_saved(kw, *batch, gacc, stream()),
+            "shadow_bwd_saved": lambda: fr.shadow_backward_saved(kw, *batch_sh, ggeo,
+                                                                 stream(False)),
             "shadow_bwd": lambda: fr.shadow_backward(kw, *batch_sh, ggeo),
             "camera_bwd_q8": lambda **st: fr.camera_backward_q8(kw, q8, *batch, gacc, **st),
             "camera_bwd_q8_full": lambda **st: fr.camera_backward_q8_full(kw, q8, *batch, gacc,
@@ -118,14 +136,11 @@ def _use(source):
 
 def _outputs(name, fn):
     stats = {}
-    out = fn(stats=stats) if "_q8" in name else fn()
-    out = list(out) if isinstance(out, tuple) else [out]
-    if name == "camera_fwd_save" and out[1].is_cuda:   # the columns the forward writes
-        out[1] = fr.stream_trunk_acts(out[1], True, 1024, 127)
-    out += [stats[k] for k in ("amax", "gamax") if k in stats]
+    out = compared(fn(stats=stats) if "_q8" in name else fn())
+    out += [stats[k].clone() for k in ("amax", "gamax") if k in stats]
     if "acts" in stats:     # an int8 forward's stream: the PE and h7
-        out.append(fr.q8_stream_written(stats["acts"], False))
-    return [t.clone() for t in out]
+        out.append(fr.q8_stream_written(stats["acts"], False).clone())
+    return out
 
 
 def _compare(got, ref):

@@ -12,7 +12,9 @@ rows (2048; the slab chains seed each tile, or its halves or quarters, from
 its first point), `iters` timed calls after one warm-up (10). Variants:
 full, trunk, nope, norelu, nocast, mm_only (the default six), mm_int2,
 mm_int4, mm_i8, mm_i8_dyn, mm_f8, mm_k512, mm_i8_k512, mm_merged2,
-mm_merged4, mm_seq2, trunk_int2, mm_fwd_save, mm_bwd_rec, mm_bwd_saved.
+mm_merged4, mm_seq2, trunk_int2, mm_fwd_save, mm_bwd_rec, mm_bwd_saved, and
+trunk_gemm (trunk's function on the trunk variants' own design, their
+baseline: bench/variants.py BASELINE_OF).
 
 One line per variant: ms per call (the mean of CUDA events over `iters`
 launches), the rate from the work the variant needs (TFLOP/s, TOP/s for the

@@ -2,10 +2,12 @@
 render chunk's shapes and with its real cube masks (4096 rays of the
 512x512 nadir sweep that chip_smoke.py renders: camera K=127 and, after
 sample_pdf, K=143; shadow K=63, about a quarter of its samples in the cube;
-coarse K=95), and the per-point field and density forwards on the chunk's
-points (POINT_CASES: the field on its 520,192 camera-sample points, each
-with its ray's embedding, and on a training batch's 130,048; the density
-on its 258,048 shadow-sample points, on a batch's 64,512 and on the
+coarse K=95), the save forwards (the streamed forward's save mode) on a
+training batch of its rays (SAVE_CASES: the first 1024, camera K=127 and
+143, shadow K=63), and the per-point field and density forwards on the
+chunk's points (POINT_CASES: the field on its 520,192 camera-sample points,
+each with its ray's embedding, and on a training batch's 130,048; the
+density on its 258,048 shadow-sample points, on a batch's 64,512 and on the
 entropy probe's 131,072).
 
     python -m eonerf_code_tpu_torch.bench.stream_fwd l2
@@ -20,11 +22,17 @@ chunks of 16 KB), by bulk copies (the TMA, as the streamed forwards'
 producer warp reads it) and by 16-byte loads (kernel_variants.cu
 l2_read_kernel), and from it the weight staging's time in the design
 before the streamed forwards (each 128-row tile re-staging every weight
-matrix) at the render chunk's shapes. `phases` prints the clock
+matrix) at the render chunk's shapes, and the rate at which each streamed
+forward's ring reads its weight stream on the chunk (the tiles' chunks of
+16 KB over the call's CUDA-event time, its plan launches included), the
+save mode's beside the plain mode's. `phases` prints the clock
 cycles one thread of each block spends a tile between the landmarks of a
 forward: this tree's stream_fwd_kernel (its FS_* landmarks, empty in the
-production source) or, given another tree's fused_render.cu that lacks
-them, that tree's fused_fwd_kernel<MODE, false> on tile_common.cuh's gemm
+production source; the save mode's stream stores are the phase stores,
+beside the ring's wait) or, given another tree's
+fused_render.cu that lacks them, that tree's fused_fwd_kernel<MODE, false>
+(the save cases: its save forward, fused_fwd_kernel<MODE, false, false,
+true>, in a tree before the save mode) on tile_common.cuh's gemm
 (landmarks put in by PARENT_SUBS): per gemm call its ring prologue, its
 ring waits (barriers), its products and its epilogue; for the point cases
 of a tree whose point forwards are point_kernel<FIELD, false> (one block
@@ -66,6 +74,7 @@ N_CHUNK = 4096
 N_BATCH = 1024                           # rays of a training batch
 N_PROBE_RAYS, N_PROBE_SAMPLES = 2048, 64   # the trainer's entropy probe
 POINT_CASES = ("field", "field_batch", "density", "density_probe", "density_batch")
+SAVE_CASES = ("camera_save", "camera_save_k143", "shadow_save")
 PHASE_CASES = ("camera", "camera_k143", "shadow")   # the ray cases phased by default
 CHUNK_BYTES = 16384
 # bf16 elements a 128-row tile of the earlier design staged through its
@@ -96,9 +105,11 @@ def render_chunk(device, seed=1):
     stratified camera samples (K=127) and hierarchical ones (96 + 48 after
     sample_pdf, K=143), shadow rays from plausible surface points (K=63) and
     the coarse pass's 96 stratified samples (K=95), every deltam with the
-    cube mask and the 1e10 last-valid sentinel; and POINT_CASES, the
-    per-point forwards on the chunk's points as chip_smoke.py builds them
-    (every point counts, in the cube or not)."""
+    cube mask and the 1e10 last-valid sentinel; SAVE_CASES, the save
+    forwards on the first N_BATCH of those camera (K=127 and 143) and
+    shadow rays; and POINT_CASES, the per-point forwards on the chunk's
+    points as chip_smoke.py builds them (every point counts, in the cube or
+    not)."""
     from eonerf_code_tpu_torch.models.fused import make_render_field
     from eonerf_code_tpu_torch.ops.fused_field import pack_params
     from eonerf_code_tpu_torch.ops.sampling import set_last_valid
@@ -151,12 +162,32 @@ def render_chunk(device, seed=1):
                    "density": (ff.density_forward, (sc_pos,)),
                    "density_probe": (ff.density_forward, (pos_p,)),
                    "density_batch": (ff.density_forward, (sc_pos[:n_db],))}
-    return kw, {**point_calls, "camera": (fr.camera_forward, (rayin, z_mid, deltam)),
-                "camera_k143": (fr.camera_forward, (rayin, h_mid, h_dm)),
-                "shadow": (fr.shadow_forward, (rayin_sc, sc_z.contiguous(),
-                                               (sc_delta * sc_mask).contiguous(),
-                                               sc_mask.float().contiguous())),
-                "coarse": (fr.coarse_forward, (rayin_c, c_mid, c_dm))}
+    ray_calls = {"camera": (fr.camera_forward, (rayin, z_mid, deltam)),
+                 "camera_k143": (fr.camera_forward, (rayin, h_mid, h_dm)),
+                 "shadow": (fr.shadow_forward, (rayin_sc, sc_z.contiguous(),
+                                                (sc_delta * sc_mask).contiguous(),
+                                                sc_mask.float().contiguous())),
+                 "coarse": (fr.coarse_forward, (rayin_c, c_mid, c_dm))}
+
+    def batch(case):   # a training batch: the case's first N_BATCH rays
+        return tuple(x[:N_BATCH].contiguous() for x in ray_calls[case][1])
+    save_calls = {"camera_save": (fr.camera_forward_save, batch("camera")),
+                  "camera_save_k143": (fr.camera_forward_save, batch("camera_k143")),
+                  "shadow_save": (fr.shadow_forward_save, batch("shadow"))}
+    return kw, {**point_calls, **ray_calls, **save_calls}
+
+
+def compared(out):
+    """A forward's outputs as the tensors two builds must give bit for bit:
+    as they are, but a save forward's stream (its second output, (R*KPAD,
+    act_stream_cols) bfloat16) cut to the columns that forward writes on
+    every row, padding rows included: the PE and h0..h7, columns 0..2111
+    (the camera's head columns are the backward's, and torch.empty's
+    before it)."""
+    out = list(out) if isinstance(out, (tuple, list)) else [out]
+    if len(out) == 2 and out[1].dtype == torch.bfloat16 and out[1].is_cuda:
+        out[1] = out[1][:, :fr.act_stream_cols(False)]
+    return [t.clone() for t in out]
 
 
 def card():
@@ -197,17 +228,44 @@ def staged_traffic(rate_gbs, tiles, camera):
     return gb, gb / rate_gbs * 1e3
 
 
+# the ray forwards whose ring rates `l2` reads: the plain mode's and the
+# save mode's of the same op
+RING_CASES = ("camera", "camera_save", "shadow", "shadow_save")
+
+
+def ring_rates(device=None, reps=20):
+    """{case: {"tiles", "weight_gb", "ms", "gb_per_s"}} of RING_CASES on
+    the render chunk: the weight stream a call's ring reads (each tile its
+    op's STREAM_CHUNKS chunks of 16 KB, from L2) over the call's CUDA-event
+    time (the mean of `reps` calls, its plan launches included), so the
+    save mode's rate, whose stream stores share L2 with that read, stands
+    beside the plain mode's."""
+    dev = resolve_device(device)
+    kw, calls = render_chunk(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name in RING_CASES:
+        op, args = calls[name]
+        kpad = fr.kpad_of(args[1].shape[1])
+        tiles = stream_tiles(fr._padded(args[2], kpad), sms, name in SAVE_CASES)
+        gb = tiles * fr.STREAM_CHUNKS[name.startswith("camera")] * CHUNK_BYTES / 1e9
+        ms = time_ms(lambda op=op, args=args: op(kw, *args), reps, dev)
+        out[name] = {"tiles": tiles, "weight_gb": gb, "ms": ms, "gb_per_s": gb / (ms * 1e-3)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 # this tree's stream_fwd_kernel: its FS_MARK phases
 PHASES = ("other", "meta", "pe", "wait", "products", "epilogue", "heads", "results",
-          "composite")
+          "composite", "stores")
 # the earlier design's fused_fwd_kernel: five phases, then four a gemm call
-# (ring prologue, ring waits, products, epilogue), 13 calls a camera tile
+# (ring prologue, ring waits, products, epilogue), 14 calls a camera tile
+# (the trunk's 8, the heads' 6)
 PARENT_PHASES = ("other", "pe", "heads", "composite", "tile_end") + tuple(
-    f"{p}_{c}" for c in range(13) for p in ("prologue", "wait", "products", "epilogue"))
+    f"{p}_{c}" for c in range(14) for p in ("prologue", "wait", "products", "epilogue"))
 
 
 def _sub(pattern, repl, name="fused_render.cu"):
@@ -236,9 +294,7 @@ PARENT_SUBS = [
     _sub("      // positional encoding into the PE columns of both tiles; rows past the\n",
          "      FW_MARK(1);\n      // positional encoding into the PE columns of both tiles; rows"
          " past the\n"),
-    _sub("      P = trunk_tile<STREAM>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);",
-         "      FW_MARK(0);\n      P = trunk_tile<STREAM>(bufX, bufY, wm, wb, wst, acts, AS, g0,"
-         " nrows);"),
+    _sub("      P = trunk_tile<", "      FW_MARK(0);\n      P = trunk_tile<"),
     _sub("    for (int r = threadIdx.x; r < nrows; r += THREADS)\n      res[(s0 + r) * RES] =",
          "    FW_MARK(2);\n    for (int r = threadIdx.x; r < nrows; r += THREADS)\n"
          "      res[(s0 + r) * RES] ="),
@@ -274,20 +330,28 @@ PARENT_SUBS = [
 ]
 
 
-# the launch of the per-point forwards in a tree before their point modes
-POINT_PARENT = "launch_point<true, false>"
+# in a tree before the point modes, the launch of the per-point forwards;
+# before the save mode, that of the save forward
+PARENT_OF = {"point": "launch_point<true, false>", "save": "launch<CAM, false, false, true>"}
 
 
-def phase_source(source=None, points=False):
+def case_kind(case):
+    """"point" (POINT_CASES), "save" (SAVE_CASES) or "ray" (the plain ray
+    forwards)."""
+    return "point" if case in POINT_CASES else ("save" if case in SAVE_CASES else "ray")
+
+
+def phase_source(source=None, kind="ray"):
     """An instrumented copy of the csrc/ that holds ``source`` (by default
-    this tree's fused_render.cu) for the ray forwards or, with ``points``,
-    the point forwards: the copy's fused_render.cu. A source whose forwards
-    have their own landmarks (FS_MARK) gets the prelude that defines them;
-    one without (the design before the streamed forwards, or before their
-    point modes) gets PARENT_SUBS and the FW_ prelude."""
+    this tree's fused_render.cu) for the forwards of one :func:`case_kind`:
+    the copy's fused_render.cu. A source whose forwards of that kind have
+    their own landmarks (FS_MARK) gets the prelude that defines them; one
+    without (the design before the streamed forwards, or before their point
+    modes or their save mode) gets PARENT_SUBS and the FW_ prelude."""
     src = Path(source or _build.SOURCE)
     text = src.read_text()
-    if "FS_MARK(" in text and not (points and POINT_PARENT in text):
+    marker = PARENT_OF.get(kind)
+    if "FS_MARK(" in text and not (marker and marker in text):
         return source_copy("fwd_phases_this", (),
                            summed_phase_prelude("bench/stream_fwd.py", "FS", len(PHASES)), src)
     return source_copy("fwd_phases_parent", PARENT_SUBS,
@@ -301,9 +365,12 @@ def parent_tiles(r, kpad):
     return sum(-(-min(rpb, r - ray0) * kpad // 128) for ray0 in range(0, r, rpb))
 
 
-def stream_tiles(deltam, sms):
+def stream_tiles(deltam, sms, save=False):
     """128-row tiles of the streamed forward on a card of ``sms`` SMs
-    (:func:`fr.stream_fwd_plan` on the call's deltam)."""
+    (:func:`fr.stream_fwd_plan` on the call's deltam, or with ``save`` the
+    save mode's :func:`fr.save_fwd_plan`)."""
+    if save:
+        return int(fr.save_fwd_plan(deltam.shape[0], deltam.shape[1], sms)["tiles"].sum())
     plan = fr.stream_fwd_plan(deltam.cpu(), sms)
     return int(plan["tiles"].sum())
 
@@ -314,12 +381,14 @@ def phases(source=None, reps=3, device=None, built=None, cases=PHASE_CASES):
     ``source``'s csrc/ (``built``: that copy's fused_render.cu, already
     built): thread 0 of each block, summed over the blocks of `reps`
     launches and divided by their tiles. Only phases that took time are
-    listed. ``cases``: ray cases or POINT_CASES, not both."""
+    listed. ``cases``: cases of one :func:`case_kind`."""
     dev = resolve_device(device)
-    points = cases[0] in POINT_CASES
-    if any((c in POINT_CASES) != points for c in cases):
-        raise ValueError(f"phases takes ray cases or point cases, not both: {cases}")
-    src = Path(built or phase_source(source, points))
+    kinds = {case_kind(c) for c in cases}
+    if len(kinds) != 1:
+        raise ValueError(f"phases takes cases of one kind (ray, save, point): {cases}")
+    kind = kinds.pop()
+    points = kind == "point"
+    src = Path(built or phase_source(source, kind))
     _build.build(src)
     parent = "FW_MARK(" in src.read_text()
     names = PARENT_PHASES if parent else PHASES
@@ -342,7 +411,8 @@ def phases(source=None, reps=3, device=None, built=None, cases=PHASE_CASES):
             else:
                 kpad = fr.kpad_of(args[1].shape[1])
                 tiles = reps * (parent_tiles(args[0].shape[0], kpad) if parent
-                                else stream_tiles(fr._padded(args[2], kpad), sms))
+                                else stream_tiles(fr._padded(args[2], kpad), sms,
+                                                  name in SAVE_CASES))
             cyc = {p: sums[i] / tiles for i, p in enumerate(names) if sums[i] > 0}
             cyc["total"] = sum(sums[i] for i in range(len(names))) / tiles
             out[name] = {"tiles_a_launch": tiles // reps, "blocks_a_launch": sums[len(names)] // reps,
@@ -417,13 +487,14 @@ def configs(names, reps=20, device=None, table=None):
     outs = {}
     for tag, src in builds.items():
         with using(src):
-            outs[tag] = {case: op(kw, *args).clone() for case, (op, args) in calls.items()}
+            outs[tag] = {case: compared(op(kw, *args)) for case, (op, args) in calls.items()}
 
     def turn(_):
         return {case: time_ms(lambda op=op, args=args: op(kw, *args), reps, dev)
                 for case, (op, args) in calls.items()}
     ms = in_turns(builds, turn)
-    return {name: {"same_bits": {case: bool(torch.equal(outs[name][case], outs["this"][case]))
+    return {name: {"same_bits": {case: all(torch.equal(a, b) for a, b in
+                                           zip(outs[name][case], outs["this"][case]))
                                  for case in calls},
                    "ms": ms[name], "this_ms": ms["this"],
                    "phases": phases(built=phased[name], device=dev)}
@@ -497,14 +568,14 @@ if __name__ == "__main__":
                   for case, k, kpad, camera in (("camera", 127, 128, True),
                                                 ("camera", 143, 144, True),
                                                 ("shadow", 63, 64, False))}
-        print(json.dumps({"l2_read": res, "earlier_design_weight_gb_ms": parent, "card": name}),
-              flush=True)
+        print(json.dumps({"l2_read": res, "earlier_design_weight_gb_ms": parent,
+                          "ring_read": ring_rates(), "card": name}), flush=True)
     elif cmd == "phases":
         args = sys.argv[2:]
         other = args.pop(0) if args and args[0].endswith(".cu") else None
-        groups = ([c for c in args if c not in POINT_CASES], [c for c in args if c in POINT_CASES])
+        groups = [[c for c in args if case_kind(c) == k] for k in ("ray", "save", "point")]
         if not args:
-            groups = (PHASE_CASES, POINT_CASES)
+            groups = (PHASE_CASES, SAVE_CASES, POINT_CASES)
         for cases in groups:
             for case, res in (phases(other, cases=tuple(cases)) if cases else {}).items():
                 print(json.dumps({"fwd_phases": case, **res, "card": name}), flush=True)

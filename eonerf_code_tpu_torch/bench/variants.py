@@ -13,7 +13,12 @@ density kernel, ``density_forward``), which those bodies are.
   points ``pos`` (n, 3) in TPU grid tiles of ``tile`` rows; see
   :data:`VARIANTS`. Forward variants return out (n, 1) ((n, 8) for
   ``full``), ``mm_fwd_save`` (out, acts (n, 2048) bf16), the backward slabs
-  (out, dW (8, 256, 256) float32, each (in, out)).
+  (out, dW (8, 256, 256) float32, each (in, out)). ``trunk_gemm`` is no TPU
+  body of its own: ``trunk``'s function on the design of the trunk
+  variants and the compositing epilogues (trunk_variant_kernel on
+  tile_common.cuh's gemm), the baseline each of them is read against
+  (:data:`BASELINE_OF`), since ``trunk``, ``full`` and ``base`` run the
+  production streamed forward.
 - :func:`run_composite` / :func:`composite_reference`: a variant of
   proto_composite.py; :func:`composite_epilogue` is its epilogue alone, on a
   given sigma.
@@ -55,7 +60,8 @@ FORWARD = ("full", "trunk", "nope", "norelu", "nocast", "mm_only", "mm_int2", "m
            "mm_i8", "mm_i8_dyn", "mm_f8", "mm_k512", "mm_i8_k512", "mm_merged2",
            "mm_merged4", "mm_seq2", "trunk_int2")
 SLAB_BWD = ("mm_fwd_save", "mm_bwd_rec", "mm_bwd_saved")
-VARIANTS = FORWARD + SLAB_BWD
+BASELINES = ("trunk_gemm",)
+VARIANTS = FORWARD + SLAB_BWD + BASELINES
 DEFAULT_VARIANTS = ("full", "trunk", "nope", "norelu", "nocast", "mm_only")
 COMPOSITES = ("base", "reshape", "colscan", "accmm")
 INT8 = ("mm_i8", "mm_i8_dyn", "mm_i8_k512")
@@ -67,8 +73,15 @@ _BF16_CHAIN = {"mm_only": (0, 8, 1, W), "mm_merged2": (0, 16, 1, W),
                "mm_fwd_save": (5, 8, 1, W)}
 # 8-bit chains: (fp8, width, depth)
 _Q_CHAIN = {"mm_i8": (0, W, 8), "mm_i8_k512": (0, 2 * W, 4), "mm_f8": (1, W, 8)}
-_TRUNK_MODE = {"nope": 0, "norelu": 1, "nocast": 2, "trunk_int2": 3}
+_TRUNK_MODE = {"nope": 0, "norelu": 1, "nocast": 2, "trunk_int2": 3, "trunk_gemm": 4}
 _EPI = {"reshape": 0, "colscan": 1, "accmm": 2}
+# the variant each one is read against, on the same design: one cost
+# (the PE's sines, the ReLU, the casts, two chains, an epilogue, the heads)
+# is their difference
+BASELINE_OF = {**dict.fromkeys(("nope", "norelu", "nocast", "trunk_int2", "reshape", "colscan",
+                                "accmm"), "trunk_gemm"), "full": "trunk"}
+# the TPU body a variant computes (its own name but for the baseline)
+TPU_BODY = {"trunk_gemm": "trunk"}
 
 LAUNCHES = dict.fromkeys(VARIANTS + COMPOSITES, 0)
 # CUDA launches one call of a variant makes on the card
@@ -94,7 +107,7 @@ def flops(variant, n):
     per_pt = {"full": trunk + heads_full, "mm_merged2": 16 * slab, "mm_merged4": 32 * slab,
               "mm_k512": 2 * 4 * 512 * 512, "mm_i8_k512": 2 * 4 * 512 * 512,
               "mm_bwd_rec": 24 * slab, "mm_bwd_saved": 16 * slab}
-    for v in ("trunk", "nope", "norelu", "nocast", "trunk_int2") + COMPOSITES:
+    for v in ("trunk", "nope", "norelu", "nocast", "trunk_int2", "trunk_gemm") + COMPOSITES:
         per_pt[v] = trunk + 512
     for v in ("mm_only", "mm_seq2", "mm_int2", "mm_int4", "mm_i8", "mm_i8_dyn", "mm_f8",
               "mm_fwd_save"):
@@ -271,12 +284,12 @@ def slab_bwd_reference(w1, pos, tile, acts=None, h0=None):
 
 
 def trunk_variant_reference(variant, kw, pos):
-    """trunk, nope (linear PE), norelu (no ReLU), nocast and trunk_int2 (the
-    exact float32 sin/cos PE): sigma (n, 1)."""
+    """trunk and trunk_gemm, nope (linear PE), norelu (no ReLU), nocast and
+    trunk_int2 (the exact float32 sin/cos PE): sigma (n, 1)."""
     dtype = kw.dtype
     w = ff.kernel_views(kw)
     xb = ff.point_pe_args(pos)
-    if variant in ("trunk", "norelu"):
+    if variant in ("trunk", "trunk_gemm", "norelu"):
         pe = ff.pe_from_args(xb, dtype)
     elif variant == "nope":
         col = torch.arange(ff.PE_PAD, device=pos.device)

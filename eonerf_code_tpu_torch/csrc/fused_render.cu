@@ -99,11 +99,12 @@
 // camera_fwd_save and shadow_fwd_save replace `_camera_fwd_kernel` and
 // `_shadow_fwd_kernel` run with save=True, camera_bwd_saved and
 // shadow_bwd_saved their backwards with saved=True. The differentiated
-// forward is fused_fwd_kernel<MODE, false, false, /*SAVE=*/true>: the
-// plain forward (its outputs bit for bit) that also writes the PE and
-// h0..h7 of every sample row (ray * KPAD + k) into an activation stream
-// with the backward's layout and stride (ACT_CAM, ACT_SH), which the caller
-// keeps from forward to backward. The saved backward then skips the PE and
+// forward is the save mode of the streamed forward, stream_fwd_kernel<MODE,
+// /*SAVE=*/true> (its section below): the plain forward (its outputs bit
+// for bit) that also writes the PE and h0..h7 of every sample row (ray *
+// KPAD + k) into an activation stream with the backward's layout and stride
+// (ACT_CAM, ACT_SH), which the caller keeps from forward to backward. The
+// saved backward then skips the PE and
 // the eight trunk products: its first pass is fused_fwd_kernel<MODE, true,
 // /*FROM_STREAM=*/true>, the heads and the compositing backward from h7 in
 // that stream (the camera's head activations written into it), then the
@@ -228,9 +229,7 @@ __device__ __forceinline__ void camera_heads(bf16* P, bf16* Q, const bf16* __res
 // is read from `acts` (written there by the int8 trunk, or by any pass that
 // fills the stream's layout) instead of running the PE and the bf16 trunk;
 // the heads, their stream writes (BWD) and the compositing are unchanged.
-// SAVE (CAM and SHADOW forwards): the forward also writes the PE and the
-// trunk activations h0..h7 to `acts`, as the backward's recompute does.
-template <int MODE, bool BWD, bool FROM_STREAM = false, bool SAVE = false>
+template <int MODE, bool BWD, bool FROM_STREAM = false>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  const float* __restrict__ deltam, const float* __restrict__ mask,
@@ -238,10 +237,7 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                  float* __restrict__ out, int R, int KPAD, int rpb,
                  const float* __restrict__ gin, bf16* __restrict__ acts,
                  float* __restrict__ hg) {
-  static_assert(!SAVE || (!BWD && !FROM_STREAM && MODE != COARSE),
-                "SAVE is a camera or shadow forward");
   constexpr bool CAMERA = MODE == CAM;
-  constexpr bool STREAM = BWD || SAVE;   // the PE and the trunk go to `acts`
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* bufX = reinterpret_cast<bf16*>(smem);
   bf16* bufY = bufX + MT * LDA;
@@ -284,11 +280,11 @@ fused_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
         bufX[r * LDA + W + c] = pv;
         bufY[r * LDA + W + c] = pv;
       }
-      if (STREAM) {
+      if (BWD) {
         __syncthreads();
         tile_to_stream(bufX, W, PE, acts, AS, g0, nrows, A_PE);
       }
-      P = trunk_tile<STREAM>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
+      P = trunk_tile<BWD>(bufX, bufY, wm, wb, wst, acts, AS, g0, nrows);   // P holds h7
     }
     for (int r = threadIdx.x; r < nrows; r += THREADS)
       res[(s0 + r) * RES] = softplus(dot_row(P + r * LDA, wm + M_SIG, W) + wb[B_SIG]);
@@ -475,7 +471,7 @@ size_t fwd_smem(int KPAD) {
          (size_t)rays_per_block(KPAD) * KPAD * RES * sizeof(float);
 }
 
-template <int MODE, bool BWD, bool FROM_STREAM = false, bool SAVE = false>
+template <int MODE, bool BWD, bool FROM_STREAM = false>
 int launch(const float* rayin, const float* z, const float* deltam, const float* mask,
            const void* wm, const float* wb, float* out, int R, int KPAD, cudaStream_t stream,
            const float* gin = nullptr, bf16* acts = nullptr, float* hg = nullptr) {
@@ -483,10 +479,10 @@ int launch(const float* rayin, const float* z, const float* deltam, const float*
   const int rpb = rays_per_block(KPAD);
   const int grid = (R + rpb - 1) / rpb;
   const size_t smem = fwd_smem(KPAD);
-  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD, FROM_STREAM, SAVE>,
+  cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel<MODE, BWD, FROM_STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_fwd_kernel<MODE, BWD, FROM_STREAM, SAVE><<<grid, THREADS, smem, stream>>>(
+  fused_fwd_kernel<MODE, BWD, FROM_STREAM><<<grid, THREADS, smem, stream>>>(
       rayin, z, deltam, mask, static_cast<const bf16*>(wm), wb, out, R, KPAD, rpb, gin, acts,
       hg);
   return (int)cudaGetLastError();
@@ -516,10 +512,42 @@ int launch_point(const float* pos, const float* emb, const bf16* wm, const float
 // coarse forward: the counterpart of `_camera_fwd_kernel`,
 // `_shadow_fwd_kernel` and `_coarse_fwd_kernel` (the JAX package's
 // ops/pallas/fused_render.py) in place of fused_fwd_kernel<MODE, false>,
-// which stays for the save forwards, the backwards' first pass and the int8
-// heads. It gives fused_fwd_kernel's bits: each row's products, epilogues
-// and narrow heads in the same operations, the per-ray sums in sample order
-// by the same statements.
+// which stays for the backwards' first pass and the int8 heads. It gives
+// fused_fwd_kernel's bits: each row's products, epilogues and narrow heads
+// in the same operations, the per-ray sums in sample order by the same
+// statements.
+//
+// Its save mode, stream_fwd_kernel<CAM or SHADOW, /*SAVE=*/true>, is the
+// differentiated camera and shadow forward (`_camera_fwd_kernel` and
+// `_shadow_fwd_kernel` with save=True): the plain forward that also writes
+// the PE and h0..h7 of every sample row to the activation stream the saved
+// backward reads (ACT_CAM or ACT_SH columns a row). What bounds it: the
+// products and, nearly as much, the stream (2112 bf16 a row: at 1024 x 128
+// rows 553 MB, 0.17 ms at 3.35 TB/s, against 0.18 ms of the camera's
+// products). Here:
+// - every sample row is a row, padding and deltam = 0 included (the saved
+//   backward reads every row of the stream, and an unwritten row of its
+//   torch.empty buffer could be NaN), so a block's rows are its rays' R *
+//   KPAD consecutive rows: no plan beyond the weight stream; block b of the
+//   grid owns rays b R / G .. (b + 1) R / G - 1 (sv_first_ray), and a
+//   row's (ray, sample) is (row / KPAD, row % KPAD). The per-ray sums visit
+//   every sample, as fused_fwd_kernel's did: the same bits.
+// - the stream is written while the products run: after each trunk
+//   layer's epilogue a warp reads its 16 rows of that layer's output back
+//   from the tile and stores them with streaming 16-byte stores (L2
+//   evict-first, so the 553 MB pass leaves the weight stream's L2 lines
+//   alone; fs_rows_to_stream), 512 B a row to act_h(i), and after layer 4
+//   640 B, [h4 | PE] being tile columns 0..319 and stream columns
+//   1024..1343, so the PE is written once. The warp waits for its reads of
+//   the tile and for its stores to be taken (all SMs store a layer at once:
+//   about a seventh of a tile), not for them to land. The camera's head
+//   columns 2112..3071 stay the backward's to write. Measured slower
+//   (PERF.md, the save forwards' findings): a bulk copy a row by the TMA,
+//   shared -> global (each SM's 128 small copies a layer queued ahead of
+//   the weight ring's loads), and the same stores spread over the next
+//   product, between a chunk's wgmma and its wait or while the ring's
+//   chunks were awaited (the products and the waits grew by more than the
+//   stores saved).
 //
 // Its point modes, PT_FIELD and PT_DENSITY, are the per-point forwards: the
 // counterparts of `_field_fwd_kernel` and `_density_fwd_kernel` (the JAX
@@ -589,7 +617,7 @@ int launch_point(const float* pos, const float* emb, const bf16* wm, const float
 #define FS_END()
 #endif
 enum FsPhase { FSP_OTHER, FSP_META, FSP_PE, FSP_WAIT, FSP_PRODUCTS, FSP_EPILOGUE, FSP_HEADS,
-               FSP_RESULTS, FSP_COMPOSITE };
+               FSP_RESULTS, FSP_COMPOSITE, FSP_STORES };
 
 constexpr int FS_WARPS = 8;                      // consumer warps: two warpgroups
 constexpr int FS_THREADS = FS_WARPS * 32 + 32;   // and the producer warp
@@ -884,27 +912,64 @@ __host__ __device__ inline long long pt_first_row(int b, int N, int G) {
   return row < N ? row : N;
 }
 
+// The save mode's stream write: a warp's 16 tile rows (rows row0.., those
+// below nr), columns 0..ncols - 1, to their stream rows (dst: row row0's
+// first column; row stride AS), right after the epilogue that wrote them:
+// 16 bytes a lane from shared memory, then a streaming 16-byte store (L2
+// evict-first), so each warp instruction writes 512 contiguous bytes of a
+// row. The warp does not wait for the stores; it waits for its reads of
+// the tile (__syncwarp) before the next epilogue overwrites those columns.
+template <long long AS>
+__device__ __forceinline__ void fs_rows_to_stream(const bf16* tile, int row0, int nr,
+                                                  bf16* __restrict__ dst, int ncols) {
+  FS_MARK(FSP_STORES);
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int r = 0; r < 16; ++r) {
+    if (row0 + r >= nr) break;
+    const bf16* src = tile + (row0 + r) * LDA;
+    for (int c = 8 * lane; c < ncols; c += 256)
+      __stcs(reinterpret_cast<uint4*>(dst + r * AS + c), *reinterpret_cast<const uint4*>(src + c));
+  }
+  __syncwarp();
+  FS_MARK(FSP_OTHER);
+}
+
+// The first ray of block b of G in the save mode: whole rays, b R / G (R
+// for b = G), so the blocks' rays differ by at most one and their rows by
+// at most KPAD.
+__host__ __device__ inline int sv_first_ray(int b, int R, int G) {
+  return (int)((long long)b * R / G);
+}
+
 // The plain forward over the rows of the samples with deltam != 0 (the
 // plan's prefix and ray_start). CAM: acc (R, 8); SHADOW: geo (R,);
 // COARSE: the weights (R, KPAD). meta and res: the workspace's rows (ray,
 // sample) and results, written and read by this kernel; stream: the
 // weight sequence (fs_count_kernel).
+// SAVE (CAM, SHADOW): the save mode over every sample row, the rays split
+// by sv_first_ray (prefix, ray_start and meta not read), which also writes
+// the PE and h0..h7 of every row into the activation stream `acts`
+// (ACT_CAM or ACT_SH columns a row).
 // The point modes (PT_FIELD: out (R, 8); PT_DENSITY: sigma (R,)) over the
 // R points in order: rayin holds their xyz (R, 3), z the field's
 // embeddings (R, 4); deltam, mask, prefix, ray_start, meta, res and KPAD
 // are not read.
-template <int MODE>
+template <int MODE, bool SAVE = false>
 __global__ void __launch_bounds__(FS_THREADS, 1)
 stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
                   const float* __restrict__ deltam, const float* __restrict__ mask,
                   const bf16* __restrict__ wm, const float* __restrict__ wb,
                   const uint4* __restrict__ stream, const int* __restrict__ prefix,
                   const int* __restrict__ ray_start, int2* meta, float* res,
-                  float* __restrict__ out, int R, int KPAD) {
+                  float* __restrict__ out, int R, int KPAD, bf16* __restrict__ acts) {
   constexpr bool POINT = MODE == PT_FIELD || MODE == PT_DENSITY;
   constexpr bool CAMERA = MODE == CAM;
   constexpr bool HEADS = CAMERA || MODE == PT_FIELD;   // the camera heads after the trunk
   constexpr int CHUNKS = fs_stream_chunks(HEADS);
+  static_assert(!SAVE || MODE == CAM || MODE == SHADOW,
+                "the save mode is the camera's or the shadow's");
+  constexpr long long AS = CAMERA ? ACT_CAM : ACT_SH;   // the activation stream's row
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* tile = reinterpret_cast<bf16*>(smem + FS_OFF_TILE);
   float* rin = reinterpret_cast<float*>(smem + FS_OFF_IN) + (threadIdx.x >> 5) * 16 * FS_IN;
@@ -923,11 +988,14 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     mbar_init_fence();
   }
   __syncthreads();
-  // the block's rays (point modes: none) and rows
-  const int ray_lo = POINT ? 0 : ray_start[blockIdx.x];
-  const int ray_hi = POINT ? 0 : ray_start[blockIdx.x + 1];
-  const long long row_lo = POINT ? pt_first_row(blockIdx.x, R, gridDim.x) : prefix[ray_lo];
-  const long long row_hi = POINT ? pt_first_row(blockIdx.x + 1, R, gridDim.x) : prefix[ray_hi];
+  // the block's rays (point modes: none) and rows; a ray's first row
+  auto first_row = [&](int r) { return SAVE ? (long long)r * KPAD : (long long)prefix[r]; };
+  const int ray_lo = POINT ? 0 : (SAVE ? sv_first_ray(blockIdx.x, R, gridDim.x)
+                                       : ray_start[blockIdx.x]);
+  const int ray_hi = POINT ? 0 : (SAVE ? sv_first_ray(blockIdx.x + 1, R, gridDim.x)
+                                       : ray_start[blockIdx.x + 1]);
+  const long long row_lo = POINT ? pt_first_row(blockIdx.x, R, gridDim.x) : first_row(ray_lo);
+  const long long row_hi = POINT ? pt_first_row(blockIdx.x + 1, R, gridDim.x) : first_row(ray_hi);
   const int ntiles = (int)((row_hi - row_lo + MT - 1) / MT);
 
   if (warp == FS_WARPS) {   // the producer: the weight sequence once a tile, without a break
@@ -952,9 +1020,9 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
     hw[e] = wm[e < W ? M_SIG + e : (e < W + 3 * HALF ? M_ALB1 + e - W : M_TS + e - W - 3 * HALF)];
   for (int e = tid; e < B_END; e += FS_WARPS * 32) bs[e] = wb[e];
   // each row's (ray, sample): a warp a ray, in sample order (point modes:
-  // no rays)
+  // no rays; the save mode: (row / KPAD, row % KPAD))
   FS_MARK(FSP_META);
-  for (int r = ray_lo + warp; r < ray_hi; r += FS_WARPS) {
+  for (int r = ray_lo + warp; !SAVE && r < ray_hi; r += FS_WARPS) {
     long long base = prefix[r];
     for (int k0 = 0; k0 < KPAD; k0 += 32) {
       const int k = k0 + lane;
@@ -992,7 +1060,8 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
           for (int c = 0; c < 4; ++c) v[8 + c] = z[p * 4 + c];
         }
       } else if (own) {
-        const int2 m = meta[g0 + row0 + lane];
+        const long long g = g0 + row0 + lane;
+        const int2 m = SAVE ? make_int2((int)(g / KPAD), (int)(g % KPAD)) : meta[g];
         const float* ri = rayin + (long long)m.x * RAYIN;
 #pragma unroll
         for (int c = 0; c < 6; ++c) v[c] = ri[c];
@@ -1025,6 +1094,9 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       const float* bi = bs + B_T + i * W;
       fs_wide<true>(rg, tile, row0, i == 0 ? W : 0, fs_layer(i).k_dim,
                     [&](int c) { return bi[c]; });
+      if (SAVE)   // the warp's rows of h_i (after h4 with the PE) to the stream
+        fs_rows_to_stream<AS>(tile, row0, nr, acts + (g0 + row0) * AS + act_h(i),
+                              i == 4 ? W + PE : W);
     }
     FS_MARK(FSP_HEADS);
     float sig = 0.f;
@@ -1096,9 +1168,9 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
   for (int r = ray_lo + tid; r < ray_hi; r += FS_WARPS * 32) {
     const long long ray = r;
     const float* dr = deltam + ray * KPAD;
-    long long row = prefix[r];
+    long long row = first_row(r);
     if constexpr (CAMERA) {
-      const long long end = prefix[r + 1];
+      const long long end = first_row(r + 1);
       float excl = 0.f, a[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (; row < end; ++row) {
@@ -1131,7 +1203,7 @@ stream_fwd_kernel(const float* __restrict__ rayin, const float* __restrict__ z,
       for (int k = 0; k < KPAD; ++k) remaining += mr[k];
 #pragma unroll 4
       for (int k = 0; k < KPAD; ++k) {
-        if (dr[k] != 0.f) {
+        if (SAVE || dr[k] != 0.f) {   // the save mode: every sample a row
           if (remaining >= 2.f) ev += res[row] * dr[k];
           ++row;
         }
@@ -1175,7 +1247,7 @@ int fs_grid(cudaError_t* err) {
   return *err == cudaSuccess ? std::min(sms, FS_MAX_BLOCKS) : 0;
 }
 
-long long fs_launch_count[5] = {0, 0, 0, 0, 0};   // stream_fwd_kernel launches, by mode
+long long fs_launch_count[5] = {0, 0, 0, 0, 0};   // plain and point-mode launches, by mode
 
 // The plan's two launches (fs_count_kernel with the weight stream, then
 // fs_scan_kernel) into the workspace `ws` (fs_layout), for the grid of G
@@ -1222,10 +1294,20 @@ int launch_stream(const float* rayin, const float* z, const float* deltam, const
       rayin, z, deltam, mask, wm, wb, reinterpret_cast<const uint4*>(base + L.stream),
       reinterpret_cast<const int*>(base + L.prefix), reinterpret_cast<const int*>(base + L.ray_start),
       reinterpret_cast<int2*>(base + L.meta), reinterpret_cast<float*>(base + L.res), out, R,
-      KPAD);
+      KPAD, nullptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   ++fs_launch_count[MODE];
   return 0;
+}
+
+// The weight stream of the camera's heads (camera) or of the density trunk
+// alone into `dst` (fs_count_kernel's stream blocks): the one plan launch
+// of the point modes and of the save mode.
+int launch_weight_stream(bool camera, const bf16* wm, uint4* dst, cudaStream_t stream) {
+  const int nb_stream = fs_stream_chunks(camera) * (FS_CHUNK / 16) / 256;
+  fs_count_kernel<<<nb_stream, 256, 0, stream>>>(
+      nullptr, 0, 0, nullptr, 0, wm, camera ? FS_LAYERS_CAM : FS_LAYERS_DENSITY, dst);
+  return (int)cudaGetLastError();
 }
 
 // The point modes' workspace: the weight stream alone (the field's is the
@@ -1253,17 +1335,67 @@ int launch_point_fwd(const float* pos, const float* emb, const void* wm_, const 
   cudaError_t e = cudaSuccess;
   const int G = pt_grid(N, &e);
   if (e != cudaSuccess) return (int)e;
-  const int nb_stream = fs_stream_chunks(FIELD) * (FS_CHUNK / 16) / 256;
-  fs_count_kernel<<<nb_stream, 256, 0, stream>>>(
-      nullptr, 0, 0, nullptr, 0, wm, FIELD ? FS_LAYERS_CAM : FS_LAYERS_DENSITY, weights);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int err = launch_weight_stream(FIELD, wm, weights, stream);
+  if (err != 0) return err;
   e = cudaFuncSetAttribute(stream_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)FS_SMEM);
   if (e != cudaSuccess) return (int)e;
   stream_fwd_kernel<MODE><<<G, FS_THREADS, FS_SMEM, stream>>>(
-      pos, emb, nullptr, nullptr, wm, wb, weights, nullptr, nullptr, nullptr, nullptr, out, N, 0);
+      pos, emb, nullptr, nullptr, wm, wb, weights, nullptr, nullptr, nullptr, nullptr, out, N, 0,
+      nullptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   ++fs_launch_count[MODE];
+  return 0;
+}
+
+// The save mode's workspace of R rays of KPAD samples (camera: the
+// camera's), in bytes, and its carve: the weight stream, then every row's
+// results (camera: 8 floats, else 1), each 256-byte aligned.
+// fused_render.py's save_fwd_layout restates it.
+struct SvLayout {
+  size_t stream, res, total;
+};
+
+SvLayout sv_layout(bool camera, int R, int KPAD) {
+  auto up = [](size_t b) { return (b + 255) / 256 * 256; };
+  SvLayout L;
+  L.stream = 0;
+  L.res = up((size_t)fs_stream_chunks(camera) * FS_CHUNK);
+  L.total = L.res + up((size_t)R * KPAD * (camera ? FS_RES : 1) * sizeof(float));
+  return L;
+}
+
+// The save mode's grid for R rays: one block an SM (at most FS_MAX_BLOCKS),
+// at least a ray each; 0 on a CUDA error (its code in *err).
+int sv_grid(int R, cudaError_t* err) { return std::min(fs_grid(err), R); }
+
+long long sv_launch_count[2] = {0, 0};   // save-mode launches: camera, shadow
+
+// The save forward (MODE CAM or SHADOW): the weight stream into the
+// workspace `ws` (sv_layout), then the persistent grid over every sample
+// row, writing the activation stream `acts`.
+template <int MODE>
+int launch_save(const float* rayin, const float* z, const float* deltam, const float* mask,
+                const void* wm_, const float* wb, float* out, bf16* acts, int R, int KPAD,
+                void* ws, cudaStream_t stream) {
+  if (!fs_shape_ok(R, KPAD) || ws == nullptr || acts == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr bool CAMERA = MODE == CAM;
+  const bf16* wm = static_cast<const bf16*>(wm_);
+  const SvLayout L = sv_layout(CAMERA, R, KPAD);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  cudaError_t e = cudaSuccess;
+  const int G = sv_grid(R, &e);
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch_weight_stream(CAMERA, wm, reinterpret_cast<uint4*>(base + L.stream), stream);
+  if (err != 0) return err;
+  e = cudaFuncSetAttribute(stream_fwd_kernel<MODE, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  stream_fwd_kernel<MODE, true><<<G, FS_THREADS, FS_SMEM, stream>>>(
+      rayin, z, deltam, mask, wm, wb, reinterpret_cast<const uint4*>(base + L.stream), nullptr,
+      nullptr, nullptr, reinterpret_cast<float*>(base + L.res), out, R, KPAD, acts);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ++sv_launch_count[CAMERA ? 0 : 1];
   return 0;
 }
 
@@ -2198,7 +2330,7 @@ int bwd_passes(const BwdLayout& L, const Scratch& sc, const float* rayin, const 
 }
 
 // saved != nullptr: the saved backward, on the stream the forward wrote
-// (fused_fwd_kernel<MODE, false, false, true>) in place of the recompute.
+// (stream_fwd_kernel<MODE, true>) in place of the recompute.
 // pass 0..3 (measurement): one of the four launches alone (the first pass,
 // dgrad, wgrad, the reduction) on a workspace the passes before it filled;
 // < 0 all four.
@@ -4128,23 +4260,44 @@ int eonerf_shadow_bwd(const float* rayin, const float* z, const float* deltam, c
 long long eonerf_act_stream_cols(int camera) { return camera ? ACT_CAM : ACT_SH; }
 
 // The camera forward that also writes the PE and h0..h7 of every sample row
-// into acts (R * KPAD rows of eonerf_act_stream_cols(1) bf16 columns).
+// into acts (R * KPAD rows of eonerf_act_stream_cols(1) bf16 columns): the
+// save mode of the streamed forward after its weight stream's launch. ws:
+// eonerf_save_fwd_workspace_bytes of scratch, after the stream (a build of
+// an older tree, whose save forwards take none, ignores it).
 int eonerf_camera_fwd_save(const float* rayin, const float* z, const float* deltam,
                            const void* wm, const float* wb, float* acc, void* acts, int R,
-                           int KPAD, void* stream) {
-  return launch<CAM, false, false, true>(rayin, z, deltam, nullptr, wm, wb, acc, R, KPAD,
-                                         static_cast<cudaStream_t>(stream), nullptr,
-                                         static_cast<bf16*>(acts));
+                           int KPAD, void* stream, void* ws) {
+  return launch_save<CAM>(rayin, z, deltam, nullptr, wm, wb, acc, static_cast<bf16*>(acts), R,
+                          KPAD, ws, static_cast<cudaStream_t>(stream));
 }
 
 // The shadow forward that also writes its stream (eonerf_act_stream_cols(0)
-// columns a row).
+// columns a row); ws as eonerf_camera_fwd_save's.
 int eonerf_shadow_fwd_save(const float* rayin, const float* z, const float* deltam,
                            const float* mask, const void* wm, const float* wb, float* geo,
-                           void* acts, int R, int KPAD, void* stream) {
-  return launch<SHADOW, false, false, true>(rayin, z, deltam, mask, wm, wb, geo, R, KPAD,
-                                            static_cast<cudaStream_t>(stream), nullptr,
-                                            static_cast<bf16*>(acts));
+                           void* acts, int R, int KPAD, void* stream, void* ws) {
+  return launch_save<SHADOW>(rayin, z, deltam, mask, wm, wb, geo, static_cast<bf16*>(acts), R,
+                             KPAD, ws, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch of a save forward (camera != 0: the camera's) of R rays
+// of KPAD samples: the weight stream and every row's results (sv_layout).
+long long eonerf_save_fwd_workspace_bytes(int camera, int R, int KPAD) {
+  return (long long)sv_layout(camera != 0, R, KPAD).total;
+}
+
+// The save forwards' grid for R rays on the current card (blocks), or
+// minus a CUDA error code.
+int eonerf_save_fwd_blocks(int R) {
+  cudaError_t e;
+  const int G = sv_grid(R, &e);
+  return e == cudaSuccess ? G : -(int)e;
+}
+
+// The save-mode launches made so far: camera, shadow.
+void eonerf_save_fwd_launches(long long* out) {
+  out[0] = sv_launch_count[0];
+  out[1] = sv_launch_count[1];
 }
 
 // Bytes of scratch of a saved backward: the recompute backward's without its

@@ -24,8 +24,9 @@
 //      chains, and mm_fwd_save;
 //   K2 the slab backward (slab_dgrad_kernel, slab_wgrad_kernel,
 //      reduce_kernel): mm_bwd_rec and mm_bwd_saved;
-//   K3 trunk_variant_kernel: nope, norelu, nocast, trunk_int2 (trunk and
-//      full launch fused_render.cu's density and field kernels as they are);
+//   K3 trunk_variant_kernel: nope, norelu, nocast, trunk_int2, and their
+//      baseline trunk_gemm (trunk's function on this design; trunk and
+//      full launch fused_render.cu's streamed density and field forwards);
 //   K4 composite_kernel: reshape, colscan, accmm (base is the density
 //      kernel).
 //
@@ -649,8 +650,13 @@ int launch_slab_bwd(const float* pos, const void* h0, const void* acts_in, const
 // activations round to bf16 at each product's input, the values of trunk's
 // rounding after the ReLU), `kernel_trunk_int2` :211 (nocast's function over
 // two independent chains a tile, layers interleaved: gemm's two chains a
-// warpgroup). point_kernel's density path with a PE mode and a ReLU switch:
-// sigma = softplus(h7 . w_sigma + b_sigma), (n,).
+// warpgroup). The design the per-point density forward had before the
+// streamed one (one block a 128-point tile on gemm) with a PE mode and a
+// ReLU switch: sigma = softplus(h7 . w_sigma + b_sigma), (n,). The phased
+// PE with the ReLU is trunk_gemm, `kernel_trunk` :71 on this design: the
+// baseline each variant here and each compositing epilogue below is read
+// against (the production `trunk` runs fused_render.cu's streamed forward,
+// a design of its own).
 // ---------------------------------------------------------------------------
 
 enum PeMode { PE_PHASED = 0, PE_LINEAR = 1, PE_EXACT = 2 };
@@ -932,7 +938,7 @@ int kv_slab_bwd_pass(int pass, const float* pos, const void* h0, const void* act
 }
 
 // The trunk variants (K3), packed weights as fused_render.cu's: mode 0 nope,
-// 1 norelu, 2 nocast, 3 trunk_int2; out (n,).
+// 1 norelu, 2 nocast, 3 trunk_int2, 4 trunk_gemm (their baseline); out (n,).
 int kv_trunk_variant(int mode, const float* pos, const void* wm, const float* wb, float* out,
                      long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
@@ -942,6 +948,7 @@ int kv_trunk_variant(int mode, const float* pos, const void* wm, const float* wb
     case 1: return launch_trunk_variant<PE_PHASED, false, 1>(pos, wm, wb, out, n, st);
     case 2: return launch_trunk_variant<PE_EXACT, true, 1>(pos, wm, wb, out, n, st);
     case 3: return launch_trunk_variant<PE_EXACT, true, 2>(pos, wm, wb, out, n, st);
+    case 4: return launch_trunk_variant<PE_PHASED, true, 1>(pos, wm, wb, out, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

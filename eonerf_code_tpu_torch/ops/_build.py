@@ -109,9 +109,10 @@ def load_library():
     ll = ctypes.c_longlong
     lib.eonerf_act_stream_cols.argtypes = [i]
     lib.eonerf_act_stream_cols.restype = ll
-    lib.eonerf_camera_fwd_save.argtypes = [p] * 7 + [i, i, p]
+    # the save forwards end with their workspace too (an older build ignores it)
+    lib.eonerf_camera_fwd_save.argtypes = [p] * 7 + [i, i, p, p]
     lib.eonerf_camera_fwd_save.restype = i
-    lib.eonerf_shadow_fwd_save.argtypes = [p] * 8 + [i, i, p]
+    lib.eonerf_shadow_fwd_save.argtypes = [p] * 8 + [i, i, p, p]
     lib.eonerf_shadow_fwd_save.restype = i
     lib.eonerf_saved_bwd_workspace_bytes.argtypes = [i, i, i]
     lib.eonerf_saved_bwd_workspace_bytes.restype = ll
@@ -155,7 +156,10 @@ def load_library():
                             ("eonerf_stream_fwd_launches", [p], None),
                             ("eonerf_point_fwd_workspace_bytes", [i, i], ll),
                             ("eonerf_point_fwd_blocks", [i], i),
-                            ("eonerf_point_fwd_launches", [p], None)):
+                            ("eonerf_point_fwd_launches", [p], None),
+                            ("eonerf_save_fwd_workspace_bytes", [i, i, i], ll),
+                            ("eonerf_save_fwd_blocks", [i], i),
+                            ("eonerf_save_fwd_launches", [p], None)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.eonerf_error_string.argtypes = [i]

@@ -771,6 +771,59 @@ def _act_col(i):
     return i * 256 if i < 5 else 5 * 256 + PE_PAD + (i - 5) * 256
 
 
+def save_fwd_layout(camera, r, kpad):
+    """Byte offsets of a save forward's workspace (the library's sv_layout;
+    C entry ``eonerf_save_fwd_workspace_bytes``): the weight stream (the
+    camera's STREAM_CHUNKS or the shadow's), every row's results (camera: 8
+    floats, else 1), then ``total``; each part rounded up to 256 bytes."""
+    up = lambda b: -(-b // 256) * 256  # noqa: E731
+    res = up(STREAM_CHUNKS[camera] * STREAM_CHUNK_BYTES)
+    return {"stream": 0, "res": res, "total": res + up(r * kpad * (8 if camera else 1) * 4)}
+
+
+def _save_workspace(camera, r, kpad, dev):
+    return torch.empty((save_fwd_layout(camera, r, kpad)["total"],), dtype=torch.uint8,
+                       device=dev)
+
+
+def save_fwd_plan(r, kpad, sms):
+    """How the save forwards (the streamed forward's save mode) cover r rays
+    of kpad samples on a card of ``sms`` SMs, as the library launches them
+    (sv_grid, sv_first_ray; C entry ``eonerf_save_fwd_blocks``): every
+    sample row ray * kpad + k is a row, padding and deltam = 0 included.
+    ``blocks``: min(sms, STREAM_MAX_BLOCKS, r), one a block of the
+    persistent grid; ``first_ray`` (blocks + 1,) int64: block b owns rays
+    first_ray[b] .. first_ray[b + 1] - 1, b r // blocks (r last), so its
+    rows are first_ray[b] * kpad .. first_ray[b + 1] * kpad - 1; ``rows``
+    and ``tiles`` (blocks,): its rows and 128-row tiles (a ray may straddle
+    two tiles; at kpad 64 two rays share one)."""
+    blocks = min(sms, STREAM_MAX_BLOCKS, r)
+    first = torch.arange(blocks + 1, dtype=torch.long) * r // max(blocks, 1)
+    rows = (first[1:] - first[:-1]) * kpad
+    return {"blocks": blocks, "first_ray": first, "rows": rows, "tiles": -(-rows // TILE_ROWS)}
+
+
+def save_fwd_stores():
+    """The save mode's bulk copies of a tile row into its stream row (the
+    camera's and the shadow's alike), in the order a tile issues them:
+    (trunk layer i, first tile column, columns, first stream column). After
+    layer i's epilogue the tile's columns 0..255 hold h_i; after layer 4 the
+    copy takes columns 0..319, [h4 | PE] (the PE sits in tile columns
+    256..319 from before layer 0 until layer 5 reads it), so the PE is
+    written once, beside h4. The camera's head columns (act_stream_cols(True)
+    past 2112) are the backward's."""
+    return [(i, 0, 256 + (PE_PAD if i == 4 else 0), _act_col(i)) for i in range(8)]
+
+
+def save_fwd_kernel_launches():
+    """Launches of the streamed forward's save mode that the library has
+    made so far: {"camera", "shadow"} (C entry
+    ``eonerf_save_fwd_launches``)."""
+    count = (ctypes.c_longlong * 2)()
+    _build.load_library().eonerf_save_fwd_launches(count)
+    return {"camera": int(count[0]), "shadow": int(count[1])}
+
+
 def stream_trunk_acts(stream, camera, r, k):
     """h0..h7 of a kernel's activation stream in the plain version's saved
     layout (R*K, 2048): the rows of the K real samples, layers in order."""
@@ -783,11 +836,13 @@ def camera_forward_save(weights: KernelWeights, rayin, z, deltam, stream=None):
     """:func:`camera_forward` that also keeps the trunk's activations for
     :func:`camera_backward_saved`: returns (acc (R, 8), acts). CPU tensors:
     the plain version, acts (R*K, 2048) = h0..h7 in the compute dtype. CUDA
-    tensors: the hand-written kernel (raises if it cannot run), the same acc
-    bit for bit as :func:`camera_forward`'s; acts is the activation stream
-    (R*KPAD, act_stream_cols(True)) bfloat16, row ray * KPAD + k holding that
-    sample's PE and h0..h7 (the backward writes the head columns). ``stream``
-    passes it in preallocated."""
+    tensors: the hand-written kernel, the streamed forward's save mode over
+    every sample row (:func:`save_fwd_plan`; raises if it cannot run), the
+    same acc bit for bit as :func:`camera_forward`'s; acts is the activation
+    stream (R*KPAD, act_stream_cols(True)) bfloat16, row ray * KPAD + k
+    holding that sample's PE and h0..h7 (:func:`save_fwd_stores`; the
+    backward writes the head columns). ``stream`` passes it in
+    preallocated."""
     if rayin.device.type == "cpu":
         return camera_forward_reference(weights, rayin, z, deltam, save=True)
     r, kpad = _check_call(weights, rayin, z, ("deltam", deltam, z.shape))
@@ -797,7 +852,7 @@ def camera_forward_save(weights: KernelWeights, rayin, z, deltam, stream=None):
         return acc, acts
     launch("eonerf_camera_fwd_save", "camera_forward_save kernel launch", rayin.device, rayin,
            _padded(z, kpad), _padded(deltam, kpad), weights.mats, weights.biases, acc, acts, r,
-           kpad)
+           kpad, after_stream=(_save_workspace(True, r, kpad, rayin.device).data_ptr(),))
     camera_forward_save.launches += 1
     return acc, acts
 
@@ -819,7 +874,8 @@ def shadow_forward_save(weights: KernelWeights, rayin, z, deltam, mask, stream=N
         return geo, acts
     launch("eonerf_shadow_fwd_save", "shadow_forward_save kernel launch", rayin.device, rayin,
            _padded(z, kpad), _padded(deltam, kpad), _padded(mask, kpad), weights.mats,
-           weights.biases, geo, acts, r, kpad)
+           weights.biases, geo, acts, r, kpad,
+           after_stream=(_save_workspace(False, r, kpad, rayin.device).data_ptr(),))
     shadow_forward_save.launches += 1
     return geo, acts
 

@@ -36,10 +36,13 @@ import torch
 
 # kernel groups by a substring of the CUDA kernel's demangled name (every
 # template argument printed), first match wins
-# (fused_fwd_kernel<MODE, BWD, FROM_STREAM, SAVE>: MODE 0 camera, 1 shadow,
-# 2 coarse; FROM_STREAM, the heads from the activation stream (the int8
-# tier's, or the saved backward's); SAVE, the forward that writes the
-# stream; dgrad_kernel<CAMERA, POINT, TRUNK>, wgrad_kernel<CAMERA>)
+# (stream_fwd_kernel<MODE, SAVE>: the streamed forwards, MODE 0 camera, 1
+# shadow, 2 coarse, 3 and 4 the per-point field and density; SAVE, the save
+# mode that writes the activation stream; fs_count_kernel and
+# fs_scan_kernel their plan; fused_fwd_kernel<MODE, BWD, FROM_STREAM>:
+# FROM_STREAM, the heads from the activation stream (the int8 tier's, or
+# the saved backward's); dgrad_kernel<CAMERA, POINT, TRUNK>,
+# wgrad_kernel<CAMERA>)
 GROUPS = (
     ("q8_trunk", "q8_trunk_cluster_kernel"),
     ("q8_trunk_layer_major", "q8_layer_kernel"),
@@ -50,11 +53,13 @@ GROUPS = (
     ("q8_bwd_wgrad", "q8_wgrad_kernel"),
     ("q8_bwd_reduce", "q8_reduce_kernel"),
     ("q8_bwd_ray_grads", "q8_ray_grads_kernel"),
-    ("camera_fwd_save", "fused_fwd_kernel<0, false, false, true>"),
-    ("shadow_fwd_save", "fused_fwd_kernel<1, false, false, true>"),
-    ("camera_fwd", "fused_fwd_kernel<0, false, false, false>"),
-    ("shadow_fwd", "fused_fwd_kernel<1, false, false, false>"),
-    ("coarse_fwd", "fused_fwd_kernel<2, false, false, false>"),
+    ("camera_fwd_save", "stream_fwd_kernel<0, true>"),
+    ("shadow_fwd_save", "stream_fwd_kernel<1, true>"),
+    ("camera_fwd", "stream_fwd_kernel<0, false>"),
+    ("shadow_fwd", "stream_fwd_kernel<1, false>"),
+    ("coarse_fwd", "stream_fwd_kernel<2, false>"),
+    ("fwd_plan", "fs_count_kernel"),
+    ("fwd_plan", "fs_scan_kernel"),
     ("camera_fwd_heads", "fused_fwd_kernel<0, false, true"),
     ("shadow_fwd_heads", "fused_fwd_kernel<1, false, true"),
     ("coarse_fwd_heads", "fused_fwd_kernel<2, false, true"),

@@ -113,4 +113,5 @@ def test_stream_fwd_phase_copy_defines_each_landmark(build_dir):
     parent = cc.source_copy("fwd_phases_parent", sf.PARENT_SUBS,
                             cc.summed_phase_prelude("x", "FW", len(sf.PARENT_PHASES)))
     marks = [int(m) for m in re.findall(r"FW_(?:MARK|CALL)\((\d+)\)", parent.read_text())]
-    assert marks and max(marks) + 4 * 12 < len(sf.PARENT_PHASES)
+    # a camera tile's 14 gemm calls (the trunk's 8, the heads' 6) stay in range
+    assert marks and max(marks) + 4 * 13 < len(sf.PARENT_PHASES)

@@ -1031,7 +1031,7 @@ def test_i8_dyn_group_amax_matches_plain_version(dev, weights):
     assert _rel_l2(amax, ref_amax) <= 1e-6 and _rel_l2(out, ref) <= vr.REL_L2
 
 
-@pytest.mark.parametrize("variant", ["nope", "norelu", "nocast", "trunk_int2"])
+@pytest.mark.parametrize("variant", ["nope", "norelu", "nocast", "trunk_int2", "trunk_gemm"])
 def test_trunk_variant_kernels_on_ragged_rows(dev, weights, variant):
     pos, *_ = _variant_inputs(dev, 1000, seed=6)
     _hold(variant, vr.run(variant, weights, vr.slab_weights(weights), pos),
@@ -1555,14 +1555,133 @@ def test_stream_plan_matches_the_library(dev, weights, camera, r, k):
 
 
 def test_plain_forwards_are_the_save_forwards_bits(dev, weights):
-    """The streamed camera and shadow forwards give the bits of the save
-    forwards (fused_fwd_kernel's products, heads and sums) at the render's
-    and a training batch's shapes, with the cube's zero deltam."""
+    """The streamed camera and shadow forwards (the samples with deltam != 0
+    as rows) give the bits of the save forwards (the save mode: every
+    sample a row) at the render's and a training batch's shapes, with the
+    cube's zero deltam."""
     for r, k in ((1024, 127), (300, 143), (1024, 63)):
         cam, _, sh, _ = _saved_case(dev, r, k, seed=k)
         assert torch.equal(fr.camera_forward(weights, *cam),
                            fr.camera_forward_save(weights, *cam)[0])
         assert torch.equal(fr.shadow_forward(weights, *sh), fr.shadow_forward_save(weights, *sh)[0])
+
+
+# ---- the save forwards (stream_fwd_kernel's save mode) ----
+
+# the main path's training batches (camera KPAD 128 and the hierarchical
+# 144, shadow 64) and ragged ray counts: one ray, fewer rays than SMs, and
+# counts whose blocks' rays differ by one
+SAVE_CASES = ([(True, 1024, 127), (True, 1024, 143), (False, 1024, 63)]
+              + [(camera, r, k) for r in (1, 127, 1021)
+                 for camera, k in ((True, 127), (True, 143), (False, 63))])
+
+
+@pytest.mark.parametrize("camera,r,k", SAVE_CASES)
+def test_save_mode_matches_plain_versions(dev, weights, camera, r, k):
+    """The save forwards against the plain forwards, the same bits (acc or
+    geo), and their stream on every row, padding included, against the
+    plain save version on the padded samples (h0..h7 and the PE within
+    GRAD_REL_L2); one save-mode launch a call by the library's counter and
+    no plain streamed launch in its place; the same bits twice, stream
+    included."""
+    cam, _, sh, _ = _saved_case(dev, r, k, seed=r + k + int(camera))
+    args = cam if camera else sh
+    fwd, fwd_save, fwd_ref = ((fr.camera_forward, fr.camera_forward_save,
+                               fr.camera_forward_reference) if camera else
+                              (fr.shadow_forward, fr.shadow_forward_save,
+                               fr.shadow_forward_reference))
+    kpad = fr.kpad_of(k)
+    before, before_plain = fr.save_fwd_kernel_launches(), fr.stream_fwd_kernel_launches()
+    out, stream = fwd_save(weights, *args)
+    torch.cuda.synchronize()
+    after = fr.save_fwd_kernel_launches()
+    op = "camera" if camera else "shadow"
+    assert {m: after[m] - before[m] for m in after} == {m: int(m == op) for m in after}
+    assert fr.stream_fwd_kernel_launches() == before_plain
+    assert torch.equal(out, fwd(weights, *args))
+    padded = (args[0],) + tuple(fr._padded(t, kpad) for t in args[1:])
+    ref_out, ref_acts = fwd_ref(weights, *padded, save=True)
+    _check(out, ref_out)
+    acts = fr.stream_trunk_acts(stream, camera, r, kpad)
+    assert _rel_l2(acts.float(), ref_acts.float()) < GRAD_REL_L2
+    pe = stream[:, fr._act_col(4) + 256:fr._act_col(5)]
+    assert _rel_l2(pe.float(), fr._pe(padded[0], padded[1], torch.bfloat16).float()) < GRAD_REL_L2
+    out2, stream2 = fwd_save(weights, *args)
+    torch.cuda.synchronize()
+    cols = fr.act_stream_cols(False)   # the columns the save forward writes
+    assert torch.equal(out, out2) and torch.equal(stream[:, :cols], stream2[:, :cols])
+
+
+def test_save_mode_writes_every_row_of_a_poisoned_stream(dev, weights):
+    """A stream filled with NaN: every row's columns 0..2111 are finite
+    after the save forward (samples with deltam = 0 and padding rows
+    included), the camera's head columns untouched, and nothing past the
+    call's rows."""
+    for camera, r, k in ((True, 300, 143), (False, 301, 63)):
+        cam, _, sh, _ = _saved_case(dev, r, k, seed=k)
+        rows = r * fr.kpad_of(k)
+        big = torch.full((rows + 200, fr.act_stream_cols(camera)), float("nan"),
+                         dtype=torch.bfloat16, device=dev)
+        if camera:
+            fr.camera_forward_save(weights, *cam, stream=big[:rows])
+        else:
+            fr.shadow_forward_save(weights, *sh, stream=big[:rows])
+        torch.cuda.synchronize()
+        cols = fr.act_stream_cols(False)
+        assert bool(torch.isfinite(big[:rows, :cols].float()).all())
+        assert bool(torch.isnan(big[:rows, cols:].float()).all())
+        assert bool(torch.isnan(big[rows:].float()).all())
+
+
+def test_save_plan_matches_the_library(dev, weights):
+    """fused_render.save_fwd_plan's grid and save_fwd_layout (the CPU tests'
+    mirrors) are the library's (C entries eonerf_save_fwd_blocks and
+    eonerf_save_fwd_workspace_bytes), and the weight image a save launch
+    writes into its workspace is fr.stream_fwd_weights(mats, camera) bit
+    for bit."""
+    lib = _build.load_library()
+    sms = _sms(dev)
+    for r in (1, 127, sms - 1, sms, sms + 1, 1021, 1024):
+        assert lib.eonerf_save_fwd_blocks(r) == fr.save_fwd_plan(r, 128, sms)["blocks"]
+        for camera, kpad in ((True, 128), (True, 144), (False, 64)):
+            assert lib.eonerf_save_fwd_workspace_bytes(int(camera), r, kpad) == \
+                fr.save_fwd_layout(camera, r, kpad)["total"]
+    for camera in (True, False):
+        cam, _, sh, _ = _saved_case(dev, 40, 63, seed=2)
+        args = cam if camera else sh
+        lay = fr.save_fwd_layout(camera, 40, 64)
+        ws = torch.zeros((lay["total"],), dtype=torch.uint8, device=dev)
+        stream = torch.empty((40 * 64, fr.act_stream_cols(camera)), dtype=torch.bfloat16,
+                             device=dev)
+        out = torch.empty((40, fr.ACC_COLS) if camera else (40,), device=dev)
+        padded = [fr._padded(t, 64) for t in args[1:]]
+        ff.launch("eonerf_camera_fwd_save" if camera else "eonerf_shadow_fwd_save", "save",
+                  dev, args[0], *padded, weights.mats, weights.biases, out, stream, 40, 64,
+                  after_stream=(ws.data_ptr(),))
+        torch.cuda.synchronize()
+        nbytes = fr.STREAM_CHUNKS[camera] * fr.STREAM_CHUNK_BYTES
+        image = ws[:nbytes].view(torch.int16).view(-1, 8192).cpu()
+        assert torch.equal(image, fr.stream_fwd_weights(weights.mats.cpu(), camera).view(
+            torch.int16))
+
+
+def test_save_forwards_refuse_a_missing_workspace_and_take_no_rays(dev, weights):
+    """The save forwards' C entries refuse a null workspace (an invalid
+    value, not a fault on the card); R = 0 returns before any launch."""
+    cam, _, _, _ = _saved_case(dev, 8, 63, seed=1)
+    acc = torch.empty((8, fr.ACC_COLS), device=dev)
+    stream = torch.empty((8 * 64, fr.act_stream_cols(True)), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ff.launch("eonerf_camera_fwd_save", "save", dev, cam[0], fr._padded(cam[1], 64),
+                  fr._padded(cam[2], 64), weights.mats, weights.biases, acc, stream, 8, 64,
+                  after_stream=(None,))
+    before = fr.save_fwd_kernel_launches()
+    empty = (cam[0][:0], cam[1][:0], cam[2][:0])
+    acc0, acts0 = fr.camera_forward_save(weights, *empty)
+    geo0, sacts0 = fr.shadow_forward_save(weights, *empty, cam[2][:0])
+    assert acc0.shape == (0, fr.ACC_COLS) and acts0.shape == (0, fr.act_stream_cols(True))
+    assert geo0.shape == (0,) and sacts0.shape == (0, fr.act_stream_cols(False))
+    assert fr.save_fwd_kernel_launches() == before
 
 
 def test_render_launches_the_stream_kernels(dev):

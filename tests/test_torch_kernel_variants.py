@@ -150,8 +150,8 @@ def test_plain_version_matches_the_tpu_body(setup, variant):
         tpu = _tpu_composite(s, variant)
     elif variant in vr.SLAB_BWD:
         tpu = _tpu_slab_bwd(s, variant)
-    else:
-        tpu = _tpu_forward(s, variant)
+    else:   # the baseline trunk_gemm computes trunk's body
+        tpu = _tpu_forward(s, vr.TPU_BODY.get(variant, variant))
     port = _port(s, variant)
     tpu = [_torch(t) for t in tpu]
     res = vr.check(variant, port, tpu)
