@@ -4,8 +4,9 @@ saved-activations backward, its sampler=auto training (hierarchical and
 occupancy-tightened), its per-sample branch (ray entropy and the nadir
 diagnostics, render and training), its int8 trunk tier (trunk_quant int8
 and int8_full, render and training), the JAX package's default
-training run from a generated scene on disk, and its kernel-variant bench,
-once on one CUDA card.
+training run from a generated scene on disk with its validation (the val
+split rendered whole, the registered DSM MAE on the card, the best
+checkpoint), and its kernel-variant bench, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -173,6 +174,20 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  epoch 2 to step 10: 20 steps (losses finite, parameters
                  moved, the saved kernels once per step that runs them, the
                  save forwards also by the library's count), then 10 timed.
+13b. validate  - that trainer (TrainConfig with gt_dir, aoi_id "SYN_068",
+                 device_eval=True and a val_freq beyond the run) validates
+                 once to warm up and once timed: the val split's 3 views of
+                 256x256 (the first train view, then the 2 test views), 64
+                 chunks of 1024 rays a view, the camera and shadow forwards
+                 once a chunk each (the wrappers' and the library's counts),
+                 no save forward or backward; val loss, PSNR and MAE logged,
+                 no val/mae_failed or val/device_eval_fallback scalar,
+                 epoch=best with its occ_sampling.json; seconds per view,
+                 and view 1's load (host ray casting) and render seconds.
+                 View 1's MAE on the card and on the host from one depth
+                 render, apart by less than max(0.3 host, 0.5 m) (the JAX
+                 package's bound); one val chunk through the kernels against
+                 the per-sample module path without jitter (PATH_TOL).
 14. variants   - the kernel-variant bench through its entry points
                  (bench.kernel_variants.main with all 20 variants and their
                  baseline trunk_gemm, and
@@ -1986,7 +2001,8 @@ def main():
     cfg_d0 = TrainConfig(root_dir=info["root_dir"], img_dir=info["img_dir"],
                          compute_dtype="bfloat16", first_shadow_step=TRAIN_STEPS // 2,
                          first_beta_step=TRAIN_STEPS // 2, logs_dir=str(log_root),
-                         exp_name="chip_smoke_default")
+                         exp_name="chip_smoke_default", gt_dir=info["gt_dir"],
+                         aoi_id=info["aoi_id"], device_eval=True, val_freq=10 ** 9)
     t0 = time.perf_counter()
     td = Trainer(cfg_d0, device=dev)
     trainer_s = time.perf_counter() - t0
@@ -2017,6 +2033,100 @@ def main():
           "bwd_acts": td.cfg.bwd_acts, **default_res, "card": card})
     if default_res["sampler"] != "tighten" or not default_res["save_ok"]:
         raise AssertionError(f"the default run resolved otherwise: {default_res}")
+
+    # ---- 13b. validate: Trainer.validate on that trainer (val_freq beyond
+    # the run, so the timed steps above are the same): the val split's views
+    # of 256x256 rendered whole in 1024-ray chunks through the streamed
+    # camera and shadow forwards, the beta loss and PSNR, the registered DSM
+    # MAE on the card (device_eval=True), the best checkpoint ----
+    n_val = min(td.cfg.n_val_images, td.val_ds.num_val_images())
+    view_chunks = -(-SCENE_SIZE * SCENE_SIZE // td.cfg.chunk)
+    td.validate()    # warm-up
+    for fn in saved_counted.values():
+        fn.launches = 0
+    dgrad_before = fr.dgrad_kernel_launches()
+    save_before = fr.save_fwd_kernel_launches()
+    stream_before = fr.stream_fwd_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    td.validate()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    launches_v = {n: fn.launches for n, fn in saved_counted.items()}
+    launches_v.update(library_saved_launches(dgrad_before, save_before))
+    stream_v = stream_launches_since(stream_before)
+    n_val_chunks = n_val * view_chunks
+    expect_v = {n: n_val_chunks if n in ("camera_fwd", "shadow_fwd") else 0 for n in launches_v}
+    for name in ("camera_fwd", "shadow_fwd"):
+        kernel_rows[name]["launches_by_path"] = {"render": kernel_rows[name]["launches"],
+                                                 "validate": stream_v[name]}
+    with open(pathlib.Path(td.log_dir) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    logged = {r["tag"]: r["value"] for r in rows if r["tag"].startswith("val/")}
+    best = pathlib.Path(td.log_dir) / "ckpts" / "epoch=best"
+    # where a view's time goes (view 1): loading it (the RPC ray casting on
+    # the host), rendering it; then its MAE on the card and on the host
+    # (GeoTIFFs, numpy registration) from one depth render, held to the JAX
+    # package's bound (tests/test_device_eval.py: different rasterisation
+    # grids)
+    t0 = time.perf_counter()
+    sample = td.val_ds.get_val_sample(1)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    td.render_view(sample)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    depth = td.render_view(sample, depth_only=True)
+    t0 = time.perf_counter()
+    mae_dev = td.val_mae_device(sample, depth)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mae_host = td._val_mae_host(sample, depth)
+    host_s = time.perf_counter() - t0
+    # one val chunk (the middle 1024 rays of view 1) through the kernels and
+    # through the per-sample module path, without jitter
+    mid_v = SCENE_SIZE * SCENE_SIZE // 2
+    rays_v = torch.as_tensor(sample["rays"][mid_v:mid_v + td.cfg.chunk], device=dev)
+    few_v = satrays_from_tensor(rays_v, torch.zeros(rays_v.shape[0], dtype=torch.long,
+                                                     device=dev))
+    rcfg_np = dataclasses.replace(td.rcfg_eval, perturb=False)
+    with torch.no_grad():
+        a = sat.render_rays(td.render_field, few_v, rcfg_np, True)
+        b = sat.render_rays(td.field, few_v, rcfg_np, True)
+    path_err_v = {"depth_mean_abs": float((a["depth"] - b["depth"]).abs().mean()),
+                  "rgb_mean_abs": float((a["rgb"] - b["rgb"]).abs().mean())}
+    validate = {"phase": "validate", "views": n_val, "view_pixels": SCENE_SIZE * SCENE_SIZE,
+                "chunk": td.cfg.chunk, "chunks_per_view": view_chunks, "seconds": val_s,
+                "seconds_per_view": val_s / n_val, "val_loss": logged.get("val/loss"),
+                "val_psnr": logged.get("val/psnr"), "val_mae_m": logged.get("val/mae"),
+                "best_val_mae_m": td.best_val_mae, "logged_best_mae_m": logged.get("val/best_mae"),
+                "failure_tags": sorted(t for t in logged
+                                       if t in ("val/mae_failed", "val/device_eval_fallback")),
+                "best_checkpoint": sorted(p.name for p in best.glob("*")),
+                "launches": launches_v, "expected_launches": expect_v,
+                "stream_fwd_kernel_launches": stream_v,
+                "view1_load_s": load_s, "view1_render_s": render_s,
+                "view1_render_rays_per_s": SCENE_SIZE * SCENE_SIZE / render_s,
+                "view1_mae_device_m": mae_dev, "view1_mae_host_m": mae_host,
+                "view1_mae_diff_m": abs(mae_dev - mae_host),
+                "view1_mae_bound_m": max(0.3 * mae_host, 0.5),
+                "view1_device_s": dev_s, "view1_host_s": host_s,
+                "chunk_vs_per_sample_path": path_err_v, "tolerance": PATH_TOL, "card": card}
+    emit(validate)
+    if validate["failure_tags"] or launches_v != expect_v or stream_v != {
+            "camera_fwd": n_val_chunks, "shadow_fwd": n_val_chunks, "coarse_fwd": 0}:
+        raise AssertionError(f"validation fell back, failed or launched otherwise: {validate}")
+    if not (all(math.isfinite(logged.get(t, math.nan))
+                for t in ("val/loss", "val/psnr", "val/mae", "val/best_mae"))
+            and td.best_val_mae == logged["val/best_mae"]
+            and validate["best_checkpoint"] == ["occ_sampling.json", "state.pt"]):
+        raise AssertionError(f"validation's metrics or best checkpoint are wrong: {validate}")
+    if not (math.isfinite(mae_dev) and validate["view1_mae_diff_m"] <
+            validate["view1_mae_bound_m"]):
+        raise AssertionError(f"device MAE against host MAE: {validate}")
+    if any(path_err_v[k] > PATH_TOL[k] for k in PATH_TOL):
+        raise AssertionError(f"val chunk: kernel path vs per-sample path {path_err_v}")
     del td
     shutil.rmtree(scene_root, ignore_errors=True)
 

@@ -2,11 +2,12 @@
 (config.py) that the port's trainer reads, with the same names and
 defaults, and JSON round trip.
 
-Left out until the slices that read them: ``gt_dir`` and ``aoi_id``,
-validation cadence and eval, data parallelism, and ``steps_per_call`` (the
-JAX megastep's scan length, which a per-step loop has no use for). The
-trainer raises ``NotImplementedError`` on ``freq_reg_end_step`` > 0 (the
-bundle-adjustment slice); every other default trains.
+Left out until the slices that read them: data parallelism
+(``data_axis``), ``use_pallas``, ``freq_reg_start_step``, and
+``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
+has no use for). The trainer raises ``NotImplementedError`` on
+``freq_reg_end_step`` > 0 (the bundle-adjustment slice); every other
+default trains.
 """
 
 import dataclasses
@@ -22,9 +23,11 @@ class TrainConfig:
     root_dir: str = ""                   # scene: view jsons, train.txt, test.txt
     img_dir: Optional[str] = None        # images (None = root_dir)
     logs_dir: str = "logs"
+    gt_dir: Optional[str] = None         # lidar GT: <aoi_id>_DSM.tif, _CLS.tif (validation MAE)
     cache_dir: Optional[str] = None      # per-image ray and prior caches
     ckpt_path: Optional[str] = None      # resume from this checkpoint directory
     exp_name: str = "eo-nerf"
+    aoi_id: Optional[str] = None         # GT raster prefix (None: the view id's first 7 chars)
 
     # model / dataset
     model: str = "eo-nerf"               # eo-nerf | sat-nerf (no radiometric norm)
@@ -51,6 +54,7 @@ class TrainConfig:
     occ_tighten_max_envelope_m: float = 60.0  # auto tightens only below this
     net_depth: int = 8
     net_width: int = 256
+    chunk: int = 1024                    # val/eval render block (rays)
     seed: int = 42
     compute_dtype: str = "float32"       # or "bfloat16" (the fused kernels' type)
 
@@ -89,8 +93,15 @@ class TrainConfig:
     depth_weight: float = 100.0
     depth_weight_decay: float = 0.8      # per epoch
 
-    # checkpoint cadence (None -> 4 epochs, the JAX package's val_freq x 4)
+    # evaluation: the validation MAE on the device (True: failures raise),
+    # on the host GeoTIFF path (False), or the device with a host fallback
+    # (None)
+    device_eval: Optional[bool] = None
+    # validation and checkpoint cadence in steps (None: val_freq = one epoch,
+    # save_freq = 4 x val_freq), and the views a validation renders
+    val_freq: Optional[int] = None
     save_freq: Optional[int] = None
+    n_val_images: int = 5
 
     # int8 trunk tier of the fused camera, shadow and coarse kernels: "int8"
     # runs the trunk's products (forward and the backward's recompute) in int8

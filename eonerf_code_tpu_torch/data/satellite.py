@@ -16,9 +16,11 @@ framework's own geo/io stacks (no rasterio/rpcm/pyproj):
   flag covering all images, :472-476) is fixed here by processing per image.
 - float64 denormalization for the DSM path (reference :514-517).
 
-The train split only: the validation split (and the pixel/ray index algebra
-its renders use) comes with the eval slice. Host numpy throughout; the DSM
-rasterisation runs ``ops/raster.py`` on float64 CPU tensors.
+Two splits: ``train`` (the ray pool) and ``val`` (the first train view as
+an overfit probe, then the test roster, one view at a time through
+``get_val_sample``), and the pixel/ray index algebra over the train pool.
+Host numpy throughout; the DSM rasterisation runs ``ops/raster.py`` on
+float64 CPU tensors.
 """
 
 import glob
@@ -193,17 +195,15 @@ class SatelliteScene:
 
 
 class SatelliteDataset:
-    """The train views as flat numpy arrays ready for device upload."""
+    """Train/val views as flat numpy arrays ready for device upload."""
 
     def __init__(self, root_dir, img_dir=None, split="train", img_downscale=1.0,
                  utm=True, cache_dir=None, prior_dsm_path=None, prior_conf_path=None,
                  shadow_masks_dir=None, subset=None):
-        if split != "train":
-            raise NotImplementedError(f"split={split!r}: the port's dataset has the train "
-                                      "split only (validation comes with the eval slice)")
         self.root_dir = root_dir
         self.img_dir = img_dir or root_dir
         self.split = split
+        self.train = split == "train"
         self.cache_dir = cache_dir
         self.shadow_masks_dir = shadow_masks_dir
         self.scene = SatelliteScene(root_dir, img_downscale, utm)
@@ -214,12 +214,22 @@ class SatelliteDataset:
         # across bit-depth boundaries (io/image.py scene_radiometric_scale)
         self.radiometric_scale = self._scene_radiometric_scale()
 
-        files = self.scene._split_files("train.txt")
-        if subset is not None and subset > 1:
-            files = files[:subset]
-        self.json_files = [os.path.join(root_dir, p) for p in files]
-        (self.all_rays, self.all_rgbs, self.all_ids_img,
-         self.all_img_shapes, self.all_rpcs) = self.load_data(self.json_files)
+        if self.train:
+            files = self.scene._split_files("train.txt")
+            if subset is not None and subset > 1:
+                files = files[:subset]
+            self.json_files = [os.path.join(root_dir, p) for p in files]
+            (self.all_rays, self.all_rgbs, self.all_ids_img,
+             self.all_img_shapes, self.all_rpcs) = self.load_data(self.json_files)
+        else:
+            files = self.scene._split_files("test.txt")
+            train_files = self.scene._split_files("train.txt")
+            # val[0] is the first train view, an overfit probe (reference
+            # :363-375) with image id 0; test ids continue after the train
+            # roster
+            self.json_files = [os.path.join(root_dir, train_files[0])] + [
+                os.path.join(root_dir, p) for p in files]
+            self.all_ids_img = [0] + [len(train_files) + i for i in range(len(files))]
 
         self.prior_depths, self.prior_confs = None, None
         if prior_dsm_path is not None:
@@ -333,6 +343,52 @@ class SatelliteDataset:
             all_rpcs.append(rpc)
         return (np.concatenate(all_rays, 0), np.concatenate(all_rgbs, 0),
                 np.concatenate(all_ids, 0), np.asarray(all_shapes, np.int64), all_rpcs)
+
+    def num_val_images(self):
+        return len(self.json_files)
+
+    def get_val_sample(self, i):
+        """Validation view i as a dict (reference __getitem__ val branch)."""
+        json_p = self.json_files[i]
+        rays, rgbs, h, w, _ = self.load_view(json_p)
+        return {"rays": rays, "rgbs": rgbs, "h": h, "w": w,
+                "src_id": get_file_id(read_json(json_p)["img"]),
+                "ts": np.zeros((rays.shape[0],), np.int32),   # the reference renders id 0
+                "idx": i, "img_idx": self.all_ids_img[i]}
+
+    # ---- pixel/ray index algebra over the train pool (reference :711-765) ----
+
+    def first_ray_idx_of_img(self, img_idx):
+        """Flat-ray index of pixel (0, 0) of image img_idx."""
+        sizes = np.prod(self.all_img_shapes, axis=1)
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        return starts[np.asarray(img_idx)]
+
+    def ray_index_from_colrow(self, cols, rows, img_idx):
+        w = self.all_img_shapes[np.asarray(img_idx), 1]
+        return self.first_ray_idx_of_img(img_idx) + np.asarray(rows) * w + np.asarray(cols)
+
+    def colrow_from_ray_index(self, ray_idx):
+        ray_idx = np.asarray(ray_idx)
+        img_idx = self.all_ids_img[ray_idx, 0]
+        pix = ray_idx - self.first_ray_idx_of_img(img_idx)
+        w = self.all_img_shapes[img_idx, 1]
+        return pix % w, pix // w, img_idx
+
+    def patch_indices(self, idx, patch_size=0):
+        """Flat-ray indices of a (patch_size x patch_size) patch around ray
+        ``idx``, clamped at the image borders (reference
+        `get_patch_from_index` :731-765); patch_size 0 returns idx itself."""
+        if patch_size == 0:
+            return np.asarray(idx)
+        col, row, img_idx = (int(x[0]) for x in self.colrow_from_ray_index(np.asarray([idx])))
+        h, w = self.all_img_shapes[img_idx]
+        half = patch_size // 2
+        c0 = np.clip(col - half, 0, w - patch_size)
+        r0 = np.clip(row - half, 0, h - patch_size)
+        cc, rr = np.meshgrid(np.arange(c0, c0 + patch_size), np.arange(r0, r0 + patch_size))
+        return self.ray_index_from_colrow(cc.ravel(), rr.ravel(),
+                                          np.full(patch_size ** 2, img_idx))
 
     # ---- DSM extraction ----
 

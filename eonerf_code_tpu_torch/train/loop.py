@@ -19,17 +19,27 @@
   is updated every ``occ_update_every`` steps, before the step, and handed
   to the renderer only once the warm-up, stability and entropy gates pass.
 - Checkpoints carry {params, opt_state, step, epoch, rng, occ, gate}, the
-  gate history as plain lists; resume continues the same random stream and
-  samples as the uninterrupted run.
+  gate history as plain lists, and the ``occ_sampling.json`` sidecar
+  ({frac_hist, entropy_hist, tighten_active}; authoritative on restore when
+  present); resume continues the same random stream and samples as the
+  uninterrupted run.
+- Validation every ``val_freq`` steps (a trainer over ``cfg.root_dir``
+  only): each view of the val split rendered whole, without exploration,
+  through ``render_image`` (the fused kernels on a kernel-backed field);
+  the beta loss and PSNR of the test views, their registered DSM MAE
+  against ``cfg.gt_dir`` on the device (``eval/device.py``) or on the host
+  (``eval/dsm.py``), image panels, and the ``epoch=best`` checkpoint when
+  the mean MAE improves.
 
 The JAX package scans K steps inside one compiled call (its megastep); here
-the steps are a plain Python loop. Waiting for the eval slice: validation
-and its DSM MAE.
+the steps are a plain Python loop.
 """
 
 import dataclasses
+import json
 import os
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -41,7 +51,7 @@ from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.fused import make_render_field
 from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
 from eonerf_code_tpu_torch.ops.volrend import render_weights, weight_entropy
-from eonerf_code_tpu_torch.render.satellite import RenderConfig, render_rays
+from eonerf_code_tpu_torch.render.satellite import RenderConfig, render_image, render_rays
 from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
 from eonerf_code_tpu_torch.utils import metrics as M
 from eonerf_code_tpu_torch.utils.tb import MetricsLogger
@@ -135,6 +145,9 @@ def check_supported(cfg: TrainConfig):
                                   "PE annealing: bundle-adjustment slice)")
 
 
+OCC_SIDECAR = "occ_sampling.json"
+
+
 def dataset_pool(cfg: TrainConfig):
     """(train dataset, ray pool, n_images) from ``cfg.root_dir``: the pool
     the JAX package's Trainer puts on the device (rays (N, 11), rgbs, ts and
@@ -158,8 +171,9 @@ def dataset_pool(cfg: TrainConfig):
 class Trainer:
     """Single-AOI trainer. With no ``data`` it builds the ray pool, the
     image count and the altitude envelope from ``SatelliteDataset`` over
-    ``cfg.root_dir`` (:func:`dataset_pool`), as the JAX package's Trainer.
-    Else the caller gives the pool: ``data`` holds ``rays`` (N, 11), ``rgbs``
+    ``cfg.root_dir`` (:func:`dataset_pool`), and the validation views
+    (``val_ds``, the val split), as the JAX package's Trainer.
+    Else the caller gives the pool and there is no validation: ``data`` holds ``rays`` (N, 11), ``rgbs``
     (N, 3), ``ts`` (N,) image indices and optionally ``depth_prior``,
     ``conf_prior``, ``shadow_prior`` (N,); ``n_images`` sizes the per-image
     embeddings; ``alt_envelope`` = (lo, hi), the scene's altitude envelope in
@@ -170,9 +184,12 @@ class Trainer:
                  alt_envelope=None):
         check_supported(cfg)
         self.cfg = cfg
-        self.train_ds = None
+        self.train_ds = self.val_ds = None
         if data is None:
             self.train_ds, data, n_images = dataset_pool(cfg)
+            self.val_ds = SatelliteDataset(cfg.root_dir, cfg.img_dir, split="val",
+                                           img_downscale=cfg.img_downscale, utm=not cfg.ecef,
+                                           cache_dir=cfg.cache_dir)
             alt_envelope = self.train_ds.alt_envelope()
         self.alt_envelope = alt_envelope
         self.device = torch.device(device)
@@ -194,7 +211,8 @@ class Trainer:
         self.n_rays = self.device_data["rays"].shape[0]
         self.n_images = n_images
         self.steps_per_epoch = max(self.n_rays // cfg.batch_size, 1)
-        self.save_freq = cfg.save_freq or 4 * self.steps_per_epoch
+        self.val_freq = cfg.val_freq or self.steps_per_epoch   # reference :180
+        self.save_freq = cfg.save_freq or self.val_freq * 4
 
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.field = EONerfField(
@@ -212,6 +230,8 @@ class Trainer:
                                  n_importance=cfg.n_importance, occ_tighten=cfg.occ_tighten,
                                  occ_tighten_shadows=cfg.resolved_occ_tighten_shadows(),
                                  occ_explore_frac=cfg.occ_explore_frac)
+        # validation renders do not explore
+        self.rcfg_eval = dataclasses.replace(self.rcfg, occ_explore_frac=0.0)
         self.train_step = make_train_step(
             self.render_field, self.optimizer, self.lr_schedule, self.rcfg,
             has_depth="depth_prior" in data, has_conf="conf_prior" in data,
@@ -221,6 +241,8 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.step = 0
         self.epoch = 0
+        self.best_val_mae = float("inf")
+        self._gt_grid = None          # the GT DSM on the device (_gt_grid_local)
         # one occupied fraction and (with the entropy gate) one probe entropy
         # per grid update: the tightening gates read them
         self._occ_frac_hist = []
@@ -282,8 +304,15 @@ class Trainer:
         return state
 
     def save(self, epoch_tag=None):
+        """Checkpoint and its ``occ_sampling.json`` sidecar: the gate history
+        (so a resume samples as the uninterrupted run) and whether the
+        sampler takes the grid at this step (what eval reads)."""
+        sidecar = {"frac_hist": list(self._occ_frac_hist),
+                   "entropy_hist": list(self._entropy_hist),
+                   "tighten_active": self._occ_for_sampling() is not None}
         return ckpt_lib.save_checkpoint(
-            self.log_dir, self.epoch if epoch_tag is None else epoch_tag, self._state())
+            self.log_dir, self.epoch if epoch_tag is None else epoch_tag, self._state(),
+            sidecars={OCC_SIDECAR: sidecar})
 
     def restore(self, path):
         state = ckpt_lib.restore_checkpoint(path, map_location="cpu")
@@ -296,9 +325,14 @@ class Trainer:
             self.occ_grid = dataclasses.replace(
                 self.occ_grid, occs=state["occ"]["occs"].to(self.device),
                 binaries=state["occ"]["binaries"].to(self.device))
-        gate = state.get("gate", {})     # a checkpoint from before the grid has none
-        self._occ_frac_hist = list(gate.get("frac_hist", []))
-        self._entropy_hist = list(gate.get("entropy_hist", []))
+        sidecar = os.path.join(path, OCC_SIDECAR)
+        if os.path.exists(sidecar):       # authoritative when present, as in the JAX package
+            with open(sidecar) as f:
+                gate = json.load(f)
+        else:                             # a checkpoint from before the grid has none
+            gate = state.get("gate", {})
+        self._occ_frac_hist = [float(x) for x in gate.get("frac_hist", [])]
+        self._entropy_hist = [float(x) for x in gate.get("entropy_hist", [])]
 
     # ---- occupancy gates ----
 
@@ -441,6 +475,8 @@ class Trainer:
 
                 if done_step > 0 and done_step % self.save_freq == 0:
                     self.save()
+                if self.val_ds is not None and done_step > 0 and done_step % self.val_freq == 0:
+                    self.validate()
 
             self.epoch += 1
             w_depth *= cfg.depth_weight_decay
@@ -450,3 +486,162 @@ class Trainer:
         elapsed = time.time() - tic
         return {"steps": self.step, "epochs": self.epoch, "elapsed_s": elapsed,
                 "rays_per_sec": rays_done / max(elapsed, 1e-9)}
+
+    # ---- validation ----
+
+    def render_view(self, sample, shadows=None, generator=None, depth_only=False):
+        """One whole view through ``render_image`` in ``cfg.chunk`` blocks,
+        without exploration, with the sampler's grid; a fresh generator
+        seeded 0 when none is given, so each call draws the same jitter."""
+        shadows = self.epoch_flags(self.epoch)[0] if shadows is None else shadows
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        rays = satrays_from_tensor(torch.as_tensor(sample["rays"]).to(self.device, torch.float32),
+                                   torch.as_tensor(sample["ts"]).to(self.device))
+        return render_image(self.render_field, rays, self.rcfg_eval, shadows, chunk=self.cfg.chunk,
+                            generator=generator, occ_grid=self._occ_for_sampling(),
+                            depth_only=depth_only)
+
+    def validate(self):
+        """Render up to ``n_val_images`` val views; log the test views'
+        (i > 0) beta loss, PSNR and, with ``gt_dir``, registered DSM MAE
+        means, image panels of views 0 and 1, and save ``epoch=best`` when
+        the mean MAE improves."""
+        from eonerf_code_tpu_torch.utils.viz import visualize_depth
+
+        cfg = self.cfg
+        n = min(cfg.n_val_images, self.val_ds.num_val_images())
+        agg = {"loss": [], "coarse_color": [], "coarse_logbeta": [], "psnr": [], "mae": []}
+        for i in range(n):
+            sample = self.val_ds.get_val_sample(i)
+            out = self.render_view(sample)
+            rgbs = torch.as_tensor(sample["rgbs"]).to(self.device, torch.float32)
+            _, ld = M.uncertainty_aware_loss(rgbs, out["rgb"], out["beta"])
+            if i <= 1:
+                # the reference's gt/pred/albedo/shadows/depth panel
+                # (train_eonerf.py:235-249)
+                h, w = sample["h"], sample["w"]
+                rgb, albedo, shadow, depth = (out[k].float().cpu().numpy().reshape(h, w, -1)
+                                              for k in ("rgb", "albedo_rgb", "geo_shadows", "depth"))
+                panel = [sample["rgbs"].reshape(h, w, 3), rgb, albedo, shadow,
+                         visualize_depth(depth[..., 0])]
+                tag = "train_0/gt_pred_depth" if i == 0 else "val_0/gt_pred_depth"
+                self.logger.image_panel(tag, panel, self.step)
+            if i > 0:
+                # loss and PSNR need no lidar GT (train_eonerf.py:199); the MAE does
+                for k in ("loss", "coarse_color", "coarse_logbeta"):
+                    agg[k].append(float(ld[k]))
+                agg["psnr"].append(float(M.psnr(out["rgb"], rgbs)))
+                if cfg.gt_dir is not None:
+                    try:
+                        agg["mae"].append(self._val_mae(sample, out))
+                    except Exception:    # the MAE is best-effort during training
+                        traceback.print_exc()
+                        self.logger.scalar("val/mae_failed", 1.0, self.step)
+        for k, v in agg.items():
+            if v:
+                self.logger.scalar(f"val/{k}", float(np.mean(v)), self.step)
+        # the best-geometry model: late shadow and uncertainty training can
+        # degrade the DSM, so the best-val-MAE checkpoint is the one to evaluate
+        if agg["mae"] and float(np.mean(agg["mae"])) < self.best_val_mae:
+            self.best_val_mae = float(np.mean(agg["mae"]))
+            self.save(epoch_tag="best")
+            self.logger.scalar("val/best_mae", self.best_val_mae, self.step)
+        self.logger.flush()
+
+    def _gt_grid_local(self):
+        """The GT DSM on the device over its own grid in local scene
+        coordinates, water-masked, cached: (gt (H, W), xoff_l, ytop_l, res)."""
+        if self._gt_grid is not None:
+            return self._gt_grid
+        from eonerf_code_tpu_torch.io.geotiff import GeoTiffFile
+
+        cfg = self.cfg
+        scene = self.train_ds.scene
+        f = GeoTiffFile(os.path.join(cfg.gt_dir, f"{cfg.aoi_id}_DSM.tif"))
+        gt = f.read(1).astype(np.float32)
+        if f.nodata is not None and not np.isnan(f.nodata):
+            gt = np.where(gt == f.nodata, np.nan, gt)
+        cls_path = os.path.join(cfg.gt_dir, f"{cfg.aoi_id}_CLS.tif")
+        if os.path.exists(cls_path):
+            from eonerf_code_tpu_torch.eval.dsm import _load_water_mask
+
+            water = _load_water_mask(cls_path)
+            h_, w_ = min(water.shape[0], gt.shape[0]), min(water.shape[1], gt.shape[1])
+            gt[:h_, :w_] = np.where(water[:h_, :w_], np.nan, gt[:h_, :w_])
+        if cfg.ecef:
+            # the ECEF cube's offset is the scene centre: its deltas map to
+            # (easting, northing, altitude) through the exact-Jacobian frame
+            from eonerf_code_tpu_torch.eval.device import ecef_to_utm_frame
+
+            zs = scene.utm_zonestring
+            zone = int("".join(c for c in zs if c.isdigit()))
+            south = "".join(c for c in zs if c.isalpha()).upper() < "N"
+            jac, (off_e, off_n, alt0) = ecef_to_utm_frame(scene.scene_offset, zone, south)
+            self._ecef_frame = (torch.as_tensor(jac, dtype=torch.float32, device=self.device),
+                                float(alt0))
+        else:
+            off_e, off_n = scene.scene_offset[0], scene.scene_offset[1]
+        self._gt_grid = (torch.as_tensor(gt, device=self.device), float(f.bounds.left - off_e),
+                         float(f.bounds.top - off_n), float(f.res[0]))
+        return self._gt_grid
+
+    def val_mae_device(self, sample, out):
+        """Registered DSM MAE on the device: the depth denormalized in the
+        local frame, splatted onto the GT grid, registered and compared
+        (eval/device.py); no GeoTIFF, one host read of the result."""
+        from eonerf_code_tpu_torch.eval.device import device_dsm_mae, rasterize_local
+
+        gt, xoff_l, ytop_l, res = self._gt_grid_local()
+        scene = self.train_ds.scene
+        rays = torch.as_tensor(sample["rays"]).to(self.device, torch.float32)
+        depth = out["depth"].to(self.device, torch.float32).reshape(-1, 1)
+        scale = torch.as_tensor(scene.scene_scale, dtype=torch.float32, device=self.device)
+        xyz_l = (rays[:, 0:3] + rays[:, 3:6] * depth) * scale     # local metres
+        if self.cfg.ecef:
+            jac, alt0 = self._ecef_frame
+            enu = xyz_l @ jac.T
+            easts_l, norths_l, alts = enu[:, 0], enu[:, 1], alt0 + enu[:, 2]
+        else:
+            easts_l, norths_l = xyz_l[:, 0], xyz_l[:, 1]
+            alts = xyz_l[:, 2] + float(scene.scene_offset[2])
+        pred = rasterize_local(easts_l, norths_l, alts, xoff_l, ytop_l, res, gt.shape[1],
+                               gt.shape[0])
+        mae, _ = device_dsm_mae(pred, gt)
+        return float(mae)
+
+    def _val_mae(self, sample, out):
+        """The validation MAE: on the device (``device_eval`` None or True)
+        with a host fallback logged as ``val/device_eval_fallback`` when
+        None (True raises), on the host when False."""
+        if self.cfg.device_eval is False:
+            return self._val_mae_host(sample, out)
+        try:
+            return self.val_mae_device(sample, out)
+        except Exception:
+            if self.cfg.device_eval:
+                raise
+            traceback.print_exc()
+            self.logger.scalar("val/device_eval_fallback", 1.0, self.step)
+            return self._val_mae_host(sample, out)
+
+    def _val_mae_host(self, sample, out):
+        """The host GeoTIFF path: the view's DSM at the AOI's resolution
+        (0.5 m JAX, 0.3 m IARPA, else the GT raster's), then
+        eval/dsm.py's registration and MAE."""
+        from eonerf_code_tpu_torch.eval.dsm import compute_mae_and_save_dsm_diff
+        from eonerf_code_tpu_torch.io.geotiff import GeoTiffFile
+
+        cfg = self.cfg
+        aoi_id = cfg.aoi_id or sample["src_id"][:7]
+        res = 0.5 if "JAX" in aoi_id else 0.3
+        if cfg.aoi_id and not ("JAX" in aoi_id or "IARPA" in aoi_id):
+            res = GeoTiffFile(os.path.join(cfg.gt_dir, f"{aoi_id}_DSM.tif")).res[0]
+        val_dir = os.path.join(self.log_dir, "val")
+        tmp = os.path.join(val_dir, f"tmp_dsm_{self.step}.tif")
+        self.train_ds.dsm_from_depth(sample["rays"], out["depth"].float().cpu().numpy(),
+                                     dsm_path=tmp, resolution=res)
+        mae = compute_mae_and_save_dsm_diff(tmp, sample["src_id"], cfg.gt_dir, val_dir,
+                                            self.epoch, aoi_id, save=False)
+        os.remove(tmp)
+        return mae

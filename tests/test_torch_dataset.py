@@ -236,11 +236,6 @@ def test_dsm_from_depth_matches(scenes, utm, tmp_path):
                                jtif.read_geotiff(str(tmp_path / "j.tif")), rtol=1e-6)
 
 
-def test_the_val_split_waits_for_eval(scenes):
-    with pytest.raises(NotImplementedError, match="val"):
-        tsat.SatelliteDataset(scenes["port"]["root_dir"], split="val")
-
-
 def test_trainer_builds_the_dataset_pool(scenes, tmp_path):
     """Trainer(cfg with root_dir) puts the dataset's pool on the device, with
     the image count and the altitude envelope that sampler="auto" reads:
