@@ -2127,7 +2127,91 @@ def main():
         raise AssertionError(f"device MAE against host MAE: {validate}")
     if any(path_err_v[k] > PATH_TOL[k] for k in PATH_TOL):
         raise AssertionError(f"val chunk: kernel path vs per-sample path {path_err_v}")
+    run_id, eval_logs = td.cfg.exp_name, td.cfg.logs_dir
     del td
+
+    # ---- 13c. eval: the port's eval entry points on that run's latest
+    # integer checkpoint (the CLI's default): eval_cli --dsm with the
+    # orthographic and the pinhole sweep of 256x256 (16 chunks of 4096 rays,
+    # shadows on) and the registered MAE against the scene's 2 m GT, then
+    # eval_eonerf's report over the 22 roster views ----
+    from eonerf_code_tpu_torch.cli import eval_cli
+    from eonerf_code_tpu_torch.eval import dsm as eval_dsm
+    from eonerf_code_tpu_torch.eval.run import eval_eonerf, load_checkpoint
+
+    eval_root = log_root / "chip_smoke_eval"
+    shutil.rmtree(eval_root, ignore_errors=True)
+    _, eval_ckpt, eval_state = load_checkpoint(str(pathlib.Path(eval_logs) / run_id))
+    eval_counted = dict(saved_counted, coarse_fwd=fr.coarse_forward)
+    sweep_chunks = -(-SCENE_SIZE * SCENE_SIZE // N_CHUNK)
+    shifts = []
+    compute_shift = eval_dsm.compute_shift_arrays
+
+    def recorded_shift(*args, **kwargs):
+        out = compute_shift(*args, **kwargs)
+        shifts.append([int(out[0]), int(out[1])])
+        return out
+
+    eval_dsm.compute_shift_arrays = recorded_shift
+
+    def eval_run(fn, n_views):
+        """fn() timed, with the wrappers' and the library's launch counts."""
+        for f in eval_counted.values():
+            f.launches = 0
+        stream_before = fr.stream_fwd_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in eval_counted.items()}
+        n = n_views * sweep_chunks
+        expect = {k: n if k in ("camera_fwd", "shadow_fwd") else 0 for k in launches}
+        return out, secs, launches, expect, stream_launches_since(stream_before)
+
+    cli_args = [run_id, "--logs_dir", eval_logs, "--output_dir", str(eval_root), "--dsm",
+                "--dsm_resolution", str(SyntheticSceneSpec().dsm_resolution)]
+    eval_res = {}
+    for name, extra in (("ortho", []), ("pinhole", ["--pinhole"])):
+        out, secs, launches_e, expect_e, stream_e = eval_run(
+            lambda extra=extra: eval_cli(cli_args + extra), 1)
+        eval_res[name] = {"seconds": secs, "mae_m": out["mae"], "shift": shifts[-1],
+                          "dsm_path": out["dsm_path"], "rdsm_path": out["rdsm_path"],
+                          "dsm_exists": pathlib.Path(out["dsm_path"]).exists(),
+                          "launches": launches_e, "expected_launches": expect_e,
+                          "stream_fwd_kernel_launches": stream_e}
+        # the pinhole sweep writes the same files: keep the orthographic ones
+        shutil.move(str(eval_root / run_id), str(eval_root / f"{run_id}_{name}"))
+    eval_dsm.compute_shift_arrays = compute_shift
+    n_roster = SCENE_VIEWS + SyntheticSceneSpec().n_test_views
+    report, secs, launches_r, expect_r, stream_r = eval_run(
+        lambda: eval_eonerf(run_id, eval_logs, str(eval_root), device="cuda"), n_roster)
+    written = sorted(str(p.relative_to(eval_root)) for p in eval_root.rglob("*.tif"))
+    eval_res["report"] = {"views": len(report), "seconds": secs, "seconds_per_view": secs / n_roster,
+                          "mean_loss": float(np.mean([r["loss"] for r in report])),
+                          "mean_psnr": float(np.mean([r["psnr"] for r in report])),
+                          "launches": launches_r, "expected_launches": expect_r,
+                          "stream_fwd_kernel_launches": stream_r}
+    for name in ("camera_fwd", "shadow_fwd"):
+        kernel_rows[name]["launches_by_path"]["eval"] = {
+            "ortho": eval_res["ortho"]["stream_fwd_kernel_launches"][name],
+            "pinhole": eval_res["pinhole"]["stream_fwd_kernel_launches"][name],
+            "report": stream_r[name]}
+    emit({"phase": "eval", "run": run_id, "checkpoint": pathlib.Path(eval_ckpt).name,
+          "checkpoint_step": int(eval_state["step"]), "chunk": N_CHUNK,
+          "sweep_chunks": sweep_chunks, **eval_res, "tifs_written": len(written),
+          "tifs_written_first": written[:8], "card": card})
+    for name, res in eval_res.items():
+        n = (n_roster if name == "report" else 1) * sweep_chunks
+        if not (res["launches"] == res["expected_launches"] and res["stream_fwd_kernel_launches"]
+                == {"camera_fwd": n, "shadow_fwd": n, "coarse_fwd": 0}):
+            raise AssertionError(f"eval {name} launched otherwise: {res}")
+    for name in ("ortho", "pinhole"):
+        if not (math.isfinite(eval_res[name]["mae_m"]) and eval_res[name]["dsm_exists"]):
+            raise AssertionError(f"eval {name}: no finite MAE or no DSM: {eval_res[name]}")
+    if not (len(report) == n_roster and all(math.isfinite(r["loss"]) and math.isfinite(r["psnr"])
+                                            for r in report)):
+        raise AssertionError(f"eval report: {report}")
     shutil.rmtree(scene_root, ignore_errors=True)
 
     # ---- 14. variants: the kernel-variant bench (the TPU research kernels'

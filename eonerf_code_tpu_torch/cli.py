@@ -1,0 +1,194 @@
+"""Command-line interface: the JAX package's cli.py flag surface (the
+reference's opt.py names) over the port's trainer and eval run.
+
+Every flag of the JAX package's parsers is here, with its ``dest``. Flags
+for what the port does not have yet are refused, not dropped:
+``--data_axis`` other than 1 (data parallel, ROADMAP Queue 1 item 6) and
+any ``--use_pallas`` (Queue 1 item 2; a bfloat16 8x256 run on the card
+takes the port's kernels) raise; ``--steps_per_call`` (the JAX megastep's
+scan length) is accepted and ignored with a warning; ``--freq_reg_end_step``
+> 0 reaches the trainer's ``NotImplementedError``. Flags the reference
+declared but never read warn and are ignored (``IGNORED_FLAGS``).
+"""
+
+import argparse
+import dataclasses
+import os
+import sys
+
+from eonerf_code_tpu_torch.config import TrainConfig
+
+IGNORED_FLAGS = ["noise_std", "sc_lambda", "ds_lambda", "ds_drop", "t_embbeding_tau",
+                 "t_embbeding_vocab"]
+
+
+def _strict_bool(v):
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    raise argparse.ArgumentTypeError(f"expected true/false, got {v!r}")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="EO-NeRF on PyTorch and CUDA")
+    p.add_argument("--root_dir", type=str, required=True)
+    p.add_argument("--img_dir", type=str, default=None)
+    p.add_argument("--logs_dir", type=str, default="logs")
+    p.add_argument("--gt_dir", type=str, default=None)
+    p.add_argument("--cache_dir", type=str, default=None)
+    p.add_argument("--ckpt_path", type=str, default=None,
+                   help="checkpoint to resume training from")
+    p.add_argument("--exp_name", type=str, default="eo-nerf")
+    p.add_argument("--aoi_id", type=str, default=None)
+    p.add_argument("--model", type=str, default="eo-nerf", choices=["eo-nerf", "sat-nerf"])
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--batch_size", type=int, default=1024)
+    p.add_argument("--img_downscale", type=float, default=1.0)
+    p.add_argument("--max_train_steps", type=int, default=300000)
+    p.add_argument("--fc_units", type=int, default=256, dest="net_width")
+    p.add_argument("--fc_layers", type=int, default=8, dest="net_depth")
+    p.add_argument("--n_samples", type=int, default=128)
+    p.add_argument("--n_importance", type=int, default=0,
+                   help="hierarchical fine samples")
+    p.add_argument("--sc_n_samples", type=int, default=-1,
+                   help="shadow-march samples per solar ray: -1 (default) = auto, "
+                        "min(n_samples, max(n_samples//2, 64)); 0 = follow --n_samples; "
+                        "an explicit count > 0 wins")
+    p.add_argument("--chunk", type=int, default=1024)
+    p.add_argument("--geometric_shadows", action="store_true", default=True)
+    p.add_argument("--no_geometric_shadows", dest="geometric_shadows", action="store_false")
+    p.add_argument("--radiometric_normalization", action="store_true", default=False)
+    p.add_argument("--rpc_correction", action="store_true", default=False)
+    p.add_argument("--ecef", action="store_true", default=False)
+    p.add_argument("--n_grid", type=int, default=128)
+    p.add_argument("--init_dsm_path", type=str, default=None)
+    p.add_argument("--init_conf_path", type=str, default=None)
+    p.add_argument("--shadow_masks_dir", type=str, default=None)
+    p.add_argument("--subset_Nviews", type=int, default=None, dest="subset_n_views")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--seed", type=int, default=42)
+    g = p.add_argument_group("extensions beyond the reference flag surface")
+    g.add_argument("--occ_tighten", action="store_true", default=False,
+                   help="concentrate samples on each ray's occupied span")
+    g.add_argument("--no_occ_tighten_shadows", dest="occ_tighten_shadows",
+                   action="store_false", default=None,
+                   help="keep the shadow march uniform even with --occ_tighten")
+    g.add_argument("--occ_tighten_start_step", type=int, default=2000)
+    g.add_argument("--occ_entropy_max", type=float, default=None,
+                   help="tighten only while the probe rays' weight entropy is <= this "
+                        "(default: no entropy gate)")
+    g.add_argument("--use_pallas", type=_strict_bool, default=None, metavar="{true,false}",
+                   help="not in the port yet: leave it unset (a bfloat16 8x256 run on the card "
+                        "takes the fused kernels)")
+    g.add_argument("--trunk_quant", type=str, default="none", choices=["none", "int8", "int8_full"],
+                   help="int8 trunk products inside the fused kernels; int8_full also "
+                        "quantizes the trunk's backward products")
+    g.add_argument("--bwd_acts", type=str, default="saved", choices=["recompute", "saved"],
+                   help="fused-kernel backward: read the trunk activations the forward saved "
+                        "(default) or recompute them")
+    g.add_argument("--freq_reg_end_step", type=int, default=0,
+                   help="coarse-to-fine PE annealing: not in the port yet (0 = off)")
+    g.add_argument("--freq_reg_start_step", type=int, default=0,
+                   help="annealing ramp start (must be < --freq_reg_end_step)")
+    g.add_argument("--data_axis", type=int, default=1,
+                   help="devices on the ray-batch axis: only 1 in the port")
+    g.add_argument("--lr_decay_steps", type=int, default=None,
+                   help="decay lr per N steps instead of per epoch")
+    g.add_argument("--first_shadow_step", type=int, default=None)
+    g.add_argument("--first_beta_step", type=int, default=None)
+    g.add_argument("--steps_per_call", type=int, default=None,
+                   help="accepted and ignored: the port takes one step a call")
+    g.add_argument("--val_freq", type=int, default=None)
+    g.add_argument("--save_freq", type=int, default=None)
+    g.add_argument("--device_eval", action="store_true", default=None,
+                   help="the validation MAE on the device, failures raise (default: the "
+                        "device with a host fallback)")
+    g.add_argument("--no_device_eval", dest="device_eval", action="store_false",
+                   help="the host GeoTIFF MAE path")
+    return p
+
+
+def config_from_args(argv=None):
+    args, unknown = build_parser().parse_known_args(argv)
+    # "--flag value" pairs: each unknown flag warns once
+    i = 0
+    while i < len(unknown):
+        tok = unknown[i]
+        val = ""
+        if tok.startswith("--") and i + 1 < len(unknown) and not unknown[i + 1].startswith("--"):
+            val = " " + unknown[i + 1]
+            i += 1
+        why = ("dead in the reference too, deliberately not implemented"
+               if tok.lstrip("-") in IGNORED_FLAGS else "unknown flag")
+        print(f"warning: ignoring flag {tok}{val} ({why})", file=sys.stderr)
+        i += 1
+    d = vars(args)
+    if d["data_axis"] != 1:
+        raise NotImplementedError(f"--data_axis {d['data_axis']}: data-parallel training is "
+                                  "not in the port yet (ROADMAP Queue 1 item 6)")
+    if d["use_pallas"] is not None:
+        raise NotImplementedError("--use_pallas is not in the port yet (ROADMAP Queue 1 item 2): "
+                                  "leave it unset; a bfloat16 8x256 run on the card takes the "
+                                  "fused kernels")
+    if d["steps_per_call"] is not None:
+        print(f"warning: ignoring flag --steps_per_call {d['steps_per_call']} (the port takes "
+              "one step a call)", file=sys.stderr)
+    if d["freq_reg_start_step"] > 0 and d["freq_reg_end_step"] <= 0:
+        raise ValueError("freq_reg_start_step set but freq_reg_end_step is 0: annealing is "
+                         "enabled by the END step (start defaults to 0)")
+    known = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in d.items() if k in known})
+
+
+def main_train(argv=None, device="cuda"):
+    from eonerf_code_tpu_torch.train.loop import Trainer
+
+    cfg = config_from_args(argv)
+    stats = Trainer(cfg, device=device).run()
+    print(stats)
+    return stats
+
+
+def build_eval_parser():
+    p = argparse.ArgumentParser(description="EO-NeRF evaluation on PyTorch and CUDA")
+    p.add_argument("run_id")
+    p.add_argument("--logs_dir", type=str, default="logs")
+    p.add_argument("--output_dir", type=str, default="eval_out")
+    p.add_argument("--epoch_nb", type=int, default=None)
+    p.add_argument("--root_dir", type=str, default=None)
+    p.add_argument("--img_dir", type=str, default=None)
+    p.add_argument("--gt_dir", type=str, default=None)
+    p.add_argument("--dsm", action="store_true")
+    p.add_argument("--pinhole", action="store_true",
+                   help="virtual pinhole camera for the DSM sweep (default: orthographic)")
+    p.add_argument("--chunk", type=int, default=4096)
+    p.add_argument("--dsm_resolution", type=float, default=None)
+    p.add_argument("--data_axis", type=int, default=0,
+                   help="devices to render over: only 0 or 1 (one device) in the port")
+    p.add_argument("--export_rpc", action="store_true",
+                   help="write bundle-adjusted per-view RPC metadata (a run trained with "
+                        "--rpc_correction)")
+    return p
+
+
+def eval_cli(argv=None, device="cuda"):
+    from eonerf_code_tpu_torch.eval.run import eval_eonerf
+
+    args = build_eval_parser().parse_args(argv)
+    out = eval_eonerf(args.run_id, args.logs_dir, args.output_dir, epoch_nb=args.epoch_nb,
+                      root_dir=args.root_dir, img_dir=args.img_dir, gt_dir=args.gt_dir,
+                      dsm=args.dsm, chunk=args.chunk, dsm_resolution=args.dsm_resolution,
+                      pinhole=args.pinhole, data_axis=args.data_axis, device=device)
+    if args.export_rpc:
+        from eonerf_code_tpu_torch.eval.export import export_adjusted_rpcs
+
+        rpc_dir = os.path.join(args.output_dir, args.run_id, "rpc_adjusted")
+        exported = export_adjusted_rpcs(os.path.join(args.logs_dir, args.run_id), rpc_dir,
+                                        epoch_nb=args.epoch_nb, root_dir=args.root_dir,
+                                        img_dir=args.img_dir)
+        # a dict in dsm mode, a per-view list otherwise
+        out = dict(out) if isinstance(out, dict) else {"report": out}
+        out["rpc_adjusted_dir"] = rpc_dir
+        out["rpc_adjusted_views"] = len(exported)
+    print(out)
+    return out

@@ -5,9 +5,9 @@ defaults, and JSON round trip.
 Left out until the slices that read them: data parallelism
 (``data_axis``), ``use_pallas``, ``freq_reg_start_step``, and
 ``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
-has no use for). The trainer raises ``NotImplementedError`` on
-``freq_reg_end_step`` > 0 (the bundle-adjustment slice); every other
-default trains.
+has no use for); cli.py refuses the first two and ignores the last. The
+trainer raises ``NotImplementedError`` on ``freq_reg_end_step`` > 0 (the
+bundle-adjustment slice); every other default trains.
 """
 
 import dataclasses

@@ -19,10 +19,12 @@
   is updated every ``occ_update_every`` steps, before the step, and handed
   to the renderer only once the warm-up, stability and entropy gates pass.
 - Checkpoints carry {params, opt_state, step, epoch, rng, occ, gate}, the
-  gate history as plain lists, and the ``occ_sampling.json`` sidecar
-  ({frac_hist, entropy_hist, tighten_active}; authoritative on restore when
-  present); resume continues the same random stream and samples as the
-  uninterrupted run.
+  gate as plain history lists and its verdict (``tighten_active``), and
+  the ``occ_sampling.json`` sidecar with the same three fields
+  (authoritative on restore and in eval when present); resume continues
+  the same random stream and samples as the uninterrupted run. A
+  checkpoint without ``opt_state`` (imported for evaluation) cannot
+  resume.
 - Validation every ``val_freq`` steps (a trainer over ``cfg.root_dir``
   only): each view of the val split rendered whole, without exploration,
   through ``render_image`` (the fused kernels on a kernel-backed field);
@@ -298,7 +300,8 @@ class Trainer:
         state = {"params": self.field.state_dict(), "opt_state": self.optimizer.state_dict(),
                  "step": self.step, "epoch": self.epoch, "rng": self.generator.get_state(),
                  "gate": {"frac_hist": list(self._occ_frac_hist),
-                          "entropy_hist": list(self._entropy_hist)}}
+                          "entropy_hist": list(self._entropy_hist),
+                          "tighten_active": self._occ_for_sampling() is not None}}
         if self.occ_grid is not None:
             state["occ"] = {"occs": self.occ_grid.occs, "binaries": self.occ_grid.binaries}
         return state
@@ -307,15 +310,16 @@ class Trainer:
         """Checkpoint and its ``occ_sampling.json`` sidecar: the gate history
         (so a resume samples as the uninterrupted run) and whether the
         sampler takes the grid at this step (what eval reads)."""
-        sidecar = {"frac_hist": list(self._occ_frac_hist),
-                   "entropy_hist": list(self._entropy_hist),
-                   "tighten_active": self._occ_for_sampling() is not None}
+        state = self._state()
         return ckpt_lib.save_checkpoint(
-            self.log_dir, self.epoch if epoch_tag is None else epoch_tag, self._state(),
-            sidecars={OCC_SIDECAR: sidecar})
+            self.log_dir, self.epoch if epoch_tag is None else epoch_tag, state,
+            sidecars={OCC_SIDECAR: state["gate"]})
 
     def restore(self, path):
         state = ckpt_lib.restore_checkpoint(path, map_location="cpu")
+        if "opt_state" not in state or "rng" not in state:
+            raise ValueError(f"checkpoint {path} was imported for evaluation and carries no "
+                             "optimizer state or random stream: it cannot resume training")
         self.field.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
