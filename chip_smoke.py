@@ -6,7 +6,9 @@ diagnostics, render and training), its int8 trunk tier (trunk_quant int8
 and int8_full, render and training), the JAX package's default
 training run from a generated scene on disk with its validation (the val
 split rendered whole, the registered DSM MAE on the card, the best
-checkpoint), and its kernel-variant bench, once on one CUDA card.
+checkpoint), its kernel-variant bench, and trained runs: the synthetic
+scene's registered MAE after 2000 steps, and bundle adjustment under
+coarse-to-fine PE annealing, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -212,6 +214,42 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  decision: t(mm_fwd_save) + t(mm_bwd_saved) against
                  t(mm_only) + t(mm_bwd_rec).
 
+15. quality    - the north star's third done-test (eonerf_code_tpu_torch/
+                 e2e.py): the JAX convergence pin's scene (5 views of
+                 64x64, 2 m GT, seed 0) and configuration (batch 2048, 64
+                 samples, no occupancy grid, shadows from step 1500), 2000
+                 steps a run: A the pin's own (8x128 float32: the per-sample
+                 path, no kernel launch), B 8x256 bf16 (the saved kernels:
+                 2000 camera save forwards and saved backwards, 500 shadow
+                 ones, by the wrappers' and the library's counts), C and D B
+                 at int8 and int8_full (recompute). Each run's steps,
+                 seconds, rays/s, last logged loss and PSNR, and the
+                 registered MAE of the first val view's depth on the card
+                 (device_eval=True, no host fallback) with its shift; B's
+                 also on the host, within max(0.3 host, 0.5 m). A and B
+                 must land under 1.5 m (the pin); C and D are printed.
+                 First, use_pallas on the card: unset and True give
+                 KernelField for a bf16 8x256 field, False the field itself,
+                 True raises ValueError for a float32 one.
+16. bundle_adjust - ab_bundle_adjust.py's small scene (5 views of 64x64,
+                 seed 3) with RPCs biased by up to 3 px, at B's
+                 configuration: the arm "biased" (no bundle adjustment),
+                 then the annealed arm (rpc_correction, full PE bandwidth
+                 at step 1000) stopped at step 500 for its gates: (i) one
+                 batch through the kernels against the per-sample module
+                 path under the same mask (loss, whole gradient, offsets'
+                 gradient); (ii) the raw trunk rows masked at every step so
+                 far keep their initial bits and get a zero gradient; (iii)
+                 finite, non-zero offsets; (v) load_run of the step-500
+                 checkpoint reads what _reg_params gives, bit for bit, and
+                 its eval_cli --dsm sweep (16 chunks of 256 rays) launches
+                 the camera and shadow forwards 16 times each. Then it
+                 trains on to 2000: (iv) train/pe_alpha never falls and
+                 reaches 10 at step 1000. Both arms' MAE and shift, the
+                 learned offsets against the injected biases (mean-centred,
+                 sign-matched: their correlation and median residual), and
+                 the bundle-adjusted RPC export are printed, not gated.
+
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 Exits non-zero without printing results when no CUDA device is present.
@@ -405,6 +443,341 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the quality and bundle-adjustment phases (15, 16): the JAX convergence
+# pin's gate on the registered MAE of the first val view after 2000 steps
+# (tests/test_convergence_slow.py:35), for runs A and B
+QUALITY_MAE_M = 1.5
+# the annealed arm's gates at a mid-ramp step: one batch through the kernels
+# against the per-sample module path under the same mask, both bf16. The
+# per-sample path rounds as flax does (bf16 bias adds and heads), the
+# kernels keep f32 bias adds and heads: the whole gradient at phase 6's
+# GRAD_PATH_REL_L2. The offsets' gradient (the camera op's d_rayin[:, 0:3]
+# against autograd through the sample positions) sums each view's rays'
+# rounded origin gradients; measured 3.18e-2 (the loss 2.5e-4 relative, the
+# whole gradient 4.7e-3) on NVIDIA H100 80GB HBM3, 700 W, the plain versions
+# in bf16 on the CPU 1.1e-2 at a toy size; held at 3x and 8x
+BA_MID_STEP = 500
+BA_LOSS_RTOL = 2e-3
+BA_OFFSET_GRAD_REL_L2 = 1e-1
+# the eval sweep of the mid-ramp checkpoint: the 64x64 nadir view in chunks
+# of 256 rays, 16 camera and 16 shadow forwards
+BA_EVAL_CHUNK = 256
+
+
+class Launches:
+    """The wrappers' launch counts of the camera and shadow ops (set to 0
+    here) and the library's own counts since then: the save mode by op
+    (`*_fwd_save_kernel`), the streamed forward by op (`*_fwd_stream_kernel`)
+    and the dgrad kernel."""
+
+    def __init__(self, fr):
+        self.fr = fr
+        self.fns = {"camera_fwd": fr.camera_forward, "shadow_fwd": fr.shadow_forward,
+                    "camera_bwd": fr.camera_backward, "shadow_bwd": fr.shadow_backward,
+                    "camera_fwd_save": fr.camera_forward_save,
+                    "shadow_fwd_save": fr.shadow_forward_save,
+                    "camera_bwd_saved": fr.camera_backward_saved,
+                    "shadow_bwd_saved": fr.shadow_backward_saved,
+                    "camera_fwd_q8": fr.camera_forward_q8, "shadow_fwd_q8": fr.shadow_forward_q8,
+                    "camera_bwd_q8": fr.camera_backward_q8,
+                    "shadow_bwd_q8": fr.shadow_backward_q8,
+                    "camera_bwd_q8_full": fr.camera_backward_q8_full,
+                    "shadow_bwd_q8_full": fr.shadow_backward_q8_full}
+        for fn in self.fns.values():
+            fn.launches = 0
+        self.save0 = fr.save_fwd_kernel_launches()
+        self.stream0 = fr.stream_fwd_kernel_launches()
+        self.dgrad0 = fr.dgrad_kernel_launches()
+
+    def read(self):
+        out = {n: fn.launches for n, fn in self.fns.items()}
+        save, stream = self.fr.save_fwd_kernel_launches(), self.fr.stream_fwd_kernel_launches()
+        out.update({f"{m}_fwd_save_kernel": save[m] - self.save0[m] for m in save})
+        out.update({f"{m}_fwd_stream_kernel": stream[m] - self.stream0[m] for m in stream})
+        out["dgrad_kernel"] = self.fr.dgrad_kernel_launches() - self.dgrad0
+        return out
+
+
+def by_path(kernel_rows, path, launches):
+    """Record the launches of a phase in the kernel rows it ran."""
+    for name, n in launches.items():
+        if name in kernel_rows and n:
+            kernel_rows[name].setdefault("launches_by_path", {})[path] = n
+
+
+def expected_train_launches(run_cfg, steps, shadow_steps):
+    """The camera and shadow wrappers' launches of a training run by its
+    configuration: the saved pair (and the library's save mode and dgrad
+    counts), the int8 or int8_full ops, or none on the per-sample path."""
+    quant = run_cfg.get("trunk_quant", "none")
+    if run_cfg.get("compute_dtype") != "bfloat16":
+        return {}
+    if quant == "none":
+        return {"camera_fwd_save": steps, "shadow_fwd_save": shadow_steps,
+                "camera_bwd_saved": steps, "shadow_bwd_saved": shadow_steps,
+                "camera_fwd_save_kernel": steps, "shadow_fwd_save_kernel": shadow_steps,
+                "dgrad_kernel": steps + shadow_steps}
+    sfx = "_full" if quant == "int8_full" else ""
+    return {"camera_fwd_q8": steps, "shadow_fwd_q8": shadow_steps,
+            f"camera_bwd_q8{sfx}": steps, f"shadow_bwd_q8{sfx}": shadow_steps}
+
+
+def quality_phase(torch, dev, card, log_root, kernel_rows):
+    """Phase 15: the quality runs A-D (eonerf_code_tpu_torch/e2e.py) on
+    the JAX pin's scene: each run's launches, steps, seconds, rays/s, last
+    logged loss and PSNR, and the registered MAE of the first val view's
+    depth on the card with its shift; B's MAE also on the host. A and B
+    must land under QUALITY_MAE_M; C and D are printed beside B."""
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.config import TrainConfig
+    from eonerf_code_tpu_torch.models.eonerf import EONerfField
+    from eonerf_code_tpu_torch.models.fused import KernelField, make_render_field
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+
+    # use_pallas on the card: unset and True take the kernels for a bf16
+    # 8x256 field, False the field itself; True refuses a float32 field
+    fields = {dt: EONerfField(5, compute_dtype=dt, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+              for dt in (torch.bfloat16, torch.float32)}
+    backends = {str(v): type(make_render_field(fields[torch.bfloat16],
+                                               TrainConfig(use_pallas=v))).__name__
+                for v in (None, True, False)}
+    try:
+        make_render_field(fields[torch.float32], TrainConfig(use_pallas=True))
+        backends["True, float32"] = "accepted"
+    except ValueError:
+        backends["True, float32"] = "ValueError"
+    del fields
+    if backends != {"None": "KernelField", "True": "KernelField", "False": "EONerfField",
+                    "True, float32": "ValueError"}:
+        raise AssertionError(f"use_pallas picked otherwise on the card: {backends}")
+
+    root = log_root / "chip_smoke_quality"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    scene = e2e.make_scene(str(root), "scene", **e2e.SCENE)
+    scene_s = time.perf_counter() - t0
+    steps = e2e.STEPS
+    shadow_steps = steps - e2e.PIN["first_shadow_step"]
+    quality = {}
+    for run, run_cfg in e2e.RUNS.items():
+        tq = e2e.make_trainer(scene, str(root), f"quality_{run}", steps, dev, **run_cfg)
+        path = "kernels" if isinstance(tq.render_field, KernelField) else "per_sample"
+        want_path = "kernels" if run_cfg.get("compute_dtype") == "bfloat16" else "per_sample"
+        if path != want_path or (run == "B" and not tq.render_field.save_acts):
+            raise RuntimeError(f"quality run {run} took the {path} path")
+        counts = Launches(fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tq.run(max_steps=steps, log_every=e2e.LOG_EVERY)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts.read()
+        expect = expected_train_launches(run_cfg, steps, shadow_steps)
+        got = {k: launches[k] for k in launches if k in expect or k in counts.fns}
+        want = {k: expect.get(k, 0) for k in got}
+        logged = e2e.last_logged(tq)
+        sample = tq.val_ds.get_val_sample(0)
+        depth = tq.render_view(sample, depth_only=True)
+        mae = tq._val_mae(sample, depth)
+        _, (dx, dy, bias) = tq.val_dsm_device(sample, depth)
+        res = {"path": path, "net": f"{tq.cfg.net_depth}x{tq.cfg.net_width}",
+               "compute_dtype": tq.cfg.compute_dtype, "trunk_quant": tq.cfg.trunk_quant,
+               "bwd_acts": tq.cfg.bwd_acts, "steps": stats["steps"], "seconds": seconds,
+               "rays_per_s": stats["rays_per_sec"], "final_loss": logged["train/loss"][1],
+               "final_psnr": logged["train/psnr"][1], "logged_at_step": logged["train/loss"][0],
+               "mae_m": mae, "shift": [int(dx), int(dy)], "bias_m": float(bias),
+               "launches": got, "expected_launches": want}
+        if run == "B":
+            res["mae_host_m"] = tq._val_mae_host(sample, depth)
+            res["mae_host_bound_m"] = max(0.3 * res["mae_host_m"], 0.5)
+        quality[run] = res
+        by_path(kernel_rows, f"quality_{run}", got)
+        emit({"phase": "quality", "run": run, **res, "card": card})
+        del tq
+        torch.cuda.empty_cache()
+    summary = {"phase": "quality_summary", "use_pallas": backends, "scene_seconds": scene_s,
+               "gate_m": QUALITY_MAE_M,
+               **{f"mae_{r}_m": q["mae_m"] for r, q in quality.items()},
+               **{f"shift_{r}": q["shift"] for r, q in quality.items()}, "card": card}
+    emit(summary)
+    for run, res in quality.items():
+        if res["launches"] != res["expected_launches"]:
+            raise AssertionError(f"quality run {run} launched otherwise: {res}")
+        if not (math.isfinite(res["mae_m"]) and math.isfinite(res["final_loss"])):
+            raise AssertionError(f"quality run {run}: no finite MAE or loss: {res}")
+    for run in ("A", "B"):
+        if not quality[run]["mae_m"] < QUALITY_MAE_M:
+            raise AssertionError(f"quality run {run}: registered MAE {quality[run]['mae_m']} m "
+                                 f"is not under the JAX pin's {QUALITY_MAE_M} m")
+    b = quality["B"]
+    if not abs(b["mae_m"] - b["mae_host_m"]) < b["mae_host_bound_m"]:
+        raise AssertionError(f"quality run B: device MAE against host MAE: {b}")
+    return quality
+
+
+def bundle_adjust_phase(torch, dev, card, log_root, kernel_rows):
+    """Phase 16: the bundle-adjustment arms (eonerf_code_tpu_torch/e2e.py)
+    at B's configuration on the biased scene. The annealed arm stops at
+    BA_MID_STEP for gates (i)-(v), then trains on; both arms' MAE and
+    shift, the learned offsets against the injected biases and the
+    bundle-adjusted export are printed."""
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.cli import eval_cli
+    from eonerf_code_tpu_torch.eval.export import export_adjusted_rpcs
+    from eonerf_code_tpu_torch.eval.run import load_run
+    from eonerf_code_tpu_torch.models.encoders import barf_alpha
+    from eonerf_code_tpu_torch.models.freq_reg import field_weights
+    from eonerf_code_tpu_torch.models.fused import KernelField
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.ops.fused_field import flatten_weights
+    from eonerf_code_tpu_torch.train.loop import make_loss_fn
+
+    root = log_root / "chip_smoke_ba"
+    shutil.rmtree(root, ignore_errors=True)
+    scene = e2e.make_scene(str(root), "scene_biased", rpc_bias_px=e2e.BIAS_PX, **e2e.BA_SCENE)
+    steps = e2e.STEPS
+    arms = {}
+    tb = e2e.make_trainer(scene, str(root), "ba_biased", steps, dev,
+                          **e2e.arm_overrides("biased", steps))
+    arms["biased"] = e2e.train_and_score(tb, steps)
+    emit({"phase": "bundle_adjust", "arm": "biased", **arms["biased"], "card": card})
+    del tb
+
+    ta = e2e.make_trainer(scene, str(root), "ba_annealed", steps, dev,
+                          **e2e.arm_overrides("biased+ba", steps))
+    if not (isinstance(ta.render_field, KernelField) and ta.field.rpc_correction
+            and ta.cfg.freq_reg_end_step == steps // 2):
+        raise RuntimeError("the annealed arm did not take the kernels with bundle adjustment")
+    trunk = ta.field.trunk
+    skip = next(i for i in range(ta.cfg.net_depth) if trunk._skips_after(i)) + 1
+    layers = {"hidden_0": (trunk.hidden_0, 0), f"hidden_{skip}": (getattr(trunk, f"hidden_{skip}"),
+                                                                  ta.cfg.net_width)}
+    init = {n: m.weight.detach().clone() for n, (m, _) in layers.items()}
+    counts = Launches(fr)
+    t0 = time.perf_counter()
+    ta.run(max_steps=BA_MID_STEP, log_every=e2e.LOG_EVERY)
+    mid_s = time.perf_counter() - t0
+    launches_mid = counts.read()
+    ckpt = pathlib.Path(ta.save())
+    epoch_mid = int(ckpt.name.split("=")[1])
+    # (i) one batch, evenly strided over the pool, shadows and the beta loss
+    # on, through the kernels and through the per-sample module path under
+    # the step's mask
+    mask = ta._pe_mask(ta.step)
+    idx = torch.linspace(0, ta.n_rays - 1, ta.cfg.batch_size, device=dev).long()
+    batch = {k: v[idx] for k, v in ta.device_data.items()}
+    losses, grads, offset_grads, masked_grads = [], [], [], []
+    zero = torch.stack([ta._pe_mask(s) for s in range(ta.step + 1)]).amax(0) == 0
+    for rfield in (ta.render_field, ta.field):
+        ta.field.zero_grad(set_to_none=True)
+        loss, _ = make_loss_fn(rfield, ta.rcfg)(batch, 0.0, True, True,
+                                                torch.Generator(device=dev).manual_seed(5),
+                                                None, mask)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                .float().flatten() for p in ta.field.parameters()]))
+        offset_grads.append(ta.field.ray_correction_enc.weight.grad.float().flatten().clone())
+        masked_grads.append(max(float(m.weight.grad[:, off:][:, zero].abs().max())
+                                for m, off in layers.values()))
+    # (ii) the raw trunk rows masked at every step so far: their initial bits
+    rows_kept = {n: bool(torch.equal(m.weight[:, off:][:, zero], init[n][:, off:][:, zero]))
+                 for n, (m, off) in layers.items()}
+    rows_moved = {n: bool(not torch.equal(m.weight[:, off:][:, ~zero], init[n][:, off:][:, ~zero]))
+                  for n, (m, off) in layers.items()}
+    # (iii) the offsets
+    offsets = ta.field.ray_correction_enc.weight.detach()
+    # (v) load_run of the mid-ramp checkpoint against _reg_params, then its
+    # eval_cli --dsm sweep through the kernels
+    _, rf_l, _ = load_run(ta.log_dir, epoch_nb=epoch_mid, device=dev)
+    reg = flatten_weights(ta._reg_params())
+    loaded = flatten_weights(field_weights(rf_l))
+    load_equal = all(torch.equal(a.detach(), b.detach()) for a, b in zip(reg, loaded))
+    eval_counts = Launches(fr)
+    eval_out = eval_cli([ta.cfg.exp_name, "--logs_dir", ta.cfg.logs_dir, "--output_dir",
+                         str(root / "eval_mid"), "--dsm", "--epoch_nb", str(epoch_mid),
+                         "--chunk", str(BA_EVAL_CHUNK), "--dsm_resolution",
+                         str(e2e.SCENE["dsm_resolution"])])
+    torch.cuda.synchronize()
+    eval_launches = eval_counts.read()
+    n_chunks = -(-e2e.SCENE["img_size"] ** 2 // BA_EVAL_CHUNK)
+    mid = {"step": ta.step, "checkpoint": ckpt.name, "seconds": mid_s,
+           "pe_alpha": float(barf_alpha(ta.step, ta.cfg.freq_reg_start_step,
+                                        ta.cfg.freq_reg_end_step, ta.field.pos_enc_deg)),
+           "launches": {k: launches_mid[k] for k in ("camera_fwd_save", "camera_bwd_saved",
+                                                     "shadow_fwd_save", "shadow_bwd_saved",
+                                                     "camera_fwd_save_kernel")},
+           "loss_kernels": losses[0], "loss_per_sample": losses[1],
+           "loss_rel": abs(losses[0] - losses[1]) / abs(losses[1]),
+           "grad_rel_l2": rel_l2(grads[0], grads[1]),
+           "offset_grad_rel_l2": rel_l2(offset_grads[0], offset_grads[1]),
+           "masked_pe_rows": int(zero.sum()), "masked_rows_grad_max": masked_grads,
+           "masked_rows_bit_equal": rows_kept, "unmasked_rows_moved": rows_moved,
+           "offsets_finite": bool(torch.isfinite(offsets).all()),
+           "offsets_abs_max": float(offsets.abs().max()),
+           "load_run_equals_reg_params": load_equal,
+           "load_run_masked": getattr(rf_l, "pe_mask", None) is not None,
+           "eval_mae_m": eval_out["mae"],
+           "eval_launches": {k: eval_launches[k] for k in ("camera_fwd", "shadow_fwd",
+                                                           "camera_fwd_stream_kernel",
+                                                           "shadow_fwd_stream_kernel")},
+           "eval_chunks": n_chunks,
+           "tolerance": {"loss_rel": BA_LOSS_RTOL, "grad_rel_l2": GRAD_PATH_REL_L2,
+                         "offset_grad_rel_l2": BA_OFFSET_GRAD_REL_L2}}
+    emit({"phase": "bundle_adjust_mid", **mid, "card": card})
+    want_mid = {"camera_fwd_save": BA_MID_STEP, "camera_bwd_saved": BA_MID_STEP,
+                "shadow_fwd_save": 0, "shadow_bwd_saved": 0, "camera_fwd_save_kernel": BA_MID_STEP}
+    if mid["launches"] != want_mid:
+        raise AssertionError(f"the annealed arm's first {BA_MID_STEP} steps launched "
+                             f"otherwise: {mid['launches']} != {want_mid}")
+    if not (mid["loss_rel"] <= BA_LOSS_RTOL and mid["grad_rel_l2"] <= GRAD_PATH_REL_L2
+            and mid["offset_grad_rel_l2"] <= BA_OFFSET_GRAD_REL_L2):
+        raise AssertionError(f"(i) the masked batch through the kernels against the per-sample "
+                             f"path: {mid}")
+    if not (mid["masked_pe_rows"] > 0 and max(masked_grads) == 0 and all(rows_kept.values())
+            and all(rows_moved.values())):
+        raise AssertionError(f"(ii) the masked trunk rows moved or got a gradient: {mid}")
+    if not (mid["offsets_finite"] and mid["offsets_abs_max"] > 0):
+        raise AssertionError(f"(iii) the offsets: {mid}")
+    if not (load_equal and mid["load_run_masked"]
+            and all(v == n_chunks for v in mid["eval_launches"].values())
+            and math.isfinite(eval_out["mae"])):
+        raise AssertionError(f"(v) load_run or the eval sweep of the mid-ramp checkpoint: {mid}")
+    by_path(kernel_rows, "bundle_adjust_mid_eval", {k: eval_launches[k]
+                                                    for k in ("camera_fwd", "shadow_fwd")})
+
+    counts = Launches(fr)
+    res = e2e.train_and_score(ta, steps)
+    launches_rest = counts.read()
+    res["seconds"] += mid_s
+    by_path(kernel_rows, "bundle_adjust", {k: launches_mid[k] + launches_rest[k]
+                                          for k in launches_rest})
+    # (iv) the logged annealing progress
+    with open(pathlib.Path(ta.log_dir) / "metrics.jsonl") as f:
+        alpha = sorted((r["step"], r["value"]) for r in map(json.loads, f)
+                       if r["tag"] == "train/pe_alpha")
+    res["pe_alpha"] = alpha
+    res["offsets"] = e2e.report_learned_offsets(ta, scene)
+    exported = export_adjusted_rpcs(ta.log_dir, str(root / "rpc_adjusted"))
+    res["export"] = {"views": len(exported),
+                     "d_col_d_row_px": [[v["d_col"], v["d_row"]] for v in exported.values()]}
+    arms["biased+ba"] = res
+    emit({"phase": "bundle_adjust", "arm": "biased+ba", **res, "card": card})
+    alpha_at = dict(alpha)
+    deg = ta.field.pos_enc_deg
+    if not (alpha and all(a[1] <= b[1] for a, b in zip(alpha, alpha[1:]))
+            and alpha_at.get(ta.cfg.freq_reg_end_step) == deg and alpha[-1][1] == deg):
+        raise AssertionError(f"(iv) train/pe_alpha: {alpha}")
+    emit({"phase": "bundle_adjust_summary",
+          **{f"mae_{a}_m": r["mae_m"] for a, r in arms.items()},
+          **{f"shift_{a}": r["shift"] for a, r in arms.items()},
+          "offset_corr": res["offsets"]["corr"],
+          "offset_median_resid_px": res["offsets"]["median_resid_px"], "card": card})
+    return arms
+
 
 
 def main():
@@ -2325,6 +2698,11 @@ def main():
           "t(mm_only) + t(mm_bwd_rec)", "saved_ms": saved_ms, "recompute_ms": rec_ms,
           "decision": "save" if saved_ms < rec_ms else "recompute", "bench_seconds": bench_s,
           "card": card})
+
+    # ---- 15. quality and 16. bundle_adjust: trained runs on the synthetic
+    # scene (the functions above) ----
+    quality_phase(torch, dev, card, log_root, kernel_rows)
+    bundle_adjust_phase(torch, dev, card, log_root, kernel_rows)
 
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",

@@ -1,14 +1,14 @@
 """Command-line interface: the JAX package's cli.py flag surface (the
 reference's opt.py names) over the port's trainer and eval run.
 
-Every flag of the JAX package's parsers is here, with its ``dest``. Flags
-for what the port does not have yet are refused, not dropped:
-``--data_axis`` other than 1 (data parallel, ROADMAP Queue 1 item 6) and
-any ``--use_pallas`` (Queue 1 item 2; a bfloat16 8x256 run on the card
-takes the port's kernels) raise; ``--steps_per_call`` (the JAX megastep's
-scan length) is accepted and ignored with a warning; ``--freq_reg_end_step``
-> 0 reaches the trainer's ``NotImplementedError``. Flags the reference
-declared but never read warn and are ignored (``IGNORED_FLAGS``).
+Every flag of the JAX package's parsers is here, with its ``dest``.
+``--use_pallas {true,false}`` sets ``TrainConfig.use_pallas`` (unset: the
+fused kernels for a bfloat16 8x256 run on the card); ``--freq_reg_end_step``
+and ``--freq_reg_start_step`` set the coarse-to-fine PE annealing.
+``--data_axis`` other than 1 (data parallel, ROADMAP Queue 1 item 6) is
+refused, not dropped; ``--steps_per_call`` (the JAX megastep's scan length)
+is accepted and ignored with a warning. Flags the reference declared but
+never read warn and are ignored (``IGNORED_FLAGS``).
 """
 
 import argparse
@@ -78,8 +78,8 @@ def build_parser():
                    help="tighten only while the probe rays' weight entropy is <= this "
                         "(default: no entropy gate)")
     g.add_argument("--use_pallas", type=_strict_bool, default=None, metavar="{true,false}",
-                   help="not in the port yet: leave it unset (a bfloat16 8x256 run on the card "
-                        "takes the fused kernels)")
+                   help="the fused kernels (true) or the per-sample path (false); unset: the "
+                        "kernels for a bfloat16 8x256 run on the card")
     g.add_argument("--trunk_quant", type=str, default="none", choices=["none", "int8", "int8_full"],
                    help="int8 trunk products inside the fused kernels; int8_full also "
                         "quantizes the trunk's backward products")
@@ -87,7 +87,8 @@ def build_parser():
                    help="fused-kernel backward: read the trunk activations the forward saved "
                         "(default) or recompute them")
     g.add_argument("--freq_reg_end_step", type=int, default=0,
-                   help="coarse-to-fine PE annealing: not in the port yet (0 = off)")
+                   help="coarse-to-fine PE annealing: full bandwidth at this step, the "
+                        "companion of --rpc_correction (0 = off)")
     g.add_argument("--freq_reg_start_step", type=int, default=0,
                    help="annealing ramp start (must be < --freq_reg_end_step)")
     g.add_argument("--data_axis", type=int, default=1,
@@ -126,16 +127,9 @@ def config_from_args(argv=None):
     if d["data_axis"] != 1:
         raise NotImplementedError(f"--data_axis {d['data_axis']}: data-parallel training is "
                                   "not in the port yet (ROADMAP Queue 1 item 6)")
-    if d["use_pallas"] is not None:
-        raise NotImplementedError("--use_pallas is not in the port yet (ROADMAP Queue 1 item 2): "
-                                  "leave it unset; a bfloat16 8x256 run on the card takes the "
-                                  "fused kernels")
     if d["steps_per_call"] is not None:
         print(f"warning: ignoring flag --steps_per_call {d['steps_per_call']} (the port takes "
               "one step a call)", file=sys.stderr)
-    if d["freq_reg_start_step"] > 0 and d["freq_reg_end_step"] <= 0:
-        raise ValueError("freq_reg_start_step set but freq_reg_end_step is 0: annealing is "
-                         "enabled by the END step (start defaults to 0)")
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     return TrainConfig(**{k: v for k, v in d.items() if k in known})
 

@@ -1,13 +1,10 @@
 """Training configuration: the fields of the JAX package's ``TrainConfig``
 (config.py) that the port's trainer reads, with the same names and
-defaults, and JSON round trip.
+defaults, the same ``__post_init__`` checks, and JSON round trip.
 
-Left out until the slices that read them: data parallelism
-(``data_axis``), ``use_pallas``, ``freq_reg_start_step``, and
+Left out: data parallelism (``data_axis``, ROADMAP Queue 1 item 6) and
 ``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
-has no use for); cli.py refuses the first two and ignores the last. The
-trainer raises ``NotImplementedError`` on ``freq_reg_end_step`` > 0 (the
-bundle-adjustment slice); every other default trains.
+has no use for); cli.py refuses the first and ignores the last.
 """
 
 import dataclasses
@@ -62,7 +59,10 @@ class TrainConfig:
     geometric_shadows: bool = True       # shadow pass from first_shadow_epoch on
     radiometric_normalization: bool = True
     rpc_correction: bool = False         # learnable per-image ray-origin offsets
-    freq_reg_end_step: int = 0           # > 0: coarse-to-fine PE annealing (later slice)
+    freq_reg_end_step: int = 0           # > 0: coarse-to-fine PE annealing, full
+                                         # bandwidth at this step (models/freq_reg.py),
+                                         # the companion of rpc_correction; 0 = off
+    freq_reg_start_step: int = 0         # the annealing ramp's start
     first_shadow_epoch: int = 2
     first_beta_epoch: int = 2            # MSE before, beta loss after
     first_shadow_step: Optional[int] = None  # step-based overrides of the
@@ -117,9 +117,21 @@ class TrainConfig:
     # recompute.
     bwd_acts: str = "saved"
 
+    # the render backend (models/fused.py::make_render_field): None = the
+    # fused kernels for a bfloat16 8x256 field on the card, else the field
+    # itself; True = the kernels (a shape or dtype they do not take raises);
+    # False = the field itself, the per-sample path, also on the card
+    use_pallas: Optional[bool] = None
+
     def __post_init__(self):
         if self.model == "eo-nerf":
             self.radiometric_normalization = True
+        if self.freq_reg_start_step > 0 and self.freq_reg_end_step <= 0:
+            raise ValueError("freq_reg_start_step set but freq_reg_end_step is 0: annealing is "
+                             "enabled by the END step (start defaults to 0)")
+        if self.freq_reg_end_step > 0 and self.freq_reg_start_step >= self.freq_reg_end_step:
+            raise ValueError(f"freq_reg_start_step ({self.freq_reg_start_step}) must be < "
+                             f"freq_reg_end_step ({self.freq_reg_end_step})")
         if self.trunk_quant not in ("none", "int8", "int8_full"):
             raise ValueError(f"trunk_quant={self.trunk_quant!r}: one of 'none', 'int8', "
                              "'int8_full'")

@@ -16,7 +16,8 @@ then either
 On the card a bfloat16 8x256 run renders through the fused camera and
 shadow kernels (``make_render_field``), as it trained; the renders are
 perturbed as the reference's are, from a generator seeded 0 for each
-``render_image`` call.
+``render_image`` call. A checkpoint inside the coarse-to-fine ramp renders
+through its step's PE mask (``load_run``).
 """
 
 import json
@@ -33,6 +34,7 @@ from eonerf_code_tpu_torch.data.views import sort_by_increasing_view_incidence_a
 from eonerf_code_tpu_torch.eval.dsm import compute_mae_and_save_dsm_diff
 from eonerf_code_tpu_torch.io.image import save_image_like
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
+from eonerf_code_tpu_torch.models.freq_reg import pe_masked, step_pe_mask
 from eonerf_code_tpu_torch.models.fused import make_render_field
 from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
 from eonerf_code_tpu_torch.render.nadir import enu_frame, nadir_rays_with_sun
@@ -61,16 +63,13 @@ def load_checkpoint(run_dir, epoch_nb=None):
 def load_run(run_dir, epoch_nb=None, n_images=None, device="cuda"):
     """(cfg, render field, EONerfField) of a training run on ``device``; the
     render field is what the trainer rendered through (``KernelField`` for a
-    bfloat16 8x256 field on the card)."""
+    bfloat16 8x256 field on the card, by ``cfg.use_pallas``). A checkpoint
+    saved inside the coarse-to-fine ramp trained through its step's PE mask
+    (the masked trunk rows still hold their random initial values), so its
+    render field carries that mask, as the trainer's ``_reg_field`` at that
+    step (the JAX package's ``load_run``); the EONerfField keeps the raw
+    parameters."""
     cfg, _, state = load_checkpoint(run_dir, epoch_nb)
-    end = cfg.freq_reg_end_step
-    if end > 0 and int(state.get("step", end)) < end:
-        # the checkpoint trained through the PE mask of its step: rendering
-        # it needs the same mask
-        raise NotImplementedError(
-            f"checkpoint at step {int(state['step'])} inside the coarse-to-fine ramp "
-            f"(freq_reg_end_step={end}): the PE mask is not in the port yet (bundle adjustment "
-            "with PE annealing, ROADMAP Queue 1 item 4)")
     params = state["params"]
     if n_images is None:
         train_txt = os.path.join(cfg.root_dir, "train.txt")
@@ -91,7 +90,12 @@ def load_run(run_dir, epoch_nb=None, n_images=None, device="cuda"):
                         rpc_correction=cfg.rpc_correction, compute_dtype=dtype, device=device,
                         generator=torch.Generator().manual_seed(0))
     field.load_state_dict(params)
-    return cfg, make_render_field(field, cfg), field
+    render_field = make_render_field(field, cfg)
+    step = int(state.get("step", cfg.freq_reg_end_step))
+    if step < cfg.freq_reg_end_step:
+        render_field = pe_masked(render_field,
+                                 step_pe_mask(cfg, step, field.pos_enc_deg, device))
+    return cfg, render_field, field
 
 
 def load_occ_grid(run_dir, cfg, epoch_nb=None, device="cuda"):

@@ -17,16 +17,21 @@ runs the camera, shadow and coarse ops with their trunk in int8; the
 per-point field and density ops stay in the compute dtype, as in the JAX
 package. ``TrainConfig.bwd_acts="saved"`` (the default) makes the camera
 and shadow ops keep the trunk's activations from the forward for the
-backward, all or nothing per step (``KernelField.step_save_ok``).
+backward, all or nothing per step (``KernelField.step_save_ok``). A
+step of the coarse-to-fine PE annealing renders through a copy carrying
+its mask (``with_pe_mask``; models/freq_reg.py): every kernel reads the
+masked trunk through the one pack, no kernel changes.
 """
+
+import copy
 
 import torch
 
+from eonerf_code_tpu_torch.models.freq_reg import field_weights
 from eonerf_code_tpu_torch.ops.fused_field import (
     fused_density,
     fused_field,
     pack_kernel_weights,
-    pack_params,
 )
 from eonerf_code_tpu_torch.ops.fused_render import (
     fits_saved_cap,
@@ -45,18 +50,36 @@ TRUNK_QUANT = {"int8": True, "int8_full": "full"}
 
 
 def make_render_field(field, cfg=None):
-    """The field the renderer should evaluate through: ``KernelField`` for a
-    bfloat16 field with the 8x256 trunk on a CUDA device (the fused
-    kernels' shape and type), the field itself otherwise (the per-sample
-    path, where ``bwd_acts`` means nothing, as in the JAX package off its
-    Pallas path). ``cfg`` (a TrainConfig, or anything with its
-    ``trunk_quant`` and ``bwd_acts``) selects the int8 trunk tier and the
+    """The field the renderer should evaluate through (the JAX package's
+    models/fused.py::make_render_field), by ``cfg.use_pallas`` (a
+    TrainConfig, or anything with its ``use_pallas``, ``trunk_quant`` and
+    ``bwd_acts``; None reads as all defaults):
+
+    - None: ``KernelField`` for a bfloat16 field with the 8x256 trunk on a
+      CUDA device (the fused kernels' shape and type), the field itself
+      otherwise (the per-sample path, where ``bwd_acts`` means nothing);
+    - False: the field itself, also on the card;
+    - True: ``KernelField``. Its ops run their plain versions on CPU tensors
+      (in float32 or bfloat16); a trunk other than 8x256, or on the card a
+      dtype other than bfloat16, raises ``ValueError`` naming it. Nothing
+      falls back.
+
+    ``trunk_quant`` selects the int8 trunk tier and ``bwd_acts`` the
     saved-activations backward; the two are not combined (the JAX package
     falls back to the recompute backward, with a notice)."""
-    use_kernels = (field.compute_dtype == torch.bfloat16
-                   and _device_of(field).type == "cuda"
-                   and field.net_depth == 8 and field.net_width == 256)
-    if not use_kernels:
+    use_pallas = getattr(cfg, "use_pallas", None)
+    on_card = _device_of(field).type == "cuda"
+    shape_ok = field.net_depth == 8 and field.net_width == 256
+    if use_pallas is None:
+        use_pallas = field.compute_dtype == torch.bfloat16 and on_card and shape_ok
+    elif use_pallas:
+        if not shape_ok:
+            raise ValueError(f"use_pallas=True: the fused kernels take the 8x256 trunk, not "
+                             f"{field.net_depth}x{field.net_width}")
+        if on_card and field.compute_dtype != torch.bfloat16:
+            raise ValueError(f"use_pallas=True: the fused kernels take bfloat16 on the card, "
+                             f"not {field.compute_dtype}")
+    if not use_pallas:
         return field
     quant = TRUNK_QUANT.get(getattr(cfg, "trunk_quant", "none"), False)
     save_acts = getattr(cfg, "bwd_acts", "recompute") == "saved"
@@ -76,9 +99,12 @@ class KernelField:
     ``PallasField`` tile sizes). ``save_acts``: the camera and shadow ops
     keep the trunk's activations for the backward when the step's streams
     fit ``save_acts_cap_mb`` (:meth:`step_save_ok`) and the call's own does
-    (the per-call gate); never with ``trunk_quant``."""
+    (the per-call gate); never with ``trunk_quant``. ``pe_mask``: the
+    coarse-to-fine PE mask of a step (None: unmasked), set on a copy by
+    :meth:`with_pe_mask`."""
 
     supports_fused_render = True
+    pe_mask = None
 
     def __init__(self, field, trunk_quant=False, tile=2048, bwd_tile=1024, save_acts=False,
                  save_acts_cap_mb=8192):
@@ -95,11 +121,21 @@ class KernelField:
         self.n_images = field.n_images
         self.compute_dtype = field.compute_dtype
 
+    def with_pe_mask(self, pe_mask):
+        """A copy of this field whose packs carry ``pe_mask``."""
+        view = copy.copy(self)
+        view.pe_mask = pe_mask
+        return view
+
     def pack(self):
         """Kernel-ready float32 weights from the field's current parameters,
-        differentiable; the ops cast them to the compute dtype. One pack
-        serves the camera and the shadow pass of a step."""
-        return pack_kernel_weights(pack_params(self.field), torch.float32)
+        differentiable; the ops cast them to the compute dtype (and the int8
+        tier quantizes them). The step's PE mask is applied in the logical
+        layout, before the packing pads and reorders the PE rows
+        (``field_weights``, the JAX package's ``PallasField`` on masked
+        params). One pack serves the camera and the shadow pass of a step,
+        and the per-sample branch's field and density ops."""
+        return pack_kernel_weights(field_weights(self), torch.float32)
 
     def __call__(self, pos, sun_d, img_idx):
         """``EONerfField.forward`` through the per-point field op: pos

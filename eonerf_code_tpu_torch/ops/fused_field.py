@@ -62,8 +62,8 @@ TILE_ROWS = 128
 class FieldWeights(NamedTuple):
     """Flat view of the EONerfField per-sample parameters."""
 
-    trunk_w: tuple  # 8 matrices; layer 5 takes the skip concat (319, 256)
-    trunk_b: tuple  # 8 x (1, 256)
+    trunk_w: tuple  # net_depth matrices (the kernels': 8, layer 5 taking the skip concat (319, 256))
+    trunk_b: tuple  # net_depth x (1, net_width)
     sigma_w: torch.Tensor  # (256, 1)
     sigma_b: torch.Tensor  # (1, 1)
     bott_w: torch.Tensor   # (256, 256)
@@ -82,13 +82,14 @@ class FieldWeights(NamedTuple):
 
 def pack_params(field):
     """EONerfField -> FieldWeights (float32 views of the parameters, on the
-    field's device; differentiable)."""
+    field's device; differentiable). Any trunk depth and width; the kernels
+    take the 8x256 one (:func:`pack_kernel_weights`)."""
 
     def wb(mlp, name):
         layer = getattr(mlp, name)
         return layer.weight.t(), layer.bias.reshape(1, -1)
 
-    trunk_w, trunk_b = zip(*(wb(field.trunk, f"hidden_{i}") for i in range(8)))
+    trunk_w, trunk_b = zip(*(wb(field.trunk, f"hidden_{i}") for i in range(field.net_depth)))
     sigma_w, sigma_b = wb(field.sigma_head, "output")
     bott_w, bott_b = wb(field.bottleneck, "output")
     alb_w0, alb_b0 = wb(field.albedo_mlp, "hidden_0")

@@ -25,6 +25,11 @@
   the same random stream and samples as the uninterrupted run. A
   checkpoint without ``opt_state`` (imported for evaluation) cannot
   resume.
+- Coarse-to-fine PE annealing (``freq_reg_end_step`` > 0, the companion of
+  ``rpc_correction``): each step renders through the step's PE mask folded
+  into the trunk (models/freq_reg.py), all-ones past the ramp; the grid
+  updates, the entropy probe and the validation renders read the same
+  masked view mid-ramp (``_reg_field``), and ``train/pe_alpha`` is logged.
 - Validation every ``val_freq`` steps (a trainer over ``cfg.root_dir``
   only): each view of the val split rendered whole, without exploration,
   through ``render_image`` (the fused kernels on a kernel-backed field);
@@ -40,6 +45,7 @@ the steps are a plain Python loop.
 import dataclasses
 import json
 import os
+import sys
 import time
 import traceback
 
@@ -49,7 +55,9 @@ import torch
 from eonerf_code_tpu_torch.config import TrainConfig
 from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
 from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
+from eonerf_code_tpu_torch.models.encoders import barf_alpha
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
+from eonerf_code_tpu_torch.models.freq_reg import field_weights, pe_masked, step_pe_mask
 from eonerf_code_tpu_torch.models.fused import make_render_field
 from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
 from eonerf_code_tpu_torch.ops.volrend import render_weights, weight_entropy
@@ -84,11 +92,13 @@ def make_optimizer(params, cfg: TrainConfig):
 def make_loss_fn(field, rcfg: RenderConfig, has_depth=False, has_conf=False,
                  has_shadow=False):
     """Per-batch loss with the reference's schedule semantics
-    (train_eonerf.py:139-155)."""
+    (train_eonerf.py:139-155). ``pe_mask``: render through the PE-masked
+    trunk (the JAX ``loss_fn``'s ``mask_trunk_pe``); gradients reach the raw
+    parameters."""
 
-    def loss_fn(batch, w_depth, shadows, use_beta, generator=None, occ_grid=None):
+    def loss_fn(batch, w_depth, shadows, use_beta, generator=None, occ_grid=None, pe_mask=None):
         rays = satrays_from_tensor(batch["rays"], batch["ts"])
-        out = render_rays(field, rays, rcfg, shadows, generator, occ_grid)
+        out = render_rays(pe_masked(field, pe_mask), rays, rcfg, shadows, generator, occ_grid)
         if use_beta:
             loss, loss_dict = M.uncertainty_aware_loss(batch["rgbs"], out["rgb"], out["beta"])
         else:
@@ -114,13 +124,14 @@ def make_train_step(field, optimizer, lr_schedule, rcfg: RenderConfig, has_depth
     """One training step on ``field`` (an EONerfField or its KernelField),
     updating the optimizer's parameters in place. Returns
     ``step_fn(batch, step, w_depth, shadows, use_beta, generator=None,
-    occ_grid=None)`` -> the loss dict (detached)."""
+    occ_grid=None, pe_mask=None)`` -> the loss dict (detached)."""
     loss_fn = make_loss_fn(field, rcfg, has_depth, has_conf, has_shadow)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step_fn(batch, step, w_depth, shadows, use_beta, generator=None, occ_grid=None):
+    def step_fn(batch, step, w_depth, shadows, use_beta, generator=None, occ_grid=None,
+                pe_mask=None):
         optimizer.zero_grad(set_to_none=False)
-        loss, loss_dict = loss_fn(batch, w_depth, shadows, use_beta, generator, occ_grid)
+        loss, loss_dict = loss_fn(batch, w_depth, shadows, use_beta, generator, occ_grid, pe_mask)
         loss.backward()
         for p in params:
             # optax updates every parameter, an unused one with a zero
@@ -134,17 +145,6 @@ def make_train_step(field, optimizer, lr_schedule, rcfg: RenderConfig, has_depth
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in loss_dict.items()}
 
     return step_fn
-
-
-def check_supported(cfg: TrainConfig):
-    """Raise for the options whose code waits for a later slice of the port:
-    only ``freq_reg_end_step > 0`` (coarse-to-fine PE annealing, the
-    bundle-adjustment slice). ``bwd_acts="saved"`` with an int8 tier takes
-    the recompute backward (the JAX package's fallback, announced by
-    make_render_field)."""
-    if cfg.freq_reg_end_step > 0:
-        raise NotImplementedError("not in the port yet: freq_reg_end_step > 0 (coarse-to-fine "
-                                  "PE annealing: bundle-adjustment slice)")
 
 
 OCC_SIDECAR = "occ_sampling.json"
@@ -184,7 +184,6 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, data=None, n_images=None, device="cuda",
                  alt_envelope=None):
-        check_supported(cfg)
         self.cfg = cfg
         self.train_ds = self.val_ds = None
         if data is None:
@@ -195,6 +194,11 @@ class Trainer:
             alt_envelope = self.train_ds.alt_envelope()
         self.alt_envelope = alt_envelope
         self.device = torch.device(device)
+        if cfg.rpc_correction and cfg.freq_reg_end_step <= 0:
+            print("warning: --rpc_correction without --freq_reg_end_step: joint camera "
+                  "refinement usually needs coarse-to-fine PE annealing to converge (the JAX "
+                  "package measured offsets at corr +0.99 against the injected bias with "
+                  "annealing, +0.13 without, on a TPU)", file=sys.stderr)
         self.log_dir = cfg.log_dir()
         os.makedirs(self.log_dir, exist_ok=True)
         # the sampler resolves before opts.json is written (a reload never
@@ -338,14 +342,45 @@ class Trainer:
         self._occ_frac_hist = [float(x) for x in gate.get("frac_hist", [])]
         self._entropy_hist = [float(x) for x in gate.get("entropy_hist", [])]
 
+    # ---- coarse-to-fine PE annealing ----
+
+    def _pe_mask(self, step):
+        """The training step's PE mask (latent,) on the device, None when the
+        annealing is off (the JAX ``_pe_mask_block`` for one step). Past the
+        ramp it is all-ones: the same graph, full-bandwidth arithmetic."""
+        return step_pe_mask(self.cfg, step, self.field.pos_enc_deg, self.device)
+
+    def _reg_mask(self, step=None):
+        """The mask every consumer outside the loss reads at ``step``
+        (default: the current one): the step's mask inside the ramp, None
+        (the raw parameters) outside it."""
+        step = self.step if step is None else step
+        if step >= self.cfg.freq_reg_end_step:
+            return None
+        return self._pe_mask(step)
+
+    def _reg_field(self, step=None):
+        """The render field as every consumer must see it at ``step`` (the
+        JAX ``_reg_params``): PE-masked while the ramp runs. The masked
+        trunk rows get no gradient and keep their random initial values, so
+        the raw parameters mid-ramp would mix trained low-frequency
+        structure with untrained noise."""
+        return pe_masked(self.render_field, self._reg_mask(step))
+
+    def _reg_params(self, step=None):
+        """FieldWeights as the consumers read them at ``step``
+        (``_reg_field``'s)."""
+        return field_weights(pe_masked(self.field, self._reg_mask(step)))
+
     # ---- occupancy gates ----
 
     def _occ_update(self):
         """One grid update through the plain field's density (a matrix
-        product, not a kernel of the port)."""
+        product, not a kernel of the port), masked mid-ramp."""
+        density = pe_masked(self.field, self._reg_mask()).density
         with torch.no_grad():
             self.occ_grid = self.occ_grid.update(
-                self.field.density, self.render_step_size, max_cells=self.cfg.occ_max_cells,
+                density, self.render_step_size, max_cells=self.cfg.occ_max_cells,
                 generator=self.generator)
 
     def _occ_grid_stable(self, window=5, tol=0.05, tol_drift=0.025):
@@ -367,7 +402,8 @@ class Trainer:
         fixed, evenly strided pool rays, density-rendered with up to 64
         uniform samples (the probe must not depend on the grid it gates);
         1.0 when no ray is opaque yet. On a kernel-backed field the density
-        runs through the density kernel, one launch per probe."""
+        runs through the density kernel, one launch per probe; masked
+        mid-ramp."""
         k = int(min(self.cfg.n_samples, 64))
         n = int(min(2048, self.n_rays))
         idx = torch.from_numpy(np.linspace(0, self.n_rays - 1, num=n).astype(np.int64))
@@ -379,7 +415,7 @@ class Trainer:
         delta = torch.broadcast_to((far - near)[:, None] / k, z.shape)
         pos = o[:, None, :] + d[:, None, :] * z[..., None]
         with torch.no_grad():
-            w, _, _ = render_weights(self.render_field.density(pos).float(), delta)
+            w, _, _ = render_weights(self._reg_field().density(pos).float(), delta)
         opaque = (w.sum(dim=-1) > 0.5).float()
         n_op = float(opaque.sum())
         if n_op == 0:
@@ -459,7 +495,8 @@ class Trainer:
                 idx = perm[i * bs:(i + 1) * bs]
                 batch = {k: v[idx] for k, v in self.device_data.items()}
                 loss_dict = self.train_step(batch, self.step, w_depth, shadows, use_beta,
-                                            self.generator, self._occ_for_sampling())
+                                            self.generator, self._occ_for_sampling(),
+                                            pe_mask=self._pe_mask(self.step))
                 rays_done += bs
                 i += 1
                 self.step += 1
@@ -472,6 +509,12 @@ class Trainer:
                     self.logger.scalar("train/psnr", ld["psnr"], done_step)
                     self.logger.scalar("lr", self.lr_schedule(done_step), done_step)
                     self.logger.scalar("epoch", self.epoch, done_step)
+                    if cfg.freq_reg_end_step > 0:
+                        self.logger.scalar(
+                            "train/pe_alpha",
+                            float(barf_alpha(done_step, cfg.freq_reg_start_step,
+                                             cfg.freq_reg_end_step, self.field.pos_enc_deg)),
+                            done_step)
                     dt = time.time() - tic
                     if dt > 0 and done_step > 0:
                         self.logger.scalar("perf/rays_per_sec", rays_done / dt, done_step)
@@ -495,14 +538,15 @@ class Trainer:
 
     def render_view(self, sample, shadows=None, generator=None, depth_only=False):
         """One whole view through ``render_image`` in ``cfg.chunk`` blocks,
-        without exploration, with the sampler's grid; a fresh generator
-        seeded 0 when none is given, so each call draws the same jitter."""
+        without exploration, with the sampler's grid, through the masked
+        view mid-ramp; a fresh generator seeded 0 when none is given, so
+        each call draws the same jitter."""
         shadows = self.epoch_flags(self.epoch)[0] if shadows is None else shadows
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         rays = satrays_from_tensor(torch.as_tensor(sample["rays"]).to(self.device, torch.float32),
                                    torch.as_tensor(sample["ts"]).to(self.device))
-        return render_image(self.render_field, rays, self.rcfg_eval, shadows, chunk=self.cfg.chunk,
+        return render_image(self._reg_field(), rays, self.rcfg_eval, shadows, chunk=self.cfg.chunk,
                             generator=generator, occ_grid=self._occ_for_sampling(),
                             depth_only=depth_only)
 
@@ -594,6 +638,12 @@ class Trainer:
         """Registered DSM MAE on the device: the depth denormalized in the
         local frame, splatted onto the GT grid, registered and compared
         (eval/device.py); no GeoTIFF, one host read of the result."""
+        return float(self.val_dsm_device(sample, out)[0])
+
+    def val_dsm_device(self, sample, out):
+        """(MAE tensor, (dx, dy, bias)): :meth:`val_mae_device` with the
+        registration it found, the shift in GT cells (the search's edge is
+        +-5) and the altitude bias in metres."""
         from eonerf_code_tpu_torch.eval.device import device_dsm_mae, rasterize_local
 
         gt, xoff_l, ytop_l, res = self._gt_grid_local()
@@ -611,8 +661,7 @@ class Trainer:
             alts = xyz_l[:, 2] + float(scene.scene_offset[2])
         pred = rasterize_local(easts_l, norths_l, alts, xoff_l, ytop_l, res, gt.shape[1],
                                gt.shape[0])
-        mae, _ = device_dsm_mae(pred, gt)
-        return float(mae)
+        return device_dsm_mae(pred, gt)
 
     def _val_mae(self, sample, out):
         """The validation MAE: on the device (``device_eval`` None or True)

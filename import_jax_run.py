@@ -82,9 +82,6 @@ def main(argv=None):
         jax_opts = json.load(f)
     dropped = sorted(set(jax_opts) - {f.name for f in dataclasses.fields(TrainConfig)})
     print(f"opts.json keys the port does not read: {dropped}")
-    if jax_opts.get("compute_dtype") == "bfloat16":
-        print(f"note: use_pallas={jax_opts.get('use_pallas')} in the JAX run; the port renders "
-              "a bfloat16 8x256 field on the card through its fused kernels whatever it says")
     ckpt_root = os.path.join(args.jax_run_dir, "ckpts")
     tags = sorted(name.split("=", 1)[1] for name in os.listdir(ckpt_root)
                   if name.startswith("epoch=")) if os.path.isdir(ckpt_root) else []

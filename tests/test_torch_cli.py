@@ -1,14 +1,15 @@
 """The port's command-line interface against the JAX package's cli.py: the
 same flag names and ``dest``s in the training and eval parsers, the same
 TrainConfig from the same arguments, the flags the port refuses or
-ignores (``--use_pallas``, ``--data_axis``, ``--steps_per_call``,
-``--freq_reg_*``), and the two entry points end to end on the CPU: 2
+ignores (``--data_axis``, ``--steps_per_call``) and those it now takes
+(``--use_pallas``, ``--freq_reg_*``), and the two entry points end to end on the CPU: 2
 training steps of a 2 x 32 field on a generated scene (2 train views, 1
 test view, 24 x 24; GT at 2 m), then its DSM eval."""
 
 import argparse
 import ast
 import dataclasses
+import json
 import os
 
 import pytest
@@ -72,12 +73,19 @@ def test_config_matches_and_round_trips(tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--use_pallas", "false"], NotImplementedError, "use_pallas"),
-    (["--use_pallas", "true"], NotImplementedError, "use_pallas"),
+    (["--use_pallas", "false"], None, ("use_pallas", False)),
+    (["--use_pallas", "true"], None, ("use_pallas", True)),
     (["--data_axis", "2"], NotImplementedError, "item 6"),
     (["--data_axis", "-1"], NotImplementedError, "item 6"),
     (["--freq_reg_start_step", "5"], ValueError, "END step")])
 def test_refused_flags_raise(extra, error, match):
+    """--data_axis past 1 and an annealing start without its end raise.
+    --use_pallas, refused until the use_pallas slice, now sets
+    TrainConfig.use_pallas (``match``: the field and its value)."""
+    if error is None:
+        name, value = match
+        assert getattr(tcli.config_from_args(["--root_dir", "/r", *extra]), name) is value
+        return
     with pytest.raises(error, match=match):
         tcli.config_from_args(["--root_dir", "/r", *extra])
 
@@ -92,10 +100,29 @@ def test_ignored_flags_warn(capsys):
     assert capsys.readouterr().err == ""
 
 
-def test_freq_reg_reaches_the_trainer(tmp_path):
-    with pytest.raises(NotImplementedError, match="freq_reg_end_step"):
-        tcli.main_train(["--root_dir", "/r", "--logs_dir", str(tmp_path),
-                         "--freq_reg_end_step", "40"], device="cpu")
+def test_freq_reg_reaches_the_trainer(tmp_path, capsys):
+    """--freq_reg_start_step and --freq_reg_end_step (refused by the trainer
+    until the bundle-adjustment slice) reach it: 3 steps of bundle
+    adjustment on a generated scene, annealing from step 1 to 3, write
+    both to opts.json, log train/pe_alpha, and print no --rpc_correction
+    warning."""
+    info = tsyn.generate_scene(str(tmp_path / "scene"),
+                               tsyn.SyntheticSceneSpec(n_views=2, n_test_views=1, img_size=16))
+    logs = str(tmp_path / "logs")
+    stats = tcli.main_train(["--root_dir", info["root_dir"], "--img_dir", info["img_dir"],
+                             "--logs_dir", logs, "--exp_name", "ramp", "--max_train_steps", "3",
+                             "--fc_layers", "2", "--fc_units", "32", "--n_samples", "8",
+                             "--batch_size", "64", "--n_grid", "16", "--rpc_correction",
+                             "--freq_reg_start_step", "1", "--freq_reg_end_step", "3",
+                             "--val_freq", "1000"], device="cpu")
+    assert stats["steps"] == 3
+    assert "--rpc_correction without --freq_reg_end_step" not in capsys.readouterr().err
+    cfg = TrainConfig.load(os.path.join(logs, "ramp", "opts.json"))
+    assert (cfg.freq_reg_start_step, cfg.freq_reg_end_step, cfg.rpc_correction) == (1, 3, True)
+    with open(os.path.join(logs, "ramp", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    alpha = {r["step"]: r["value"] for r in rows if r["tag"] == "train/pe_alpha"}
+    assert alpha == {0: 0.0}      # main_train logs every 50 steps
 
 
 def test_train_then_eval(tmp_path, capsys):

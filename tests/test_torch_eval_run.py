@@ -35,6 +35,7 @@ from eonerf_code_tpu_torch.data import synthetic as tsyn
 from eonerf_code_tpu_torch.eval import dsm as tdsm
 from eonerf_code_tpu_torch.eval import run as trun
 from eonerf_code_tpu_torch.io.geotiff import GeoTiffFile
+from eonerf_code_tpu_torch.models.freq_reg import PEMaskedField
 from eonerf_code_tpu_torch.render import nadir as tnadir
 from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
 
@@ -207,18 +208,24 @@ def test_report_eval_matches(runs, monkeypatch):
 
 
 def test_eval_refuses_what_the_port_lacks(runs, tmp_path):
-    """data_axis past one device (Queue 1 item 6), and a checkpoint inside
-    the coarse-to-fine ramp (item 4); the same run at its end step loads."""
+    """data_axis past one device (Queue 1 item 6) raises. A checkpoint inside
+    the coarse-to-fine ramp (refused until the bundle-adjustment slice)
+    evaluates through its step's PE mask (step 0: the identity only); the
+    same run at its end step loads unmasked."""
     logs, info = runs["port"]
     with pytest.raises(NotImplementedError, match="item 6"):
         trun.eval_eonerf("pair", logs, str(tmp_path), data_axis=2, device="cpu")
     ramp = _with_opts(os.path.join(logs, "pair"), "pair_ramp", freq_reg_end_step=100)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trun.eval_eonerf("pair_ramp", logs, str(tmp_path), root_dir=info["root_dir"],
-                         dsm=True, device="cpu")
+    out = trun.eval_eonerf("pair_ramp", logs, str(tmp_path), root_dir=info["root_dir"],
+                           img_dir=info["img_dir"], gt_dir=info["gt_dir"], dsm=True,
+                           dsm_resolution=2.0, device="cpu")
+    assert np.isfinite(out["mae"]) and os.path.exists(out["dsm_path"])
+    _, rf, field = trun.load_run(ramp, device="cpu")
+    assert isinstance(rf, PEMaskedField) and rf.field is field
+    assert torch.equal(rf.pe_mask[:3], torch.ones(3)) and rf.pe_mask[3:].abs().max() == 0
     path = os.path.join(ramp, "ckpts", "epoch=0")
     state = ckpt_lib.restore_checkpoint(path)
     state["step"] = 100
     torch.save(state, os.path.join(path, ckpt_lib.STATE_FILE))
-    cfg, _, field = trun.load_run(ramp, device="cpu")
-    assert cfg.freq_reg_end_step == 100 and field.net_width == 32
+    cfg, rf, field = trun.load_run(ramp, device="cpu")
+    assert cfg.freq_reg_end_step == 100 and field.net_width == 32 and rf is field

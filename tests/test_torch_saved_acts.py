@@ -224,7 +224,7 @@ def test_no_stream_without_a_gradient(setup, monkeypatch):
 def test_int8_keeps_the_recompute_backward(monkeypatch, capsys):
     """bwd_acts="saved" (the default) with an int8 tier: make_render_field
     prints the JAX package's notice and the field recomputes; the pair is
-    refused where it is asked for directly; check_supported passes."""
+    refused where it is asked for directly."""
     field = EONerfField(3, compute_dtype=torch.bfloat16, device="cpu")
     monkeypatch.setattr(fused_models, "_device_of", lambda f: torch.device("cuda"))
     rf = make_render_field(field, TrainConfig(trunk_quant="int8"))
@@ -235,7 +235,6 @@ def test_int8_keeps_the_recompute_backward(monkeypatch, capsys):
     assert rf.trunk_quant is False and rf.save_acts is True
     assert rf.step_save_ok(1024, 127, 63)
     assert capsys.readouterr().out == ""
-    tloop.check_supported(TrainConfig(trunk_quant="int8"))
     with pytest.raises(ValueError, match="int8"):
         KernelField(field, trunk_quant=True, save_acts=True)
 

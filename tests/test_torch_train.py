@@ -377,15 +377,24 @@ def test_checkpoint_tags(tmp_path):
 
 
 @pytest.mark.parametrize("option,error", [
-    (dict(freq_reg_end_step=100), NotImplementedError),
-    (dict(bwd_acts="saved", freq_reg_end_step=100), NotImplementedError),
+    (dict(freq_reg_end_step=100), None),
+    (dict(bwd_acts="saved", freq_reg_end_step=100), None),
     (dict(sampler="auto"), ValueError),               # no altitude envelope given
     (dict(sampler="stratified"), ValueError),
-    (dict(freq_reg_end_step=100, sampler="auto"), NotImplementedError)])
+    (dict(freq_reg_end_step=100, sampler="auto"), ValueError)])
 def test_unported_options_raise(tmp_path, option, error):
-    """Options whose code waits for a later slice raise NotImplementedError
-    (the saved backward trains; with freq_reg_end_step it still raises for
-    the annealing); the auto sampler without the scene's altitude envelope
-    and an unknown sampler raise ValueError."""
-    with pytest.raises(error):
-        tloop.Trainer(_small_cfg(tmp_path, **option), _pool(), 2, device="cpu")
+    """The auto sampler without the scene's altitude envelope and an unknown
+    sampler raise ValueError, with or without the annealing. The
+    coarse-to-fine PE annealing (freq_reg_end_step > 0), refused until the
+    bundle-adjustment slice, now trains, with either backward: a step under
+    its mask, train/pe_alpha logged from 0."""
+    if error is not None:
+        with pytest.raises(error):
+            tloop.Trainer(_small_cfg(tmp_path, **option), _pool(), 2, device="cpu")
+        return
+    tr = tloop.Trainer(_small_cfg(tmp_path, **option), _pool(), 2, device="cpu")
+    stats = tr.run(max_steps=2, log_every=1)
+    assert stats["steps"] == 2
+    sc = _scalars(tmp_path / "run")
+    assert sc["train/pe_alpha"] == {0: 0.0, 1: pytest.approx(0.1)}
+    assert all(np.isfinite(v) for v in sc["train/loss"].values())

@@ -3,7 +3,7 @@ JAX package's: the weight quantization, the scale groups (``rt_of``), the
 camera, shadow and coarse forwards, the camera and shadow backwards of both
 tiers (``jax.vjp`` with a fixed cotangent, interpret mode on CPU), and
 render_rays through ``KernelField`` against ``PallasField``; then the
-tier's dispatch (make_render_field, TrainConfig, check_supported).
+tier's dispatch (make_render_field, TrainConfig, the trainer).
 
 The activation scales are per group of rt rays x KPAD samples, padded
 samples and zero rays included, so the scene has several groups and a
@@ -61,17 +61,18 @@ from eonerf_code_tpu.render import satellite as jsat
 from eonerf_code_tpu.utils import metrics as JM
 from eonerf_code_tpu_torch.config import TrainConfig
 from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
+from eonerf_code_tpu_torch.data.synthetic_pool import synthetic_ray_pool
 from eonerf_code_tpu_torch.interop.jax_params import (
     field_state_from_jax,
     jax_params_from_field_state,
 )
 from eonerf_code_tpu_torch.models import fused as fused_models
 from eonerf_code_tpu_torch.models.eonerf import EONerfField
-from eonerf_code_tpu_torch.models.fused import KernelField, make_render_field
+from eonerf_code_tpu_torch.models.fused import TRUNK_QUANT, KernelField, make_render_field
 from eonerf_code_tpu_torch.ops import fused_field as ff
 from eonerf_code_tpu_torch.ops import fused_render as fr
 from eonerf_code_tpu_torch.render import satellite as tsat
-from eonerf_code_tpu_torch.train.loop import check_supported
+from eonerf_code_tpu_torch.train.loop import Trainer
 from eonerf_code_tpu_torch.utils import metrics as TM
 
 FWD_MAX_ABS = 1e-5        # the sigma path: depth, opacity, geo, coarse weights
@@ -348,11 +349,21 @@ def test_make_render_field_reads_trunk_quant(setup, monkeypatch, capsys):
 
 
 def test_config_and_check_supported(tmp_path):
-    check_supported(TrainConfig(trunk_quant="int8"))           # saved -> recompute fallback
-    check_supported(TrainConfig(trunk_quant="int8_full", bwd_acts="recompute"))
-    check_supported(TrainConfig())                             # saved, no int8: ported
-    with pytest.raises(NotImplementedError, match="freq_reg_end_step"):
-        check_supported(TrainConfig(trunk_quant="int8", freq_reg_end_step=10))
+    """The int8 tiers build a trainer with either backward and with the
+    coarse-to-fine annealing, which the trainer's check_supported refused
+    until the bundle-adjustment slice (nothing is refused now): the
+    kernel-backed field at the tier, the step's mask; an unknown tier
+    raises, and the tier round-trips through opts.json."""
+    pool = synthetic_ray_pool(64, 2, "cpu")
+    for i, kw in enumerate((dict(trunk_quant="int8"),
+                            dict(trunk_quant="int8_full", bwd_acts="recompute"),
+                            dict(trunk_quant="int8", freq_reg_end_step=10))):
+        tr = Trainer(TrainConfig(logs_dir=str(tmp_path), exp_name=f"q{i}", use_pallas=True,
+                                 sampler="uniform", occ_enabled=False, **kw), pool, 2,
+                     device="cpu")
+        assert tr.render_field.trunk_quant == TRUNK_QUANT[kw["trunk_quant"]]
+        assert not tr.render_field.save_acts
+        assert (tr._pe_mask(0) is None) == ("freq_reg_end_step" not in kw)
     with pytest.raises(ValueError, match="trunk_quant"):
         TrainConfig(trunk_quant="int4")
     cfg = TrainConfig(trunk_quant="int8_full")
