@@ -6,9 +6,9 @@ diagnostics, render and training), its int8 trunk tier (trunk_quant int8
 and int8_full, render and training), the JAX package's default
 training run from a generated scene on disk with its validation (the val
 split rendered whole, the registered DSM MAE on the card, the best
-checkpoint), its kernel-variant bench, and trained runs: the synthetic
+checkpoint), its kernel-variant bench, trained runs (the synthetic
 scene's registered MAE after 2000 steps, and bundle adjustment under
-coarse-to-fine PE annealing, once on one CUDA card.
+coarse-to-fine PE annealing) and data parallel, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -249,6 +249,37 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  learned offsets against the injected biases (mean-centred,
                  sign-matched: their correlation and median residual), and
                  the bundle-adjusted RPC export are printed, not gated.
+17. data_parallel - parallel/mesh.py, in train_saved's configuration
+                 (bf16 8x256, batch 1024, 128 / 64 samples, the saved
+                 backward, seed 0) with shadows and the beta loss from step
+                 5, 10 steps on the 2^20-ray pool (then 20 more timed by
+                 CUDA events after each step). (a) world 1 over NCCL in
+                 this process (data_axis=-1 on the one card) against the
+                 plain Trainer: losses and parameters the same bits, the
+                 saved pair's launches by the wrappers' and the library's
+                 counts; then the two timed in turn over three 20-step
+                 windows each, and 6 steps of each traced (device ms by
+                 kernel group, NCCL's apart, idle share, the host's
+                 costliest operations). (b) world 2 over gloo (the backend
+                 for ranks sharing one card), both ranks on cuda:0
+                 (parallel.mesh.launch spawns them), 512 rays a rank: the
+                 loss trajectory within rtol 2e-3 / atol 1e-5 of (a), the
+                 ranks' parameters the same bits, each rank's launches;
+                 then one saved camera and one saved shadow pair on 1024
+                 rays split over the ranks against the unsplit calls: the
+                 per-ray outputs and d_rayin the same bits (or which
+                 differs and by how much), the all-reduced weight gradients
+                 within 1e-5 rel-L2. (c) in the same ranks phase render's
+                 sweep without jitter through render_image_sharded:
+                 render_image's bits, 32 + 32 forward launches a rank;
+                 then eval_cli --dsm --data_axis 2 on train_default's run,
+                 its MAE (gated equal: each rank skips the draws of the
+                 chunks before its run) and shift beside phase eval's
+                 --data_axis 1. (d)
+                 (b) over NCCL one card a rank where the machine has two
+                 cards, else a line saying it was not run. Seconds of each
+                 part and the rays/s at world 1 and 2, not gated: two ranks
+                 on one card measure contention, not scaling.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -262,8 +293,10 @@ import json
 import math
 import pathlib
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -778,6 +811,423 @@ def bundle_adjust_phase(torch, dev, card, log_root, kernel_rows):
           "offset_median_resid_px": res["offsets"]["median_resid_px"], "card": card})
     return arms
 
+
+
+# ---- 17. data_parallel (parallel/mesh.py): the worker functions below run
+# in the ranks that parallel.mesh.launch spawns (module level, so they
+# pickle), and in this process at world 1 ----
+
+DP_STEPS = 10
+DP_SHADOW_FROM = 5          # shadows and the beta loss from this step on
+DP_TIMED = 20               # steps a timed window (shadows and beta on), not gated
+DP_WINDOWS = 3              # (a): the plain and the world-1 trainer's windows, in turn
+DP_TRACED = 6               # (a): steps of each traced with torch.profiler
+# world 2 against world 1 on one global batch: the JAX package's weak-scaling
+# pin (tests/test_trainer_mesh.py)
+DP_TRAJ_TOL = {"rtol": 2e-3, "atol": 1e-5}
+# the halves' weight gradients summed (the all-reduce) against the whole
+# batch's: each half sums its own rows in the kernels' fixed order, so the
+# float32 sums round in another order
+SPLIT_WGRAD_REL_L2 = 1e-5
+DP_SAVED = ("camera_fwd_save", "shadow_fwd_save", "camera_bwd_saved", "shadow_bwd_saved")
+
+
+def dp_config(log_root, exp_name, data_axis):
+    """train_saved's configuration (bf16 8x256, batch 1024, 128 camera and 64
+    shadow samples, uniform sampler, the saved backward, seed 0) with the
+    shadow and beta gates at step 5, on ``data_axis`` processes."""
+    from eonerf_code_tpu_torch.config import TrainConfig
+
+    return TrainConfig(logs_dir=str(log_root), exp_name=exp_name, sampler="uniform",
+                       occ_enabled=False, bwd_acts="saved", compute_dtype="bfloat16",
+                       batch_size=N_TRAIN, n_samples=128, sc_n_samples=64,
+                       first_shadow_step=DP_SHADOW_FROM, first_beta_step=DP_SHADOW_FROM,
+                       max_train_steps=DP_STEPS, save_freq=10 ** 9, seed=0,
+                       data_axis=data_axis)
+
+
+def dp_trainer(device, log_root, exp_name, data_axis):
+    """A trainer of :func:`dp_config` on this rank over the 2^20-ray pool,
+    after DP_STEPS steps, and what they gave: each step's (global) loss,
+    this rank's parameters and its launches of the saved pair (the
+    wrappers' and the library's counts), its mesh. The trainer's step
+    records a CUDA event after each step (``step_events``, which
+    :func:`dp_window` reads)."""
+    import torch
+
+    from eonerf_code_tpu_torch.data.synthetic_pool import synthetic_ray_pool
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.train.loop import Trainer
+
+    shutil.rmtree(pathlib.Path(log_root) / exp_name, ignore_errors=True)
+    tr = Trainer(dp_config(log_root, exp_name, data_axis),
+                 synthetic_ray_pool(N_POOL, N_VIEWS, device), n_images=N_VIEWS, device=device)
+    losses, tr.step_events, step_fn = [], [], tr.train_step
+
+    def step(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        losses.append(out["loss"])
+        tr.step_events.append(torch.cuda.Event(enable_timing=True))
+        tr.step_events[-1].record()
+        return out
+
+    tr.train_step = step
+    counted = {name: getattr(fr, name.replace("_fwd", "_forward").replace("_bwd", "_backward"))
+               for name in DP_SAVED}
+    for fn in counted.values():
+        fn.launches = 0
+    save_before, dgrad_before = fr.save_fwd_kernel_launches(), fr.dgrad_kernel_launches()
+    tr.run(max_steps=DP_STEPS, log_every=10 ** 9)
+    save_now = fr.save_fwd_kernel_launches()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    launches.update({f"{m}_fwd_save_kernel": save_now[m] - save_before[m] for m in save_now},
+                    dgrad_kernel=fr.dgrad_kernel_launches() - dgrad_before)
+    params = {k: v.detach().cpu() for k, v in tr.field.state_dict().items()}
+    return tr, {"losses": [float(v) for v in losses[:DP_STEPS]], "params": params,
+                "launches": launches,
+                "mesh": {"rank": tr.mesh.rank, "world": tr.mesh.world,
+                         "distributed": tr.mesh.distributed, "backend": tr.mesh.backend}}
+
+
+def dp_window(tr, steps):
+    """Milliseconds a step over ``steps`` more steps of a
+    :func:`dp_trainer` (shadows and beta on), from the CUDA events after
+    each: the steps and the host's gaps between them, not the checkpoint
+    that each ``Trainer.run`` writes at its end."""
+    import torch
+
+    first = len(tr.step_events)
+    tr.run(max_steps=tr.step + steps, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    return tr.step_events[first].elapsed_time(tr.step_events[-1]) / (steps - 1)
+
+
+def dp_allreduce_ms(tr):
+    """The step's gradient all-reduce alone (5 calls; it sums the spent
+    gradients again)."""
+    import torch
+
+    grads = [p.grad for p in tr.field.parameters()]
+    tr.mesh.all_reduce_(grads)       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tr.mesh.all_reduce_(grads)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 5
+
+
+def dp_trace(tr, steps):
+    """``steps`` steps of ``tr`` under torch.profiler (train/profile_step.py's
+    kernel groups and NCCL's): ms a step by the CUDA events, device ms a
+    step by group and in all, the device's idle share, and the host's self
+    ms a step of its ten costliest operations."""
+    from eonerf_code_tpu_torch.train.profile_step import trace
+
+    ms, per_group, host = trace(lambda: dp_window(tr, steps), steps)
+    device_ms = sum(per_group.values())
+    return {"steps": steps, "ms_per_step": ms, "device_ms_per_step": per_group,
+            "device_ms_total": device_ms, "idle_share": 1.0 - device_ms / ms,
+            "host_self_ms_top": host}
+
+
+def dp_train(device, log_root, exp_name, data_axis):
+    """:func:`dp_trainer`, then DP_TIMED timed steps (rays/s of the global
+    batch, ms a step) and the gradient all-reduce alone."""
+    tr, res = dp_trainer(device, log_root, exp_name, data_axis)
+    ms = dp_window(tr, DP_TIMED)
+    return {**res, "rays_per_s": N_TRAIN * 1e3 / ms, "ms_per_step": ms,
+            "allreduce_ms": dp_allreduce_ms(tr)}
+
+
+def dp_expected_launches():
+    shadow_steps = DP_STEPS - DP_SHADOW_FROM
+    return {"camera_fwd_save": DP_STEPS, "shadow_fwd_save": shadow_steps,
+            "camera_bwd_saved": DP_STEPS, "shadow_bwd_saved": shadow_steps,
+            "camera_fwd_save_kernel": DP_STEPS, "shadow_fwd_save_kernel": shadow_steps,
+            "dgrad_kernel": DP_STEPS + shadow_steps}
+
+
+def dp_split_check(mesh):
+    """One saved camera and one saved shadow pair on 1024 rays of a training
+    step's shapes (camera K=127, shadow K=63), each rank on its contiguous
+    half: the per-ray outputs and d_rayin gathered against the unsplit
+    calls' (bit for bit, or which differs and by how much), the weight
+    gradients all-reduced against the unsplit ones (rel-L2)."""
+    import torch
+
+    from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
+    from eonerf_code_tpu_torch.data.synthetic_pool import synthetic_ray_pool
+    from eonerf_code_tpu_torch.models.eonerf import EONerfField
+    from eonerf_code_tpu_torch.ops import fused_field as ff
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.ops.sampling import set_last_valid
+    from eonerf_code_tpu_torch.render import satellite as sat
+
+    dev = mesh.device
+    field = EONerfField(N_VIEWS, compute_dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        kw = ff.pack_kernel_weights(ff.pack_params(field), torch.bfloat16)
+    pool = synthetic_ray_pool(N_TRAIN, N_VIEWS, dev, seed=11)
+    rays = satrays_from_tensor(pool["rays"], pool["ts"])
+    cfg = sat.RenderConfig(n_samples=128, sc_n_samples=64)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    z, delta, _, mask = sat._camera_samples(rays.origins, rays.viewdirs, rays.t_near, cfg, gen)
+    emb = torch.randn((N_TRAIN, 4), generator=gen, device=dev)
+    rayin = torch.cat([rays.origins, rays.viewdirs, emb, torch.zeros((N_TRAIN, 6), device=dev)],
+                      dim=1)
+    sc_o = rays.origins + rays.viewdirs * (0.5 + z[:, :1])     # plausible surface points
+    _, sc_z, sc_delta, sc_mask = sat._sample_block(
+        sc_o, -rays.sundirs, torch.zeros_like(rays.t_near), cfg.sc_n_samples, cfg.ray_span, True,
+        cfg.cube_bound, gen)
+    rayin_sc = torch.cat([sc_o, -rays.sundirs, torch.zeros((N_TRAIN, 10), device=dev)], dim=1)
+    cases = {
+        "camera": ((rayin, z, set_last_valid(delta, mask, cfg.inf_delta) * mask),
+                   torch.randn((N_TRAIN, fr.ACC_COLS), generator=gen, device=dev),
+                   fr.camera_forward_save, fr.camera_backward_saved),
+        "shadow": ((rayin_sc, sc_z, sc_delta * sc_mask, sc_mask.float()),
+                   torch.randn((N_TRAIN,), generator=gen, device=dev),
+                   fr.shadow_forward_save, fr.shadow_backward_saved)}
+    half = N_TRAIN // mesh.world
+    rows = slice(mesh.rank * half, (mesh.rank + 1) * half)
+    res = {}
+    for op, (args, g, fwd_save, bwd_saved) in cases.items():
+        args = [t.contiguous() for t in args]
+        mine = [t[rows].contiguous() for t in args]
+        out, stream = fwd_save(kw, *mine)
+        d_mats, d_biases, d_rayin = bwd_saved(kw, *mine, g[rows].contiguous(), stream)
+        mesh.all_reduce_([d_mats, d_biases])
+        got = mesh.gather_rows({"out": out, "d_rayin": d_rayin}, mesh.rank * half, N_TRAIN)
+        out_w, stream_w = fwd_save(kw, *args)
+        whole = bwd_saved(kw, *args, g, stream_w)
+        want = {"out": out_w, "d_rayin": whole[2]}
+        wg, wg_ref = torch.cat([d_mats, d_biases]), torch.cat(whole[:2])
+        res[op] = {"rays": N_TRAIN, "samples": args[1].shape[1],
+                   "per_ray_bitwise": all(torch.equal(got[k], want[k]) for k in want),
+                   "differs_max_abs": {k: float((got[k] - want[k]).abs().max()) for k in want
+                                       if not torch.equal(got[k], want[k])},
+                   "wgrad_rel_l2": float((wg - wg_ref).norm() / wg_ref.norm())}
+    return res
+
+
+def dp_sweep(mesh):
+    """Phase render's 512x512 nadir sweep without jitter through
+    render_image_sharded on this rank's run of 4096-ray chunks: its camera
+    and shadow forward launches (the wrappers' and the library's counts),
+    seconds, and on every rank whether each output is render_image's, bit
+    for bit (render_image run first, outside the counts)."""
+    import torch
+
+    from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
+    from eonerf_code_tpu_torch.models.eonerf import EONerfField
+    from eonerf_code_tpu_torch.models.fused import make_render_field
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.render import satellite as sat
+    from eonerf_code_tpu_torch.render.nadir import nadir_rays_with_sun
+
+    dev = mesh.device
+    field = EONerfField(20, compute_dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    rf = make_render_field(field)
+    rays_np, _, _ = nadir_rays_with_sun(512, 512, 35.0, 140.0, np.array([256.0, 256.0, 60.0]))
+    rays = satrays_from_tensor(torch.from_numpy(rays_np).to(dev),
+                               torch.zeros(rays_np.shape[0], dtype=torch.long, device=dev))
+    cfg = sat.RenderConfig(n_samples=128, sc_n_samples=64, perturb=False)
+    want = sat.render_image(rf, rays, cfg, True, chunk=N_CHUNK)
+    fr.camera_forward.launches = fr.shadow_forward.launches = 0
+    stream_before = fr.stream_fwd_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sat.render_image_sharded(rf, rays, cfg, True, mesh, chunk=N_CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stream_now = fr.stream_fwd_kernel_launches()
+    return {"rays": rays_np.shape[0], "seconds": seconds,
+            "launches": {"camera_fwd": fr.camera_forward.launches,
+                         "shadow_fwd": fr.shadow_forward.launches},
+            "stream_fwd_kernel_launches": {f"{m}_fwd": stream_now[m] - stream_before[m]
+                                           for m in stream_now},
+            "bitwise_render_image": all(torch.equal(got[k], want[k]) for k in want),
+            "differs_max_abs": {k: float((got[k].float() - want[k].float()).abs().max())
+                                for k in want if not torch.equal(got[k], want[k])}}
+
+
+def dp_worker(device, log_root, exp_name, sweep):
+    """A rank of phase 17 (b) and (d): the training run at world 2, the split
+    saved pair and, with ``sweep``, the sharded sweep, each timed."""
+    from eonerf_code_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.current(2, device)
+    t0 = time.perf_counter()
+    out = {"train": dp_train(device, log_root, exp_name, 2)}
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["split"] = dp_split_check(mesh)
+    out["split_s"] = time.perf_counter() - t0
+    if sweep:
+        out["sweep"] = dp_sweep(mesh)
+    return out
+
+
+def dp_world_two(torch, ranks, ref, label, card):
+    """(b) and (d): the gates on the two ranks' results against (a)'s run."""
+    a, b = ranks[0]["train"], ranks[1]["train"]
+    params_equal = all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    err = [abs(x - y) - (DP_TRAJ_TOL["atol"] + DP_TRAJ_TOL["rtol"] * abs(y))
+           for x, y in zip(a["losses"], ref["losses"])]
+    expect = dp_expected_launches()
+    res = {"phase": "data_parallel", "part": label["part"], "backend": a["mesh"]["backend"],
+           "devices": label["devices"], "world": 2, "steps": DP_STEPS, "batch": N_TRAIN,
+           "rays_per_rank": N_TRAIN // 2, "pool_rays": N_POOL,
+           "loss_first_last": [a["losses"][0], a["losses"][-1]],
+           "loss_max_abs_diff_vs_world_1": max(abs(x - y)
+                                               for x, y in zip(a["losses"], ref["losses"])),
+           "loss_tolerance": DP_TRAJ_TOL, "losses_within": all(e <= 0 for e in err),
+           "ranks_params_bitwise": params_equal,
+           "launches_by_rank": [ranks[r]["train"]["launches"] for r in (0, 1)],
+           "expected_launches_each_rank": expect,
+           "split": ranks[0]["split"], "split_tolerance_wgrad_rel_l2": SPLIT_WGRAD_REL_L2,
+           "rays_per_s": a["rays_per_s"], "rays_per_s_world_1": ref["rays_per_s"],
+           "ms_per_step": a["ms_per_step"], "allreduce_ms": a["allreduce_ms"],
+           "seconds": {"train": ranks[0]["train_s"], "split": ranks[0]["split_s"]},
+           "card": card}
+    emit(res)
+    split_ok = all(s["per_ray_bitwise"] and s["wgrad_rel_l2"] <= SPLIT_WGRAD_REL_L2
+                   for s in ranks[0]["split"].values())
+    if not (res["backend"] == label["backend"] and res["losses_within"] and params_equal
+            and split_ok
+            and all(ranks[r]["train"]["launches"] == expect for r in (0, 1))):
+        raise AssertionError(f"data parallel {label}: {res}")
+
+
+def data_parallel_phase(torch, dev, card, log_root, eval_args, eval_ortho, scene_info):
+    """Phase 17 (a)-(d); ``eval_args`` and ``eval_ortho`` are phase eval's
+    orthographic eval_cli arguments and its one-process result on
+    train_default's run (its MAE and shift)."""
+    from eonerf_code_tpu_torch.cli import eval_cli
+    from eonerf_code_tpu_torch.eval import dsm as eval_dsm
+    from eonerf_code_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    # (a) world 1 over NCCL in this process, against the plain trainer; then
+    # each timed over DP_WINDOWS windows in turn, and traced
+    t0 = time.perf_counter()
+    plain_tr, plain = dp_trainer(dev, log_root, "chip_smoke_dp_plain", 1)
+    windows = {"plain": [], "world_1": []}
+    with tempfile.TemporaryDirectory(prefix="eonerf_dp_") as tmp:
+        pmesh.setup(0, 1, f"file://{tmp}/rendezvous", "cuda:0")
+        try:
+            one_tr, one = dp_trainer(torch.device("cuda:0"), log_root, "chip_smoke_dp1", -1)
+            for _ in range(DP_WINDOWS):
+                windows["plain"].append(dp_window(plain_tr, DP_TIMED))
+                windows["world_1"].append(dp_window(one_tr, DP_TIMED))
+            traces = {"plain": dp_trace(plain_tr, DP_TRACED),
+                      "world_1": dp_trace(one_tr, DP_TRACED)}
+            one["allreduce_ms"] = dp_allreduce_ms(one_tr)
+        finally:
+            pmesh.teardown()
+    del plain_tr, one_tr
+    ms = {k: statistics.median(v) for k, v in windows.items()}
+    one.update(ms_per_step=ms["world_1"], rays_per_s=N_TRAIN * 1e3 / ms["world_1"])
+    res_a = {"phase": "data_parallel", "part": "a", "backend": one["mesh"]["backend"],
+             "devices": ["cuda:0"], "world": 1, "mesh": one["mesh"], "steps": DP_STEPS,
+             "batch": N_TRAIN, "pool_rays": N_POOL,
+             "losses_bitwise": one["losses"] == plain["losses"],
+             "params_bitwise": all(torch.equal(one["params"][k], plain["params"][k])
+                                   for k in plain["params"]),
+             "launches": one["launches"], "expected_launches": dp_expected_launches(),
+             "rays_per_s": one["rays_per_s"], "rays_per_s_plain": N_TRAIN * 1e3 / ms["plain"],
+             "ms_per_step": ms["world_1"], "ms_per_step_plain": ms["plain"],
+             "ms_per_step_windows": windows, "window_steps": DP_TIMED, "traces": traces,
+             "allreduce_ms": one["allreduce_ms"],
+             "seconds": time.perf_counter() - t0, "card": card}
+    emit(res_a)
+    if not (one["mesh"]["distributed"] and one["mesh"]["backend"] == "nccl"
+            and res_a["losses_bitwise"] and res_a["params_bitwise"]
+            and one["launches"] == dp_expected_launches()):
+        raise AssertionError(f"data parallel (a): {res_a}")
+
+    # (b) world 2 on this card over gloo, and (c) the sharded sweep in the
+    # same ranks
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(dp_worker, {"log_root": str(log_root), "exp_name": "chip_smoke_dp2",
+                                     "sweep": True}, 2, "cuda:0")
+    launch_s = time.perf_counter() - t0
+    dp_world_two(torch, ranks, one, {"part": "b", "backend": "gloo",
+                                     "devices": ["cuda:0", "cuda:0"]}, card)
+    sweeps = [ranks[r]["sweep"] for r in (0, 1)]
+    n_chunks = sweeps[0]["rays"] // N_CHUNK
+    totals = {k: sum(s["stream_fwd_kernel_launches"][k] for s in sweeps)
+              for k in sweeps[0]["stream_fwd_kernel_launches"]}
+    res_c = {"phase": "data_parallel", "part": "c_sweep",
+             "backend": ranks[0]["train"]["mesh"]["backend"], "world": 2,
+             "rays": sweeps[0]["rays"], "chunk": N_CHUNK,
+             "bitwise_render_image": [s["bitwise_render_image"] for s in sweeps],
+             "differs_max_abs": sweeps[0]["differs_max_abs"],
+             "launches_by_rank": [s["launches"] for s in sweeps],
+             "stream_fwd_kernel_launches_by_rank": [s["stream_fwd_kernel_launches"]
+                                                    for s in sweeps],
+             "expected_total": {"camera_fwd": n_chunks, "shadow_fwd": n_chunks},
+             "seconds_by_rank": [s["seconds"] for s in sweeps],
+             "launch_and_ranks_s": launch_s, "card": card}
+    emit(res_c)
+    if not (all(res_c["bitwise_render_image"])
+            and totals == {"camera_fwd": n_chunks, "shadow_fwd": n_chunks, "coarse_fwd": 0}
+            and all(s["launches"] == {"camera_fwd": n_chunks // 2, "shadow_fwd": n_chunks // 2}
+                    for s in sweeps)):
+        raise AssertionError(f"data parallel sweep: {res_c}")
+
+    # (c) eval_cli --dsm --data_axis 2 on train_default's run, its MAE and
+    # shift (the registration rerun here on the DSM rank 0 wrote) beside
+    # phase eval's --data_axis 1
+    t0 = time.perf_counter()
+    out_root = log_root / "chip_smoke_eval_dp"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out2 = eval_cli([*eval_args, "--output_dir", str(out_root), "--data_axis", "2"],
+                    device="cuda:0")
+    eval_s = time.perf_counter() - t0
+    shifts = []
+    compute_shift = eval_dsm.compute_shift_arrays
+
+    def recorded_shift(*args, **kwargs):
+        got = compute_shift(*args, **kwargs)
+        shifts.append([int(got[0]), int(got[1])])
+        return got
+
+    eval_dsm.compute_shift_arrays = recorded_shift
+    try:
+        src_id = pathlib.Path(out2["dsm_path"]).stem
+        mae_again = eval_dsm.compute_mae_and_save_dsm_diff(
+            out2["dsm_path"], src_id, scene_info["gt_dir"], str(out_root / "registration"),
+            "dp", scene_info["aoi_id"], save=False)
+    finally:
+        eval_dsm.compute_shift_arrays = compute_shift
+    res_e = {"phase": "data_parallel", "part": "c_eval",
+             "backend": pmesh.backend_for("cuda:0", 2), "world": 2,
+             "mae_m": out2["mae"], "shift": shifts[-1], "mae_m_reregistered": mae_again,
+             "data_axis_1": {"mae_m": eval_ortho["mae_m"], "shift": eval_ortho["shift"]},
+             "mae_equal_data_axis_1": out2["mae"] == eval_ortho["mae_m"],
+             "dsm_exists": pathlib.Path(out2["dsm_path"]).exists(), "seconds": eval_s,
+             "card": card}
+    emit(res_e)
+    if not (math.isfinite(out2["mae"]) and res_e["dsm_exists"]
+            and res_e["mae_equal_data_axis_1"]):
+        raise AssertionError(f"data parallel eval: {res_e}")
+
+    # (d) NCCL at world 2, one card a rank, where the machine has two
+    if torch.cuda.device_count() >= 2:
+        ranks_n = pmesh.launch(dp_worker, {"log_root": str(log_root),
+                                           "exp_name": "chip_smoke_dp2_nccl", "sweep": False},
+                               2, "cuda")
+        dp_world_two(torch, ranks_n, one, {"part": "d", "backend": "nccl",
+                                           "devices": ["cuda:0", "cuda:1"]}, card)
+    else:
+        emit({"phase": "data_parallel", "part": "d", "run": False,
+              "why": f"NCCL at world 2 needs two cards; this machine has "
+                     f"{torch.cuda.device_count()}", "card": card})
+    emit({"phase": "data_parallel", "part": "seconds", "seconds": time.perf_counter() - t_phase,
+          "card": card})
 
 
 def main():
@@ -2585,7 +3035,6 @@ def main():
     if not (len(report) == n_roster and all(math.isfinite(r["loss"]) and math.isfinite(r["psnr"])
                                             for r in report)):
         raise AssertionError(f"eval report: {report}")
-    shutil.rmtree(scene_root, ignore_errors=True)
 
     # ---- 14. variants: the kernel-variant bench (the TPU research kernels'
     # counterparts) through its two entry points at the TPU script's
@@ -2703,6 +3152,10 @@ def main():
     # scene (the functions above) ----
     quality_phase(torch, dev, card, log_root, kernel_rows)
     bundle_adjust_phase(torch, dev, card, log_root, kernel_rows)
+
+    # ---- 17. data_parallel: the functions above ----
+    data_parallel_phase(torch, dev, card, log_root, cli_args, eval_res["ortho"], info)
+    shutil.rmtree(scene_root, ignore_errors=True)
 
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",

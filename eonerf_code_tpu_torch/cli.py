@@ -5,10 +5,13 @@ Every flag of the JAX package's parsers is here, with its ``dest``.
 ``--use_pallas {true,false}`` sets ``TrainConfig.use_pallas`` (unset: the
 fused kernels for a bfloat16 8x256 run on the card); ``--freq_reg_end_step``
 and ``--freq_reg_start_step`` set the coarse-to-fine PE annealing.
-``--data_axis`` other than 1 (data parallel, ROADMAP Queue 1 item 6) is
-refused, not dropped; ``--steps_per_call`` (the JAX megastep's scan length)
-is accepted and ignored with a warning. Flags the reference declared but
-never read warn and are ignored (``IGNORED_FLAGS``).
+``--data_axis N`` trains or evaluates data parallel over N processes (-1:
+every visible card), as ``python train_eonerf.py --data_axis 8`` does in
+the JAX package: the entry point spawns one worker a rank
+(``parallel.mesh.launch``), or under ``torchrun`` joins the launcher's
+group. ``--steps_per_call`` (the JAX megastep's scan length) is accepted
+and ignored with a warning. Flags the reference declared but never read
+warn and are ignored (``IGNORED_FLAGS``).
 """
 
 import argparse
@@ -92,7 +95,7 @@ def build_parser():
     g.add_argument("--freq_reg_start_step", type=int, default=0,
                    help="annealing ramp start (must be < --freq_reg_end_step)")
     g.add_argument("--data_axis", type=int, default=1,
-                   help="devices on the ray-batch axis: only 1 in the port")
+                   help="processes on the ray-batch axis, one a card (-1: every visible card)")
     g.add_argument("--lr_decay_steps", type=int, default=None,
                    help="decay lr per N steps instead of per epoch")
     g.add_argument("--first_shadow_step", type=int, default=None)
@@ -107,6 +110,16 @@ def build_parser():
     g.add_argument("--no_device_eval", dest="device_eval", action="store_false",
                    help="the host GeoTIFF MAE path")
     return p
+
+
+def device_flag(argv=None):
+    """The root scripts' one flag of their own, ``--device`` ("cuda" by
+    default, one card a rank; "cpu" runs every rank on the CPU, gloo
+    between them), split from the reference's flags: (device, the rest)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default="cuda")
+    args, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
+    return args.device, rest
 
 
 def config_from_args(argv=None):
@@ -124,9 +137,6 @@ def config_from_args(argv=None):
         print(f"warning: ignoring flag {tok}{val} ({why})", file=sys.stderr)
         i += 1
     d = vars(args)
-    if d["data_axis"] != 1:
-        raise NotImplementedError(f"--data_axis {d['data_axis']}: data-parallel training is "
-                                  "not in the port yet (ROADMAP Queue 1 item 6)")
     if d["steps_per_call"] is not None:
         print(f"warning: ignoring flag --steps_per_call {d['steps_per_call']} (the port takes "
               "one step a call)", file=sys.stderr)
@@ -134,12 +144,22 @@ def config_from_args(argv=None):
     return TrainConfig(**{k: v for k, v in d.items() if k in known})
 
 
-def main_train(argv=None, device="cuda"):
+def _train(cfg, device):
     from eonerf_code_tpu_torch.train.loop import Trainer
 
+    return Trainer(cfg, device=device).run()
+
+
+def main_train(argv=None, device="cuda"):
+    """Train from the command line; with ``--data_axis`` other than 1 on
+    every rank of a data axis (``parallel.mesh.launch``). Prints and
+    returns rank 0's stats (None on the other ranks under ``torchrun``)."""
+    from eonerf_code_tpu_torch.parallel.mesh import launch
+
     cfg = config_from_args(argv)
-    stats = Trainer(cfg, device=device).run()
-    print(stats)
+    stats = launch(_train, {"cfg": cfg}, cfg.data_axis, device).get(0)
+    if stats is not None:
+        print(stats)
     return stats
 
 
@@ -158,7 +178,8 @@ def build_eval_parser():
     p.add_argument("--chunk", type=int, default=4096)
     p.add_argument("--dsm_resolution", type=float, default=None)
     p.add_argument("--data_axis", type=int, default=0,
-                   help="devices to render over: only 0 or 1 (one device) in the port")
+                   help="processes to render over, one a card: 0 or 1 one device, -1 every "
+                        "visible card")
     p.add_argument("--export_rpc", action="store_true",
                    help="write bundle-adjusted per-view RPC metadata (a run trained with "
                         "--rpc_correction)")
@@ -166,6 +187,8 @@ def build_eval_parser():
 
 
 def eval_cli(argv=None, device="cuda"):
+    """Evaluate from the command line. Prints and returns rank 0's result
+    (None on the other ranks under ``torchrun``)."""
     from eonerf_code_tpu_torch.eval.run import eval_eonerf
 
     args = build_eval_parser().parse_args(argv)
@@ -173,6 +196,8 @@ def eval_cli(argv=None, device="cuda"):
                       root_dir=args.root_dir, img_dir=args.img_dir, gt_dir=args.gt_dir,
                       dsm=args.dsm, chunk=args.chunk, dsm_resolution=args.dsm_resolution,
                       pinhole=args.pinhole, data_axis=args.data_axis, device=device)
+    if out is None:
+        return None
     if args.export_rpc:
         from eonerf_code_tpu_torch.eval.export import export_adjusted_rpcs
 

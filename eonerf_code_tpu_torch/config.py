@@ -2,9 +2,8 @@
 (config.py) that the port's trainer reads, with the same names and
 defaults, the same ``__post_init__`` checks, and JSON round trip.
 
-Left out: data parallelism (``data_axis``, ROADMAP Queue 1 item 6) and
-``steps_per_call`` (the JAX megastep's scan length, which a per-step loop
-has no use for); cli.py refuses the first and ignores the last.
+Left out: ``steps_per_call`` (the JAX megastep's scan length, which a
+per-step loop has no use for); cli.py accepts and ignores it.
 """
 
 import dataclasses
@@ -116,6 +115,10 @@ class TrainConfig:
     # "recompute" reruns the forward inside the backward. int8 tiers always
     # recompute.
     bwd_acts: str = "saved"
+
+    # data parallel (parallel/mesh.py): processes on the ray-batch axis, one
+    # a card; -1 or 0 = every visible card
+    data_axis: int = 1
 
     # the render backend (models/fused.py::make_render_field): None = the
     # fused kernels for a bfloat16 8x256 field on the card, else the field

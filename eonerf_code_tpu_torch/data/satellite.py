@@ -195,7 +195,12 @@ class SatelliteScene:
 
 
 class SatelliteDataset:
-    """Train/val views as flat numpy arrays ready for device upload."""
+    """Train/val views as flat numpy arrays ready for device upload. The
+    caches it writes where they are missing (the per-image ray casts and
+    priors under ``cache_dir``, ``scene.radiometry``) take no lock: on a
+    data axis rank 0 builds the dataset first and the other ranks then read
+    them (``parallel.mesh.Mesh.main_first``, in the trainer and the eval
+    run)."""
 
     def __init__(self, root_dir, img_dir=None, split="train", img_downscale=1.0,
                  utm=True, cache_dir=None, prior_dsm_path=None, prior_conf_path=None,

@@ -17,7 +17,9 @@ On the card a bfloat16 8x256 run renders through the fused camera and
 shadow kernels (``make_render_field``), as it trained; the renders are
 perturbed as the reference's are, from a generator seeded 0 for each
 ``render_image`` call. A checkpoint inside the coarse-to-fine ramp renders
-through its step's PE mask (``load_run``).
+through its step's PE mask (``load_run``). ``data_axis`` renders over the
+ranks of a data axis (``render_image_sharded``), the files written on rank
+0 alone.
 """
 
 import json
@@ -37,8 +39,13 @@ from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.freq_reg import pe_masked, step_pe_mask
 from eonerf_code_tpu_torch.models.fused import make_render_field
 from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
+from eonerf_code_tpu_torch.parallel import mesh as pmesh
 from eonerf_code_tpu_torch.render.nadir import enu_frame, nadir_rays_with_sun
-from eonerf_code_tpu_torch.render.satellite import RenderConfig, render_image
+from eonerf_code_tpu_torch.render.satellite import (
+    RenderConfig,
+    render_image,
+    render_image_sharded,
+)
 from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
 from eonerf_code_tpu_torch.train.loop import OCC_SIDECAR
 from eonerf_code_tpu_torch.utils import metrics as M
@@ -185,10 +192,26 @@ def eval_eonerf(run_id, logs_dir, output_dir, epoch_nb=None, root_dir=None, img_
     train and test view. ``dsm_resolution`` rasterizes the DSM on another
     grid than the reference's 0.3 m (0.5 m for JAX AOIs). An ECEF run
     sweeps in the local ENU frame of the scene centre unless ``nadir_frame``
-    is "zup" (the reference's z-up construction)."""
-    if data_axis not in (0, 1):
-        raise NotImplementedError(f"data_axis={data_axis}: data-parallel eval is not in the "
-                                  "port yet (ROADMAP Queue 1 item 6)")
+    is "zup" (the reference's z-up construction).
+
+    ``data_axis`` as the JAX package's: 0 or 1 renders on one device, -1
+    over every visible card, N over N ranks (one a card under
+    ``device="cuda"``; ``"cuda:K"`` shares card K over gloo).
+    Outside a process group the ranks are started here
+    (``parallel.mesh.launch``) and rank 0's result is returned. Every rank
+    renders its run of each sweep's blocks; rank 0 alone writes the
+    GeoTIFFs, the DSM and its registration and returns the result (the
+    other ranks return None)."""
+    axis = 1 if data_axis in (0, 1) else data_axis
+    if (axis != 1 and not torch.distributed.is_initialized()
+            and pmesh.resolve_world(axis, device) > 1):
+        kwargs = dict(run_id=run_id, logs_dir=logs_dir, output_dir=output_dir,
+                      epoch_nb=epoch_nb, root_dir=root_dir, img_dir=img_dir, gt_dir=gt_dir,
+                      dsm=dsm, chunk=chunk, dsm_resolution=dsm_resolution, pinhole=pinhole,
+                      data_axis=data_axis, nadir_frame=nadir_frame)
+        return pmesh.launch(eval_eonerf, kwargs, axis, device).get(0)
+    mesh = pmesh.current(axis, device)
+    main = mesh.is_main
     run_dir = os.path.join(logs_dir, run_id)
     dev = torch.device(device)
     cfg, field, _ = load_run(run_dir, epoch_nb, device=dev)
@@ -201,9 +224,10 @@ def eval_eonerf(run_id, logs_dir, output_dir, epoch_nb=None, root_dir=None, img_
     if cfg.cache_dir and not os.path.isdir(cfg.cache_dir):
         cfg.cache_dir = None
 
-    dataset = SatelliteDataset(cfg.root_dir, cfg.img_dir, split="val",
-                               img_downscale=cfg.img_downscale, utm=not cfg.ecef,
-                               cache_dir=cfg.cache_dir)
+    with mesh.main_first():
+        dataset = SatelliteDataset(cfg.root_dir, cfg.img_dir, split="val",
+                                   img_downscale=cfg.img_downscale, utm=not cfg.ecef,
+                                   cache_dir=cfg.cache_dir)
     # every view of the train and test rosters (eval_eonerf.py:269-276)
     files = dataset.scene._split_files("train.txt")
     if os.path.exists(os.path.join(cfg.root_dir, "test.txt")):
@@ -221,8 +245,11 @@ def eval_eonerf(run_id, logs_dir, output_dir, epoch_nb=None, root_dir=None, img_
     def render(rays_np, ts):
         rays = satrays_from_tensor(torch.as_tensor(rays_np).to(dev, torch.float32),
                                    torch.as_tensor(ts).to(dev))
-        return render_image(field, rays, rcfg, True, chunk=chunk,
-                            generator=torch.Generator(device=dev).manual_seed(0),
+        generator = torch.Generator(device=dev).manual_seed(0)
+        if mesh.distributed:
+            return render_image_sharded(field, rays, rcfg, True, mesh, chunk=chunk,
+                                        generator=generator, occ_grid=occ_grid)
+        return render_image(field, rays, rcfg, True, chunk=chunk, generator=generator,
                             occ_grid=occ_grid)
 
     if dsm:
@@ -237,6 +264,8 @@ def eval_eonerf(run_id, logs_dir, output_dir, epoch_nb=None, root_dir=None, img_
             float(d["sun_azimuth"]), dataset.scene.scene_scale, img_downscale=cfg.img_downscale,
             pinhole=pinhole, frame=frame)
         results = render(rays_np, np.zeros((rays_np.shape[0],), np.int32))
+        if not main:
+            return None
         sample = {"rays": rays_np, "rgbs": np.ones((rays_np.shape[0], 3), np.float32),
                   "src_id": src_id, "h": h, "w": w}
         save_outputs_to_images(dataset, sample, results, out_dir)
@@ -265,9 +294,11 @@ def eval_eonerf(run_id, logs_dir, output_dir, epoch_nb=None, root_dir=None, img_
     for i in range(len(dataset.json_files)):
         sample = dataset.get_val_sample(i)
         results = render(sample["rays"], sample["ts"])
+        if not main:
+            continue
         rgbs = torch.as_tensor(sample["rgbs"]).to(dev, torch.float32)
         loss, _ = M.uncertainty_aware_loss(rgbs, results["rgb"], results["beta"])
         psnr = M.psnr(results["rgb"], rgbs)
         save_outputs_to_images(dataset, sample, results, out_dir)
         report.append({"src_id": sample["src_id"], "loss": float(loss), "psnr": float(psnr)})
-    return report
+    return report if main else None

@@ -6,9 +6,62 @@ masked, which is algebraically identical to the reference's point removal
 for transmittance and weights. The reference perturbs in eval too.
 ``sample_pdf`` draws the hierarchical sampler's fine samples from the
 coarse weights.
+
+Every draw goes through :func:`uniform`, which also takes a
+:class:`RowShare` (the generator of a data-parallel step, held in step on
+every rank) or a :class:`DrawLog` (which records a render's draws, so that
+a rank can skip the draws of the blocks before its own).
 """
 
 import torch
+
+
+class RowShare:
+    """A generator that the ranks of a data axis hold in step. Each draw is
+    made at the global batch's shape (this rank's rows times ``world``) and
+    the rank keeps its own contiguous rows, so a world-N step samples the
+    z values of the world-1 step on the same global batch (the JAX mesh
+    step's draws), no two ranks draw the same noise, and the generators
+    stay equal for the draws that are not per ray (the epoch permutation,
+    the occupancy probes)."""
+
+    def __init__(self, generator, rank, world):
+        self.generator = generator
+        self.rank = rank
+        self.world = world
+
+
+class DrawLog:
+    """A generator stand-in that draws from ``generator`` and records each
+    draw's shape past its rows, and its dtype: every draw of a render has
+    one row a ray, so a one-ray render's log gives the draws of a render of
+    any number of rays (:func:`skip_draws`)."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.draws = []
+
+
+def skip_draws(draws, rows, device, generator=None):
+    """Advance ``generator`` as a render of ``rows`` rays that makes
+    ``draws`` (a :class:`DrawLog`'s) does."""
+    for tail, dtype in draws:
+        torch.rand((rows, *tail), dtype=dtype, device=device, generator=generator)
+
+
+def uniform(shape, dtype, device, generator=None):
+    """``torch.rand(shape)`` from ``generator``; with a :class:`RowShare`,
+    this rank's rows of the global draw (``shape[0]`` rows a rank); with a
+    :class:`DrawLog`, recorded."""
+    if isinstance(generator, DrawLog):
+        generator.draws.append((tuple(shape[1:]), dtype))
+        generator = generator.generator
+    if isinstance(generator, RowShare):
+        rows = shape[0]
+        u = torch.rand((rows * generator.world, *shape[1:]), dtype=dtype, device=device,
+                       generator=generator.generator)
+        return u[generator.rank * rows:(generator.rank + 1) * rows]
+    return torch.rand(shape, dtype=dtype, device=device, generator=generator)
 
 
 def perturb_z_vals(z_vals, u):
@@ -33,8 +86,7 @@ def stratified_z_vals(near, far, n_samples, perturb=True, generator=None):
     jittered with noise drawn from ``generator`` when ``perturb``."""
     z_vals = linear_z_vals(near, far, n_samples)
     if perturb:
-        u = torch.rand(z_vals.shape, dtype=z_vals.dtype, device=z_vals.device,
-                       generator=generator)
+        u = uniform(z_vals.shape, z_vals.dtype, z_vals.device, generator)
         z_vals = perturb_z_vals(z_vals, u)
     return z_vals
 
@@ -50,8 +102,7 @@ def sample_pdf(bins, weights, n_importance, perturb=True, generator=None, eps=1e
     cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
     r = bins.shape[0]
     if perturb:
-        u = torch.rand((r, n_importance), dtype=bins.dtype, device=bins.device,
-                       generator=generator)
+        u = uniform((r, n_importance), bins.dtype, bins.device, generator)
     else:
         u = torch.linspace(0.0, 1.0 - 1e-6, n_importance, dtype=bins.dtype,
                            device=bins.device).expand(r, n_importance).contiguous()

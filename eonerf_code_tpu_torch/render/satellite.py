@@ -39,13 +39,16 @@ import torch
 
 from eonerf_code_tpu_torch.data.rays import SatRays
 from eonerf_code_tpu_torch.ops.sampling import (
+    DrawLog,
     cube_mask,
     intervals_from_z,
     linear_z_vals,
     perturb_z_vals,
     sample_pdf,
     set_last_valid,
+    skip_draws,
     stratified_z_vals,
+    uniform,
 )
 from eonerf_code_tpu_torch.ops.volrend import (
     accumulate,
@@ -88,8 +91,7 @@ def _with_exploration(generator, t_lo, t_hi, near, far, frac):
     grid is wrong, and the next grid update widens the spans."""
     if frac <= 0.0:
         return t_lo, t_hi
-    explore = torch.rand(t_lo.shape, dtype=t_lo.dtype, device=t_lo.device,
-                         generator=generator) < frac
+    explore = uniform(t_lo.shape, t_lo.dtype, t_lo.device, generator) < frac
     return torch.where(explore, near, t_lo), torch.where(explore, far, t_hi)
 
 
@@ -120,8 +122,7 @@ def _camera_samples(o, d, near, cfg: RenderConfig, generator, field=None, occ_gr
     far = near + cfg.ray_span
     z_dflt = linear_z_vals(torch.zeros_like(near), torch.full_like(near, cfg.ray_span),
                            cfg.n_samples)
-    u = (torch.rand(z_dflt.shape, dtype=z_dflt.dtype, device=z_dflt.device, generator=generator)
-         if cfg.perturb else None)
+    u = uniform(z_dflt.shape, z_dflt.dtype, z_dflt.device, generator) if cfg.perturb else None
     if occ_grid is not None and cfg.occ_tighten:
         t_lo, t_hi = occ_grid.ray_span(o, d, near, far, n_probes=cfg.occ_probes,
                                        margin=cfg.occ_margin)
@@ -376,3 +377,50 @@ def render_image(field, rays: SatRays, cfg: RenderConfig, shadows: bool, chunk: 
         else:
             outs.append(render_rays(field, block, cfg, shadows, generator, occ_grid))
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
+def _skip_blocks(field, rays: SatRays, cfg: RenderConfig, shadows, generator, occ_grid,
+                 depth_only, n_blocks, chunk):
+    """Advance ``generator`` past the draws of :func:`render_image`'s first
+    ``n_blocks`` blocks of ``chunk`` rays: a one-ray render through a
+    :class:`DrawLog` (on a generator of its own) gives the draws' shapes."""
+    device = rays.origins.device
+    log = DrawLog(torch.Generator(device=device))
+    render_image(field, SatRays(*(x[:1] for x in rays)), cfg, shadows, chunk=1, generator=log,
+                 occ_grid=occ_grid, depth_only=depth_only)
+    for _ in range(n_blocks):
+        skip_draws(log.draws, chunk, device, generator)
+
+
+@torch.no_grad()
+def render_image_sharded(field, rays: SatRays, cfg: RenderConfig, shadows: bool, mesh,
+                         chunk: int = 4096, generator=None, occ_grid=None,
+                         depth_only: bool = False):
+    """:func:`render_image` over the ranks of ``mesh``'s data axis (the JAX
+    package's ``render_image_sharded``): the ray count is padded to a
+    multiple of ``chunk`` x world, each rank renders its contiguous run of
+    ``chunk``-ray blocks (the padding is cut, not rendered: a run's blocks
+    are ``render_image``'s own), and every rank returns the whole result
+    (:meth:`Mesh.gather_rows`; the evaluation writes it on rank 0).
+
+    The result is ``render_image``'s, bit for bit, for any ray count and
+    any world. With ``cfg.perturb`` every block draws the numbers it draws
+    in ``render_image`` from ``generator`` (the device's default when None):
+    a rank first advances the generator past the draws of the blocks before
+    its run (:func:`_skip_blocks`), so no two ranks replay one jitter and
+    the eval does not depend on the number of ranks, as the JAX function's
+    one key a global block makes it."""
+    n = rays.origins.shape[0]
+    per_rank = -(-n // (chunk * mesh.world)) * chunk
+    start = mesh.rank * per_rank
+    stop = min(start + per_rank, n)
+    if cfg.perturb and 0 < start < n:
+        _skip_blocks(field, rays, cfg, shadows, generator, occ_grid, depth_only,
+                     start // chunk, chunk)
+    # a rank whose run is all padding renders the last ray alone, for the
+    # outputs' shapes, and contributes no row
+    block = SatRays(*(x[start:stop] if stop > start else x[n - 1:] for x in rays))
+    out = render_image(field, block, cfg, shadows, chunk=chunk, generator=generator,
+                       occ_grid=occ_grid, depth_only=depth_only)
+    local = {k: v[:max(stop - start, 0)] for k, v in out.items()}
+    return mesh.gather_rows(local, start, n)

@@ -37,6 +37,17 @@
   against ``cfg.gt_dir`` on the device (``eval/device.py``) or on the host
   (``eval/dsm.py``), image panels, and the ``epoch=best`` checkpoint when
   the mean MAE improves.
+- Data parallel (``cfg.data_axis`` != 1, inside a process group:
+  parallel/mesh.py): every rank holds the pool and a replica of the
+  parameters and the optimizer, and trains on its contiguous rows of each
+  global batch; the losses are each rank's share of the global batch's,
+  divided by the global batch's prior counts (utils/metrics.py; every rank
+  gathers the global batch, so the counts need no collective), the per-ray
+  draws the global batch's (``ops.sampling.RowShare``), and one all-reduce
+  a step sums the gradients and the loss values before every rank takes
+  the same Adam step. The gates take rank 0's grid, occupied fraction and probe entropy
+  after each update. Rank 0 alone writes opts.json, the metrics and the
+  checkpoints and validates; the others wait at a barrier.
 
 The JAX package scans K steps inside one compiled call (its megastep); here
 the steps are a plain Python loop.
@@ -60,11 +71,13 @@ from eonerf_code_tpu_torch.models.eonerf import EONerfField
 from eonerf_code_tpu_torch.models.freq_reg import field_weights, pe_masked, step_pe_mask
 from eonerf_code_tpu_torch.models.fused import make_render_field
 from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
+from eonerf_code_tpu_torch.ops.sampling import RowShare
 from eonerf_code_tpu_torch.ops.volrend import render_weights, weight_entropy
+from eonerf_code_tpu_torch.parallel import mesh as pmesh
 from eonerf_code_tpu_torch.render.satellite import RenderConfig, render_image, render_rays
 from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
 from eonerf_code_tpu_torch.utils import metrics as M
-from eonerf_code_tpu_torch.utils.tb import MetricsLogger
+from eonerf_code_tpu_torch.utils.tb import MetricsLogger, NullLogger
 
 _POOL_DTYPES = {"rays": torch.float32, "rgbs": torch.float32, "ts": torch.long,
                 "depth_prior": torch.float32, "conf_prior": torch.float32,
@@ -90,59 +103,84 @@ def make_optimizer(params, cfg: TrainConfig):
 
 
 def make_loss_fn(field, rcfg: RenderConfig, has_depth=False, has_conf=False,
-                 has_shadow=False):
+                 has_shadow=False, world=1):
     """Per-batch loss with the reference's schedule semantics
     (train_eonerf.py:139-155). ``pe_mask``: render through the PE-masked
     trunk (the JAX ``loss_fn``'s ``mask_trunk_pe``); gradients reach the raw
-    parameters."""
+    parameters. The dict carries the rgb mse under "mse" (``make_train_step``
+    logs its PSNR). On a data axis of ``world`` ranks the batch is this
+    rank's rows of ``global_batch``, whose prior counts every rank divides
+    by (no collective: each rank holds the global batch), and the loss and
+    the dict's values are this rank's shares of the global batch's
+    (utils/metrics.py); ``global_batch`` defaults to ``batch``."""
 
-    def loss_fn(batch, w_depth, shadows, use_beta, generator=None, occ_grid=None, pe_mask=None):
+    def loss_fn(batch, w_depth, shadows, use_beta, generator=None, occ_grid=None, pe_mask=None,
+                global_batch=None):
+        gb = batch if global_batch is None else global_batch
         rays = satrays_from_tensor(batch["rays"], batch["ts"])
         out = render_rays(pe_masked(field, pe_mask), rays, rcfg, shadows, generator, occ_grid)
+        mse = M.mse(out["rgb"], batch["rgbs"], world=world)
         if use_beta:
-            loss, loss_dict = M.uncertainty_aware_loss(batch["rgbs"], out["rgb"], out["beta"])
+            loss, loss_dict = M.uncertainty_aware_loss(batch["rgbs"], out["rgb"], out["beta"],
+                                                       world)
         else:
-            loss = M.mse(out["rgb"], batch["rgbs"])
+            loss = mse
             loss_dict = {"loss": loss, "coarse_color": loss}
         if has_depth:
-            aux, aux_d = M.depth_loss_l2(batch["depth_prior"], out["depth"][:, 0],
-                                         batch.get("conf_prior") if has_conf else None, w_depth)
+            conf, gconf = (batch["conf_prior"], gb["conf_prior"]) if has_conf else (None, None)
+            aux, aux_d = M.depth_loss_l2(batch["depth_prior"], out["depth"][:, 0], conf, w_depth,
+                                         M.depth_valid(gb["depth_prior"], gconf).sum())
             loss = loss + aux
             loss_dict.update(aux_d)
         if has_shadow and shadows:
-            aux, aux_d = M.shadow_loss_l2(batch["shadow_prior"], out["geo_shadows"][:, 0])
+            aux, aux_d = M.shadow_loss_l2(batch["shadow_prior"], out["geo_shadows"][:, 0],
+                                          M.shadow_counts(gb["shadow_prior"]), world)
             loss = loss + aux
             loss_dict.update(aux_d)
-        loss_dict["psnr"] = M.psnr(out["rgb"], batch["rgbs"])
+        loss_dict["mse"] = mse
         return loss, loss_dict
 
     return loss_fn
 
 
 def make_train_step(field, optimizer, lr_schedule, rcfg: RenderConfig, has_depth=False,
-                    has_conf=False, has_shadow=False):
+                    has_conf=False, has_shadow=False, mesh=None):
     """One training step on ``field`` (an EONerfField or its KernelField),
     updating the optimizer's parameters in place. Returns
     ``step_fn(batch, step, w_depth, shadows, use_beta, generator=None,
-    occ_grid=None, pe_mask=None)`` -> the loss dict (detached)."""
-    loss_fn = make_loss_fn(field, rcfg, has_depth, has_conf, has_shadow)
+    occ_grid=None, pe_mask=None, global_batch=None)`` -> the loss dict
+    (detached), its "psnr" that of the step's mse. On a process group
+    (``mesh.distributed``; ``batch`` this rank's rows of ``global_batch``)
+    the gradients and the loss shares are summed over the ranks in one
+    all-reduce before the update, after every parameter has a gradient (so
+    a head that a step does not reach, as the transient head before its
+    epoch or the shadow path before its gate, needs no special case), and
+    the dict holds the global batch's values."""
+    mesh = pmesh.Mesh.single() if mesh is None else mesh
+    loss_fn = make_loss_fn(field, rcfg, has_depth, has_conf, has_shadow, mesh.world)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step_fn(batch, step, w_depth, shadows, use_beta, generator=None, occ_grid=None,
-                pe_mask=None):
+                pe_mask=None, global_batch=None):
         optimizer.zero_grad(set_to_none=False)
-        loss, loss_dict = loss_fn(batch, w_depth, shadows, use_beta, generator, occ_grid, pe_mask)
+        loss, loss_dict = loss_fn(batch, w_depth, shadows, use_beta, generator, occ_grid, pe_mask,
+                                  global_batch)
         loss.backward()
         for p in params:
             # optax updates every parameter, an unused one with a zero
             # gradient (its moments decay); torch.optim skips a None grad
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss_dict = {k: v.detach().clone() if torch.is_tensor(v) else v
+                     for k, v in loss_dict.items()}
+        mesh.all_reduce_([p.grad for p in params]
+                         + [v for v in loss_dict.values() if torch.is_tensor(v)])
+        loss_dict["psnr"] = M.psnr_of(loss_dict.pop("mse"))
         lr = lr_schedule(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
-        return {k: v.detach() if torch.is_tensor(v) else v for k, v in loss_dict.items()}
+        return loss_dict
 
     return step_fn
 
@@ -180,17 +218,31 @@ class Trainer:
     ``conf_prior``, ``shadow_prior`` (N,); ``n_images`` sizes the per-image
     embeddings; ``alt_envelope`` = (lo, hi), the scene's altitude envelope in
     metres, is what ``sampler="auto"`` reads. Runs on ``device`` (the card
-    by default)."""
+    by default; on a data axis, this rank's device).
+
+    ``cfg.data_axis`` other than 1 takes the process group this process
+    belongs to (``parallel.mesh.current``: started by
+    ``parallel.mesh.launch``, ``torchrun`` or the command line), whose size
+    it must be; ``batch_size`` must divide by it. Rank 0 builds the pool
+    (and writes the caches) before the other ranks read it."""
 
     def __init__(self, cfg: TrainConfig, data=None, n_images=None, device="cuda",
                  alt_envelope=None):
         self.cfg = cfg
+        self.mesh = pmesh.current(cfg.data_axis, device)
+        if cfg.batch_size % self.mesh.world:
+            raise ValueError(f"batch_size={cfg.batch_size} does not divide over "
+                             f"data_axis={self.mesh.world} ranks")
+        main = self.mesh.is_main
+        self.validates = data is None
         self.train_ds = self.val_ds = None
         if data is None:
-            self.train_ds, data, n_images = dataset_pool(cfg)
-            self.val_ds = SatelliteDataset(cfg.root_dir, cfg.img_dir, split="val",
-                                           img_downscale=cfg.img_downscale, utm=not cfg.ecef,
-                                           cache_dir=cfg.cache_dir)
+            with self.mesh.main_first():
+                self.train_ds, data, n_images = dataset_pool(cfg)
+                if main:      # validation runs on rank 0 alone
+                    self.val_ds = SatelliteDataset(cfg.root_dir, cfg.img_dir, split="val",
+                                                   img_downscale=cfg.img_downscale,
+                                                   utm=not cfg.ecef, cache_dir=cfg.cache_dir)
             alt_envelope = self.train_ds.alt_envelope()
         self.alt_envelope = alt_envelope
         self.device = torch.device(device)
@@ -200,14 +252,15 @@ class Trainer:
                   "package measured offsets at corr +0.99 against the injected bias with "
                   "annealing, +0.13 without, on a TPU)", file=sys.stderr)
         self.log_dir = cfg.log_dir()
-        os.makedirs(self.log_dir, exist_ok=True)
         # the sampler resolves before opts.json is written (a reload never
         # re-guesses), and sc_n_samples after it (hierarchical rewrites
         # n_samples, which the auto rule reads)
         self._resolve_sampler()
         cfg.sc_n_samples = cfg.resolve_sc_n_samples()
-        cfg.save(os.path.join(self.log_dir, "opts.json"))
-        self.logger = MetricsLogger(self.log_dir)
+        if main:
+            os.makedirs(self.log_dir, exist_ok=True)
+            cfg.save(os.path.join(self.log_dir, "opts.json"))
+        self.logger = MetricsLogger(self.log_dir) if main else NullLogger()
 
         unknown = set(data) - set(_POOL_DTYPES)
         if unknown:
@@ -241,10 +294,12 @@ class Trainer:
         self.train_step = make_train_step(
             self.render_field, self.optimizer, self.lr_schedule, self.rcfg,
             has_depth="depth_prior" in data, has_conf="conf_prior" in data,
-            has_shadow="shadow_prior" in data)
+            has_shadow="shadow_prior" in data, mesh=self.mesh)
         # one stream for the epoch permutations, the sampling jitter and the
-        # occupancy probes
+        # occupancy probes, equal on every rank; a step's per-ray draws are
+        # the global batch's, of which each rank keeps its rows
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.step_generator = RowShare(self.generator, self.mesh.rank, self.mesh.world)
         self.step = 0
         self.epoch = 0
         self.best_val_mae = float("inf")
@@ -255,6 +310,9 @@ class Trainer:
         self._entropy_hist = []
         if cfg.ckpt_path:
             self.restore(cfg.ckpt_path)
+        # the replicas start from rank 0's parameters (every rank seeds and
+        # restores the same, so this changes no bit)
+        self.mesh.broadcast_(list(self.field.state_dict().values()))
 
     # ---- sampler selection ----
 
@@ -310,10 +368,17 @@ class Trainer:
             state["occ"] = {"occs": self.occ_grid.occs, "binaries": self.occ_grid.binaries}
         return state
 
+    def _on_main(self, fn):
+        """``fn()`` on rank 0 while the other ranks wait (a barrier)."""
+        if self.mesh.is_main:
+            fn()
+        self.mesh.barrier()
+
     def save(self, epoch_tag=None):
         """Checkpoint and its ``occ_sampling.json`` sidecar: the gate history
         (so a resume samples as the uninterrupted run) and whether the
-        sampler takes the grid at this step (what eval reads)."""
+        sampler takes the grid at this step (what eval reads). Every rank
+        holds the same state; the trainer saves on rank 0 alone."""
         state = self._state()
         return ckpt_lib.save_checkpoint(
             self.log_dir, self.epoch if epoch_tag is None else epoch_tag, state,
@@ -382,6 +447,27 @@ class Trainer:
             self.occ_grid = self.occ_grid.update(
                 density, self.render_step_size, max_cells=self.cfg.occ_max_cells,
                 generator=self.generator)
+
+    def _occ_step(self):
+        """A grid update and, with tightening, the gate history it feeds:
+        the occupied fraction and (with the entropy gate) the probe entropy.
+        On a data axis every rank updates (its probes keep the generators
+        in step), rank 0 alone runs the entropy probe, and every rank takes
+        rank 0's grid, fraction and entropy, so the gates branch alike."""
+        cfg = self.cfg
+        self._occ_update()
+        probe = cfg.occ_tighten and cfg.occ_entropy_max is not None
+        frac = float(self.occ_grid.binaries.float().mean()) if cfg.occ_tighten else 0.0
+        h = self._weight_entropy() if probe and self.mesh.is_main else 0.0
+        if self.mesh.distributed:
+            stats = torch.tensor([frac, h], dtype=torch.float64, device=self.device)
+            self.mesh.broadcast_([self.occ_grid.occs, self.occ_grid.binaries, stats])
+            frac, h = stats.tolist()
+        if cfg.occ_tighten:
+            self._occ_frac_hist.append(frac)
+            if probe:
+                self._entropy_hist.append(h)
+                self.logger.scalar("occ/weight_entropy", h, self.step)
 
     def _occ_grid_stable(self, window=5, tol=0.05, tol_drift=0.025):
         """True once the occupied fraction has stopped moving: every entry
@@ -462,7 +548,7 @@ class Trainer:
         try:
             return self._run(max_steps, log_every)
         except BaseException:
-            if self.step > 0:
+            if self.step > 0 and self.mesh.is_main:
                 try:
                     self.save()
                     self.logger.flush()
@@ -485,18 +571,15 @@ class Trainer:
             while i < self.steps_per_epoch and self.step < max_steps:
                 shadows, use_beta = self.epoch_flags(self.epoch, self.step)
                 if self.occ_grid is not None and self.step % cfg.occ_update_every == 0:
-                    self._occ_update()
-                    if cfg.occ_tighten:
-                        self._occ_frac_hist.append(float(self.occ_grid.binaries.float().mean()))
-                        if cfg.occ_entropy_max is not None:
-                            h = self._weight_entropy()
-                            self._entropy_hist.append(h)
-                            self.logger.scalar("occ/weight_entropy", h, self.step)
+                    self._occ_step()
                 idx = perm[i * bs:(i + 1) * bs]
-                batch = {k: v[idx] for k, v in self.device_data.items()}
+                global_batch = {k: v[idx] for k, v in self.device_data.items()}
+                batch = {k: pmesh.shard_rows(v, self.mesh.rank, self.mesh.world)
+                         for k, v in global_batch.items()}
                 loss_dict = self.train_step(batch, self.step, w_depth, shadows, use_beta,
-                                            self.generator, self._occ_for_sampling(),
-                                            pe_mask=self._pe_mask(self.step))
+                                            self.step_generator, self._occ_for_sampling(),
+                                            pe_mask=self._pe_mask(self.step),
+                                            global_batch=global_batch)
                 rays_done += bs
                 i += 1
                 self.step += 1
@@ -521,14 +604,14 @@ class Trainer:
                     next_log = done_step + log_every
 
                 if done_step > 0 and done_step % self.save_freq == 0:
-                    self.save()
-                if self.val_ds is not None and done_step > 0 and done_step % self.val_freq == 0:
-                    self.validate()
+                    self._on_main(self.save)
+                if self.validates and done_step > 0 and done_step % self.val_freq == 0:
+                    self._on_main(self.validate)
 
             self.epoch += 1
             w_depth *= cfg.depth_weight_decay
 
-        self.save()
+        self._on_main(self.save)
         self.logger.flush()
         elapsed = time.time() - tic
         return {"steps": self.step, "epochs": self.epoch, "elapsed_s": elapsed,

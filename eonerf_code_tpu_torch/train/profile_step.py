@@ -18,7 +18,8 @@ saved stream, the coarse pass, the three passes and the reduction of each
 backward (its first pass the recompute, or the heads from the stream), the int8 trunk (one
 cluster launch, or the layer-major PE and layer kernels past 16 CTAs a
 group) and, for int8_full, its backward chain (one cluster launch, or
-the layer-major pair), weight gradient and reduction, Adam, the rest), the
+the layer-major pair), weight gradient and reduction, Adam, NCCL's
+collectives, the rest), the
 step's host-clock milliseconds, and the device's idle share (1 - device
 kernel time / step time). Exits 1 without a CUDA device, and 2 when the
 trace holds no device time.
@@ -73,14 +74,38 @@ GROUPS = (
     ("shadow_bwd_wgrad", "wgrad_kernel<false"),
     ("bwd_reduce", "reduce_kernel"),
     ("adam", "adam"),
+    ("nccl", "nccl"),
 )
 
 
-def _group(name):
+def kernel_group(name):
     for group, key in GROUPS:
         if key in (name.lower() if group == "adam" else name):
             return group
     return "other"
+
+
+def trace(run, steps, top=10):
+    """``run()`` (``steps`` training steps) under ``torch.profiler``: what
+    it returns, the device milliseconds a step of each kernel group, and
+    the host's self milliseconds a step of its ``top`` costliest
+    operations."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    per_group, host = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            if dev_us:
+                g = kernel_group(ev.key)
+                per_group[g] = per_group.get(g, 0.0) + dev_us / 1e3 / steps
+        elif ev.self_cpu_time_total:
+            host[ev.key] = ev.self_cpu_time_total / 1e3 / steps
+    return out, per_group, dict(sorted(host.items(), key=lambda kv: -kv[1])[:top])
 
 
 def main(argv=None):
@@ -111,22 +136,16 @@ def main(argv=None):
         tr = Trainer(cfg, synthetic_ray_pool(1 << 20, 20, dev), n_images=20, device=dev)
         tr.run(max_steps=args.warmup, log_every=10 ** 9)
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+
+        def timed():
             t0 = time.perf_counter()
             tr.run(max_steps=args.warmup + args.steps, log_every=10 ** 9)
             torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+            return (time.perf_counter() - t0) * 1e3 / args.steps
+
+        step_ms, per_group, _ = trace(timed, args.steps)
     finally:
         shutil.rmtree(logs, ignore_errors=True)
-    per_group = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            g = _group(ev.key)
-            per_group[g] = per_group.get(g, 0.0) + dev_us / 1e3 / args.steps
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]

@@ -69,3 +69,23 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: a data-parallel trainer's ranks other
+    than 0 (rank 0 logs the global values)."""
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def scalars(self, d, step, prefix=""):
+        pass
+
+    def image_panel(self, tag, images, step):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass

@@ -1,24 +1,33 @@
 """The port's command-line interface against the JAX package's cli.py: the
 same flag names and ``dest``s in the training and eval parsers, the same
 TrainConfig from the same arguments, the flags the port refuses or
-ignores (``--data_axis``, ``--steps_per_call``) and those it now takes
-(``--use_pallas``, ``--freq_reg_*``), and the two entry points end to end on the CPU: 2
-training steps of a 2 x 32 field on a generated scene (2 train views, 1
-test view, 24 x 24; GT at 2 m), then its DSM eval."""
+ignores (``--steps_per_call``) and those it now takes (``--use_pallas``,
+``--freq_reg_*``, ``--data_axis``), and the two entry points end to end on
+the CPU: 2 training steps of a 2 x 32 field on a generated scene (2 train
+views, 1 test view, 24 x 24; GT at 2 m), then its DSM eval at one and at
+two processes; ``train_eonerf_torch.py --data_axis 2 --device cpu`` (two
+gloo ranks), and what data parallel refuses."""
 
 import argparse
 import ast
 import dataclasses
 import json
 import os
+import pathlib
+import subprocess
+import sys
 
+import numpy as np
 import pytest
+import torch
 
 from eonerf_code_tpu import cli as jcli
 from eonerf_code_tpu.eval import run as jrun
 from eonerf_code_tpu_torch import cli as tcli
 from eonerf_code_tpu_torch.config import TrainConfig
 from eonerf_code_tpu_torch.data import synthetic as tsyn
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 ARGS = ["--root_dir", "/data/root", "--img_dir", "/data/img", "--gt_dir", "/data/gt",
         "--exp_name", "run1", "--model", "sat-nerf", "--img_downscale", "2",
@@ -75,16 +84,18 @@ def test_config_matches_and_round_trips(tmp_path):
 @pytest.mark.parametrize("extra,error,match", [
     (["--use_pallas", "false"], None, ("use_pallas", False)),
     (["--use_pallas", "true"], None, ("use_pallas", True)),
-    (["--data_axis", "2"], NotImplementedError, "item 6"),
-    (["--data_axis", "-1"], NotImplementedError, "item 6"),
+    (["--data_axis", "2"], None, ("data_axis", 2)),
+    (["--data_axis", "-1"], None, ("data_axis", -1)),
     (["--freq_reg_start_step", "5"], ValueError, "END step")])
 def test_refused_flags_raise(extra, error, match):
-    """--data_axis past 1 and an annealing start without its end raise.
-    --use_pallas, refused until the use_pallas slice, now sets
-    TrainConfig.use_pallas (``match``: the field and its value)."""
+    """An annealing start without its end raises. --use_pallas, refused
+    until the use_pallas slice, now sets TrainConfig.use_pallas, and
+    --data_axis, refused until the data-parallel slice, TrainConfig.data_axis
+    (``match``: the field and its value)."""
     if error is None:
         name, value = match
-        assert getattr(tcli.config_from_args(["--root_dir", "/r", *extra]), name) is value
+        got = getattr(tcli.config_from_args(["--root_dir", "/r", *extra]), name)
+        assert got == value and type(got) is type(value)
         return
     with pytest.raises(error, match=match):
         tcli.config_from_args(["--root_dir", "/r", *extra])
@@ -128,8 +139,10 @@ def test_freq_reg_reaches_the_trainer(tmp_path, capsys):
 def test_train_then_eval(tmp_path, capsys):
     """main_train: 2 steps write opts.json, epoch=0 (save_freq 1) and the
     final epoch=1 (the loop ends its cut epoch); eval_cli --dsm on
-    that run prints the JAX eval's dict (mae, dsm_path, rdsm_path);
-    --data_axis 2 and --export_rpc on a run without offsets raise."""
+    that run prints the JAX eval's dict (mae, dsm_path, rdsm_path), at one
+    process and at --data_axis 2 (two gloo ranks, the sweep's blocks split
+    between them, the files and the printed dict from rank 0); --export_rpc
+    on a run without offsets raises."""
     info = tsyn.generate_scene(str(tmp_path / "scene"),
                                tsyn.SyntheticSceneSpec(n_views=2, n_test_views=1, img_size=24))
     logs = str(tmp_path / "logs")
@@ -150,7 +163,85 @@ def test_train_then_eval(tmp_path, capsys):
     printed = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == out and sorted(out) == ["dsm_path", "mae", "rdsm_path"]
     assert os.path.exists(out["dsm_path"]) and os.path.exists(out["rdsm_path"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.eval_cli([*eval_args, "--data_axis", "2"], device="cpu")
+    out2 = tcli.eval_cli([*eval_args, "--output_dir", str(tmp_path / "eval2"), "--data_axis",
+                          "2"], device="cpu")
+    printed = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == out2 and sorted(out2) == ["dsm_path", "mae", "rdsm_path"]
+    assert out2["dsm_path"].startswith(str(tmp_path / "eval2"))
+    assert os.path.exists(out2["dsm_path"]) and os.path.exists(out2["rdsm_path"])
+    assert abs(out2["mae"] - out["mae"]) < 1.0
     with pytest.raises(ValueError, match="rpc_correction"):
         tcli.eval_cli([*eval_args, "--export_rpc"], device="cpu")
+
+
+@pytest.mark.parametrize("launcher", ["spawn", "torchrun"])
+def test_data_axis_two_trains_on_the_cpu(tmp_path, launcher):
+    """``python train_eonerf_torch.py --data_axis 2 --device cpu`` (the entry
+    point spawns the ranks) and the same under ``torchrun --standalone
+    --nproc_per_node 2`` (the ranks join the launcher's group): two gloo
+    ranks train 2 steps of batch 128 (64 rays a rank); one opts.json with
+    data_axis 2, one metrics.jsonl (rank 0's), one set of checkpoints, and
+    rank 0's stats printed once."""
+    info = tsyn.generate_scene(str(tmp_path / "scene"),
+                               tsyn.SyntheticSceneSpec(n_views=2, n_test_views=1, img_size=24))
+    logs = tmp_path / "logs"
+    start = ([sys.executable] if launcher == "spawn" else
+             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+              "2"])
+    proc = subprocess.run(
+        [*start, str(REPO / "train_eonerf_torch.py"), "--root_dir", info["root_dir"],
+         "--img_dir", info["img_dir"], "--logs_dir", str(logs), "--exp_name", "dp",
+         "--max_train_steps", "2", "--fc_layers", "2", "--fc_units", "32", "--n_samples", "16",
+         "--batch_size", "128", "--n_grid", "16", "--save_freq", "1", "--data_axis", "2",
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})     # one thread a rank: tiny shapes
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    stats = [ast.literal_eval(line) for line in proc.stdout.splitlines()
+             if line.startswith("{'steps'")]
+    assert len(stats) == 1 and stats[0]["steps"] == 2
+    run = logs / "dp"
+    assert sorted(p.name for p in run.iterdir() if not p.name.startswith("events.")) == [
+        "ckpts", "metrics.jsonl", "opts.json"]
+    assert TrainConfig.load(str(run / "opts.json")).data_axis == 2
+    assert sorted(p.name for p in (run / "ckpts").iterdir()) == ["epoch=0", "epoch=1"]
+    with open(run / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if r["tag"] == "train/loss"] == [0]   # every 50 steps
+
+
+@pytest.mark.parametrize("case", ["cards", "shared_card_nccl", "batch", "no_group"])
+def test_data_axis_refusals(tmp_path, monkeypatch, case):
+    """Nothing falls back. "cards": --data_axis 2 on one visible card raises
+    ValueError naming both numbers before a worker starts; "shared_card_nccl":
+    two ranks on one card ("cuda:0") are not refused, and take gloo, which
+    NCCL's one card a rank leaves (one rank there, and ranks on cards of
+    their own, NCCL; the CPU gloo); "batch": a batch that does not divide
+    over the ranks raises in the Trainer; "no_group": a Trainer at
+    data_axis 2 outside a process group raises."""
+    from eonerf_code_tpu_torch.parallel import mesh as pmesh
+    from eonerf_code_tpu_torch.train import loop as tloop
+
+    monkeypatch.setattr(pmesh.torch.cuda, "device_count", lambda: 1)
+    if case == "cards":
+        with pytest.raises(ValueError, match="data_axis=2 but only 1 CUDA devices visible"):
+            tcli.main_train(["--root_dir", str(tmp_path), "--data_axis", "2"], device="cuda")
+        return
+    if case == "shared_card_nccl":
+        assert pmesh.resolve_world(2, "cuda:0") == 2
+        assert [pmesh.backend_for(d, w) for d, w in [("cuda:0", 2), ("cuda:0", 1),
+                                                      ("cuda", 2), ("cpu", 2)]] == [
+            "gloo", "nccl", "nccl", "gloo"]
+        return
+    cfg = TrainConfig(logs_dir=str(tmp_path), net_depth=2, net_width=32, batch_size=63,
+                      sampler="uniform", data_axis=2)
+    if case == "batch":
+        monkeypatch.setattr(tloop.pmesh, "current",
+                            lambda data_axis, device: pmesh.Mesh({"scene": 1, "data": 2}, 0,
+                                                                 torch.device(device)))
+        match = "batch_size=63 does not divide over data_axis=2 ranks"
+    else:
+        match = "asks for 2 processes"
+    with pytest.raises(ValueError, match=match):
+        tloop.Trainer(cfg, {"rays": np.zeros((256, 11), np.float32),
+                            "rgbs": np.zeros((256, 3), np.float32),
+                            "ts": np.zeros((256,), np.int32)}, n_images=1, device="cpu")

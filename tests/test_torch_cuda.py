@@ -882,6 +882,43 @@ def test_saved_kernels_match_plain_versions(dev, weights, r):
         assert max(_rel_errors(got, bwd(weights, *args, g))) <= SAVED_REL_L2
 
 
+# data parallel: the step's weight gradients are the sum of the ranks' (the
+# all-reduce), each summed over its own rows in the kernels' fixed order, so
+# they move by float32 rounding against the whole batch's: held over the
+# whole weight gradient, as chip_smoke.py's phase data_parallel holds it
+# (camera 4.7e-6, shadow 1.1e-6 there; a single tensor of the camera's
+# moved by up to 1.4e-5, on NVIDIA H100 80GB HBM3, 700 W)
+SPLIT_WGRAD_REL_L2 = 1e-5
+
+
+@pytest.mark.parametrize("camera", [True, False])
+def test_saved_pair_split_over_two_ranks(dev, weights, camera):
+    """Data parallel's split of one training batch: the save forward and the
+    saved backward on each half of 1024 rays (camera K=127, shadow K=63)
+    against the unsplit calls. A ray's arithmetic does not depend on the
+    other rays, so the per-ray outputs and d_rayin are the same bits; the
+    halves' weight gradients summed (what the step's all-reduce does) lie
+    within SPLIT_WGRAD_REL_L2 of the whole batch's (the whole gradient's
+    rel-L2)."""
+    r = 1024
+    cam, gacc, sh, ggeo = _saved_case(dev, r, 127 if camera else 63, seed=21)
+    args, g = (cam, gacc) if camera else (sh, ggeo)
+    fwd_save, bwd_saved = ((fr.camera_forward_save, fr.camera_backward_saved) if camera
+                           else (fr.shadow_forward_save, fr.shadow_backward_saved))
+    out, stream = fwd_save(weights, *args)
+    whole = bwd_saved(weights, *args, g, stream)
+    outs, grads = [], []
+    for half in (slice(0, r // 2), slice(r // 2, r)):
+        part = [t[half].contiguous() for t in args]
+        o, s = fwd_save(weights, *part)
+        outs.append(o)
+        grads.append(bwd_saved(weights, *part, g[half].contiguous(), s))
+    assert torch.equal(torch.cat(outs), out)
+    assert torch.equal(torch.cat([gr[2] for gr in grads]), whole[2])
+    summed = torch.cat([grads[0][0] + grads[1][0], grads[0][1] + grads[1][1]])
+    assert _rel_l2(summed, torch.cat(whole[:2])) < SPLIT_WGRAD_REL_L2
+
+
 def test_saved_kernels_are_deterministic_on_a_poisoned_stream(dev, weights):
     """A stream buffer filled with NaN, inside a larger NaN buffer: the save
     forward writes every column the backward reads and nothing past its

@@ -208,13 +208,28 @@ def test_report_eval_matches(runs, monkeypatch):
 
 
 def test_eval_refuses_what_the_port_lacks(runs, tmp_path):
-    """data_axis past one device (Queue 1 item 6) raises. A checkpoint inside
-    the coarse-to-fine ramp (refused until the bundle-adjustment slice)
-    evaluates through its step's PE mask (step 0: the identity only); the
-    same run at its end step loads unmasked."""
+    """data_axis past one device (refused until the data-parallel slice)
+    renders over two gloo ranks: without jitter the DSM is the one-device
+    eval's, bit for bit, and so are its MAE and the report; rank 0 returns
+    the results, rank 1 None. A checkpoint inside the coarse-to-fine ramp
+    (refused until the bundle-adjustment slice) evaluates through its
+    step's PE mask (step 0: the identity only); the same run at its end
+    step loads unmasked."""
+    from eonerf_code_tpu_torch.parallel import mesh as pmesh
+    from test_torch_parallel import eval_without_jitter
+
     logs, info = runs["port"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trun.eval_eonerf("pair", logs, str(tmp_path), data_axis=2, device="cpu")
+    kw = dict(run_id="pair", logs_dir=logs, root_dir=info["root_dir"], img_dir=info["img_dir"],
+              gt_dir=info["gt_dir"], dsm_resolution=2.0)
+    one = [trun.eval_eonerf(output_dir=str(tmp_path / f"dp1_{dsm}"), dsm=dsm, data_axis=1,
+                            device="cpu", **kw) for dsm in (True, False)]
+    two = pmesh.launch(eval_without_jitter, {"calls": [
+        dict(output_dir=str(tmp_path / f"dp2_{dsm}"), dsm=dsm, data_axis=2, **kw)
+        for dsm in (True, False)]}, 2, "cpu")
+    assert two[1] == [None, None]
+    assert two[0][0]["mae"] == one[0]["mae"] and two[0][1] == one[1]
+    np.testing.assert_array_equal(GeoTiffFile(two[0][0]["dsm_path"]).read(1),
+                                  GeoTiffFile(one[0]["dsm_path"]).read(1))
     ramp = _with_opts(os.path.join(logs, "pair"), "pair_ramp", freq_reg_end_step=100)
     out = trun.eval_eonerf("pair_ramp", logs, str(tmp_path), root_dir=info["root_dir"],
                            img_dir=info["img_dir"], gt_dir=info["gt_dir"], dsm=True,

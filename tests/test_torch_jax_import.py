@@ -191,13 +191,13 @@ def test_resume_from_an_imported_checkpoint_raises(runs, tmp_path):
 
 def test_importer_reports_dropped_keys(runs):
     """The JAX opts.json keys the port's TrainConfig does not have are
-    printed (data_axis, steps_per_call), and each converted checkpoint;
-    use_pallas and freq_reg_start_step, dropped until the bundle-adjustment
-    slice, are kept."""
+    printed (steps_per_call), and each converted checkpoint; use_pallas and
+    freq_reg_start_step, dropped until the bundle-adjustment slice, and
+    data_axis, dropped until the data-parallel slice, are kept."""
     out = runs[3]
     line = next(ln for ln in out.splitlines() if ln.startswith("opts.json keys"))
-    for key in ("data_axis", "steps_per_call"):
+    for key in ("steps_per_call",):
         assert repr(key) in line, line
-    for key in ("n_samples", "use_pallas", "freq_reg_start_step"):
+    for key in ("n_samples", "use_pallas", "freq_reg_start_step", "data_axis"):
         assert repr(key) not in line, line
     assert sum(ln.startswith("epoch=") for ln in out.splitlines()) == len(CASES) + 1
