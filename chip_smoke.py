@@ -8,7 +8,8 @@ training run from a generated scene on disk with its validation (the val
 split rendered whole, the registered DSM MAE on the card, the best
 checkpoint), its kernel-variant bench, trained runs (the synthetic
 scene's registered MAE after 2000 steps, and bundle adjustment under
-coarse-to-fine PE annealing) and data parallel, once on one CUDA card.
+coarse-to-fine PE annealing), data parallel and multi-AOI training, once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -280,6 +281,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  cards, else a line saying it was not run. Seconds of each
                  part and the rays/s at world 1 and 2, not gated: two ranks
                  on one card measure contention, not scaling.
+18. multi_aoi  - parallel/multi_aoi.py and train/multi.py. (a)
+                 main_multi_train (device "cuda") on phase data's 20-view
+                 256x256 scene beside a 5-view 64x64 scene of phase
+                 quality's kind (unequal pools), 8x256 bf16, the kernels,
+                 saved, batch 1024, 20 steps with shadows from 10: the
+                 launches by the wrappers' and the library's counts, twice
+                 a scene's; eval_cli --dsm on each scene's run directory,
+                 a finite MAE. On two scenes of quality's kind (seeds 0
+                 and 1): (b) scene 0 trained beside scene 1 and alone, from
+                 the same weights and image count, 3 steps: the same bits;
+                 (c) one shadowed step through the kernels against the
+                 per-sample path (the module in bf16): losses and each
+                 scene's gradient within 2e-2, and the hierarchical
+                 sampler's coarse kernel once a scene and step; the
+                 two-scene step against the single-AOI trainer's (64 / 64
+                 samples, uniform, batch 1024 a scene), CUDA events after
+                 each step over 20-step windows in turn, not gated; (d)
+                 --scene_axis 2 over gloo, both ranks on this card, against
+                 --scene_axis 1, 6 steps with pod checkpoints every 3: every
+                 run directory and pod checkpoint the same bits, and a run
+                 of 3 steps resumed to 6 the same bits (NCCL across scene
+                 groups needs a card a rank: a line says it was not run);
+                 (e) both scenes 2000 steps at run B's configuration as
+                 flags of the command line, each scene's registered MAE
+                 (e2e.score on its run's weights) under QUALITY_MAE_M.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -1228,6 +1254,301 @@ def data_parallel_phase(torch, dev, card, log_root, eval_args, eval_ortho, scene
                      f"{torch.cuda.device_count()}", "card": card})
     emit({"phase": "data_parallel", "part": "seconds", "seconds": time.perf_counter() - t_phase,
           "card": card})
+
+
+# ---- 18. multi_aoi (parallel/multi_aoi.py, train/multi.py): two scenes,
+# one model each, through the command line a user calls, and the trainer ----
+
+MA_STEPS = 20
+MA_SHADOW_FROM = 10
+MA_TIMED = 20               # steps a timed window, not gated
+MA_WINDOWS = ("single", "multi", "multi", "single")
+MA_BITS_STEPS = 3           # (b): one step without shadows, two with
+MA_SPLIT_STEPS = 6          # (d): --scene_axis 2 against 1, and 3 + 3 resumed
+# (e): the JAX pin's configuration (run B's: e2e.PIN with e2e.WIDE) as flags
+# of the multi-AOI command line, whose loss takes the beta term on every step
+MA_PIN_FLAGS = ("--sampler", "uniform", "--n_samples", "64", "--batch_size", "2048",
+                "--lr_decay_steps", "1000", "--first_shadow_step", "1500", "--seed", "0",
+                "--log_every", "500")
+
+
+def ma_argv(infos, logs, exp, steps, *extra):
+    """The multi-AOI command line over the scenes ``infos`` at 8x256 bf16
+    (the kernels and the saved backward: the defaults on the card)."""
+    return ["--root_dirs", ",".join(i["root_dir"] for i in infos),
+            "--img_dirs", ",".join(i["img_dir"] for i in infos),
+            "--gt_dirs", ",".join(i["gt_dir"] for i in infos), "--logs_dir", str(logs),
+            "--exp_name", exp, "--max_train_steps", str(steps), "--compute_dtype", "bfloat16",
+            *extra]
+
+
+def ma_states(logs, exp, names):
+    """Each scene's run-dir checkpoint and every pod checkpoint of a run."""
+    from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
+
+    run = pathlib.Path(logs) / exp
+    out = {n: ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(str(run / n)))
+           for n in names}
+    out["_pod"] = {p.name: ckpt_lib.restore_checkpoint(str(p))
+                   for p in sorted((run / "_pod" / "ckpts").iterdir())}
+    return out
+
+
+def ma_differs(a, b, path=""):
+    """The paths at which two nested states differ (NaN equal to NaN)."""
+    import torch
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            return [path or "/"]
+        return [d for k in a for d in ma_differs(a[k], b[k], f"{path}/{k}")]
+    if torch.is_tensor(a):
+        same = (torch.is_tensor(b) and a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(a.nan_to_num(), b.nan_to_num())))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def ma_timed(get, put, run, steps):
+    """ms a step over ``steps`` steps of ``run(n)``, from CUDA events after
+    each call of the step function that ``get`` returns (``put`` swaps it):
+    the last scene's step of a multi-AOI step, or the single-AOI trainer's."""
+    import torch
+
+    events, step_fn = [], get()
+
+    def step(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    put(step)
+    try:
+        run(steps + 1)
+        torch.cuda.synchronize()
+    finally:
+        put(step_fn)
+    return events[0].elapsed_time(events[-1]) / steps
+
+
+def multi_aoi_phase(torch, dev, card, log_root, scene_info, kernel_rows):
+    """Phase 18 (a)-(e); ``scene_info`` is phase data's 20-view scene."""
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.cli import eval_cli
+    from eonerf_code_tpu_torch.config import TrainConfig
+    from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
+    from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec, generate_scene
+    from eonerf_code_tpu_torch.models.fused import KernelField
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.parallel.multi_aoi import MultiAOITrainer
+    from eonerf_code_tpu_torch.train import checkpoints as ckpt_lib
+    from eonerf_code_tpu_torch.train.loop import Trainer, ray_pool
+    from eonerf_code_tpu_torch.train.multi import main_multi_train
+
+    t_phase = time.perf_counter()
+    root = log_root / "chip_smoke_multi_aoi"
+    shutil.rmtree(root, ignore_errors=True)
+    # the quality phase's scene and a second of its kind (another seed),
+    # under AOI ids of their own
+    aois = ["SYN_100", "SYN_101"]
+    small = [generate_scene(str(root / f"scene_{aoi}"),
+                            SyntheticSceneSpec(**dict(e2e.SCENE, seed=seed)), aoi_id=aoi)
+             for seed, aoi in enumerate(aois)]
+    small_aois = ["--aoi_ids", ",".join(aois)]
+
+    # (a) phase data's 20-view 256x256 scene beside the quality scene
+    # (unequal pools), 8x256 bf16 through the kernels, saved, batch 1024
+    names_a = [scene_info["aoi_id"], aois[0]]
+    counts = Launches(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats_a = main_multi_train(ma_argv([scene_info, small[0]], root, "pod_a", MA_STEPS,
+                                       "--batch_size", str(N_TRAIN), "--first_shadow_step",
+                                       str(MA_SHADOW_FROM), "--log_every", "10", "--aoi_ids",
+                                       ",".join(names_a)), device="cuda")
+    torch.cuda.synchronize()
+    seconds_a = time.perf_counter() - t0
+    launches = counts.read()
+    one = expected_train_launches({"compute_dtype": "bfloat16"}, MA_STEPS,
+                                  MA_STEPS - MA_SHADOW_FROM)
+    expect = {k: 2 * v for k, v in one.items()}
+    got = {k: launches[k] for k in launches if k in expect or k in counts.fns}
+    want = {k: expect.get(k, 0) for k in got}
+    by_path(kernel_rows, "multi_aoi", got)
+    opts = [TrainConfig.load(str(root / "pod_a" / n / "opts.json")) for n in names_a]
+    evals = []
+    for n in names_a:
+        t0 = time.perf_counter()
+        out = eval_cli([f"pod_a/{n}", "--logs_dir", str(root), "--output_dir",
+                        str(root / "eval"), "--dsm",
+                        "--dsm_resolution", str(SyntheticSceneSpec().dsm_resolution)],
+                       device="cuda")
+        evals.append({"run": n, "mae_m": out["mae"], "seconds": time.perf_counter() - t0})
+    res_a = {"phase": "multi_aoi", "part": "a", "scenes": names_a, "steps": MA_STEPS,
+             "shadows_from": MA_SHADOW_FROM, "batch_per_scene": N_TRAIN,
+             "resolved": [{k: getattr(c, k) for k in ("sampler", "n_samples", "sc_n_samples",
+                                                       "occ_tighten", "use_pallas", "bwd_acts")}
+                          for c in opts],
+             "launches": got, "expected_launches": want,
+             "expected_launches_one_scene": one, "seconds": seconds_a,
+             "rays_per_s_cli": stats_a["rays_per_sec"], "eval": evals, "card": card}
+    emit(res_a)
+    if not (got == want and all(c.use_pallas is True and c.bwd_acts == "saved" for c in opts)
+            and all(math.isfinite(e["mae_m"]) for e in evals)):
+        raise AssertionError(f"multi_aoi (a): {res_a}")
+
+    # (b), (c) and the rates on the two small scenes, through the trainer
+    ds = [SatelliteDataset(i["root_dir"], i["img_dir"], split="train") for i in small]
+    kw = dict(device=dev, compute_dtype=torch.bfloat16, use_pallas=True, n_samples=64,
+              sc_n_samples=64, batch_size=N_TRAIN, seed=0)
+    # (b) scene 0 beside scene 1 and alone: the same weights (seed, 0) and
+    # image count, the same draws (seed, step, 0)
+    pair = MultiAOITrainer(ds, None, **kw)
+    alone = MultiAOITrainer(ds[:1], None, n_images=pair.n_images, **kw)
+    if not (isinstance(pair.render_fields[0], KernelField) and pair.render_fields[0].save_acts):
+        raise RuntimeError("the multi-AOI trainer did not pick the saved kernels")
+    for tr in (pair, alone):
+        tr.train_steps(1, shadows=False)
+        tr.train_steps(MA_BITS_STEPS - 1, shadows=True)
+    sp, sa = pair.state_pytree(), alone.state_pytree()
+    scene0 = {"params": {k: v[:1] for k, v in sp["params"].items()},
+              "opt_state": {"count": sp["opt_state"]["count"][:1],
+                            "mu": {k: v[:1] for k, v in sp["opt_state"]["mu"].items()},
+                            "nu": {k: v[:1] for k, v in sp["opt_state"]["nu"].items()}}}
+    differs_b = ma_differs(scene0, {"params": sa["params"], "opt_state": sa["opt_state"]})
+    res_b = {"phase": "multi_aoi", "part": "b", "steps": MA_BITS_STEPS,
+             "scene_0_beside_scene_1_is_alone": not differs_b, "differs": differs_b[:10],
+             "card": card}
+    emit(res_b)
+    del pair, alone, sp, sa, scene0
+    if differs_b:
+        raise AssertionError(f"multi_aoi (b): {res_b}")
+
+    # (c) the kernel path against the per-sample path (the module in bf16):
+    # one shadowed step from the same weights and draws; then the
+    # hierarchical sampler's coarse kernel, once a scene and step
+    paths = {p: MultiAOITrainer(ds, None, **{**kw, "use_pallas": p}) for p in (True, False)}
+    losses_c = {p: tr.train_steps(1, shadows=True) for p, tr in paths.items()}
+    grad_rel = []
+    for fk, fp in zip(paths[True].fields, paths[False].fields):
+        gk = torch.cat([p.grad.float().reshape(-1) for p in fk.parameters()])
+        gp = torch.cat([p.grad.float().reshape(-1) for p in fp.parameters()])
+        grad_rel.append(float((gk - gp).norm() / gp.norm()))
+    loss_rel = float((losses_c[True] / losses_c[False] - 1).abs().max())
+    del paths
+    fr.coarse_forward.launches = 0
+    hier = MultiAOITrainer(ds, None, **{**kw, "n_samples": 48, "n_importance": 24})
+    hier.train_steps(2, shadows=True)
+    coarse = fr.coarse_forward.launches
+    del hier
+    res_c = {"phase": "multi_aoi", "part": "c", "loss_kernels": losses_c[True].tolist(),
+             "loss_per_sample": losses_c[False].tolist(), "loss_max_rel": loss_rel,
+             "grad_rel_l2": grad_rel, "tolerance": GRAD_PATH_REL_L2,
+             "hierarchical_coarse_launches": coarse, "expected_coarse_launches": 2 * 2,
+             "card": card}
+    emit(res_c)
+    if not (loss_rel <= GRAD_PATH_REL_L2 and max(grad_rel) <= GRAD_PATH_REL_L2
+            and coarse == 2 * 2):
+        raise AssertionError(f"multi_aoi (c): {res_c}")
+
+    # the two-scene step against the single-AOI trainer's on the same
+    # configuration (uniform, shadows and the beta loss on), CUDA events
+    # after each step, windows in turn
+    single = Trainer(TrainConfig(logs_dir=str(root), exp_name="single", sampler="uniform",
+                                 occ_enabled=False, compute_dtype="bfloat16",
+                                 batch_size=N_TRAIN, n_samples=64, sc_n_samples=64,
+                                 first_shadow_step=0, first_beta_step=0, save_freq=10 ** 9,
+                                 seed=0),
+                     ray_pool(ds[0]), n_images=len(ds[0].json_files), device=dev)
+    multi = MultiAOITrainer(ds, None, **kw)
+    single.run(max_steps=2, log_every=10 ** 9)
+    multi.train_steps(2, shadows=True)
+    windows = {"single": [], "multi": []}
+    for who in MA_WINDOWS:
+        if who == "single":
+            ms = ma_timed(lambda: single.train_step,
+                          lambda f: setattr(single, "train_step", f),
+                          lambda n: single.run(max_steps=single.step + n, log_every=10 ** 9),
+                          MA_TIMED)
+        else:
+            ms = ma_timed(lambda: multi._steps[-1], lambda f: multi._steps.__setitem__(-1, f),
+                          lambda n: multi.train_steps(n, shadows=True), MA_TIMED)
+        windows[who].append(ms)
+    ms = {k: statistics.median(v) for k, v in windows.items()}
+    emit({"phase": "multi_aoi", "part": "rate", "batch_per_scene": N_TRAIN,
+          "ms_per_step": ms, "ms_per_step_windows": windows, "window_steps": MA_TIMED,
+          "rays_per_s_single": N_TRAIN * 1e3 / ms["single"],
+          "rays_per_s_two_scenes": 2 * N_TRAIN * 1e3 / ms["multi"], "card": card})
+    del single, multi, ds
+    torch.cuda.empty_cache()
+
+    # (d) --scene_axis 2 over gloo, both ranks on this card, against
+    # --scene_axis 1; 3 steps, a pod checkpoint, --resume to 6 against 6
+    t0 = time.perf_counter()
+    split = ("--batch_size", str(N_TRAIN), "--n_samples", "64", "--first_shadow_step", "2",
+             "--occ_tighten_start_step", "0", "--save_freq", "3", *small_aois)
+    main_multi_train(ma_argv(small, root, "one", MA_SPLIT_STEPS, *split, "--scene_axis", "1"),
+                     device="cuda:0")
+    t1 = time.perf_counter()
+    main_multi_train(ma_argv(small, root, "two", MA_SPLIT_STEPS, *split, "--scene_axis", "2"),
+                     device="cuda:0")
+    t2 = time.perf_counter()
+    main_multi_train(ma_argv(small, root, "res", MA_SPLIT_STEPS // 2, *split), device="cuda:0")
+    resumed = main_multi_train(ma_argv(small, root, "res", MA_SPLIT_STEPS, *split, "--resume"),
+                               device="cuda:0")
+    st = {e: ma_states(root, e, aois) for e in ("one", "two", "res")}
+    differs_two = ma_differs(st["one"], st["two"])
+    differs_res = ma_differs(st["one"], st["res"])
+    res_d = {"phase": "multi_aoi", "part": "d", "backend": "gloo", "devices": ["cuda:0"] * 2,
+             "steps": MA_SPLIT_STEPS, "pod_checkpoints": sorted(st["two"]["_pod"]),
+             "scene_axis_2_is_1": not differs_two, "differs": differs_two[:10],
+             "resumed_steps_run": resumed["steps_run"], "resume_is_uninterrupted": not differs_res,
+             "differs_resumed": differs_res[:10],
+             "seconds": {"scene_axis_1": t1 - t0, "scene_axis_2": t2 - t1,
+                         "resumed": time.perf_counter() - t2}, "card": card}
+    emit(res_d)
+    emit({"phase": "multi_aoi", "part": "d_nccl", "run": False,
+          "why": "NCCL across scene groups needs a card a rank; this run shares one card over "
+                 f"gloo ({torch.cuda.device_count()} visible)", "card": card})
+    if differs_two or differs_res or resumed["steps_run"] != MA_SPLIT_STEPS // 2:
+        raise AssertionError(f"multi_aoi (d): {res_d}")
+
+    # (e) the JAX pin's kind twice over: 2000 steps of both scenes at run B's
+    # configuration, each scene's registered MAE (the first val view's depth,
+    # e2e.score) under the pin's 1.5 m
+    counts = Launches(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats_e = main_multi_train(ma_argv(small, root, "pin", e2e.STEPS, *MA_PIN_FLAGS,
+                                       *small_aois), device="cuda")
+    torch.cuda.synchronize()
+    seconds_e = time.perf_counter() - t0
+    launches_e = counts.read()
+    expect_e = {k: 2 * v for k, v in expected_train_launches(
+        {"compute_dtype": "bfloat16"}, e2e.STEPS, e2e.STEPS - e2e.PIN["first_shadow_step"]).items()}
+    got_e = {k: launches_e[k] for k in launches_e if k in expect_e or k in counts.fns}
+    want_e = {k: expect_e.get(k, 0) for k in got_e}
+    scores = {}
+    for info, aoi in zip(small, aois):
+        scorer = e2e.make_trainer(info, str(root), f"score_{aoi}", e2e.STEPS, dev,
+                                  **e2e.RUNS["B"])
+        state = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(
+            str(root / "pin" / aoi)), map_location="cpu")
+        scorer.field.load_state_dict(state["params"])
+        scores[aoi] = e2e.score(scorer)
+        del scorer
+    res_e = {"phase": "multi_aoi", "part": "e", "steps": e2e.STEPS,
+             "flags": list(MA_PIN_FLAGS), "seconds": seconds_e,
+             "rays_per_s_cli": stats_e["rays_per_sec"], "launches": got_e,
+             "expected_launches": want_e, "scores": scores, "gate_m": QUALITY_MAE_M,
+             "card": card}
+    emit(res_e)
+    if not (got_e == want_e and all(s["mae_m"] < QUALITY_MAE_M for s in scores.values())):
+        raise AssertionError(f"multi_aoi (e): {res_e}")
+    emit({"phase": "multi_aoi", "part": "seconds", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -3155,6 +3476,9 @@ def main():
 
     # ---- 17. data_parallel: the functions above ----
     data_parallel_phase(torch, dev, card, log_root, cli_args, eval_res["ortho"], info)
+
+    # ---- 18. multi_aoi: the functions above ----
+    multi_aoi_phase(torch, dev, card, log_root, info, kernel_rows)
     shutil.rmtree(scene_root, ignore_errors=True)
 
     emit({"kernels": [kernel_rows[n] for n in (

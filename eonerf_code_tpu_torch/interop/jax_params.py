@@ -1,6 +1,7 @@
 """The bridge from the JAX package's state to the port's: the flax
-parameter tree to and from ``EONerfField.state_dict()``, and an occupancy
-grid's arrays to an ``OccupancyGrid``.
+parameter tree to and from ``EONerfField.state_dict()``, the multi-AOI
+trainer's scene-stacked trees to and from per-scene state dicts, and an
+occupancy grid's arrays to an ``OccupancyGrid``.
 
 The flax tree is given as nested dicts of numpy arrays,
 ``{"params": {scope: {layer: {"kernel", "bias"}} | {"embedding"}}}``.
@@ -49,6 +50,52 @@ def jax_params_from_field_state(state):
         else:
             entry["bias"] = a.copy()
     return {"params": tree}
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def pod_states_from_jax(stacked_params_np):
+    """The JAX ``MultiAOITrainer``'s scene-stacked flax params (numpy
+    leaves with a leading scene axis) -> one port state_dict a scene."""
+    n = np.shape(_leaves(stacked_params_np)[0])[0]
+    return [field_state_from_jax(_map_tree(lambda x, i=i: np.asarray(x)[i], stacked_params_np))
+            for i in range(n)]
+
+
+def pod_states_to_jax(states):
+    """Inverse of :func:`pod_states_from_jax`: per-scene state dicts -> the
+    scene-stacked flax tree of float32 numpy arrays."""
+    trees = [jax_params_from_field_state(s) for s in states]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    return stack(*trees)
+
+
+def _stack_states(states):
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def pod_adam_from_jax(count, mu, nu):
+    """The JAX ``MultiAOITrainer``'s Adam state (numpy: ``count`` (S,), the
+    moments ``mu`` and ``nu`` as scene-stacked flax trees) -> the port's pod
+    ``opt_state`` ({"count" (S,) float32, "mu", "nu": {name: (S, ...)}})."""
+    return {"count": torch.from_numpy(np.asarray(count, np.float32).copy()),
+            "mu": _stack_states(pod_states_from_jax(mu)),
+            "nu": _stack_states(pod_states_from_jax(nu))}
 
 
 def occ_grid_from_jax(occs, binaries, device="cpu"):

@@ -1,6 +1,6 @@
-"""Data parallelism over the ray batch, as the JAX package's
-parallel/mesh.py shards it over the "data" axis of a ("scene", "data")
-mesh.
+"""Data parallelism over the ray batch, and scene parallelism over
+independent AOI models, as the JAX package's parallel/mesh.py lays out its
+("scene", "data") mesh.
 
 One process a card. Every process holds the whole ray pool and a replica
 of the parameters and the optimizer; each step every rank renders its
@@ -8,8 +8,17 @@ contiguous share of the global batch (:func:`shard_rows`, the rows
 ``P("data")`` gives a device), the gradients and the step's loss values
 are summed in one collective over a flat buffer (:meth:`Mesh.all_reduce_`),
 the step's only one, and every rank applies the same update. Where GSPMD inserts the psum into
-the JAX mesh step, the port calls it. The "scene" axis (multi-AOI
-training, one model an AOI) keeps its name and has size 1 here.
+the JAX mesh step, the port calls it.
+
+The "scene" axis (multi-AOI training, parallel/multi_aoi.py: one model an
+AOI): ``scene x data`` ranks, rank r in scene group ``r // data`` at data
+index ``r % data``. Each scene group's data ranks share a process group,
+over which the gradient all-reduce, the broadcasts and ``gather_rows`` run;
+the ranks at one data index across the scene groups share another, over
+which ``gather_rows(..., axis="scene")`` brings the per-scene values (the
+losses, the occupied fractions, a pod checkpoint's state) to every rank.
+Every rank creates every group, in the same order. At ``scene = 1`` there
+is no group besides the default one, and the data axis is the whole world.
 
 Process groups (:func:`backend_for`, from the device alone): NCCL where
 each rank has a card of its own (``device="cuda"``, or one rank on
@@ -43,15 +52,20 @@ TIMEOUT_S = 3600.0
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place on the ("scene", "data") mesh: the axis sizes,
-    its rank on the data axis, its device, and whether a process group
-    stands behind it (``distributed``; a world-1 group still runs its
-    collectives, so world 1 over NCCL is the single-process run through the
-    data-parallel path)."""
+    its rank on the data axis (``rank``) and on the scene axis
+    (``scene_rank``), its device, whether a process group stands behind it
+    (``distributed``; a world-1 group still runs its collectives, so world 1
+    over NCCL is the single-process run through the data-parallel path), and
+    the groups of its two axes (None: the default group for the data axis,
+    no collective for a scene axis of 1)."""
 
     shape: dict
     rank: int
     device: torch.device
     distributed: bool = False
+    scene_rank: int = 0
+    data_group: object = None
+    scene_group: object = None
 
     @classmethod
     def single(cls, device="cpu"):
@@ -66,8 +80,18 @@ class Mesh:
         return self.shape["data"]
 
     @property
+    def global_rank(self):
+        return self.scene_rank * self.shape["data"] + self.rank
+
+    @property
     def is_main(self):
+        """Rank 0 of this process's data axis (of its scene group)."""
         return self.rank == 0
+
+    @property
+    def is_root(self):
+        """Rank 0 of the whole mesh."""
+        return self.global_rank == 0
 
     def barrier(self):
         if not self.distributed:
@@ -97,31 +121,34 @@ class Mesh:
             by_dtype.setdefault(t.dtype, []).append(t)
         for group in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.data_group)
             offset = 0
             for t in group:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
 
     def broadcast_(self, tensors, src=0):
-        """Overwrite ``tensors`` (any dtypes, one device) with rank
-        ``src``'s, bit for bit: their bytes in one buffer, one collective."""
+        """Overwrite ``tensors`` (any dtypes, one device) with data rank
+        ``src``'s of this scene group, bit for bit: their bytes in one
+        buffer, one collective."""
         if not self.distributed:
             return
         flat = torch.cat([_bytes(t) for t in tensors])
-        dist.broadcast(flat, src)
+        dist.broadcast(flat, self.scene_rank * self.shape["data"] + src, group=self.data_group)
         offset = 0
         for t in tensors:
             n = t.numel() * t.element_size()
             t.copy_(flat[offset:offset + n].clone().view(t.dtype).view_as(t))
             offset += n
 
-    def gather_rows(self, local, start, n_rows):
+    def gather_rows(self, local, start, n_rows, axis="data"):
         """{key: (n_rows, ...)} on every rank from each rank's ``local``
-        {key: (m, ...)} rows placed at ``start``, bit for bit: each rank
-        writes its rows' bytes into a zeroed buffer and the buffers are
-        summed (an all-reduce: gloo reduces CUDA tensors but does not gather
-        them). Every rank passes the same keys, row shapes and dtypes."""
+        {key: (m, ...)} rows placed at ``start``, over the ranks of one
+        ``axis`` ("data": this scene group's; "scene": the ranks at this
+        data index, one a scene group), bit for bit: each rank writes its
+        rows' bytes into a zeroed buffer and the buffers are summed (an
+        all-reduce: gloo reduces CUDA tensors but does not gather them).
+        Every rank passes the same keys, row shapes and dtypes."""
         keys = sorted(local)
         widths = [math.prod(local[k].shape[1:]) * local[k].element_size() for k in keys]
         buf = torch.zeros(n_rows * sum(widths), dtype=torch.uint8, device=self.device)
@@ -132,8 +159,8 @@ class Mesh:
                 seg = buf[offset:offset + n_rows * w].view(n_rows, w)
                 seg[start:start + v.shape[0]] = _bytes(v).view(v.shape[0], w)
             offset += n_rows * w
-        if self.distributed:
-            dist.all_reduce(buf)
+        if self.distributed and (axis == "data" or self.shape["scene"] > 1):
+            dist.all_reduce(buf, group=self.data_group if axis == "data" else self.scene_group)
         out, offset = {}, 0
         for k, w in zip(keys, widths):
             v = local[k]
@@ -160,20 +187,30 @@ def _visible(device):
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def resolve_world(data_axis, device="cuda"):
-    """The number of processes ``data_axis`` asks for on ``device``: -1 or 0
-    every visible card (one on the CPU), else ``data_axis``. Each rank
-    takes its own card under ``device="cuda"``, so more ranks than visible
-    cards raise ``ValueError``; ``"cuda:K"`` puts every rank on card K."""
+def resolve_world(data_axis, device="cuda", scene_axis=1):
+    """The number of processes a ``scene_axis`` x ``data_axis`` mesh asks for
+    on ``device``: ``data_axis`` -1 or 0 takes the visible cards (one on the
+    CPU) left to each scene group, at least one. Each rank takes its own
+    card under ``device="cuda"``, so more ranks than visible cards raise
+    ``ValueError``; ``"cuda:K"`` puts every rank on card K."""
     dev = torch.device(device)
     visible = _visible(dev)
-    n = visible if data_axis in (-1, 0) else data_axis
+    if scene_axis < 1:
+        raise ValueError(f"scene_axis={scene_axis}: a count >= 1")
+    n = scene_axis * (max(visible // scene_axis, 1) if data_axis in (-1, 0) else data_axis)
     if n < 1:
         raise ValueError(f"data_axis={data_axis}: -1 or 0 (every visible card) or a count >= 1")
     if dev.type == "cuda" and dev.index is None and n > visible:
-        raise ValueError(f"data_axis={n} but only {visible} CUDA devices visible (one process "
-                         "a card; pass device='cuda:0' to share one)")
+        raise ValueError(f"{_axes(n // scene_axis, scene_axis)} but only {visible} CUDA devices "
+                         "visible (one process a card; pass device='cuda:0' to share one)")
     return n
+
+
+def _axes(data_axis, scene_axis):
+    """The axes as an error message names them."""
+    if scene_axis == 1:
+        return f"data_axis={data_axis}"
+    return f"scene_axis={scene_axis} x data_axis={data_axis}"
 
 
 def backend_for(device, world):
@@ -186,34 +223,65 @@ def backend_for(device, world):
     return "nccl"
 
 
-def current(data_axis, device="cuda"):
-    """The mesh a trainer or an eval run at ``data_axis`` works on: world 1
-    when ``data_axis`` is 1; else the process group this process belongs to,
-    which must have ``data_axis`` ranks (-1 and 0 take the group's size);
-    without a group only a data axis that resolves to one process runs.
+def current(data_axis, device="cuda", scene_axis=1):
+    """The mesh a trainer or an eval run at ``data_axis`` (and, multi-AOI,
+    ``scene_axis``) works on: world 1 when both are 1; else the process
+    group this process belongs to, which must have ``scene_axis`` x
+    ``data_axis`` ranks (``data_axis`` -1 and 0 take the rest of the
+    group); without a group only a mesh that resolves to one process runs.
     Raises ``ValueError`` otherwise."""
     dev = torch.device(device)
-    if data_axis == 1:
+    if data_axis == 1 and scene_axis == 1:
         return Mesh.single(dev)
     if dist.is_initialized():
         world = dist.get_world_size()
-        if data_axis not in (-1, 0) and data_axis != world:
-            raise ValueError(f"data_axis={data_axis} but the process group has {world} ranks")
+        if world % scene_axis or (data_axis not in (-1, 0)
+                                  and data_axis * scene_axis != world):
+            raise ValueError(f"{_axes(data_axis, scene_axis)} but the process group has {world} "
+                             "ranks")
         if dev.type == "cuda" and dist.get_backend() == "nccl" and _visible(dev) < world:
-            raise ValueError(f"data_axis={world} but only {_visible(dev)} CUDA devices visible")
-        return Mesh({"scene": 1, "data": world}, dist.get_rank(), dev, distributed=True)
-    n = resolve_world(data_axis, dev)
+            raise ValueError(f"{_axes(world // scene_axis, scene_axis)} but only {_visible(dev)} "
+                             "CUDA devices visible")
+        return _group_mesh(dist.get_rank(), world, dev, scene_axis)
+    n = resolve_world(data_axis, dev, scene_axis)
     if n != 1:
-        raise ValueError(f"data_axis={data_axis} asks for {n} processes: start them with "
-                         "parallel.mesh.launch, torchrun, or --data_axis on the command line")
+        raise ValueError(f"{_axes(data_axis, scene_axis)} asks for {n} processes: start them "
+                         "with parallel.mesh.launch, torchrun, or --data_axis on the command "
+                         "line")
     return Mesh.single(dev)
 
 
-def setup(rank, world, init_method, device="cuda", local_rank=None):
+# the axis groups of the current process group, by (scene, data): created
+# once, by every rank, in the same order
+_AXIS_GROUPS = {}
+
+
+def _group_mesh(rank, world, device, scene_axis):
+    """The :class:`Mesh` of global rank ``rank`` in a ``world``-rank group
+    laid out as ``scene_axis`` scene groups of ``world // scene_axis`` data
+    ranks."""
+    if world % scene_axis:
+        raise ValueError(f"{world} ranks do not divide into {scene_axis} scene groups")
+    data = world // scene_axis
+    if scene_axis == 1:
+        return Mesh({"scene": 1, "data": world}, rank, device, distributed=True)
+    key = (scene_axis, data)
+    if key not in _AXIS_GROUPS:
+        _AXIS_GROUPS[key] = (
+            [dist.new_group([s * data + d for d in range(data)]) for s in range(scene_axis)],
+            [dist.new_group([s * data + d for s in range(scene_axis)]) for d in range(data)])
+    data_groups, scene_groups = _AXIS_GROUPS[key]
+    s, d = divmod(rank, data)
+    return Mesh({"scene": scene_axis, "data": data}, d, device, distributed=True, scene_rank=s,
+                data_group=data_groups[s], scene_group=scene_groups[d])
+
+
+def setup(rank, world, init_method, device="cuda", local_rank=None, scene_axis=1):
     """Join the process group as ``rank`` of ``world`` and return this
-    process's :class:`Mesh`. ``device="cuda"`` takes card ``local_rank``
-    (default ``rank``); an explicit ``"cuda:K"`` or ``"cpu"`` is kept. The
-    backend is :func:`backend_for` the device asked for."""
+    process's :class:`Mesh` (``scene_axis`` scene groups). ``device="cuda"``
+    takes card ``local_rank`` (default ``rank``); an explicit ``"cuda:K"``
+    or ``"cpu"`` is kept. The backend is :func:`backend_for` the device
+    asked for."""
     backend = backend_for(device, world)
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -222,10 +290,11 @@ def setup(rank, world, init_method, device="cuda", local_rank=None):
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    return Mesh({"scene": 1, "data": world}, rank, dev, distributed=True)
+    return _group_mesh(rank, world, dev, scene_axis)
 
 
 def teardown():
+    _AXIS_GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -234,10 +303,10 @@ def _under_launcher():
     return "WORLD_SIZE" in os.environ and "RANK" in os.environ
 
 
-def launch(fn, kwargs, data_axis, device="cuda"):
+def launch(fn, kwargs, data_axis, device="cuda", scene_axis=1):
     """Run ``fn(device=<the rank's device>, **kwargs)`` on every rank of a
-    ``data_axis`` data axis (:func:`resolve_world`) and return {rank:
-    result} for the ranks this process ran or started.
+    ``scene_axis`` x ``data_axis`` mesh (:func:`resolve_world`) and return
+    {global rank: result} for the ranks this process ran or started.
 
     - Under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` set): join the
       launcher's group (``env://``), run this rank, return {rank: result}.
@@ -248,10 +317,11 @@ def launch(fn, kwargs, data_axis, device="cuda"):
       comes back. A worker that raises makes this raise."""
     if _under_launcher():
         world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
-        if data_axis not in (-1, 0) and data_axis != world:
-            raise ValueError(f"data_axis={data_axis} but the launcher started {world} processes")
+        if world % scene_axis or (data_axis not in (-1, 0) and data_axis * scene_axis != world):
+            raise ValueError(f"{_axes(data_axis, scene_axis)} but the launcher started {world} "
+                             "processes")
         mesh = setup(rank, world, "env://", device,
-                     local_rank=int(os.environ.get("LOCAL_RANK", rank)))
+                     local_rank=int(os.environ.get("LOCAL_RANK", rank)), scene_axis=scene_axis)
         try:
             if mesh.device.type == "cuda":
                 from eonerf_code_tpu_torch.ops import _build
@@ -261,7 +331,7 @@ def launch(fn, kwargs, data_axis, device="cuda"):
             return {rank: _run_rank(mesh, fn, kwargs)}
         finally:
             teardown()
-    n = resolve_world(data_axis, device)
+    n = resolve_world(data_axis, device, scene_axis)
     if n == 1:
         return {0: fn(device=device, **kwargs)}
     if torch.device(device).type == "cuda":
@@ -272,17 +342,17 @@ def launch(fn, kwargs, data_axis, device="cuda"):
     with tempfile.TemporaryDirectory(prefix="eonerf_dp_") as tmp:
         torch.multiprocessing.start_processes(
             _worker, args=(n, f"file://{os.path.join(tmp, 'rendezvous')}", device, threads,
-                           tmp, fn, kwargs),
+                           tmp, fn, kwargs, scene_axis),
             nprocs=n, join=True, start_method="spawn")
         return {r: torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu",
                               weights_only=False)
                 for r in range(n)}
 
 
-def _worker(rank, world, init_method, device, threads, out_dir, fn, kwargs):
+def _worker(rank, world, init_method, device, threads, out_dir, fn, kwargs, scene_axis=1):
     if torch.device(device).type == "cpu":
         torch.set_num_threads(threads)
-    mesh = setup(rank, world, init_method, device)
+    mesh = setup(rank, world, init_method, device, scene_axis=scene_axis)
     try:
         torch.save(_run_rank(mesh, fn, kwargs), os.path.join(out_dir, f"rank{rank}.pt"))
     finally:

@@ -188,15 +188,9 @@ def make_train_step(field, optimizer, lr_schedule, rcfg: RenderConfig, has_depth
 OCC_SIDECAR = "occ_sampling.json"
 
 
-def dataset_pool(cfg: TrainConfig):
-    """(train dataset, ray pool, n_images) from ``cfg.root_dir``: the pool
-    the JAX package's Trainer puts on the device (rays (N, 11), rgbs, ts and
-    the priors the dataset has)."""
-    ds = SatelliteDataset(
-        cfg.root_dir, cfg.img_dir, split="train", img_downscale=cfg.img_downscale,
-        utm=not cfg.ecef, cache_dir=cfg.cache_dir, prior_dsm_path=cfg.init_dsm_path,
-        prior_conf_path=cfg.init_conf_path, shadow_masks_dir=cfg.shadow_masks_dir,
-        subset=cfg.subset_n_views)
+def ray_pool(ds):
+    """A train dataset's ray pool, as the JAX package's trainers put it on
+    the device: rays (N, 11), rgbs, ts and the priors the dataset has."""
     data = {"rays": ds.all_rays, "rgbs": ds.all_rgbs.astype(np.float32),
             "ts": ds.all_ids_img[:, 0].astype(np.int32)}
     if ds.prior_depths is not None:
@@ -205,7 +199,36 @@ def dataset_pool(cfg: TrainConfig):
             data["conf_prior"] = ds.prior_confs
     if ds.prior_shadows is not None:
         data["shadow_prior"] = ds.prior_shadows
-    return ds, data, len(ds.json_files)
+    return data
+
+
+def dataset_pool(cfg: TrainConfig):
+    """(train dataset, ray pool, n_images) from ``cfg.root_dir``
+    (:func:`ray_pool`)."""
+    ds = SatelliteDataset(
+        cfg.root_dir, cfg.img_dir, split="train", img_downscale=cfg.img_downscale,
+        utm=not cfg.ecef, cache_dir=cfg.cache_dir, prior_dsm_path=cfg.init_dsm_path,
+        prior_conf_path=cfg.init_conf_path, shadow_masks_dir=cfg.shadow_masks_dir,
+        subset=cfg.subset_n_views)
+    return ds, ray_pool(ds), len(ds.json_files)
+
+
+def occ_hist_stable(hist, window=5, tol=0.05, tol_drift=0.025):
+    """The occupancy gate's stability test over a history of occupied
+    fractions, floats (one grid) or (S,) arrays (one a scene, all of which
+    must pass): every entry of the last ``window`` within ``tol`` of the
+    latest, and the drift across the window under ``tol_drift`` (a slow
+    monotonic drift stays under the scatter tolerance while the grid is
+    still moving). Computed in the history's own dtype."""
+    if len(hist) < window:
+        return False
+    win = np.asarray(hist[-window:])
+    ref, first = win[-1], win[0]
+    if np.any(ref <= 0) or np.any(first <= 0):
+        return False
+    scatter = np.max(np.abs(win - ref), axis=0) / ref
+    drift = np.abs(ref - first) / first
+    return bool(np.all(scatter < tol) and np.all(drift < tol_drift))
 
 
 class Trainer:
@@ -470,18 +493,9 @@ class Trainer:
                 self.logger.scalar("occ/weight_entropy", h, self.step)
 
     def _occ_grid_stable(self, window=5, tol=0.05, tol_drift=0.025):
-        """True once the occupied fraction has stopped moving: every entry
-        of the last ``window`` within ``tol`` of the latest, and the drift
-        across the window under ``tol_drift`` (a slow monotonic drift stays
-        under the scatter tolerance while the grid is still moving)."""
-        h = self._occ_frac_hist
-        if len(h) < window:
-            return False
-        ref, first = h[-1], h[-window]
-        if ref <= 0 or first <= 0:
-            return False
-        return (max(abs(x - ref) for x in h[-window:]) / ref < tol
-                and abs(ref - first) / first < tol_drift)
+        """True once the occupied fraction has stopped moving
+        (:func:`occ_hist_stable`)."""
+        return occ_hist_stable(self._occ_frac_hist, window, tol, tol_drift)
 
     def _weight_entropy(self):
         """Mean normalized weight entropy over the opaque ones of up to 2048

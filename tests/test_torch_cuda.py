@@ -1814,3 +1814,34 @@ def test_point_forward_refuses_a_missing_workspace(dev, weights):
     with pytest.raises(RuntimeError, match="CUDA error"):
         ff.launch("eonerf_density_fwd", "density_forward", dev, pos, weights.mats,
                   weights.biases, sigma, 130, after_stream=(None,))
+
+
+def test_multi_aoi_scene_beside_another_is_alone(dev, tmp_path):
+    """A scene trained beside another by the multi-AOI trainer (8x256 bf16,
+    the kernels, the saved backward) and alone, from the same weights and
+    image count: three steps with jitter (shadows from the second), the
+    same parameters and Adam state, bit for bit."""
+    from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
+    from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec, generate_scene
+    from eonerf_code_tpu_torch.parallel.multi_aoi import MultiAOITrainer
+
+    ds = []
+    for seed in (0, 1):
+        info = generate_scene(str(tmp_path / f"aoi{seed}"), SyntheticSceneSpec(
+            n_views=3, n_test_views=1, img_size=32, seed=seed))
+        ds.append(SatelliteDataset(info["root_dir"], info["img_dir"], split="train"))
+    kw = dict(device=dev, compute_dtype=torch.bfloat16, use_pallas=True, n_samples=64,
+              sc_n_samples=64, batch_size=1024, seed=0)
+    pair = MultiAOITrainer(ds, None, **kw)
+    alone = MultiAOITrainer(ds[:1], None, n_images=pair.n_images, **kw)
+    assert isinstance(pair.render_fields[0], KernelField) and pair.render_fields[0].save_acts
+    saved = fr.camera_forward_save.launches
+    for tr in (pair, alone):
+        tr.train_steps(1, shadows=False)
+        tr.train_steps(2, shadows=True)
+    assert fr.camera_forward_save.launches - saved == 3 * 3
+    a, b = pair.state_pytree(), alone.state_pytree()
+    for k in a["params"]:
+        assert torch.equal(a["params"][k][0], b["params"][k][0]), k
+        assert torch.equal(a["opt_state"]["mu"][k][0], b["opt_state"]["mu"][k][0]), k
+        assert torch.equal(a["opt_state"]["nu"][k][0], b["opt_state"]["nu"][k][0]), k

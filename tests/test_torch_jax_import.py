@@ -201,3 +201,71 @@ def test_importer_reports_dropped_keys(runs):
     for key in ("n_samples", "use_pallas", "freq_reg_start_step", "data_axis"):
         assert repr(key) not in line, line
     assert sum(ln.startswith("epoch=") for ln in out.splitlines()) == len(CASES) + 1
+
+
+def test_pod_import_resumes(tmp_path):
+    """import_jax_run.py --pod: a JAX multi-AOI pod checkpoint (after two
+    steps, with a gate history) becomes the port's, whose restore gives the
+    JAX trainer's stacked parameters, Adam count and moments, grids and gate
+    history, bit for bit; train_multi_aoi_torch.py's --resume continues it
+    with the flags the JAX trainer's configuration came from, and each
+    scene's run directory loads through load_run."""
+    from eonerf_code_tpu.data.satellite import SatelliteDataset as JaxDataset
+    from eonerf_code_tpu.parallel.mesh import make_mesh
+    from eonerf_code_tpu.parallel.multi_aoi import MultiAOITrainer as JaxMulti
+    from eonerf_code_tpu_torch.data.satellite import SatelliteDataset
+    from eonerf_code_tpu_torch.interop.jax_params import pod_states_to_jax
+    from eonerf_code_tpu_torch.parallel.multi_aoi import MultiAOITrainer, unstack_params
+    from eonerf_code_tpu_torch.train.multi import main_multi_train
+
+    infos = [jsyn.generate_scene(str(tmp_path / f"aoi{i}"), jsyn.SyntheticSceneSpec(
+        n_views=2, n_test_views=1, img_size=SIZE, seed=i), aoi_id=f"SYN_50{i}")
+        for i in range(2)]
+    kw = dict(n_samples=12, sc_n_samples=12, batch_size=64, net_depth=2, net_width=32,
+              occ_enabled=True, occ_tighten=True, n_grid=GRID)
+    jtr = JaxMulti([JaxDataset(i["root_dir"], i["img_dir"], split="train") for i in infos],
+                   make_mesh(n_data=1, n_scene=1), **kw)
+    jtr.train_steps(2, shadows=False)
+    jtr._occ_frac_hist = [np.full(2, v, np.float32) for v in OPEN_HIST]
+    jax_exp = tmp_path / "jax" / "pod"
+    jtr.save_pod(str(jax_exp / "_pod"))
+    # a scene run directory as the JAX CLI writes one (params only)
+    jloop.ckpt_lib.save_checkpoint(str(jax_exp / "SYN_500"), 2, {
+        "params": jax.tree_util.tree_map(lambda x: np.asarray(x[0]), jtr.params), "step": 2})
+    JaxConfig(root_dir=infos[0]["root_dir"], img_dir=infos[0]["img_dir"], net_depth=2,
+              net_width=32).save(str(jax_exp / "SYN_500" / "opts.json"))
+    port_exp = tmp_path / "port" / "pod"
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = _importer().main(["--pod", str(jax_exp), str(port_exp)])
+    assert out == {"_pod": ["2"], "SYN_500": ["2"]}
+
+    tr = MultiAOITrainer([SatelliteDataset(i["root_dir"], i["img_dir"], split="train")
+                          for i in infos], None, device="cpu", **kw)
+    tr.restore_pod(ckpt_lib.latest_checkpoint(str(port_exp / "_pod")))
+    assert tr.step == 2
+    state = tr.state_pytree()
+    got = pod_states_to_jax(unstack_params(state["params"], 2))
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jtr.params))):
+        np.testing.assert_array_equal(a, b)
+    adam = jtr.opt_state[0]
+    np.testing.assert_array_equal(state["opt_state"]["count"].numpy(), np.asarray(adam.count))
+    for part in ("mu", "nu"):
+        got = pod_states_to_jax(unstack_params(state["opt_state"][part], 2))
+        want = jax.tree_util.tree_map(np.asarray, getattr(adam, part))
+        for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(state["occ"]["occs"].numpy(), np.asarray(jtr.occ_grids.occs))
+    np.testing.assert_array_equal(np.stack(tr._occ_frac_hist), np.stack(jtr._occ_frac_hist))
+    assert tr.occ_gate_open() == jtr.occ_gate_open()
+
+    argv = ["--root_dirs", ",".join(i["root_dir"] for i in infos),
+            "--img_dirs", ",".join(i["img_dir"] for i in infos), "--aoi_ids", "SYN_500,SYN_501",
+            "--logs_dir", str(tmp_path / "port"), "--exp_name", "pod", "--max_train_steps", "4",
+            "--batch_size", "64", "--n_samples", "12", "--n_grid", str(GRID),
+            "--fc_layers", "2", "--fc_units", "32", "--first_shadow_step", "3", "--resume"]
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        stats = main_multi_train(argv, device="cpu")
+    assert stats["steps_run"] == 2 and "resumed pod from" in printed.getvalue()
+    _, _, field = trun.load_run(str(port_exp / "SYN_500"), device="cpu")
+    assert all(bool(torch.isfinite(v).all()) for v in field.state_dict().values())
