@@ -8,7 +8,8 @@ training run from a generated scene on disk with its validation (the val
 split rendered whole, the registered DSM MAE on the card, the best
 checkpoint), its kernel-variant bench, trained runs (the synthetic
 scene's registered MAE after 2000 steps, and bundle adjustment under
-coarse-to-fine PE annealing), data parallel and multi-AOI training, once
+coarse-to-fine PE annealing), data parallel and multi-AOI training, and
+the vanilla-NeRF path (train_mlp_nerf_torch.py on a Blender scene), once
 on one CUDA card.
 
     python3 chip_smoke.py
@@ -306,6 +307,28 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  (e) both scenes 2000 steps at run B's configuration as
                  flags of the command line, each scene's registered MAE
                  (e2e.score on its run's weights) under QUALITY_MAE_M.
+19. vanilla    - the vanilla-NeRF path, which launches no kernel of the
+                 port's own (its products are float32 torch ones, as the
+                 JAX package's are flax ones). e2e.vanilla writes a
+                 Blender scene of the JAX pin's kind (8 frames of 100x100,
+                 io/png.py); train_mlp_nerf_torch.main trains it on the
+                 card at train_mlp_nerf.py's defaults (8x256, batch 4096,
+                 129 samples, a 64^3 grid every 16 steps, lr 5e-4,
+                 float32, TF32 off) for 300 steps and evaluates the 8 test
+                 views: the test PSNR over the pin's 18 dB, the
+                 parameters and the grid on the card. Then on the trained
+                 model, CUDA events: a step as train_vanilla takes it (the
+                 host's batch, its copy, render, loss, backward, Adam)
+                 over a window after warm-up, a whole-grid update, the
+                 test views' eval render; rays/s of each, the PSNR of a
+                 render of the background alone beside the gate; then 5
+                 steps traced (device ms by library kernel group, the
+                 idle share), not gated. The JAX pin's own flags (2x32,
+                 batch 256, 17 samples, a 16^3 grid) through the same
+                 entry point, 300 steps: its PSNR over 18 dB. DNeRF
+                 (4x64 warp, 8x256 NeRF) once on the card and once on the
+                 CPU from the same weights, forward and density on 1024 x
+                 64 points: outputs in [0, 1], sigma >= 0, within 1e-4.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -1549,6 +1572,165 @@ def multi_aoi_phase(torch, dev, card, log_root, scene_info, kernel_rows):
     emit({"phase": "multi_aoi", "part": "seconds", "seconds": time.perf_counter() - t_phase,
           "card": card})
     shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 19: train_mlp_nerf.py's defaults on e2e.vanilla's scene; the JAX
+# pin's gate (tests/test_blender.py:114) after 300 steps
+VANILLA_STEPS = 300
+VANILLA_PSNR_DB = 18.0
+VANILLA_CHUNK = 8192         # eval_psnr's own chunk
+VANILLA_WARMUP, VANILLA_TIMED = 5, 20
+# DNeRF on the card against the CPU, max abs: float32 both (TF32 off),
+# cuBLAS and the CPU sum in another order
+DNERF_TOL = 1e-4
+DNERF_RAYS, DNERF_SAMPLES = 1024, 64
+VANILLA_TRACED = 5
+# the vanilla step's library kernels by a substring of the lowercased name,
+# first match wins
+VANILLA_GROUPS = (("gemm", "gemm"), ("adam (foreach)", "multi_tensor_apply"),
+                  ("concat", "catarray"), ("reduce", "reduce_kernel"), ("scan", "scan"),
+                  ("index", "index"), ("elementwise", "elementwise"))
+
+
+def vanilla_group(name):
+    low = name.lower()
+    return next((g for g, key in VANILLA_GROUPS if key in low), "other")
+
+
+def vanilla_phase(torch, dev, card, log_root):
+    """Phase 19 (see the module's docstring)."""
+    import train_mlp_nerf_torch
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.train import train_vanilla as tv
+    from eonerf_code_tpu_torch.train.profile_step import trace
+
+    t_phase = time.perf_counter()
+    root = log_root / "chip_smoke_vanilla"
+    shutil.rmtree(root, ignore_errors=True)
+    data_root, subject = e2e.vanilla(str(root))
+
+    # the entry point as a user calls it; the result of its train_vanilla
+    # call is kept for the timings below
+    results, real = [], train_mlp_nerf_torch.train_vanilla
+
+    def keep(**kw):
+        results.append(real(**kw))
+        return results[-1]
+
+    train_mlp_nerf_torch.train_vanilla = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psnr = train_mlp_nerf_torch.main([
+            "--data_root", data_root, "--scene", subject, "--train_split", "train",
+            "--logs_dir", str(root / "logs"), "--max_steps", str(VANILLA_STEPS),
+            "--test_chunk_size", str(VANILLA_CHUNK)])
+        torch.cuda.synchronize()
+        seconds_cli = time.perf_counter() - t0
+    finally:
+        train_mlp_nerf_torch.train_vanilla = real
+    res = results[0]
+    model, grid, rcfg, ds = res["model"], res["grid"], res["rcfg"], res["dataset"]
+    devices = {"params": sorted({p.device.type for p in model.parameters()}),
+               "grid": [grid.occs.device.type, grid.binaries.device.type]}
+    with open(root / "logs" / f"vanilla_{subject}" / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    rays_logged = [r["value"] for r in logged if r["tag"] == "perf/rays_per_sec"]
+
+    # the eval render of the test views (already on the host as rays)
+    test_ds = type(ds)(subject, data_root, split="test")
+    views = [test_ds.full_image(i) for i in range(len(test_ds))]
+    n_eval = sum(v["rays_o"].shape[0] for v in views)
+    eval_ms = time_ms(torch, lambda: [tv.render_view(model, grid, rcfg, v, VANILLA_CHUNK)
+                                      for v in views], 3)
+    background_db = float(np.mean([-10 * np.log10(np.mean((1.0 - v["pixels"]) ** 2))
+                                   for v in views]))
+    # a whole-grid update, then a training step as train_vanilla takes it
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grid_ms = time_ms(torch, lambda: tv.occ_update(model, grid, rcfg, gen), 5)
+    opt = tv.make_optimizer(model, 5e-4)
+
+    def step():
+        tv.train_step(model, opt, grid, tv.batch_to(ds.sample_batch(), dev), rcfg, 5e-4, gen)
+
+    for _ in range(VANILLA_WARMUP - 1):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, step, VANILLA_TIMED)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    traced_ms, per_group, host = trace(lambda: time_ms(torch, step, VANILLA_TRACED),
+                                       VANILLA_TRACED + 1, group_of=vanilla_group)
+    res_a = {"phase": "vanilla", "part": "train", "steps": VANILLA_STEPS,
+             "batch": ds.num_rays, "n_samples": rcfg.n_samples, "grid": grid.resolution,
+             "frames": len(ds), "psnr_db": psnr, "gate_db": VANILLA_PSNR_DB,
+             "psnr_background_only_db": background_db, "seconds_cli": seconds_cli,
+             "seconds_train": res["elapsed_s"], "rays_per_s_logged": rays_logged[-1],
+             "step_ms": step_ms, "rays_per_s_step": ds.num_rays / step_ms * 1e3,
+             "steps_timed": VANILLA_TIMED, "grid_update_ms": grid_ms,
+             "eval_rays": n_eval, "eval_ms": eval_ms, "eval_rays_per_s": n_eval / eval_ms * 1e3,
+             "peak_mem_gib": peak_gib, "devices": devices, "card": card}
+    emit(res_a)
+    device_ms = sum(per_group.values())
+    emit({"phase": "vanilla", "part": "trace", "steps": VANILLA_TRACED, "ms_per_step": traced_ms,
+          "device_ms_per_step": per_group, "device_ms_total": device_ms,
+          "idle_share": 1.0 - device_ms / traced_ms if device_ms else None,
+          "host_self_ms_top": host, "card": card})
+    if not (psnr > VANILLA_PSNR_DB and devices == {"params": ["cuda"], "grid": ["cuda"] * 2}):
+        raise AssertionError(f"vanilla: {res_a}")
+    del model, grid, opt, res, results
+
+    # the JAX pin's own flags (tests/test_blender.py:104-111; 2x32, batch
+    # 256, 17 samples, a 16^3 grid) on the card, all 8 test views
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psnr_pin = train_mlp_nerf_torch.main([
+        "--data_root", data_root, "--scene", subject, "--train_split", "train",
+        "--logs_dir", str(root / "logs_pin"), "--max_steps", str(VANILLA_STEPS),
+        "--batch_size", "256", "--net_depth", "2", "--net_width", "32", "--n_samples", "17",
+        "--grid_resolution", "16", "--test_chunk_size", str(VANILLA_CHUNK)])
+    res_pin = {"phase": "vanilla", "part": "pin", "steps": VANILLA_STEPS, "psnr_db": psnr_pin,
+               "gate_db": VANILLA_PSNR_DB, "psnr_background_only_db": background_db,
+               "seconds_cli": time.perf_counter() - t0, "card": card}
+    emit(res_pin)
+    if not psnr_pin > VANILLA_PSNR_DB:
+        raise AssertionError(f"vanilla pin: {res_pin}")
+    dnerf_check(torch, dev, card)
+    emit({"phase": "vanilla", "part": "seconds", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def dnerf_check(torch, dev, card):
+    """Phase 19's DNeRF line: its widths, the card against the CPU on the
+    same weights and points."""
+    from eonerf_code_tpu_torch.models.dnerf import DNeRF
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1.5, 1.5, (DNERF_RAYS, DNERF_SAMPLES, 3)).astype(np.float32)
+    t = rng.uniform(0, 1, (DNERF_RAYS, 1, 1)).astype(np.float32)
+    d = rng.normal(size=(DNERF_RAYS, 1, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    outs = []
+    for device in ("cpu", dev):
+        m = DNeRF(device=device, generator=torch.Generator().manual_seed(2))
+        args = [torch.from_numpy(a).to(device) for a in (x, t, d)]
+        with torch.no_grad():
+            rgb, sigma = m(*args)
+            outs.append([o.cpu() for o in (rgb, sigma, m.density(*args[:2]))])
+    on_card = all(p.device.type == "cuda" for p in m.parameters())
+    (c_rgb, c_sigma, c_dens), (g_rgb, g_sigma, g_dens) = outs
+    res_b = {"phase": "vanilla", "part": "dnerf", "points": DNERF_RAYS * DNERF_SAMPLES,
+             "max_abs": {"rgb": float((g_rgb - c_rgb).abs().max()),
+                         "sigma": float((g_sigma - c_sigma).abs().max()),
+                         "density": float((g_dens - c_dens).abs().max())},
+             "tol": DNERF_TOL, "rgb_range": [float(g_rgb.min()), float(g_rgb.max())],
+             "sigma_min": float(g_sigma.min()), "sigma_max": float(g_sigma.max()),
+             "params_on_card": on_card, "card": card}
+    emit(res_b)
+    if not (on_card and max(res_b["max_abs"].values()) <= DNERF_TOL
+            and 0.0 <= res_b["rgb_range"][0] and res_b["rgb_range"][1] <= 1.0
+            and res_b["sigma_min"] >= 0.0):
+        raise AssertionError(f"vanilla dnerf: {res_b}")
 
 
 def main():
@@ -3480,6 +3662,9 @@ def main():
     # ---- 18. multi_aoi: the functions above ----
     multi_aoi_phase(torch, dev, card, log_root, info, kernel_rows)
     shutil.rmtree(scene_root, ignore_errors=True)
+
+    # ---- 19. vanilla: the function above ----
+    vanilla_phase(torch, dev, card, log_root)
 
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",

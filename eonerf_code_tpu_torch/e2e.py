@@ -7,6 +7,7 @@ offsets against the injected ones, ``report_learned_offsets``).
 
     python -m eonerf_code_tpu_torch.e2e synthetic [workdir] [steps] [run ...]
     python -m eonerf_code_tpu_torch.e2e bundle_adjust [workdir] [steps] [bias_px] [arm ...]
+    python -m eonerf_code_tpu_torch.e2e vanilla [workdir] [n_frames] [size]
 
 ``--device cpu`` anywhere in the arguments runs on the host (slowly);
 the card otherwise. Each run prints one JSON line.
@@ -20,6 +21,10 @@ the card otherwise. Each run prints one JSON line.
   small scene with ``rpc_bias_px`` 3: ``biased`` (no bundle adjustment) and
   ``biased+ba`` (``rpc_correction``, full PE bandwidth at steps // 2, the
   script's rule).
+- vanilla writes a nerf_synthetic scene of the JAX vanilla pin's kind
+  (tests/test_blender.py:10-40), 8 frames of 100x100 by default, for
+  train_mlp_nerf_torch.py (``--data_root <workdir>/blender --scene
+  minicube``); it trains nothing.
 """
 
 import json
@@ -32,6 +37,7 @@ import numpy as np
 from eonerf_code_tpu_torch.config import TrainConfig
 from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec, generate_scene
 from eonerf_code_tpu_torch.geo.bundle_adjust import rpc_offset_from_scene_offset
+from eonerf_code_tpu_torch.io.png import write_png
 from eonerf_code_tpu_torch.train.loop import Trainer
 
 # the JAX pin's scene and configuration (tests/test_convergence_slow.py:20-29)
@@ -49,6 +55,8 @@ BIAS_PX = 3.0
 ARMS = {"biased": {}, "biased+ba": dict(rpc_correction=True)}
 STEPS = 2000
 LOG_EVERY = 100
+# the vanilla scene's frames and size (chip_smoke.py's phase vanilla)
+BLENDER = dict(n_frames=8, size=100)
 
 
 def make_scene(workdir, name, **spec):
@@ -184,6 +192,44 @@ def bundle_adjust(workdir, steps=STEPS, bias_px=BIAS_PX, arms=tuple(ARMS), devic
     return out
 
 
+def blender_scene(root, subject="minicube", n_frames=3, size=24):
+    """The JAX vanilla pin's nerf_synthetic subject (tests/test_blender.py:
+    10-40; its defaults): cameras on a circle of radius 4 about the origin
+    looking at it, y up (OpenGL), each frame the same disc (a sphere at the
+    origin) on a transparent background; one pose list for the train, val
+    and test splits. Returns (root, subject)."""
+    sub = os.path.join(root, subject)
+    os.makedirs(sub, exist_ok=True)
+    frames = []
+    for i in range(n_frames):
+        theta = 2 * np.pi * i / n_frames
+        pos = np.array([4 * np.sin(theta), 0.0, 4 * np.cos(theta)])
+        z = pos / np.linalg.norm(pos)          # the camera looks along -z
+        x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        x /= np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, pos
+        img = np.zeros((size, size, 4), np.uint8)
+        yy, xx = np.mgrid[0:size, 0:size]
+        img[(xx - size / 2) ** 2 + (yy - size / 2) ** 2 < (size / 4) ** 2] = [240, 220, 200, 255]
+        write_png(os.path.join(sub, f"r_{i}.png"), img)
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    meta = {"camera_angle_x": 0.7, "frames": frames}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(sub, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+    return root, subject
+
+
+def vanilla(workdir, n_frames=BLENDER["n_frames"], size=BLENDER["size"]):
+    """Write the vanilla scene under ``workdir/blender``; (root, subject)."""
+    root, subject = blender_scene(os.path.join(workdir, "blender"), n_frames=n_frames,
+                                  size=size)
+    print(json.dumps({"data_root": root, "scene": subject, "n_frames": n_frames,
+                      "size": size}), flush=True)
+    return root, subject
+
+
 def main(argv=None):
     args = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
@@ -191,10 +237,12 @@ def main(argv=None):
         i = args.index("--device")
         device = args[i + 1]
         del args[i:i + 2]
-    if not args or args[0] not in ("synthetic", "bundle_adjust"):
+    if not args or args[0] not in ("synthetic", "bundle_adjust", "vanilla"):
         raise SystemExit(__doc__)
     mode, rest = args[0], args[1:]
     workdir = rest[0] if rest else "logs/e2e"
+    if mode == "vanilla":
+        return vanilla(workdir, *(int(v) for v in rest[1:3]))
     steps = int(rest[1]) if len(rest) > 1 else STEPS
     if mode == "synthetic":
         return synthetic(workdir, steps, tuple(rest[2:]) or tuple(RUNS), device)

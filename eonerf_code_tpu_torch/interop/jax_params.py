@@ -1,11 +1,12 @@
 """The bridge from the JAX package's state to the port's: the flax
-parameter tree to and from ``EONerfField.state_dict()``, the multi-AOI
+parameter tree to and from a module's ``state_dict()`` (``EONerfField``,
+``VanillaNeRF``, ``DNeRF``), the multi-AOI
 trainer's scene-stacked trees to and from per-scene state dicts, and an
 occupancy grid's arrays to an ``OccupancyGrid``.
 
 The flax tree is given as nested dicts of numpy arrays,
-``{"params": {scope: {layer: {"kernel", "bias"}} | {"embedding"}}}``.
-Module scopes and layer names are the same on both sides; a flax ``Dense``
+``{"params": {scope: {layer: {"kernel", "bias"}} | {"embedding"}}}``, the
+scopes nested as deep as the modules are. Module scopes and layer names are the same on both sides; a flax ``Dense``
 kernel is (in, out) and an ``nn.Linear`` weight is (out, in), so matrices
 are transposed; a flax ``Embed`` table is an ``nn.Embedding`` weight as is.
 """
@@ -17,38 +18,44 @@ from eonerf_code_tpu_torch.ops.occupancy import OccupancyGrid
 
 
 def field_state_from_jax(params_np):
-    """flax EONerfField params (numpy) -> the port's state_dict (float32
-    CPU tensors; ``load_state_dict`` moves them to the field's device)."""
+    """A flax module's params (numpy) -> the port's state_dict (float32 CPU
+    tensors; ``load_state_dict`` moves them to the module's device). Scopes
+    nest to any depth (``nerf.trunk.hidden_0`` in DNeRF); a scope holding a
+    ``kernel`` is a Dense, one holding an ``embedding`` an Embed."""
     state = {}
-    for scope, sub in params_np["params"].items():
+
+    def walk(prefix, sub):
         if "embedding" in sub:
-            state[f"{scope}.weight"] = torch.from_numpy(
-                np.array(sub["embedding"], np.float32))
-            continue
-        for layer, p in sub.items():
-            state[f"{scope}.{layer}.weight"] = torch.from_numpy(
-                np.array(p["kernel"], np.float32).T.copy())
-            state[f"{scope}.{layer}.bias"] = torch.from_numpy(
-                np.array(p["bias"], np.float32))
+            state[f"{prefix}weight"] = torch.from_numpy(np.array(sub["embedding"], np.float32))
+        elif "kernel" in sub:
+            state[f"{prefix}weight"] = torch.from_numpy(
+                np.array(sub["kernel"], np.float32).T.copy())
+            state[f"{prefix}bias"] = torch.from_numpy(np.array(sub["bias"], np.float32))
+        else:
+            for name, child in sub.items():
+                walk(f"{prefix}{name}.", child)
+
+    walk("", params_np["params"])
     return state
 
 
 def jax_params_from_field_state(state):
     """Inverse of :func:`field_state_from_jax`: state_dict -> flax tree of
-    float32 numpy arrays."""
+    float32 numpy arrays. A module with a bias is a Dense (its weight
+    transposed into ``kernel``), one with a weight alone an Embed."""
     tree = {}
     for name, t in state.items():
         a = t.detach().to("cpu", torch.float32).numpy()
-        parts = name.split(".")
-        if len(parts) == 2:          # "<scope>.weight" of an nn.Embedding
-            tree.setdefault(parts[0], {})["embedding"] = a.copy()
-            continue
-        scope, layer, kind = parts
-        entry = tree.setdefault(scope, {}).setdefault(layer, {})
-        if kind == "weight":
+        *scopes, kind = name.split(".")
+        entry = tree
+        for scope in scopes:
+            entry = entry.setdefault(scope, {})
+        if kind == "bias":
+            entry["bias"] = a.copy()
+        elif f"{'.'.join(scopes)}.bias" in state:
             entry["kernel"] = a.T.copy()
         else:
-            entry["bias"] = a.copy()
+            entry["embedding"] = a.copy()
     return {"params": tree}
 
 

@@ -85,11 +85,11 @@ def kernel_group(name):
     return "other"
 
 
-def trace(run, steps, top=10):
+def trace(run, steps, top=10, group_of=kernel_group):
     """``run()`` (``steps`` training steps) under ``torch.profiler``: what
-    it returns, the device milliseconds a step of each kernel group, and
-    the host's self milliseconds a step of its ``top`` costliest
-    operations."""
+    it returns, the device milliseconds a step of each kernel group (by
+    ``group_of(kernel name)``), and the host's self milliseconds a step of
+    its ``top`` costliest operations."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         out = run()
@@ -101,7 +101,7 @@ def trace(run, steps, top=10):
             if dev_us is None:
                 dev_us = getattr(ev, "cuda_time_total", 0.0)
             if dev_us:
-                g = kernel_group(ev.key)
+                g = group_of(ev.key)
                 per_group[g] = per_group.get(g, 0.0) + dev_us / 1e3 / steps
         elif ev.self_cpu_time_total:
             host[ev.key] = ev.self_cpu_time_total / 1e3 / steps

@@ -1845,3 +1845,50 @@ def test_multi_aoi_scene_beside_another_is_alone(dev, tmp_path):
         assert torch.equal(a["params"][k][0], b["params"][k][0]), k
         assert torch.equal(a["opt_state"]["mu"][k][0], b["opt_state"]["mu"][k][0]), k
         assert torch.equal(a["opt_state"]["nu"][k][0], b["opt_state"]["nu"][k][0]), k
+
+
+def test_vanilla_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """One vanilla training step (8x256 float32, 129 samples, a 64^3 grid)
+    on the card against the same step on the CPU, from the same weights,
+    batch, grid (the CPU's, after one update) and jitter: the loss within
+    1e-5 and the updated parameters within 1e-4 rel-L2 (cuBLAS and the CPU
+    sum in another order; TF32 off). The card's own grid update is held
+    beside it: occupancy within 1e-5 rel-L2, under 0.1 % of the cells
+    flipped at the threshold."""
+    import dataclasses
+
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.data.nerf_synthetic import BlenderDataset
+    from eonerf_code_tpu_torch.models.vanilla import VanillaNeRF
+    from eonerf_code_tpu_torch.render.blender import BlenderRenderConfig
+    from eonerf_code_tpu_torch.train import train_vanilla as tv
+
+    root, subject = e2e.blender_scene(str(tmp_path), n_frames=8, size=100)
+    batch = BlenderDataset(subject, root, num_rays=512, seed=0).sample_batch()
+    rcfg = BlenderRenderConfig()
+    g = torch.Generator().manual_seed(0)
+    grid_u = torch.rand((64 ** 3, 3), generator=g)
+    u = torch.rand((512, rcfg.n_samples), generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        models = {d: VanillaNeRF(device=d, generator=torch.Generator().manual_seed(1))
+                  for d in ("cpu", dev)}
+        grids = {d: tv.occ_update(m, tv.make_grid(64, d), rcfg, u=grid_u.to(d))
+                 for d, m in models.items()}
+        grid = grids["cpu"]
+        out = {}
+        for d, model in models.items():
+            on_d = dataclasses.replace(grid, occs=grid.occs.to(d), binaries=grid.binaries.to(d))
+            loss, n_eff = tv.train_step(model, tv.make_optimizer(model, 5e-4), on_d,
+                                        tv.batch_to(batch, d), rcfg, 5e-4, u=u.to(d))
+            out[d] = (float(loss), int(n_eff),
+                      torch.cat([p.detach().cpu().flatten() for p in model.parameters()]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert _rel_l2(grids[dev].occs.cpu(), grid.occs) < 1e-5
+    assert float((grids[dev].binaries.cpu() != grid.binaries).float().mean()) < 1e-3
+    (l_cpu, n_cpu, p_cpu), (l_dev, n_dev, p_dev) = out["cpu"], out[dev]
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert _rel_l2(p_dev, p_cpu) < 1e-4
+    assert 0 < n_cpu < 512 * (rcfg.n_samples - 1) and abs(n_dev - n_cpu) <= 1e-3 * n_cpu

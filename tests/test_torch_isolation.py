@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of it pulls in
 neither JAX nor the JAX package, and no source of it (nor chip_smoke.py,
-nor the multi-AOI entry point) names the JAX package."""
+nor the multi-AOI and vanilla entry points) names the JAX package."""
 
 import pathlib
 import re
@@ -35,8 +35,9 @@ def test_importing_the_port_loads_no_jax():
 
 def test_port_sources_never_name_the_jax_package():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    files += [REPO / "chip_smoke.py", REPO / "train_multi_aoi_torch.py"]
-    assert len(files) >= 33
+    files += [REPO / "chip_smoke.py", REPO / "train_multi_aoi_torch.py",
+              REPO / "train_mlp_nerf_torch.py"]
+    assert len(files) >= 80
     hits = [f"{p.relative_to(REPO)}:{i}" for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if JAX_PACKAGE.search(line)]
