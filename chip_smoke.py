@@ -9,8 +9,9 @@ split rendered whole, the registered DSM MAE on the card, the best
 checkpoint), its kernel-variant bench, trained runs (the synthetic
 scene's registered MAE after 2000 steps, and bundle adjustment under
 coarse-to-fine PE annealing), data parallel and multi-AOI training, and
-the vanilla-NeRF path (train_mlp_nerf_torch.py on a Blender scene), once
-on one CUDA card.
+the vanilla-NeRF path (train_mlp_nerf_torch.py on a Blender scene), the
+native host library and the production-scale scene, once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
 
 1. build       - nvcc builds the two libraries from the checkout
                  (eonerf_code_tpu_torch/csrc/fused_render.cu and
-                 kernel_variants.cu, both started together) into the
+                 kernel_variants.cu) and g++ the native host library
+                 (csrc/geo_native.cpp), all started together, into the
                  git-ignored eonerf_code_tpu_torch/_build/.
 2. kernels     - every kernel against its plain PyTorch version at its
                  main-path shapes, full 8x256 bf16 field: the camera and
@@ -329,6 +331,24 @@ Phases (one JSON line each; any failure raises and exits non-zero):
                  (4x64 warp, 8x256 NeRF) once on the card and once on the
                  CPU from the same weights, forward and density on 1024 x
                  64 points: outputs in [0, 1], sigma >= 0, within 1e-4.
+20. native     - the native host library (eonerf_code_tpu_torch/native,
+                 csrc/geo_native.cpp, built by g++ in phase build): g++'s
+                 version and the threads; rpc_localize against the numpy
+                 solve on 1,024,000 points of a production view's RPC
+                 (lon/lat within 1e-14), ncc_search against the numpy
+                 search on phase eval's DSM pair (the same shift), one
+                 320x320 view's cast_rays through both paths in turns, the
+                 production scene's generate_scene and dataset (seconds).
+21. production - that scene (e2e.py's production run: 10 views of
+                 320x320, 1,024,000 rays) at its configuration (batch
+                 4096, 96 / 96 samples, recompute, sampler tighten), the
+                 gates moved to steps 10, 20 and 40 and the grid updated
+                 every 5 steps, 60 steps: the camera and shadow pair's
+                 launches by the wrappers' and the library's counts (row
+                 8 none: the grid update reads the plain field), finite
+                 losses, the stability gate opened from its own history
+                 (not before step 10) and held, rays/s by CUDA events,
+                 view 0's registered MAE finite.
 
 Then the kernels summary line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
@@ -340,6 +360,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -1733,6 +1754,228 @@ def dnerf_check(torch, dev, card):
         raise AssertionError(f"vanilla dnerf: {res_b}")
 
 
+NATIVE_POINTS = 1_024_000     # one pass over the production scene's 10 views of 320x320
+NATIVE_LOCALIZE_ATOL = 1e-14  # tests/test_torch_native.py's pin (the JAX package's)
+NATIVE_TURNS = ("native", "numpy", "native")
+PROD_STEPS = 60
+PROD_TIGHTEN_FROM = 10       # the gates moved from steps 2000 / 6000 / 12000
+PROD_SHADOW_FROM = 20
+PROD_BETA_FROM = 40
+PROD_OCC_EVERY = 5           # the grid updated at steps 0, 5, .., 55 (the run's: every 50)
+
+
+def step_probe(trainer):
+    """e2e.StepProbe on ``trainer``'s step (``tightened``: one bool a
+    step, whether the sampler had the grid), keeping each step's loss too
+    (``losses``, on the card, read at the end)."""
+    from eonerf_code_tpu_torch import e2e
+
+    class LossProbe(e2e.StepProbe):
+        def step(self, *args, **kwargs):
+            out = super().step(*args, **kwargs)
+            self.losses.append(out["loss"])
+            return out
+
+    probe = LossProbe(trainer)
+    probe.losses = []
+    return probe
+
+
+class NumpyRPC:
+    """An RPCModel whose localization takes the numpy solve at any size."""
+
+    def __init__(self, rpc):
+        self.rpc = rpc
+
+    def localization(self, col, row, alt):
+        return self.rpc.localization(col, row, alt, use_native=False)
+
+
+def native_phase(card, log_root, eval_pair):
+    """Phase 20: the native host library on the card's host. The build
+    (phase build made it), g++'s version and the threads; rpc_localize
+    against the numpy solve on NATIVE_POINTS points of a production view's
+    RPC (lon/lat within NATIVE_LOCALIZE_ATOL); ncc_search against the numpy
+    search on phase eval's DSM pair (the same shift); cast_rays of one
+    320x320 view through both paths in turns (NATIVE_TURNS); the production
+    scene's generate_scene and SatelliteDataset through the native path.
+    Returns the production scene's info dict."""
+    from eonerf_code_tpu_torch import e2e, native
+    from eonerf_code_tpu_torch.data.satellite import SatelliteDataset, cast_rays
+    from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec
+    from eonerf_code_tpu_torch.eval import registration as reg
+    from eonerf_code_tpu_torch.geo.rpc import localize
+    from eonerf_code_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    lib_path, _ = native.build()
+    gxx = subprocess.run([_build.gxx_path(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    threads = os.environ.get("OMP_NUM_THREADS") or f"OMP_NUM_THREADS unset, {os.cpu_count()} cores"
+
+    root = log_root / "chip_smoke_production"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = e2e.make_scene(str(root), "scene", **e2e.PRODUCTION_SCENE)
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = SatelliteDataset(info["root_dir"], info["img_dir"], split="train")
+    dataset_s = time.perf_counter() - t0
+    pool_shape = list(ds.all_rays.shape)
+    rpc = ds.all_rpcs[0]
+    size = e2e.PRODUCTION_SCENE["img_size"]
+    spec = SyntheticSceneSpec(**e2e.PRODUCTION_SCENE)
+    del ds
+
+    rng = np.random.default_rng(0)
+    cols, rows = rng.uniform(0, size, NATIVE_POINTS), rng.uniform(0, size, NATIVE_POINTS)
+    alts = rng.uniform(spec.min_alt, spec.max_alt, NATIVE_POINTS)
+    t0 = time.perf_counter()
+    lon_c, lat_c = native.rpc_localize(rpc, cols, rows, alts)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lon_p, lat_p = localize(rpc.coeffs(), cols, rows, alts)
+    numpy_s = time.perf_counter() - t0
+    loc = {"points": NATIVE_POINTS, "native_s": native_s, "numpy_s": numpy_s,
+           "speedup": numpy_s / native_s,
+           "max_abs_lon": float(np.abs(lon_c - lon_p).max()),
+           "max_abs_lat": float(np.abs(lat_c - lat_p).max()), "tolerance": NATIVE_LOCALIZE_ATOL}
+
+    grid_c, grid_r = np.meshgrid(np.arange(size), np.arange(size))
+    times, rays = {"native": [], "numpy": []}, {}
+    for turn in NATIVE_TURNS:
+        model = rpc if turn == "native" else NumpyRPC(rpc)
+        t0 = time.perf_counter()
+        rays[turn] = cast_rays(grid_c.ravel(), grid_r.ravel(), model, spec.min_alt, spec.max_alt)
+        times[turn].append(time.perf_counter() - t0)
+    diff = np.abs(rays["native"].astype(np.float64) - rays["numpy"])
+    ulp = np.spacing(np.abs(rays["numpy"]).astype(np.float32)).astype(np.float64)
+    cast = {"pixels": size * size, "native_s": times["native"], "numpy_s": times["numpy"],
+            "same_bits": bool(np.array_equal(rays["native"], rays["numpy"])),
+            "max_abs": float(diff.max()), "max_ulps": float((diff / ulp).max())}
+
+    u, v = (np.asarray(a, np.float64) for a in eval_pair)
+    u, v = (a if a.ndim == 3 else a[None] for a in (u, v))
+    t0 = time.perf_counter()
+    shift_c = native.ncc_search(u[0], v[0], 5, 0, 0)
+    ncc_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shift_p = reg.compute_ncc(u, v, 5, 0, 0, use_native=False)
+    ncc_numpy_s = time.perf_counter() - t0
+    ncc = {"shape": list(u.shape[1:]), "finite": int(np.isfinite(u).sum()),
+           "native_shift": list(shift_c), "numpy_shift": list(shift_p),
+           "native_s": ncc_native_s, "numpy_s": ncc_numpy_s}
+    res = {"phase": "native", "library": lib_path.name, "gxx": gxx, "threads": threads,
+           "localize": loc, "cast_rays_view": cast, "ncc": ncc,
+           "production_scene_s": scene_s, "production_dataset_s": dataset_s,
+           "production_pool_shape": pool_shape, "seconds": time.perf_counter() - t_phase,
+           "card": card}
+    emit(res)
+    if not (loc["max_abs_lon"] <= NATIVE_LOCALIZE_ATOL and loc["max_abs_lat"] <= NATIVE_LOCALIZE_ATOL):
+        raise AssertionError(f"native localization against numpy: {loc}")
+    if shift_c != shift_p:
+        raise AssertionError(f"native NCC search against numpy: {ncc}")
+    if cast["max_ulps"] > 1.0:
+        raise AssertionError(f"cast_rays native against numpy: {cast}")
+    if pool_shape != [spec.n_views * size * size, 11]:
+        raise AssertionError(f"the production pool is {pool_shape}")
+    return info
+
+
+def production_phase(torch, dev, card, log_root, info, kernel_rows):
+    """Phase 21: the production scene (e2e.py's production run) at its
+    configuration, the gates moved to steps PROD_TIGHTEN_FROM,
+    PROD_SHADOW_FROM and PROD_BETA_FROM and the grid updated every
+    PROD_OCC_EVERY steps, PROD_STEPS steps: the launches of rows 1-4 by the
+    wrappers' and the library's counts (row 8 none: the grid update reads
+    the plain field, as the JAX trainer's does, and the entropy probe is
+    off), finite losses, rays/s by CUDA events over steps 1 ..
+    PROD_STEPS - 1, then view 0's registered MAE (finite). The stability
+    gate reads the updates' own history, nothing seeded: it must open at
+    or after PROD_TIGHTEN_FROM and hold to the last step (on an H100 the
+    occupied fraction settled by the 6th update and the gate opened at
+    step 45). A check of the path, not of quality."""
+    from eonerf_code_tpu_torch import e2e
+    from eonerf_code_tpu_torch.models.fused import KernelField
+    from eonerf_code_tpu_torch.ops import fused_field as ff
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+    from eonerf_code_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    workdir = log_root / "chip_smoke_production"
+    shutil.rmtree(workdir / "logs", ignore_errors=True)
+    cfg = e2e.scale_config("production", info, str(workdir), PROD_STEPS,
+                           occ_tighten_start_step=PROD_TIGHTEN_FROM,
+                           first_shadow_step=PROD_SHADOW_FROM, first_beta_step=PROD_BETA_FROM,
+                           occ_update_every=PROD_OCC_EVERY)
+    t0 = time.perf_counter()
+    tp = Trainer(cfg, device=dev)
+    trainer_s = time.perf_counter() - t0
+    if not (isinstance(tp.render_field, KernelField) and not tp.render_field.save_acts
+            and tp.cfg.sampler == "tighten"):
+        raise RuntimeError(f"the production configuration took {type(tp.render_field).__name__}"
+                           f", sampler {tp.cfg.sampler}")
+    probe = step_probe(tp)
+    counts = Launches(fr)
+    ff.density_forward.launches = 0
+    point0 = ff.point_fwd_kernel_launches()
+    tp.run(max_steps=1, log_every=10 ** 9)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    tp.run(max_steps=PROD_STEPS, log_every=10 ** 9)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    launches = counts.read()
+    launches["density_fwd"] = ff.density_forward.launches
+    launches["density_fwd_point_kernel"] = ff.point_fwd_kernel_launches()["density"] - point0["density"]
+    shadow_steps = PROD_STEPS - PROD_SHADOW_FROM
+    expect = {"camera_fwd": PROD_STEPS, "camera_bwd": PROD_STEPS, "shadow_fwd": shadow_steps,
+              "shadow_bwd": shadow_steps, "camera_fwd_stream_kernel": PROD_STEPS,
+              "shadow_fwd_stream_kernel": shadow_steps, "coarse_fwd_stream_kernel": 0,
+              "dgrad_kernel": PROD_STEPS + shadow_steps,
+              # the grid update reads the plain field, as the JAX trainer's
+              # does (its train/loop.py:287-291), and the entropy probe is
+              # off (occ_entropy_max None): row 8 stays off this path
+              "density_fwd": 0, "density_fwd_point_kernel": 0}
+    got = {k: launches[k] for k in launches if k in expect or k in counts.fns}
+    want = {k: expect.get(k, 0) for k in got}
+    losses = [float(x) for x in probe.losses]
+    tightened = probe.tightened
+    t0 = time.perf_counter()
+    mae = e2e.view_mae(tp)
+    mae_s = time.perf_counter() - t0
+    res = {"phase": "production", "pool_rays": tp.n_rays, "batch": cfg.batch_size,
+           "sampler": tp.cfg.sampler, "n_samples": tp.cfg.n_samples,
+           "sc_n_samples": tp.cfg.sc_n_samples, "bwd_acts": tp.cfg.bwd_acts, "steps": tp.step,
+           "gates": {"tighten": PROD_TIGHTEN_FROM, "shadow": PROD_SHADOW_FROM,
+                     "beta": PROD_BETA_FROM, "occ_update_every": PROD_OCC_EVERY},
+           "occupied_fraction": tp._occ_frac_hist,
+           "tightened_steps": sum(tightened),
+           "tightened_from": tightened.index(True) if any(tightened) else None,
+           "span_share": e2e.span_share(tp),
+           "losses_finite": all(math.isfinite(x) for x in losses),
+           "loss_first_last": [losses[0], losses[-1]],
+           "ms_per_step": ms / (PROD_STEPS - 1),
+           "rays_per_s": cfg.batch_size * (PROD_STEPS - 1) / (ms * 1e-3),
+           "mae_m": mae, "mae_s": mae_s, "trainer_s": trainer_s, "launches": got,
+           "expected_launches": want, "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(res)
+    by_path(kernel_rows, "production", {k: got[k] for k in ("camera_fwd", "camera_bwd", "shadow_fwd",
+                                                            "shadow_bwd")})
+    if got != want:
+        raise AssertionError(f"production launched otherwise: {res}")
+    if not (res["losses_finite"] and math.isfinite(mae)):
+        raise AssertionError(f"production: a loss or the MAE is not finite: {res}")
+    opened = res["tightened_from"]
+    if opened is None or opened < PROD_TIGHTEN_FROM or not all(tightened[opened:]):
+        raise AssertionError(f"production: the gate did not open from step {PROD_TIGHTEN_FROM} "
+                             f"and hold: {res}")
+    del tp
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -1741,6 +1984,7 @@ def main():
               file=sys.stderr)
         return 1
 
+    from eonerf_code_tpu_torch import native
     from eonerf_code_tpu_torch.bench import backward_passes as bp
     from eonerf_code_tpu_torch.bench import stream_fwd as sf
     from eonerf_code_tpu_torch.data.rays import satrays_from_tensor
@@ -1771,12 +2015,14 @@ def main():
     t0 = time.perf_counter()
     phase_src = bp.phase_source()   # the dgrad kernel's instrumented copy (bench/backward_passes.py)
     fwd_phase_src = sf.phase_source()   # the streamed forwards' (bench/stream_fwd.py)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc a source, all together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one compiler a source, all together
         phase_build = pool.submit(_build.build, phase_src)
         fwd_phase_build = pool.submit(_build.build, fwd_phase_src)
+        native_build = pool.submit(native.build)   # the host library, g++
         built = _build.build_all()
         phase_lib, _ = phase_build.result()
         fwd_phase_lib, _ = fwd_phase_build.result()
+        native_lib, _ = native_build.result()
     _build.load_library()
     _build.load_variants_library()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -1785,7 +2031,7 @@ def main():
                               if "registers" in ln or "spill" in ln]}
              for stem, (path, log) in built.items()},
           "dgrad_phases_library": phase_lib.name, "fwd_phases_library": fwd_phase_lib.name,
-          "card": card})
+          "native_library": native_lib.name, "card": card})
 
     # ---- 2. kernels against their plain versions at main-path shapes ----
     field = EONerfField(20, compute_dtype=torch.bfloat16, device=dev,
@@ -2782,17 +3028,8 @@ def main():
     def recording(t):
         """Wrap the trainer's step: record each step's loss (kept on the
         card, read at the end) and whether the sampler got the grid."""
-        losses_a, tightened = [], []
-        step_fn = t.train_step
-
-        def step(*args, **kwargs):
-            tightened.append(args[-1] is not None)
-            out = step_fn(*args, **kwargs)
-            losses_a.append(out["loss"])
-            return out
-
-        t.train_step = step
-        return losses_a, tightened
+        probe = step_probe(t)
+        return probe.losses, probe.tightened
 
     def branch_result(t, before, losses_a, launches, expect, extra):
         losses_a = [float(v) for v in losses_a]
@@ -3470,12 +3707,13 @@ def main():
     _, eval_ckpt, eval_state = load_checkpoint(str(pathlib.Path(eval_logs) / run_id))
     eval_counted = dict(saved_counted, coarse_fwd=fr.coarse_forward)
     sweep_chunks = -(-SCENE_SIZE * SCENE_SIZE // N_CHUNK)
-    shifts = []
+    shifts, dsm_pairs = [], []
     compute_shift = eval_dsm.compute_shift_arrays
 
     def recorded_shift(*args, **kwargs):
         out = compute_shift(*args, **kwargs)
         shifts.append([int(out[0]), int(out[1])])
+        dsm_pairs.append(args[:2])      # phase native searches the first again
         return out
 
     eval_dsm.compute_shift_arrays = recorded_shift
@@ -3665,6 +3903,11 @@ def main():
 
     # ---- 19. vanilla: the function above ----
     vanilla_phase(torch, dev, card, log_root)
+
+    # ---- 20. native and 21. production: the functions above ----
+    prod_info = native_phase(card, log_root, dsm_pairs[0])
+    production_phase(torch, dev, card, log_root, prod_info, kernel_rows)
+    shutil.rmtree(log_root / "chip_smoke_production", ignore_errors=True)
 
     emit({"kernels": [kernel_rows[n] for n in (
         "camera_fwd", "shadow_fwd", "camera_bwd", "shadow_bwd", "coarse_fwd", "density_fwd",

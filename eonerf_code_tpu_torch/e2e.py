@@ -8,6 +8,10 @@ offsets against the injected ones, ``report_learned_offsets``).
     python -m eonerf_code_tpu_torch.e2e synthetic [workdir] [steps] [run ...]
     python -m eonerf_code_tpu_torch.e2e bundle_adjust [workdir] [steps] [bias_px] [arm ...]
     python -m eonerf_code_tpu_torch.e2e vanilla [workdir] [n_frames] [size]
+    python -m eonerf_code_tpu_torch.e2e production [--workdir W] [--steps 20000] [--seed 7]
+        [--compute_dtype bfloat16] [--trunk_quant none] [--bwd_acts recompute]
+        [--sc_n_samples 0] [--n_samples 96]
+    python -m eonerf_code_tpu_torch.e2e tall [--workdir W] [--steps 16666]
 
 ``--device cpu`` anywhere in the arguments runs on the host (slowly);
 the card otherwise. Each run prints one JSON line.
@@ -25,6 +29,23 @@ the card otherwise. Each run prints one JSON line.
   (tests/test_blender.py:10-40), 8 frames of 100x100 by default, for
   train_mlp_nerf_torch.py (``--data_root <workdir>/blender --scene
   minicube``); it trains nothing.
+- production and tall (``SCALE_RUNS``) port the JAX package's
+  scripts/run_production_scale.py and scripts/run_tall_scale.py: 10 + 2
+  views of 320x320 (about 1M training rays), 9 buildings, 1 m GT; the
+  production scene compact (sampler "tighten" from step 2000, 96 camera
+  and 96 shadow samples, the recompute backward), the tall one 80 m boxes
+  over a -2..220 m envelope (``sampler="auto"`` resolves to hierarchical
+  96 + 48). Both resume from the newest checkpoint in ``<workdir>/logs``
+  and train to milestones at steps/3, 2 steps/3 and steps, skipping those
+  already passed; at each, view 0's registered MAE and the sustained
+  rays/s; at the end the held-out PSNR of val view 1. A command that is
+  killed leaves the checkpoint of the last milestone it passed, and of
+  every save_freq steps: the same command again resumes from the newest.
+  From a milestone's it goes on in the state of an unbroken run; from a
+  save_freq one, mid-epoch, on the same schedule with a fresh shuffle of
+  the ray pool (``Trainer.run`` draws one each call). The JAX script's
+  ``steps_per_call`` has no counterpart (no megastep in the port; the
+  schedule's events fall on the same steps).
 """
 
 import json
@@ -38,6 +59,7 @@ from eonerf_code_tpu_torch.config import TrainConfig
 from eonerf_code_tpu_torch.data.synthetic import SyntheticSceneSpec, generate_scene
 from eonerf_code_tpu_torch.geo.bundle_adjust import rpc_offset_from_scene_offset
 from eonerf_code_tpu_torch.io.png import write_png
+from eonerf_code_tpu_torch.train.checkpoints import latest_checkpoint
 from eonerf_code_tpu_torch.train.loop import Trainer
 
 # the JAX pin's scene and configuration (tests/test_convergence_slow.py:20-29)
@@ -57,6 +79,30 @@ STEPS = 2000
 LOG_EVERY = 100
 # the vanilla scene's frames and size (chip_smoke.py's phase vanilla)
 BLENDER = dict(n_frames=8, size=100)
+# scripts/run_production_scale.py's scene (:36-39) and configuration
+# (:44-63, its defaults: bfloat16, no int8 trunk, the recompute backward,
+# the shadow march at n_samples) without steps_per_call
+PRODUCTION_SCENE = dict(n_views=10, n_test_views=2, img_size=320, extent=400.0, n_buildings=9,
+                        box_size=60.0, box_height=24.0, dsm_resolution=1.0,
+                        radiometric_jitter=0.08, seed=7)
+PRODUCTION = dict(batch_size=4096, n_samples=96, net_depth=8, net_width=256, occ_enabled=True,
+                  occ_tighten=True, occ_tighten_start_step=2000, lr_decay_steps=3000,
+                  first_shadow_step=6000, first_beta_step=12000, val_freq=10 ** 9, chunk=8192,
+                  save_freq=5000, compute_dtype="bfloat16", trunk_quant="none",
+                  bwd_acts="recompute", sc_n_samples=0)
+# scripts/run_tall_scale.py's (:32-58): the sampler and n_samples at their
+# defaults ("auto", 128 -> hierarchical 96 + 48)
+TALL_SCENE = dict(n_views=10, n_test_views=2, img_size=320, extent=400.0, n_buildings=9,
+                  box_size=60.0, box_height=80.0, min_alt=-2.0, max_alt=220.0,
+                  dsm_resolution=1.0, radiometric_jitter=0.08, seed=11)
+TALL = dict(batch_size=4096, net_depth=8, net_width=256, lr_decay_steps=3000,
+            first_shadow_step=6000, first_beta_step=12000, val_freq=10 ** 9, chunk=8192,
+            save_freq=5000, compute_dtype="bfloat16")
+# mode: (scene, configuration, default steps, experiment name); the tall
+# default is the step of the JAX package's registered figure
+SCALE_RUNS = {"production": (PRODUCTION_SCENE, PRODUCTION, 20000, "prod"),
+              "tall": (TALL_SCENE, TALL, 16666, "tall")}
+SCALE_LOG_EVERY = 2000
 
 
 def make_scene(workdir, name, **spec):
@@ -230,6 +276,179 @@ def vanilla(workdir, n_frames=BLENDER["n_frames"], size=BLENDER["size"]):
     return root, subject
 
 
+def scale_config(mode, scene, workdir, steps, **overrides):
+    """The TrainConfig of ``mode``'s scale run on ``scene`` (the JAX
+    script's, field by field, but steps_per_call), with ``overrides``."""
+    _, base, _, exp = SCALE_RUNS[mode]
+    return TrainConfig(**{**base, "root_dir": scene["root_dir"], "img_dir": scene["img_dir"],
+                          "gt_dir": scene["gt_dir"], "logs_dir": os.path.join(workdir, "logs"),
+                          "exp_name": exp, "aoi_id": scene["aoi_id"],
+                          "cache_dir": os.path.join(workdir, "cache"),
+                          "max_train_steps": int(steps), **overrides})
+
+
+def milestones(steps):
+    return sorted({steps // 3, 2 * steps // 3, steps})
+
+
+class StepProbe:
+    """Wraps a trainer's step function: the time the first step of this
+    command ended (after a device sync) and, one a step, whether the
+    sampler had the occupancy grid (``tightened``; the trainer's
+    ``_occ_for_sampling``, which the loop hands to the step)."""
+
+    def __init__(self, trainer):
+        self.trainer, self.first_step_at, self.tightened = trainer, None, []
+        self._step = trainer.train_step
+        trainer.train_step = self.step
+
+    def step(self, *args, **kwargs):
+        self.tightened.append(self.trainer._occ_for_sampling() is not None)
+        out = self._step(*args, **kwargs)
+        if self.first_step_at is None:
+            if self.trainer.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(self.trainer.device)
+            self.first_step_at = time.perf_counter()
+        return out
+
+
+def span_share(trainer, n=4096):
+    """The mean share of the full ray range that a tightened camera ray
+    samples (the grid's occupied span over ``n`` evenly spread pool rays),
+    or None while the sampler does not take the grid."""
+    import torch
+
+    if trainer._occ_for_sampling() is None:
+        return None
+    rcfg = trainer.rcfg
+    idx = torch.linspace(0, trainer.n_rays - 1, min(n, trainer.n_rays),
+                         device=trainer.device).long()
+    rays = trainer.device_data["rays"][idx]
+    near = rays[:, 6]
+    t_lo, t_hi = trainer.occ_grid.ray_span(rays[:, 0:3], rays[:, 3:6], near,
+                                           near + rcfg.ray_span, n_probes=rcfg.occ_probes,
+                                           margin=rcfg.occ_margin)
+    return float(((t_hi - t_lo) / rcfg.ray_span).mean())
+
+
+def _launch_counted():
+    """The kernel wrappers of the training and render paths by name; each
+    counts its kernel's launches (none on the CPU, where the plain version
+    runs)."""
+    from eonerf_code_tpu_torch.ops import fused_field as ff
+    from eonerf_code_tpu_torch.ops import fused_render as fr
+
+    return {"camera_fwd": fr.camera_forward, "camera_bwd": fr.camera_backward,
+            "shadow_fwd": fr.shadow_forward, "shadow_bwd": fr.shadow_backward,
+            "coarse_fwd": fr.coarse_forward, "density_fwd": ff.density_forward,
+            "camera_fwd_save": fr.camera_forward_save,
+            "camera_bwd_saved": fr.camera_backward_saved,
+            "shadow_fwd_save": fr.shadow_forward_save,
+            "shadow_bwd_saved": fr.shadow_backward_saved}
+
+
+def view_mae(trainer):
+    """View 0's depth render and registered DSM MAE (``_val_mae``)."""
+    sample = trainer.val_ds.get_val_sample(0)
+    return trainer._val_mae(sample, trainer.render_view(sample, depth_only=True))
+
+
+def scale_run(mode, workdir=None, steps=None, device="cuda", seed=None, scene_spec=None,
+              log_every=SCALE_LOG_EVERY, **overrides):
+    """The JAX package's production or tall script through the port:
+    generate the scene, resume from the newest checkpoint, train to each
+    milestone not yet passed (view 0's MAE and rays/s at each), then the
+    held-out PSNR of val view 1. ``scene_spec`` and
+    ``overrides`` cut the sizes, for tests. Returns the summary dict it
+    prints last."""
+    from eonerf_code_tpu_torch import native
+    from eonerf_code_tpu_torch.utils import metrics as M
+
+    t_cmd = time.perf_counter()
+    scene_kw, _, default_steps, exp = SCALE_RUNS[mode]
+    steps = int(steps or default_steps)
+    workdir = workdir or os.path.join("logs", f"e2e_{mode}")
+    native.build()
+    if str(device).startswith("cuda"):
+        from eonerf_code_tpu_torch.ops import _build
+
+        _build.build()
+    build_s = time.perf_counter() - t_cmd
+    spec = {**scene_kw, **({} if seed is None else {"seed": int(seed)}), **(scene_spec or {})}
+    t0 = time.perf_counter()
+    scene = make_scene(workdir, "scene", **spec)
+    scene_s = time.perf_counter() - t0
+    cfg = scale_config(mode, scene, workdir, steps, **overrides)
+    ckpt = latest_checkpoint(os.path.join(cfg.logs_dir, cfg.exp_name))
+    if ckpt:
+        print(f"resuming from {ckpt}", flush=True)
+        cfg.ckpt_path = ckpt
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    trainer_s = time.perf_counter() - t0
+    start_step = trainer.step
+    print(json.dumps({"mode": mode, "workdir": workdir, "rays": trainer.n_rays,
+                      "images": trainer.n_images, "resumed_from": ckpt,
+                      "start_step": start_step, "sampler": cfg.sampler,
+                      "n_samples": cfg.n_samples, "n_importance": cfg.n_importance,
+                      "sc_n_samples": cfg.sc_n_samples, "build_s": build_s,
+                      "scene_s": scene_s, "trainer_s": trainer_s}), flush=True)
+    probe = StepProbe(trainer)
+    counted = _launch_counted()
+    for fn in counted.values():
+        fn.launches = 0
+    done = []
+    for target in milestones(steps):
+        if target <= trainer.step:           # resumed past this milestone already
+            continue
+        t0 = time.perf_counter()
+        stats = trainer.run(max_steps=target, log_every=log_every)
+        seconds = time.perf_counter() - t0
+        mae = view_mae(trainer)
+        res = {"mode": mode, "step": target, "mae_m": mae, "rays_per_s": stats["rays_per_sec"],
+               "seconds": seconds, "span_share": span_share(trainer)}
+        done.append(res)
+        print(json.dumps(res), flush=True)
+    out = {"mode": mode, "summary": True, "steps": trainer.step, "target_steps": steps,
+           "start_step": start_step, "sampler": cfg.sampler, "milestones": done,
+           "first_step_s": (None if probe.first_step_at is None
+                            else probe.first_step_at - t_cmd),
+           "tightened_steps": sum(probe.tightened),
+           "tighten_opened_at": (start_step + probe.tightened.index(True)
+                                 if any(probe.tightened) else None),
+           "tighten_active": trainer._occ_for_sampling() is not None,
+           "span_share": span_share(trainer),
+           "launches": {name: fn.launches for name, fn in counted.items()},
+           # a finished checkpoint trains nothing: report its MAE
+           "mae_m": done[-1]["mae_m"] if done else view_mae(trainer)}
+    sample = trainer.val_ds.get_val_sample(1)
+    rgb = trainer.render_view(sample)["rgb"]
+    out["psnr_db"] = float(M.psnr(rgb.float(), rgb.new_tensor(sample["rgbs"]).float()))
+    out["seconds"] = time.perf_counter() - t_cmd
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _scale_args(mode, args, device):
+    import argparse
+
+    ap = argparse.ArgumentParser(prog=f"python -m eonerf_code_tpu_torch.e2e {mode}")
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--steps", type=int, default=SCALE_RUNS[mode][2])
+    if mode == "production":
+        ap.add_argument("--seed", type=int, default=None, help="the scene's seed")
+        ap.add_argument("--compute_dtype", default=PRODUCTION["compute_dtype"])
+        ap.add_argument("--trunk_quant", default=PRODUCTION["trunk_quant"])
+        ap.add_argument("--bwd_acts", default=PRODUCTION["bwd_acts"])
+        ap.add_argument("--sc_n_samples", type=int, default=PRODUCTION["sc_n_samples"])
+        ap.add_argument("--n_samples", type=int, default=PRODUCTION["n_samples"])
+    ns = vars(ap.parse_args(args))
+    return scale_run(mode, ns.pop("workdir"), ns.pop("steps"), device, ns.pop("seed", None),
+                     **ns)
+
+
 def main(argv=None):
     args = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
@@ -237,9 +456,11 @@ def main(argv=None):
         i = args.index("--device")
         device = args[i + 1]
         del args[i:i + 2]
-    if not args or args[0] not in ("synthetic", "bundle_adjust", "vanilla"):
+    if not args or args[0] not in ("synthetic", "bundle_adjust", "vanilla", *SCALE_RUNS):
         raise SystemExit(__doc__)
     mode, rest = args[0], args[1:]
+    if mode in SCALE_RUNS:
+        return _scale_args(mode, rest, device)
     workdir = rest[0] if rest else "logs/e2e"
     if mode == "vanilla":
         return vanilla(workdir, *(int(v) for v in rest[1:3]))

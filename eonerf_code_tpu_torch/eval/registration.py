@@ -11,8 +11,10 @@ shifts is one masked reduction over the overlap region. Shift convention
 matches the reference exactly: NCC compares u[j, i] against
 v[j + dy, i + dx], and `apply_shift` resamples out[j, i] = a*v[j+dy, i+dx]+b.
 
-The numpy search alone: the native C++/OpenMP search waits for the port's
-native library (ROADMAP Queue 1 item 5).
+A single-channel search takes the native C++/OpenMP library
+(``native.ncc_search``, the same shifts; the reference's numba loops) unless
+the caller passes ``use_native=False``; a library that does not build
+raises.
 """
 
 import numpy as np
@@ -65,10 +67,15 @@ def ncc(u, v, dx=0, dy=0):
     return xcorr / denom if denom > 0 else -np.inf
 
 
-def compute_ncc(u, v, irange, initdx, initdy):
+def compute_ncc(u, v, irange, initdx, initdy, use_native=True):
     """Exhaustive search over (initdx, initdy) +- irange; the first maximum
     wins, scanning y-major then x (the reference tie-break order,
-    dsmr.py:111-117)."""
+    dsmr.py:111-117). One channel (``u.shape[0] == 1``) goes to the native
+    search unless ``use_native=False``; the numpy loop below otherwise."""
+    if use_native and u.shape[0] == 1:
+        from eonerf_code_tpu_torch import native
+
+        return native.ncc_search(u[0], v[0], irange, initdx, initdy)
     best = (-np.inf, initdx, initdy)
     for y in range(initdy - irange, initdy + irange + 1):
         for x in range(initdx - irange, initdx + irange + 1):

@@ -15,8 +15,9 @@ vectorized, array-module-generic implementation:
   converges quadratically: a fixed-iteration, vectorised batch op.
 
 All functions accept an array module ``xp`` (numpy by default); dataset
-construction runs them in float64 numpy. Localization keeps only this
-numpy Newton solve (no compiled helper library).
+construction runs them in float64 numpy. ``RPCModel.localization`` hands
+batches of 4096 points or more to the native C++/OpenMP solve
+(``native.rpc_localize``, the same bits), as the JAX package does.
 """
 
 import copy as _copy
@@ -177,12 +178,25 @@ class RPCModel:
         return project(self.coeffs(), np.asarray(lon, dtype=np.float64),
                        np.asarray(lat, dtype=np.float64), np.asarray(alt, dtype=np.float64))
 
-    def localization(self, col, row, alt):
-        """(col, row, alt) -> (lon, lat), rpcm-compatible signature: the
-        vectorised float64 Newton solve of :func:`localize`."""
+    def localization(self, col, row, alt, use_native=True):
+        """(col, row, alt) -> (lon, lat), rpcm-compatible signature.
+
+        From 4096 points on, the native C++/OpenMP batch solve
+        (``native.rpc_localize``: large pixel grids, where the reference
+        spends minutes per scene in rpcm's python loop); below that, or with
+        ``use_native=False``, the vectorised float64 Newton solve of
+        :func:`localize`, which gives the same bits. A native library that
+        does not build raises: nothing falls back to numpy.
+        """
         col = np.asarray(col, dtype=np.float64)
         row = np.asarray(row, dtype=np.float64)
         alt = np.asarray(alt, dtype=np.float64)
+        if use_native and col.size >= 4096:
+            from eonerf_code_tpu_torch import native
+
+            col, row, alt = np.broadcast_arrays(col, row, alt)
+            lons, lats = native.rpc_localize(self, col.ravel(), row.ravel(), alt.ravel())
+            return lons.reshape(col.shape), lats.reshape(col.shape)
         return localize(self.coeffs(), col, row, alt)
 
     def incidence_angles(self, lon, lat, z=0.0):

@@ -1,16 +1,21 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its native host library.
 
-``nvcc`` compiles each source for sm_90a into a shared library with a plain
-C interface, on first use, into ``_build/`` beside the package sources
+``nvcc`` compiles each CUDA source for sm_90a into a shared library with a
+plain C interface, on first use, into ``_build/`` beside the package sources
 (git-ignored): ``csrc/fused_render.cu`` (the fused render kernels, forward
 and backward, with and without the saved activations, the coarse-weights
 kernel, the per-point field and density kernels, forward and backward, and
 the int8 trunk tier's kernels) and ``csrc/kernel_variants.cu`` (the
-kernel-variant bench). Both include ``csrc/tile_common.cuh``. The file name
-carries a hash of the source, every header beside it and the flags, so an
-edit rebuilds and an unchanged tree is reused. ``ctypes`` loads it. Nothing
-here runs at import time: the CPU tests import every module of the package
-on a machine without ``nvcc``.
+kernel-variant bench). Both include ``csrc/tile_common.cuh``. ``g++``
+compiles the C++ source ``csrc/geo_native.cpp`` (the host library of
+``native/``: RPC localization and projection, the NCC search) the same way,
+with the JAX build's flags (:data:`GXX_FLAGS`). The file name carries a
+hash of the source, every CUDA header beside it (for a ``.cu``) and the
+flags, so an edit rebuilds and an unchanged tree is reused; the library is
+written to a temporary name and moved into place, so a concurrent builder
+never loads half a file. ``ctypes`` loads it. Nothing here runs at import
+time: the CPU tests import every module of the package on a machine
+without ``nvcc``.
 """
 
 import concurrent.futures
@@ -20,14 +25,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "csrc" / "fused_render.cu"
 VARIANTS_SOURCE = PACKAGE_DIR / "csrc" / "kernel_variants.cu"
+NATIVE_SOURCE = PACKAGE_DIR / "csrc" / "geo_native.cpp"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's native build, exactly: no -march=native (FMA contraction
+# would move the polynomial sums off the numpy path's bits)
+GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 
 def nvcc_path():
@@ -38,28 +48,44 @@ def nvcc_path():
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def gxx_path():
+    return shutil.which("g++") or "g++"
+
+
+def _recipe(source):
+    """(compiler, flags, the headers hashed with the source) by suffix."""
+    if source.suffix == ".cpp":
+        return gxx_path(), GXX_FLAGS, []
+    return nvcc_path(), NVCC_FLAGS, sorted(source.parent.glob("*.cuh"))
+
+
 def build(source=None):
     """Compile ``source`` (by default :data:`SOURCE` as it is bound when
-    called) unless an up-to-date library exists. Returns (library path,
-    compiler log: ptxas register/spill report, empty when the library was
-    reused). Raises RuntimeError when nvcc fails."""
+    called; a ``.cu`` with nvcc, a ``.cpp`` with g++) unless an up-to-date
+    library exists. Returns (library path, compiler log: for nvcc the ptxas
+    register/spill report; empty when the library was reused). Raises
+    RuntimeError with the compiler's output when it fails or is missing."""
     source = Path(source or SOURCE)
+    compiler, flags, headers = _recipe(source)
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    for header in headers:
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     digest = h.hexdigest()
     out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{compiler} could not run on {source}: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode} on {source}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed with code {proc.returncode} on "
+                           f"{source}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent builder never loads half a file
     return out, proc.stdout + proc.stderr
 

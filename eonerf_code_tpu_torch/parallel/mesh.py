@@ -312,9 +312,9 @@ def launch(fn, kwargs, data_axis, device="cuda", scene_axis=1):
       launcher's group (``env://``), run this rank, return {rank: result}.
     - One process: ``fn`` here, no group.
     - Else spawn one worker a rank (``fn`` and ``kwargs`` are pickled) with
-      a ``file://`` rendezvous, after building the kernels here on the card
-      so the workers do not each run nvcc; every rank's result (on the CPU)
-      comes back. A worker that raises makes this raise."""
+      a ``file://`` rendezvous, after building the native host library
+      (and on the card the kernels) here, so the workers do not each run
+      g++ or nvcc; every rank's result (on the CPU) comes back. A worker that raises makes this raise."""
     if _under_launcher():
         world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
         if world % scene_axis or (data_axis not in (-1, 0) and data_axis * scene_axis != world):
@@ -323,10 +323,12 @@ def launch(fn, kwargs, data_axis, device="cuda", scene_axis=1):
         mesh = setup(rank, world, "env://", device,
                      local_rank=int(os.environ.get("LOCAL_RANK", rank)), scene_axis=scene_axis)
         try:
-            if mesh.device.type == "cuda":
-                from eonerf_code_tpu_torch.ops import _build
+            from eonerf_code_tpu_torch import native
+            from eonerf_code_tpu_torch.ops import _build
 
-                with mesh.main_first():
+            with mesh.main_first():
+                native.build()
+                if mesh.device.type == "cuda":
                     _build.build()
             return {rank: _run_rank(mesh, fn, kwargs)}
         finally:
@@ -334,9 +336,11 @@ def launch(fn, kwargs, data_axis, device="cuda", scene_axis=1):
     n = resolve_world(data_axis, device, scene_axis)
     if n == 1:
         return {0: fn(device=device, **kwargs)}
-    if torch.device(device).type == "cuda":
-        from eonerf_code_tpu_torch.ops import _build
+    from eonerf_code_tpu_torch import native
+    from eonerf_code_tpu_torch.ops import _build
 
+    native.build()
+    if torch.device(device).type == "cuda":
         _build.build()
     threads = max(1, torch.get_num_threads() // n)
     with tempfile.TemporaryDirectory(prefix="eonerf_dp_") as tmp:

@@ -45,8 +45,9 @@ def jax_ncc(u, v, irange, dx, dy):
 
 @pytest.fixture(autouse=True)
 def numpy_search(monkeypatch):
-    """The JAX package's search on its numpy path (the port has no native
-    library): recursive_ncc reads compute_ncc from its module."""
+    """The JAX package's search on its numpy path, the reference the port's
+    native search is held to (tests/test_torch_native.py): recursive_ncc
+    reads compute_ncc from its module."""
     monkeypatch.setattr(jreg, "compute_ncc", jax_ncc)
 
 

@@ -34,7 +34,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_port_sources_never_name_the_jax_package():
-    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
     files += [REPO / "chip_smoke.py", REPO / "train_multi_aoi_torch.py",
               REPO / "train_mlp_nerf_torch.py"]
     assert len(files) >= 80

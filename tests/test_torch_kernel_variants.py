@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from torch_fixtures import one_thread  # noqa: F401
 
 from eonerf_code_tpu.models.eonerf import EONerfField as JaxField
 from eonerf_code_tpu.ops.pallas.fused_field import (
@@ -168,7 +169,7 @@ def test_plain_version_matches_the_tpu_body(setup, variant):
         assert vr.rel_l2(got, tpu[0]) <= vr.EPILOGUE_REL_L2
 
 
-def test_both_clis_run_the_plain_versions_on_the_cpu(capsys):
+def test_both_clis_run_the_plain_versions_on_the_cpu(capsys, one_thread):
     ms = kernel_variants.main(N, TILE, 1, ",".join(vr.VARIANTS), device="cpu")
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[0] for ln in lines] == list(vr.VARIANTS)

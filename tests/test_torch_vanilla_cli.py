@@ -13,6 +13,7 @@ import pytest
 import torch
 from PIL import Image
 from test_blender import make_mini_blender
+from torch_fixtures import one_thread  # noqa: F401
 
 import train_mlp_nerf_torch
 from eonerf_code_tpu_torch import e2e
@@ -24,17 +25,6 @@ PSNR_GATE_DB = 18.0
 PIN_FLAGS = ["--train_split", "train", "--max_steps", "300", "--batch_size", "256",
              "--net_depth", "2", "--net_width", "32", "--n_samples", "17",
              "--grid_resolution", "16", "--n_test_images", "1", "--test_chunk_size", "512"]
-
-
-@pytest.fixture
-def one_thread():
-    """Tiny shapes, and other tests share the cores: a second thread only
-    contends (the 300-step run took 150 s in the 6-worker suite with every
-    core, 14 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_scene_is_the_pins(tmp_path):
